@@ -1,0 +1,544 @@
+"""K1, the geodesic integration of a ray batch: its plain PyTorch version and
+the wrapper of its CUDA kernel (csrc/geodesic.cu).
+
+Counterpart of raytracegr_jl_tpu/ops/pallas_geodesic.py: ``ks_parts``,
+``geodesic_cm``, ``scene_event_cm``, the Tsit5/RK4 stages, the dense-output
+detection sweep, the ``make_step_cm`` body, ``localize_events_cm`` and
+``integrate_rays_cm`` (plain), and ``integrate_rays_cuda`` (the kernel, the
+counterpart of ``integrate_rays_pallas``).
+
+Layout: the plain version keeps the ray state component-major, ``[8, B]``,
+so that each elementwise operation is one torch call over the batch; the
+public functions take and return ``[B, 8]`` as in JAX.
+
+The plain version is written so that the kernel can follow it operation by
+operation: the same expression trees, explicit left-to-right sums instead of
+reductions, true division where the divisor is not a power of two (PyTorch
+on CUDA divides by a python scalar as a multiplication by its reciprocal).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import torch
+
+from ..models.objects import (KIND_DISK, KIND_DISTANCE, KIND_DISTANCE_JVP,
+                              KIND_PLANE, KIND_SPHERE, Scene, balanced_min)
+from .geometry import clamp_det, det_min, sanitize_bounds
+from .integrate import (ERR_BIG, TS_A, TS_BTILDE, IntegratorConfig,
+                        TraceResult, hermite_dinterp, hermite_interp,
+                        tsit5_bi, tsit5_dbi)
+from .metrics import (R_AS_WRITTEN, R_TEXTBOOK, Metric, _scalar,
+                      clamped_rho2, kerr_schild_radius_partials)
+
+EventFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Right-hand side
+# ---------------------------------------------------------------------------
+
+def ks_parts(metric: Metric, xl):
+    """Kerr-Schild structural parts for the closed-form geodesic
+    contraction: ``(f, [d_x f, d_y f, d_z f], k[0..3], dk, coef)`` with
+    ``dk[c][b] = d_c k_b`` (c, b spatial) and ``coef = f / (1 + f kappa)``,
+    the Sherman-Morrison factor of g^-1. ``xl`` is the list of 4 position
+    rows. Same operation order as the JAX ``kerr_schild_cm.ks_parts``."""
+    xs, ys, zs = xl[1], xl[2], xl[3]
+    M = _scalar(metric.params.M, xs)
+    a = _scalar(metric.params.a, xs)
+    rf, rho_min = metric.r_formula, metric.rho_min
+    rho2_raw = xs * xs + ys * ys + zs * zs
+    rho2 = clamped_rho2(rho2_raw, a, rho_min, rf)
+    live = rho2_raw >= rho2
+    r, dr_du, dr_dw = kerr_schild_radius_partials(rho2, zs, a, r_formula=rf,
+                                                  rho_min=rho_min)
+    r2 = r * r
+    q = r2 * r2 + a * a * zs * zs
+    inv_q = 1.0 / q
+    r3 = r * r2
+    f = 2 * M * r3 * inv_q
+    df_dr = 2 * M * r2 * (3 * a * a * zs * zs - r2 * r2) * inv_q * inv_q
+    df_dw = -4 * M * r3 * a * a * zs * inv_q * inv_q
+    denom = r2 + a * a
+    inv_denom = 1.0 / denom
+    inv_r = 1.0 / r
+    k1 = (r * xs + a * ys) * inv_denom
+    k2 = (r * ys - a * xs) * inv_denom
+    k3 = zs * inv_r
+    zero = torch.zeros_like(r)
+    du = [torch.where(live, 2 * xs, zero), torch.where(live, 2 * ys, zero),
+          torch.where(live, 2 * zs, zero)]
+    df, dk = [], []
+    for c in (1, 2, 3):
+        r_c = dr_du * du[c - 1]
+        if c == 3:  # z also enters r explicitly
+            r_c = r_c + dr_dw
+            df.append(df_dr * r_c + df_dw)
+        else:
+            df.append(df_dr * r_c)
+        two_r_rc = 2 * r * r_c
+        if c == 1:
+            dk1 = (xs * r_c + r - k1 * two_r_rc) * inv_denom
+            dk2 = (ys * r_c - a - k2 * two_r_rc) * inv_denom
+        elif c == 2:
+            dk1 = (xs * r_c + a - k1 * two_r_rc) * inv_denom
+            dk2 = (ys * r_c + r - k2 * two_r_rc) * inv_denom
+        else:
+            dk1 = (xs * r_c - k1 * two_r_rc) * inv_denom
+            dk2 = (ys * r_c - k2 * two_r_rc) * inv_denom
+        dk3 = ((1.0 - k3 * r_c) if c == 3 else -(k3 * r_c)) * inv_r
+        dk.append([dk1, dk2, dk3])
+    kappa = -1.0 + k1 * k1 + k2 * k2 + k3 * k3
+    coef = f / clamp_det(1 + f * kappa)
+    return f, df, [1.0, k1, k2, k3], dk, coef
+
+
+def geodesic_cm(metric: Metric, y: torch.Tensor) -> torch.Tensor:
+    """RHS on component-major state: ``y [8, B] -> ydot [8, B]``.
+
+    Input clamped at the state bound, output at the RHS bound. Kerr-Schild
+    uses the closed-form contraction ``udot^a = -eta^aa A_a + coef ku_r^a
+    (ku_r . A)`` of the JAX package's ``geodesic_cm``; Minkowski is exactly
+    ``udot = 0`` (JAX folds its all-zero parts at trace time)."""
+    state_clamp, rhs_clamp = sanitize_bounds(y.dtype)
+    y = torch.clamp(y, -state_clamp, state_clamp)
+    if metric.name == "minkowski":
+        out = torch.cat([y[4:], torch.zeros_like(y[4:])])
+        return torch.clamp(out, -rhs_clamp, rhs_clamp)
+    xl, ul = [y[i] for i in range(4)], [y[i] for i in range(4, 8)]
+    f, df, k, dk, coef = ks_parts(metric, xl)
+    us = ul[1:]
+    ku = ul[0] + k[1] * ul[1] + k[2] * ul[2] + k[3] * ul[3]
+    fdot = df[0] * us[0] + df[1] * us[1] + df[2] * us[2]
+    Dv = [us[0] * dk[0][b] + us[1] * dk[1][b] + us[2] * dk[2][b]
+          for b in range(3)]
+    Ev = [us[0] * dk[d][0] + us[1] * dk[d][1] + us[2] * dk[d][2]
+          for d in range(3)]
+    uD = us[0] * Dv[0] + us[1] * Dv[1] + us[2] * Dv[2]
+    half_fdot = 0.5 * fdot
+    s1 = half_fdot * ku + f * uD
+    A = [ku * half_fdot + s1]
+    for d in (1, 2, 3):
+        C_d = half_fdot * k[d] + f * Dv[d - 1]
+        Bu_d = 0.5 * df[d - 1] * ku + f * Ev[d - 1]
+        A.append(ku * C_d + k[d] * s1 - ku * Bu_d)
+    kuA = -A[0] + k[1] * A[1] + k[2] * A[2] + k[3] * A[3]
+    udot = [A[0] + (-coef) * kuA] + [-A[a] + coef * k[a] * kuA
+                                     for a in (1, 2, 3)]
+    return torch.clamp(torch.stack(ul + udot), -rhs_clamp, rhs_clamp)
+
+
+# ---------------------------------------------------------------------------
+# Scene event
+# ---------------------------------------------------------------------------
+
+def _object_get(scene: Scene, i: int):
+    def get(field, comp=None):
+        arr = getattr(scene, field)
+        return arr[i] if comp is None else arr[i, comp]
+    return get
+
+
+def scene_event_cm(scene: Scene) -> EventFn:
+    """Min-distance event on component-major positions ``[4+, B] -> [B]``
+    (only rows 0..3 are read)."""
+    kinds = [int(k) for k in scene.kind.tolist()]
+    gets = [_object_get(scene, i) for i in range(len(kinds))]
+
+    def event(y):
+        d = None
+        for kind, get in zip(kinds, gets):
+            di = KIND_DISTANCE[kind](y[0], y[1], y[2], y[3], get)
+            d = di if d is None else torch.minimum(d, di)
+        return d
+
+    def jvp(y, dy):
+        """(event(y), its derivative along dy); ties split the tangent."""
+        d = dd = None
+        for kind, get in zip(kinds, gets):
+            di, ddi = KIND_DISTANCE_JVP[kind](y[0], y[1], y[2], y[3], dy[0],
+                                              dy[1], dy[2], dy[3], get)
+            if d is None:
+                d, dd = di, ddi
+            else:
+                d, dd = balanced_min(d, dd, di, ddi)
+        return d, dd
+
+    event.jvp = jvp
+    return event
+
+
+# ---------------------------------------------------------------------------
+# Stages and dense output
+# ---------------------------------------------------------------------------
+
+def _tsit5_step_cm(f, y, dt, k1):
+    """Tsit5 stage sweep: y [8, B], dt [B] -> (y5, err, k7, (k1..k7))."""
+    A, Bt = TS_A, TS_BTILDE
+    k2 = f(y + dt * (A[0][0] * k1))
+    k3 = f(y + dt * (A[1][0] * k1 + A[1][1] * k2))
+    k4 = f(y + dt * (A[2][0] * k1 + A[2][1] * k2 + A[2][2] * k3))
+    k5 = f(y + dt * (A[3][0] * k1 + A[3][1] * k2 + A[3][2] * k3
+                     + A[3][3] * k4))
+    k6 = f(y + dt * (A[4][0] * k1 + A[4][1] * k2 + A[4][2] * k3
+                     + A[4][3] * k4 + A[4][4] * k5))
+    y5 = y + dt * (A[5][0] * k1 + A[5][1] * k2 + A[5][2] * k3
+                   + A[5][3] * k4 + A[5][4] * k5 + A[5][5] * k6)
+    k7 = f(y5)
+    err = dt * (Bt[0] * k1 + Bt[1] * k2 + Bt[2] * k3 + Bt[3] * k4
+                + Bt[4] * k5 + Bt[5] * k6 + Bt[6] * k7)
+    return y5, err, k7, (k1, k2, k3, k4, k5, k6, k7)
+
+
+def _rk4_step_cm(f, y, dt, k1):
+    k2 = f(y + 0.5 * dt * k1)
+    k3 = f(y + 0.5 * dt * k2)
+    k4 = f(y + dt * k3)
+    # A tensor divisor keeps this a true division on CUDA as well.
+    y1 = y + (dt / dt.new_tensor(6.0)) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y1, None, f(y1), None
+
+
+def _tsit5_interp_cm(y0, ks, dt, th):
+    """Tsit5 dense output ``y0 + dt * sum_i b_i(th) k_i`` (th a python float
+    or a [B] tensor)."""
+    bs = tsit5_bi(th)
+    acc = bs[0] * ks[0]
+    for b, k in zip(bs[1:], ks[1:]):
+        acc = acc + b * k
+    return y0 + dt * acc
+
+
+def _tsit5_dinterp_cm(ks, dt, th):
+    """d/dtheta of ``_tsit5_interp_cm``."""
+    dbs = tsit5_dbi(th)
+    acc = dbs[0] * ks[0]
+    for b, k in zip(dbs[1:], ks[1:]):
+        acc = acc + b * k
+    return dt * acc
+
+
+def _interpolants(y0, y1, f0, f1, dt, ks, rows):
+    """``(interp(th), dinterp(th))`` on the first ``rows`` components: Tsit5
+    dense output when ``ks`` is given, cubic Hermite otherwise."""
+    if ks is not None:
+        ksr = tuple(k[:rows] for k in ks)
+        return (lambda th: _tsit5_interp_cm(y0[:rows], ksr, dt, th),
+                lambda th: _tsit5_dinterp_cm(ksr, dt, th))
+    a, b, c, d = y0[:rows], y1[:rows], f0[:rows], f1[:rows]
+    return (lambda th: hermite_interp(a, b, c, d, dt, th),
+            lambda th: hermite_dinterp(a, b, c, d, dt, th))
+
+
+# ---------------------------------------------------------------------------
+# Event detection and localization
+# ---------------------------------------------------------------------------
+
+def _detect_scan(event_fn, interp, y0, cfg: IntegratorConfig):
+    """Sample the event on the step's dense output at theta = i/npts and
+    bracket the first crossing: ``(crossed [B], th_lo, th_hi)``. The sample
+    thetas are python floats, so the dense-output weights are computed in
+    double and rounded to the working dtype, as in JAX."""
+    d_prev = event_fn(y0)
+    npts = cfg.interp_points
+    th_lo = torch.zeros_like(d_prev)
+    th_hi = torch.zeros_like(d_prev)
+    found = torch.zeros_like(d_prev, dtype=torch.bool)
+    prev_th = 0.0
+    for i in range(1, npts + 1):
+        th = i / npts
+        d = event_fn(interp(th))
+        new = (d <= 0.0) & ~found
+        th_lo = torch.where(new, prev_th, th_lo)
+        th_hi = torch.where(new, th, th_hi)
+        found = found | new
+        prev_th = th
+    return found & (d_prev > 0.0), th_lo, th_hi
+
+
+def newton_polish(event_fn, interp, dinterp, th0):
+    """One clipped Newton step on the event along theta from the bisection
+    bracket's upper end: ``th_star``. The derivative is explicit (dense
+    output by the product rule, event per kind), not autodiff."""
+    val, dval = event_fn.jvp(interp(th0), dinterp(th0))
+    ok = torch.abs(dval) > 1e-3 * (1.0 + torch.abs(val))
+    delta = (torch.where(ok, val, torch.zeros_like(val))
+             / torch.where(ok, dval, torch.ones_like(dval)))
+    return torch.clamp(th0 - torch.clamp(delta, -1.0, 1.0), 0.0, 1.0)
+
+
+def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
+                       ev_y0, ev_dt, ev_lo, ev_hi):
+    """Replay each ray's recorded crossing step (FSAL: k1 = rhs(ev_y0)),
+    bisect the bracket on the dense output, Newton-polish it and
+    interpolate: ``(th_star [B], y_star [8, B])``."""
+    rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
+    k1 = rhs(ev_y0)
+    step = _tsit5_step_cm if cfg.method == "tsit5" else _rk4_step_cm
+    y1, _, k_last, ks = step(rhs, ev_y0, ev_dt, k1)
+    interp, dinterp = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 4)
+    lo, hi = ev_lo, ev_hi
+    for _ in range(cfg.bisect_iters):
+        mid = 0.5 * (lo + hi)
+        gt = event_fn(interp(mid)) > 0.0
+        lo = torch.where(gt, mid, lo)
+        hi = torch.where(gt, hi, mid)
+    th_star = newton_polish(event_fn, interp, dinterp, hi)
+    interp8, _ = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 8)
+    return th_star, interp8(th_star)
+
+
+# ---------------------------------------------------------------------------
+# The plain integrator
+# ---------------------------------------------------------------------------
+
+def _check_options(cfg: IntegratorConfig) -> None:
+    if cfg.method not in ("tsit5", "rk4"):
+        raise ValueError(f"unknown method: {cfg.method!r}")
+    if cfg.refine_minima:
+        raise NotImplementedError("refine_minima is not ported yet")
+
+
+def _sum_sq_rows(r: torch.Tensor) -> torch.Tensor:
+    """sum_c r[c]^2 over the 8 rows, left to right (a fixed order that the
+    kernel repeats; a reduction kernel may add in another order)."""
+    acc = r[0] * r[0]
+    for c in range(1, r.shape[0]):
+        acc = acc + r[c] * r[c]
+    return acc
+
+
+def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
+                      dt0: torch.Tensor, cfg: IntegratorConfig) -> TraceResult:
+    """Plain version of K1: the masked batch loop of the JAX
+    ``integrate_rays_cm`` (``make_step_cm`` body, then one
+    ``localize_events_cm`` pass). ``y0 [B, 8]``, ``dt0 [B]``.
+
+    Every ray steps until it hits, spans ``lam_max``, dies or the loop
+    reaches ``max_steps``; finished rays are frozen by masks."""
+    _check_options(cfg)
+    rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
+    event_fn = scene_event_cm(scene)
+    adaptive = cfg.method == "tsit5"
+    step = _tsit5_step_cm if adaptive else _rk4_step_cm
+
+    y = y0.t().contiguous()
+    B = y.shape[1]
+    lam = torch.zeros_like(dt0)
+    dt = dt0.clone()
+    k1 = rhs(y)
+    active = torch.ones(B, dtype=torch.bool, device=y.device)
+    hit = torch.zeros_like(active)
+    steps = torch.zeros(B, dtype=torch.int32, device=y.device)
+    err_old = torch.full_like(dt0, cfg.qold_init)
+    # Event record: starts finite (dt = 1) so that localization of rays
+    # that never hit stays NaN-free; their result is masked out.
+    ev_y0, ev_dt = y.clone(), torch.ones_like(dt0)
+    ev_lam, ev_lo, ev_hi = (torch.zeros_like(dt0) for _ in range(3))
+
+    it = 0
+    while it < cfg.max_steps and bool(active.any()):
+        dt_try = torch.clamp_min(torch.minimum(dt, cfg.lam_max - lam),
+                                 cfg.dt_min)
+        dt_try = torch.where(torch.isfinite(dt_try), dt_try,
+                             torch.full_like(dt_try, cfg.dt_min))
+        y_new, err, k_last, ks = step(rhs, y, dt_try, k1)
+        fin = torch.all(torch.isfinite(y_new), dim=0)
+        if adaptive:
+            sc = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y),
+                                                     torch.abs(y_new))
+            ratio = torch.clamp(err / sc, -1e15, 1e15)
+            en = torch.sqrt(torch.clamp_min(_sum_sq_rows(ratio) / 8, 1e-30))
+            bad = ~torch.isfinite(en) | ~fin
+            en = torch.where(bad, torch.full_like(en, ERR_BIG), en)
+            accept = en <= 1.0
+            en_c = torch.clamp_min(en, 1e-10)
+            q_pi = (cfg.safety * en_c ** (-cfg.beta1)
+                    * torch.clamp_min(err_old, cfg.qold_init) ** cfg.beta2)
+            q_rej = cfg.safety * en_c ** (-0.2)
+            q = torch.where(accept, q_pi, torch.clamp_max(q_rej, 1.0))
+            q = torch.clamp(q, cfg.qmin, cfg.qmax)
+            dt_next = torch.clamp(dt_try * q, cfg.dt_min, cfg.lam_max)
+            dead = (bad | ~accept) & (dt_try <= 2 * cfg.dt_min)
+        else:
+            en = torch.ones_like(dt_try)
+            bad = ~fin
+            accept = ~bad
+            dt_next = torch.full_like(dt_try, cfg.rk4_dt)
+            dead = bad
+        if cfg.stop_rho > 0.0:
+            rho2 = y_new[1] ** 2 + y_new[2] ** 2 + y_new[3] ** 2
+            dead = dead | (rho2 < cfg.stop_rho ** 2)
+
+        do = active & accept
+        y_evt = torch.where(fin, y_new, y)
+        k_evt = torch.where(fin, k_last, k1)
+        # Dying rays: zeroed stages make the interpolant the constant y0.
+        ks_evt = (None if ks is None else
+                  tuple(torch.where(fin, k, torch.zeros_like(k)) for k in ks))
+        interp, _ = _interpolants(y, y_evt, k1, k_evt, dt_try, ks_evt, 4)
+        crossed, th_lo, th_hi = _detect_scan(event_fn, interp, y, cfg)
+        hit_now = do & crossed
+
+        # First hit only: the ray then deactivates.
+        ev_y0 = torch.where(hit_now, y, ev_y0)
+        ev_dt = torch.where(hit_now, dt_try, ev_dt)
+        ev_lam = torch.where(hit_now, lam, ev_lam)
+        ev_lo = torch.where(hit_now, th_lo, ev_lo)
+        ev_hi = torch.where(hit_now, th_hi, ev_hi)
+
+        lam_acc = lam + dt_try
+        done_span = lam_acc >= cfg.lam_max - 1e-6
+        y = torch.where(do, y_evt, y)
+        lam = torch.where(do & ~hit_now, lam_acc, lam)
+        k1 = torch.where(do, k_evt, k1)
+        hit = hit | hit_now
+        active = active & ~hit_now & ~(do & done_span) & ~dead
+        steps = steps + do.to(torch.int32)
+        dt = torch.where(active, dt_next, dt)
+        err_old = torch.where(do, torch.clamp_min(en, cfg.qold_init), err_old)
+        it += 1
+
+    if bool(hit.any()):
+        th_star, y_star = localize_events_cm(metric, event_fn, cfg, ev_y0,
+                                             ev_dt, ev_lo, ev_hi)
+        y = torch.where(hit, y_star, y)
+        lam = torch.where(hit, ev_lam + th_star * ev_dt, lam)
+    return TraceResult(y=y.t(), lam=lam, hit=hit, steps=steps, n_iters=it)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+# Object fields in the kernel's per-object parameter rows (the order the
+# JAX package's adjoint kernel packs them in, pallas_adjoint._OBJ_FIELDS).
+OBJ_FIELDS = ("pos1", "pos2", "pos3", "radius", "time", "r_in", "r_out",
+              "half")
+_KERNEL_KINDS = (KIND_SPHERE, KIND_PLANE, KIND_DISK)
+# The kernel's configuration block, in the order of csrc/geodesic.cu's
+# enum Prm (P_<NAME>), padded to N_CFG slots.
+CFG_SLOTS = ("M", "A", "EPS2", "EPS2_HALF", "STATE_CLAMP", "RHS_CLAMP",
+             "DET_MIN", "RTOL", "ATOL", "LAM_MAX", "LAM_END", "DT_MIN",
+             "DT_DEAD", "RK4_DT", "SAFETY", "QMIN", "QMAX", "NEG_BETA1",
+             "BETA2", "QOLD_INIT", "STOP_RHO2")
+N_CFG = 24
+_MAX_OBJECTS = 16
+_MAX_SAMPLES = 32
+_R_MODE = {R_AS_WRITTEN: 0, R_TEXTBOOK: 1}
+
+
+def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
+                  dtype: torch.dtype):
+    """The kernel's parameter block as python floats, computed in double
+    and rounded to ``dtype`` by the caller's tensor, like JAX's python
+    scalars: configuration, then 8 fields per object, then 8 slots per
+    detection sample (its dense-output weights, then theta)."""
+    state_clamp, rhs_clamp = sanitize_bounds(dtype)
+    eps2 = metric.rho_min * metric.rho_min
+    M, a = (float(metric.params.M), float(metric.params.a))
+    slots = dict(
+        M=M, A=a, EPS2=eps2, EPS2_HALF=eps2 / 2, STATE_CLAMP=state_clamp,
+        RHS_CLAMP=rhs_clamp, DET_MIN=det_min(dtype), RTOL=cfg.rtol,
+        ATOL=cfg.atol, LAM_MAX=cfg.lam_max, LAM_END=cfg.lam_max - 1e-6,
+        DT_MIN=cfg.dt_min, DT_DEAD=2 * cfg.dt_min, RK4_DT=cfg.rk4_dt,
+        SAFETY=cfg.safety, QMIN=cfg.qmin, QMAX=cfg.qmax,
+        NEG_BETA1=-cfg.beta1, BETA2=cfg.beta2, QOLD_INIT=cfg.qold_init,
+        STOP_RHO2=cfg.stop_rho ** 2)
+    blk = [slots[k] for k in CFG_SLOTS]
+    blk += [0.0] * (N_CFG - len(blk))
+    pos = scene.pos.tolist()
+    rest = [getattr(scene, f).tolist() for f in OBJ_FIELDS[3:]]
+    for i in range(scene.n_objects):
+        blk += pos[i][1:4] + [col[i] for col in rest]
+    npts = cfg.interp_points
+    for i in range(1, npts + 1):
+        th = i / npts
+        if cfg.method == "tsit5":
+            w = list(tsit5_bi(th))
+        else:  # the Hermite sample's factors, as python evaluates them
+            w = [1 - th, th * (th - 1), 1 - 2 * th, th - 1, 0.0, 0.0, 0.0]
+        blk += w + [th]
+    return blk
+
+
+def _find_lib():
+    from ..utils import cuda_build
+    return cuda_build.load("geodesic")
+
+
+def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
+                        dt0: torch.Tensor, cfg: IntegratorConfig
+                        ) -> TraceResult:
+    """Run K1 (csrc/geodesic.cu) over a ray batch on the card: the
+    counterpart of the JAX ``integrate_rays_pallas``. ``y0 [B, 8]``,
+    ``dt0 [B]``, both CUDA tensors of one float dtype.
+
+    Raises for CPU tensors, a failed build, and the options the kernel
+    does not take (``refine_minima``, ``sort_rays``, object kinds it does
+    not know). ``event_gate`` is bitwise-neutral and ignored. Adds one to
+    ``integrate_rays_cuda.launches`` per launch."""
+    _check_options(cfg)
+    if cfg.sort_rays:
+        raise NotImplementedError("sort_rays is not ported to the kernel")
+    kinds = [int(k) for k in scene.kind.tolist()]
+    if any(k not in _KERNEL_KINDS for k in kinds):
+        raise NotImplementedError(f"object kinds {kinds}: the kernel knows "
+                                  f"{_KERNEL_KINDS}")
+    if not 0 < len(kinds) <= _MAX_OBJECTS:
+        raise ValueError(f"the kernel takes 1..{_MAX_OBJECTS} objects")
+    if not 0 < cfg.interp_points <= _MAX_SAMPLES:
+        raise ValueError(f"interp_points must be in 1..{_MAX_SAMPLES}")
+    if metric.name not in ("minkowski", "kerr_schild"):
+        raise ValueError(f"unknown metric: {metric.name!r}")
+    if y0.device.type != "cuda" or dt0.device != y0.device:
+        raise ValueError("integrate_rays_cuda needs CUDA tensors on one "
+                         f"device, got {y0.device} and {dt0.device}")
+    if y0.dtype not in (torch.float32, torch.float64) or dt0.dtype != y0.dtype:
+        raise TypeError(f"unsupported dtypes {y0.dtype}, {dt0.dtype}")
+    if y0.dim() != 2 or y0.shape[1] != 8 or dt0.shape != y0.shape[:1]:
+        raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, "
+                         f"dt0 {tuple(dt0.shape)}")
+    r_mode = _R_MODE[metric.r_formula]
+    if r_mode == 1 and metric.rho_min <= 0.0:
+        r_mode = 2  # textbook radius without the ring floor
+
+    lib = _find_lib()
+    dev, dtype = y0.device, y0.dtype
+    B = y0.shape[0]
+    y_in = y0.t().contiguous()  # [8, B]: coalesced per-component loads
+    dt_in = dt0.contiguous()
+    prm = torch.tensor(kernel_params(metric, scene, cfg, dtype),
+                       dtype=dtype, device=dev)
+    kind_t = torch.tensor(kinds, dtype=torch.int32, device=dev)
+    y_out = torch.empty_like(y_in)
+    lam = torch.empty_like(dt_in)
+    hit = torch.empty(B, dtype=torch.int32, device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev)
+    if B > 0:
+        fn = lib.rtgr_k1_f32 if dtype == torch.float32 else lib.rtgr_k1_f64
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            rc = fn(ctypes.c_void_p(y_in.data_ptr()),
+                    ctypes.c_void_p(dt_in.data_ptr()),
+                    ctypes.c_void_p(y_out.data_ptr()),
+                    ctypes.c_void_p(lam.data_ptr()),
+                    ctypes.c_void_p(hit.data_ptr()),
+                    ctypes.c_void_p(steps.data_ptr()),
+                    ctypes.c_void_p(prm.data_ptr()),
+                    ctypes.c_void_p(kind_t.data_ptr()),
+                    B, int(metric.name == "kerr_schild"),
+                    int(cfg.method == "tsit5"), r_mode, int(cfg.max_steps),
+                    len(kinds), int(cfg.interp_points),
+                    int(cfg.bisect_iters), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+        integrate_rays_cuda.launches += 1
+    return TraceResult(y=y_out.t(), lam=lam, hit=hit > 0, steps=steps,
+                       n_iters=0)
+
+
+integrate_rays_cuda.launches = 0

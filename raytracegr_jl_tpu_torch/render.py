@@ -1,0 +1,105 @@
+"""Render driver (counterpart of raytracegr_jl_tpu/render.py): flatten the
+pixel grid to a ray batch ``[B, 8]``, pick each ray's initial step,
+integrate it with K1 (the CUDA kernel, or its plain PyTorch version) and
+shade the end points with the reference's hard shading."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .models.camera import Canvas
+from .models.objects import Scene, shade
+from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
+                              integrate_rays_cuda)
+from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
+from .ops.metrics import Metric
+
+BACKENDS = ("torch", "cuda")
+
+
+class RenderConfig(NamedTuple):
+    """Render settings; the fields of the JAX package's ``RenderConfig``
+    without ``pallas_interpret`` (a CUDA kernel has no interpreter).
+
+    ``backend``: ``"cuda"`` (K1's kernel), ``"torch"`` (its plain version)
+    or None, which picks ``"cuda"`` for CUDA tensors and ``"torch"`` for
+    CPU tensors. The differentiable path, soft shading and redshift shading
+    are not ported yet and raise."""
+
+    integrator: IntegratorConfig = IntegratorConfig()
+    hit_dmin: float = 0.01
+    differentiable: bool = False
+    backend: str | None = None
+    soft_temp: float | None = None
+    soft_freq: float = 12.0
+    shading: str = "reference"
+    beaming: float = 4.0
+    exposure: float = 1.0
+
+
+def default_tol(dtype: torch.dtype) -> float:
+    """eps(T)^(3/4), the reference's reltol = abstol."""
+    return float(torch.finfo(dtype).eps) ** 0.75
+
+
+def _check(cfg: RenderConfig) -> None:
+    if cfg.differentiable:
+        raise NotImplementedError("the differentiable path is not ported")
+    if cfg.soft_temp is not None or cfg.shading != "reference":
+        raise NotImplementedError("only reference hard shading is ported")
+    if cfg.backend not in BACKENDS + (None,):
+        raise ValueError(f"unknown backend: {cfg.backend!r}")
+
+
+def resolve_backend(cfg: RenderConfig, x: torch.Tensor) -> str:
+    """The backend a render of ``x`` runs on: the configured one, or by
+    the tensor's device."""
+    if cfg.backend is not None:
+        return cfg.backend
+    return "cuda" if x.device.type == "cuda" else "torch"
+
+
+def initial_dt(metric: Metric, y0: torch.Tensor,
+               integ: IntegratorConfig) -> torch.Tensor:
+    """Per-ray first step: ``rk4_dt`` for RK4, else Hairer's heuristic over
+    the component-major right-hand side."""
+    if integ.method == "rk4":
+        return torch.full(y0.shape[:1], integ.rk4_dt, dtype=y0.dtype,
+                          device=y0.device)
+    return hairer_init_dt(lambda y: geodesic_cm(metric, y.t()).t(), y0,
+                          integ.rtol, integ.atol, 5, integ.lam_max)
+
+
+def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
+                cfg: RenderConfig) -> TraceResult:
+    """Integrate a flat ray batch ``[B, 8]`` to termination."""
+    _check(cfg)
+    dt0 = initial_dt(metric, y0, cfg.integrator)
+    if resolve_backend(cfg, y0) == "cuda":
+        return integrate_rays_cuda(metric, scene, y0, dt0, cfg.integrator)
+    return integrate_rays_cm(metric, scene, y0, dt0, cfg.integrator)
+
+
+def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,
+               cfg: RenderConfig | None = None) -> Canvas:
+    """Render: returns the canvas with ``rgb`` filled."""
+    if cfg is None:
+        tol = default_tol(canvas.pos.dtype)
+        cfg = RenderConfig(integrator=IntegratorConfig(rtol=tol, atol=tol))
+    rgb = render_fn(metric, scene, cfg)(canvas.pos, canvas.normal)
+    return canvas._replace(rgb=rgb)
+
+
+def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
+    """``(pos, normal) -> rgb`` closure over a fixed scene and config."""
+    _check(cfg)
+
+    def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+        flat = torch.cat([pos, normal], dim=-1).reshape(-1, 8)
+        res = trace_batch(metric, scene, flat, cfg)
+        rgb = shade(scene, res.y[..., :4], cfg.hit_dmin)
+        return rgb.reshape(pos.shape[:-1] + (3,))
+
+    return fn

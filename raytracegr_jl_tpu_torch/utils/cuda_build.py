@@ -1,0 +1,98 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc into a shared library
+with a plain C interface, and load it with ctypes.
+
+The library goes to ``build/raytracegr_jl_tpu_torch/`` at the repo root,
+named by a hash of its source and flags, so that a changed source is
+rebuilt and a built one is reused. Building happens at first use and raises
+on any failure: there is no fallback. The ptxas report (registers, spills
+per kernel) is kept beside the library and returned by ``build_log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
+                         "raytracegr_jl_tpu_torch")
+# sm_90a (Hopper). --fmad=false: every operation rounds on its own, like
+# the plain PyTorch version the kernel is checked against.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+# The C entry points: (y0, dt0, y, lam, hit, steps, prm, kinds: pointers;
+# n, kerr, tsit5, r_mode, max_steps, n_obj, npts, bisect_iters: ints;
+# stream) -> cudaError_t.
+_SIGNATURES = {
+    "geodesic": {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p]
+                 for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else ``$CUDA_HOME/bin`` (default /usr/local/cuda)."""
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(path) and os.access(path, os.X_OK):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels cannot be built")
+
+
+def _paths(name: str):
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}")
+    return src, stem + ".so", stem + ".log"
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless an identical build exists; returns
+    the library's path."""
+    src, lib, log = _paths(name)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
+                           f"{proc.stderr[-4000:]}")
+    with open(log, "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report of the current build of ``name``."""
+    with open(_paths(name)[2]) as f:
+        return f.read()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<name>.cu``'s library, with the
+    argument and result types of its entry points declared."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build(name))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]

@@ -1,0 +1,131 @@
+"""Guards of the PyTorch port: it never imports jax, its configs mirror the
+JAX package's, and the CUDA path launches its kernel or raises — on CPU
+tensors, without nvcc, for options the kernel does not take — with no
+quiet fallback to the plain version."""
+
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import raytracegr_jl_tpu as J  # noqa: E402
+import raytracegr_jl_tpu_torch as T  # noqa: E402
+from raytracegr_jl_tpu_torch.ops.geodesic_cm import (CFG_SLOTS, N_CFG,  # noqa: E402
+                                                     OBJ_FIELDS,
+                                                     integrate_rays_cm,
+                                                     integrate_rays_cuda,
+                                                     kernel_params)
+from raytracegr_jl_tpu_torch.render import resolve_backend  # noqa: E402
+from raytracegr_jl_tpu_torch.utils import cuda_build  # noqa: E402
+
+MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
+           "raytracegr_jl_tpu_torch.models.scenes",
+           "raytracegr_jl_tpu_torch.ops.geodesic_cm",
+           "raytracegr_jl_tpu_torch.utils.convert",
+           "raytracegr_jl_tpu_torch.utils.cuda_build",
+           "raytracegr_jl_tpu_torch.utils.image"]
+
+
+def _small(dtype=torch.float64):
+    metric, scene, canvas = T.build(T.example2_spec(2, 2), dtype)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    return metric, scene, y0, torch.full((4,), 0.01, dtype=dtype)
+
+
+def test_import_never_loads_jax():
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in MODULES)
+            + "assert 'jax' not in sys.modules, sorted(m for m in "
+            "sys.modules if m.startswith('jax'))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_configs_mirror_jax():
+    assert T.IntegratorConfig._fields == J.IntegratorConfig._fields
+    assert tuple(T.IntegratorConfig()) == tuple(J.IntegratorConfig())
+    assert (set(T.RenderConfig._fields)
+            == set(J.RenderConfig._fields) - {"pallas_interpret"})
+    assert T.TraceResult._fields == J.TraceResult._fields
+
+
+def test_cuda_wrapper_raises_on_cpu_tensors():
+    metric, scene, y0, dt0 = _small()
+    before = integrate_rays_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        integrate_rays_cuda(metric, scene, y0, dt0, T.IntegratorConfig())
+    assert integrate_rays_cuda.launches == before
+
+
+def test_cuda_backend_does_not_fall_back():
+    metric, scene, canvas = T.build(T.example2_spec(2, 2), torch.float64)
+    cfg = T.RenderConfig(backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        T.trace_rays(metric, scene, canvas, cfg)
+    assert resolve_backend(T.RenderConfig(), canvas.pos) == "torch"
+    assert resolve_backend(cfg, canvas.pos) == "cuda"
+
+
+def test_unsupported_options_raise():
+    metric, scene, y0, dt0 = _small()
+    with pytest.raises(NotImplementedError, match="refine_minima"):
+        integrate_rays_cm(metric, scene, y0, dt0,
+                          T.IntegratorConfig(refine_minima=True))
+    with pytest.raises(NotImplementedError, match="sort_rays"):
+        integrate_rays_cuda(metric, scene, y0, dt0,
+                            T.IntegratorConfig(sort_rays=True))
+    canvas = T.build(T.example2_spec(2, 2), torch.float64)[2]
+    for cfg in (T.RenderConfig(differentiable=True),
+                T.RenderConfig(shading="redshift"),
+                T.RenderConfig(soft_temp=0.05)):
+        with pytest.raises(NotImplementedError):
+            T.trace_rays(metric, scene, canvas, cfg)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.load("geodesic")
+
+
+def test_kernel_params_layout():
+    """The kernel's parameter block: configuration, 8 fields per object,
+    8 slots per detection sample whose last is theta = i / npts."""
+    metric, scene, _, _ = _small()
+    for method, npts in (("tsit5", 9), ("rk4", 5)):
+        cfg = T.IntegratorConfig(method=method, interp_points=npts)
+        blk = kernel_params(metric, scene, cfg, torch.float32)
+        n_obj = scene.n_objects
+        assert len(blk) == N_CFG + 8 * n_obj + 8 * npts
+        base = N_CFG + 8 * n_obj
+        assert [blk[base + 8 * i + 7] for i in range(npts)] == [
+            (i + 1) / npts for i in range(npts)]
+        # second object (the plane): pos1..3 = 0, radius 1, time -20
+        assert blk[N_CFG + 8:N_CFG + 13] == [0.0, 0.0, 0.0, 1.0, -20.0]
+        assert blk[CFG_SLOTS.index("LAM_END")] == cfg.lam_max - 1e-6
+
+
+def test_kernel_params_match_the_cuda_source():
+    """The python side of the parameter block names the slots of the
+    kernel's enum Prm, in order, and the object fields of its comment."""
+    import os
+    import re
+
+    from raytracegr_jl_tpu_torch.ops import geodesic_cm
+
+    with open(os.path.join(cuda_build.CSRC, "geodesic.cu")) as f:
+        src = f.read()
+    assert f"MAX_OBJ = {geodesic_cm._MAX_OBJECTS};" in src
+    assert f"MAX_SMP = {geodesic_cm._MAX_SAMPLES};" in src
+    enum = re.search(r"enum Prm \{(.*?)\};", src, re.S).group(1)
+    names = [n.strip() for n in enum.replace("\n", " ").split(",")]
+    assert names[-1] == f"N_CFG = {N_CFG}"
+    assert tuple(n[2:] for n in names[:-1]) == CFG_SLOTS
+    assert ", ".join(OBJ_FIELDS) in src
