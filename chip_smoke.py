@@ -1,12 +1,14 @@
-"""Smoke test of the PyTorch port on one CUDA card: builds K1 from
-raytracegr_jl_tpu_torch/csrc, checks it against its plain PyTorch version
-and against the committed golden images, times it, and drives the flagship
-forward render (the reference's example2) through the CUDA kernel.
+"""Smoke test of the PyTorch port on one CUDA card: builds the kernels from
+raytracegr_jl_tpu_torch/csrc (K1, and K3 and K4 of the training path, one
+nvcc each, in parallel), checks each against its plain PyTorch version and
+K1 against the committed golden images, drives the forward render and the
+training path (one pixel-loss step for two configurations, three Adam
+steps) of the reference's example2 through the kernels, and times them.
 
     python3 chip_smoke.py
 
 Prints one line per phase with its result and seconds, then a JSON line
-with each kernel's launches, error and times, and as its last line
+with each kernel's launches, error, times and bound, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and when
 no CUDA device is present. Imports no jax.
 """
@@ -17,6 +19,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -25,6 +28,19 @@ import torch
 RTOL_F32 = float(torch.finfo(torch.float32).eps) ** 0.75
 MIN_PIXELS_WITHIN_2LSB = 0.995  # kernel vs plain (after bitwise), goldens
 REPEATS = 5
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): float32
+# outside the tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# K4's (M, a) gradients against torch.autograd of the plain body. f64: the
+# two differ only in the order of their sums. f32: the same, but over
+# thousands of rays and up to 200 steps of f32 rounding, with cancellation
+# between rays of opposite sign.
+GRAD_RTOL = {torch.float64: 1e-10, torch.float32: 2e-3}
+# The training main path's kernel gradients against the plain path's. The
+# kernels equal their plain versions bitwise and the rest is the same
+# PyTorch code, so they should agree exactly; the bar allows f32 rounding.
+MAIN_GRAD_RTOL = 1e-5
 
 
 def require(cond: bool, msg: str) -> None:
@@ -64,17 +80,75 @@ def cuda_ms(fn, repeats: int = REPEATS):
     return statistics.median(times)
 
 
+def events_ms(fn) -> float:
+    """Milliseconds of one ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+# Floating-point arithmetic that the plain versions run, per output element.
+_FLOP_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "pow",
+             "reciprocal", "abs", "maximum", "minimum", "clamp", "clamp_min",
+             "clamp_max", "cos", "exp", "sum"}
+
+
+def count_flops(fn) -> int:
+    """Floating-point operations of ``fn()``, counted per element over the
+    PyTorch operations it runs. Applied to the plain version of a kernel on
+    one ray: the kernel follows it operation by operation."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if (name in _FLOP_OPS and isinstance(out, torch.Tensor)
+                    and out.is_floating_point()):
+                Counter.flops += out.numel()
+            return out
+
+    with Counter():
+        fn()
+    return Counter.flops
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the f32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.models.scenes import (build, example1_spec,
                                                        example2_spec)
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (integrate_rays_cm,
-                                                         integrate_rays_cuda)
+                                                         integrate_rays_cuda,
+                                                         localize_events_cm,
+                                                         make_step_cm,
+                                                         scene_event_cm)
     from raytracegr_jl_tpu_torch.render import initial_dt
     from raytracegr_jl_tpu_torch.utils import cuda_build
+
+    counted = (integrate_rays_cuda, adj.forward_segment_cuda,
+               adj.backward_cuda)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -89,11 +163,27 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     tb = time.perf_counter()
-    cuda_build.load("geodesic")
+    errors = []
+
+    def build_one(name):
+        try:
+            cuda_build.build(name)
+        except Exception as e:  # reported below, and the script fails
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=build_one, args=(name,))
+                for name in ("geodesic", "adjoint")]
+    for b in threads:
+        b.start()
+    for b in threads:
+        b.join()
+    require(not errors, "build failed: " + "; ".join(errors))
     build_s = time.perf_counter() - tb
-    for line in cuda_build.build_log("geodesic").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    for name in ("geodesic", "adjoint"):
+        cuda_build.load(name)
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {name}:", line.strip(), flush=True)
     phase("device+build", t0, card=repr(card), build_s=f"{build_s:.1f}")
 
     bench_cfg = rt.RenderConfig(integrator=rt.IntegratorConfig(
@@ -189,7 +279,7 @@ def main() -> int:
     t0 = time.perf_counter()
     metric, scene, canvas = build(example2_spec(200, 200), torch.float32, dev)
     fn = rt.render_fn(metric, scene, bench_cfg)
-    integrate_rays_cuda.launches = 0
+    reset_counts()
     rgb = fn(canvas.pos, canvas.normal)
     torch.cuda.synchronize()
     launches = integrate_rays_cuda.launches
@@ -233,6 +323,327 @@ def main() -> int:
           plain_ms=f"{plain_ms:.4f}",
           plain_rays_per_s=f"{200 * 200 / plain_ms * 1e3:.1f}")
 
+    t0 = time.perf_counter()
+    # K1's bound: its accepted and rejected steps on this run's rays, each
+    # at the operation count of the plain step body on one ray, plus one
+    # localization per hit; bytes: y0 and dt0 in, y, lam, hit, steps out.
+    integ = bench_cfg.integrator
+    event_fn = scene_event_cm(scene)
+    init, body = make_step_cm(metric, event_fn, integ)
+    with torch.no_grad():
+        st = init(y0.t().contiguous(), dt0)
+        one = lambda t: t[..., :1]  # noqa: E731
+        k1_step_flops = count_flops(lambda: body(type(st)(*map(one, st))))
+        k1_iters, it = 0, 0
+        while it < integ.max_steps and bool(st.active.any()):
+            k1_iters += int(st.active.sum())
+            st, _ = body(st)
+            it += 1
+        hits = int(st.hit.sum())
+        k1_loc_flops = count_flops(lambda: localize_events_cm(
+            metric, event_fn, integ, one(st.ev_y0), one(st.ev_dt),
+            one(st.ev_lo), one(st.ev_hi)))
+    B = y0.shape[0]
+    k1_bound = bound(k1_iters * k1_step_flops + hits * k1_loc_flops,
+                     B * 9 * 4 + B * 11 * 4)
+    phase("K1 bound 200x200 f32", t0, ray_iterations=k1_iters, hits=hits,
+          flops_per_step=k1_step_flops, flops_per_localization=k1_loc_flops,
+          bound_ms=f"{k1_bound[0]:.6f}", bound_by=k1_bound[1])
+
+    # 6. K3 and K4 against their plain versions on the same inputs, and
+    #    K4's (M, a) gradients against torch.autograd of the plain body.
+    def train_cfg(dtype, method, max_steps):
+        """The bench's training configurations (rk4/200, tsit5/48)."""
+        return rt.default_inverse_cfg(dtype, max_steps=max_steps,
+                                      method=method,
+                                      rk4_dt=100.0 / max_steps, stop_rho=0.5)
+
+    def ckpt_setup(n, dtype, integ, M=1.05, a=0.0, grad=False):
+        """example2 n x n: (metric, scene, y0, dt0, route, P0)."""
+        Mt = torch.tensor(M, dtype=dtype, device=dev, requires_grad=grad)
+        at = torch.tensor(a, dtype=dtype, device=dev, requires_grad=grad)
+        metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(Mt, at),
+                                rho_min=max(1e-3, 0.5 * integ.stop_rho))
+        _, scene, canvas = build(example2_spec(n, n), dtype, dev)
+        y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+        with torch.no_grad():
+            dt0 = initial_dt(metric, y0, integ)
+        seg = adj.segment_length(integ, integ.grad_seg_len)
+        route = adj.Route(
+            metric=rt.make_metric("kerr_schild", rt.KerrSchildParams(
+                Mt.detach(), at.detach()), rho_min=metric.rho_min),
+            scene=scene, cfg=integ, seg_len=seg,
+            n_seg=integ.max_steps // seg, cuda=True)
+        init, _ = make_step_cm(route.metric, scene_event_cm(scene), integ)
+        with torch.no_grad():
+            P0 = adj.pack_state(init(y0.t(), dt0))
+        return metric, scene, y0, dt0, route, P0
+
+    def diff_ct(P, seed=0):
+        """A random cotangent on the planes that carry one."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ct = torch.randn(P.shape, generator=gen, dtype=P.dtype, device=dev)
+        keep = torch.zeros((adj.N_PLANES, 1), dtype=P.dtype, device=dev)
+        for lo in (adj.P_Y, adj.P_K1, adj.P_EV_Y0):
+            keep[lo:lo + 8] = 1
+        return ct * keep
+
+    def compare_adjoint(label, n, dtype, method, max_steps):
+        t0 = time.perf_counter()
+        integ = train_cfg(dtype, method, max_steps).integrator
+        metric, scene, y0, dt0, route, P0 = ckpt_setup(n, dtype, integ)
+        ck_k, n_k = adj.run_segments(route, P0)
+        ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
+        torch.cuda.synchronize()
+        require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
+        d3 = (ck_k[:n_k + 1] - ck_p[:n_p + 1]).abs().nan_to_num(0.0)
+        k3_err = float(d3.max())
+        require(torch.equal(ck_k[:n_k + 1], ck_p[:n_p + 1]),
+                f"{label}: K3 not bitwise equal (max |d| {k3_err:.3e})")
+        ct = diff_ct(P0)
+        c_k, p_k = adj.backward_cuda(route, ck_k, n_k, ct)
+        c_p, p_p = adj.backward_plain(route, ck_p, n_p, ct)
+        torch.cuda.synchronize()
+        k4_err = max(float((c_k - c_p).abs().max()),
+                     float((p_k - p_p).abs().max()))
+        require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
+                f"{label}: K4 not bitwise equal (max |d| {k4_err:.3e})")
+
+        def grads(fn):
+            metric, scene, y0, dt0, _, _ = ckpt_setup(n, dtype, integ,
+                                                      grad=True)
+            res = fn(metric, scene, y0, dt0, integ,
+                     seg_len=integ.grad_seg_len)
+            loss = (res.y[:, :4] ** 2).sum() * 1e-3
+            M, a = metric.params.M, metric.params.a
+            return [float(g) for g in torch.autograd.grad(loss, (M, a))]
+
+        launches = (adj.forward_segment_cuda.launches,
+                    adj.backward_cuda.launches)
+        g_k = grads(adj.integrate_rays_ckpt_cuda)
+        require(adj.forward_segment_cuda.launches > launches[0]
+                and adj.backward_cuda.launches > launches[1],
+                f"{label}: the kernel path did not launch K3 and K4")
+        g_o = grads(adj.integrate_rays_autograd)
+        rel = max(abs(k - o) / abs(o) for k, o in zip(g_k, g_o))
+        phase(f"K3/K4 vs plain {label}", t0, segments=n_k,
+              hits=int(ck_k[n_k, adj.P_HIT].sum()),
+              k3_max_abs_err=k3_err, k4_max_abs_err=k4_err,
+              grad_M_kernel=f"{g_k[0]:.9e}", grad_M_autograd=f"{g_o[0]:.9e}",
+              grad_a_kernel=f"{g_k[1]:.9e}", grad_a_autograd=f"{g_o[1]:.9e}",
+              grad_max_rel_err=f"{rel:.3e}", rtol=GRAD_RTOL[dtype])
+        require(all(np.isfinite(g_k)) and rel <= GRAD_RTOL[dtype],
+                f"{label}: K4 gradients {g_k} vs autograd {g_o}")
+        return max(k3_err, k4_err)
+
+    adj_err = 0.0
+    for n, dtype in ((64, torch.float32), (32, torch.float64)):
+        for method, steps in (("rk4", 200), ("tsit5", 48)):
+            adj_err = max(adj_err, compare_adjoint(
+                f"example2 {n}x{n} {str(dtype)[6:]} {method}/{steps}", n,
+                dtype, method, steps))
+
+    # 7. The training main path, counted: one pixel-loss step (loss and
+    #    backward) of make_ray_loss_fn at 200x200 f32 for each bench
+    #    configuration, then three Adam steps of inverse.fit; each against
+    #    the same on the plain path (backend "torch" on the card).
+    spec = example2_spec(200, 200)
+    f32 = torch.float32
+    truth = rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+
+    def plain_cfg(cfg):
+        return cfg._replace(backend="torch")
+
+    loss_fns = {}
+
+    def loss_and_grads(cfg, target):
+        """One training step's loss and (M, a, sphere_pos) gradients; the
+        loss function is built once per configuration, as a trainer would."""
+        if cfg not in loss_fns:
+            loss_fns[cfg] = rt.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+        p = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+        loss = loss_fns[cfg](p, xg, ng, target)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), torch.cat(
+            [p.M.grad[None], p.a.grad[None], p.sphere_pos.grad])
+
+    step_launches, plain_step_ms = {}, {}
+    main_cfgs = {"rk4/200": train_cfg(f32, "rk4", 200),
+                 "tsit5/48": train_cfg(f32, "tsit5", 48)}
+    targets = {}
+    for label, cfg in main_cfgs.items():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            targets[label] = rt.make_ray_render_for_params(
+                spec, cfg, 2, f32, dev)(truth, xg, ng)
+        reset_counts()
+        loss, g = loss_and_grads(cfg, targets[label])
+        counts = [fn.launches for fn in counted]
+        step_launches[label] = counts
+        out = {}
+        plain_step_ms[label] = events_ms(lambda: out.update(
+            r=loss_and_grads(plain_cfg(cfg), targets[label])))
+        loss_p, g_p = out["r"]
+        rel = float((g - g_p).abs().max() / g_p.abs().max())
+        phase(f"main path train step {label} 200x200 f32", t0,
+              k1_launches=counts[0], k3_launches=counts[1],
+              k4_launches=counts[2], loss=f"{loss:.9e}",
+              loss_plain=f"{loss_p:.9e}",
+              grads=[f"{v:.6e}" for v in g.tolist()],
+              grad_max_rel_diff_vs_plain=f"{rel:.3e}")
+        require(counts[1] >= 1 and counts[2] >= 1,
+                f"{label}: the training step did not launch K3 and K4")
+        require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
+                f"{label}: non-finite loss or gradients")
+        require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
+                <= MAIN_GRAD_RTOL * abs(loss_p),
+                f"{label}: kernel gradients differ from the plain path's")
+
+    t0 = time.perf_counter()
+    fit_cfg = rt.default_inverse_cfg(f32, soft_temp=0.05, stop_rho=0.5)
+    with torch.no_grad():
+        target_img = rt.make_render_for_params(spec, fit_cfg, 2, f32, dev)(
+            truth)
+    init = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    reset_counts()
+    res = rt.fit(spec, target_img, init, fit_cfg, steps=3, dtype=f32,
+                 device=dev)
+    torch.cuda.synchronize()
+    fit_counts = [fn.launches for fn in counted]
+    res_p = rt.fit(spec, target_img, init, plain_cfg(fit_cfg), steps=3,
+                   dtype=f32, device=dev)
+    fin = [float(getattr(res.final_params, k).detach().abs().max())
+           for k in ("M", "a", "sphere_pos")]
+    fit_diff = max(float((getattr(res.final_params, k)
+                          - getattr(res_p.final_params, k)).detach()
+                         .abs().max()) for k in ("M", "a", "sphere_pos"))
+    phase("main path fit 3 Adam steps 200x200 f32", t0,
+          k3_launches=fit_counts[1], k4_launches=fit_counts[2],
+          losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
+          M=f"{float(res.final_params.M.detach()):.9f}",
+          max_param_diff_vs_plain=f"{fit_diff:.3e}")
+    require(fit_counts[1] >= 3 and fit_counts[2] >= 3,
+            "fit did not launch K3 and K4 in each step")
+    require(bool(torch.isfinite(res.loss_history).all())
+            and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
+    require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
+            "fit: kernel path differs from the plain path")
+
+    # 8. Times of the training path at 200x200 f32, and the bounds of K3
+    #    and K4 from this run's work.
+    train_times = {}
+    for label, cfg in main_cfgs.items():
+        t0 = time.perf_counter()
+        step_ms = cuda_ms(lambda: loss_and_grads(cfg, targets[label]))
+        integ = cfg.integrator
+        metric, scene, y0, dt0, route, P0 = ckpt_setup(200, f32, integ)
+        x, u = pixel_rays(metric, xg, ng)
+        with torch.no_grad():
+            y0 = torch.cat([x, u], -1)
+            dt0 = initial_dt(metric, y0, integ)
+            init, body = make_step_cm(route.metric, scene_event_cm(scene),
+                                      integ)
+            P0 = adj.pack_state(init(y0.t(), dt0))
+
+        args = adj.launch_args(route, P0)
+
+        def k3_total():
+            """K3's launches of one forward pass, each between events."""
+            ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape),
+                             dtype=f32, device=dev)
+            ck[0] = P0
+            total, s = 0.0, 0
+            while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
+                total += events_ms(lambda: adj.forward_segment_cuda(
+                    route, ck[s], ck[s + 1], args))
+                s += 1
+            return total, ck, s
+
+        k3_runs = [k3_total() for _ in range(REPEATS)]
+        k3_ms = statistics.median(r[0] for r in k3_runs)
+        _, ck, n_used = k3_runs[0]
+        ct = diff_ct(P0)
+        k4_ms = statistics.median(
+            events_ms(lambda: adj.backward_cuda(route, ck, n_used, ct, args))
+            for _ in range(REPEATS))
+        k3_plain_ms = events_ms(
+            lambda: adj.run_segments(route._replace(cuda=False), P0))
+        k4_plain_ms = events_ms(lambda: adj.backward_plain(
+            route._replace(cuda=False), ck, n_used, ct))
+        # Work of this run: each ray's iterations while active, at the
+        # plain body's count for one ray; K4 replays them and walks back
+        # each accepted one at step_vjp's count.
+        with torch.no_grad():
+            st = adj.unpack_state(P0)
+            one = lambda t: t[..., :1]  # noqa: E731
+            step_flops = count_flops(lambda: body(type(st)(*map(one, st))))
+            p = adj.adj_params(route.metric, f32, dev)
+            vjp_flops = count_flops(lambda: adj.step_vjp(
+                p, integ.method == "tsit5", one(st.y), one(st.k1),
+                one(dt0), one(ct[adj.P_Y:adj.P_Y + 8]),
+                one(ct[adj.P_K1:adj.P_K1 + 8])))
+            iters = accepted = 0
+            for _ in range(n_used * route.seg_len):
+                iters += int(st.active.sum())
+                st, rec = body(st)
+                accepted += int(rec.do.sum())
+        B = y0.shape[0]
+        k3_bound = bound(iters * step_flops, n_used * 2 * adj.N_PLANES * B * 4)
+        k4_bound = bound(iters * step_flops + accepted * vjp_flops,
+                         (n_used + 2) * adj.N_PLANES * B * 4 + B * 2 * 4)
+        train_times[label] = dict(
+            step_ms=step_ms, k3_ms=k3_ms,
+            k4_ms=k4_ms, k3_plain_ms=k3_plain_ms, k4_plain_ms=k4_plain_ms,
+            k3_bound=k3_bound, k4_bound=k4_bound)
+        phase(f"time train step {label} 200x200 f32", t0, card=repr(card),
+              step_ms=f"{step_ms:.4f}",
+              fwd_bwd_rays_per_s=f"{B / step_ms * 1e3:.1f}",
+              plain_step_ms=f"{plain_step_ms[label]:.4f}",
+              k3_ms_all_segments=f"{k3_ms:.4f}", k4_ms=f"{k4_ms:.4f}",
+              k3_plain_ms=f"{k3_plain_ms:.4f}",
+              k4_plain_ms=f"{k4_plain_ms:.4f}", segments=n_used,
+              k3_launches_per_step=step_launches[label][1],
+              k4_launches_per_step=step_launches[label][2],
+              ray_iterations=iters, accepted=accepted,
+              flops_per_step=step_flops, flops_per_step_vjp=vjp_flops,
+              k3_bound_ms=f"{k3_bound[0]:.6f}", k3_bound_by=k3_bound[1],
+              k4_bound_ms=f"{k4_bound[0]:.6f}", k4_bound_by=k4_bound[1])
+
+    # 9. Where a training step's time goes: torch.profiler over three
+    #    rk4/200 steps; the device's busy time is the sum of its kernels.
+    #    The profiler slows the host's thousands of small launches many
+    #    times over, so the idle share is read against the unprofiled
+    #    step time of phase 8.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    cfg, target = main_cfgs["rk4/200"], targets["rk4/200"]
+    loss_and_grads(cfg, target)
+    tw = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(3):
+            loss_and_grads(cfg, target)
+    wall_ms = (time.perf_counter() - tw) * 1e3 / 3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    n_kernels = sum(e.count for e in kernels) / 3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    step_ms = train_times["rk4/200"]["step_ms"]
+    phase("profile train step rk4/200 200x200 f32", t0, card=repr(card),
+          profiled_wall_ms_per_step=f"{wall_ms:.3f}",
+          step_ms=f"{step_ms:.4f}",
+          device_busy_ms_per_step=f"{busy_ms:.3f}",
+          device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.4f}",
+          device_kernels_per_step=f"{n_kernels:.0f}",
+          top=[f"{e.key[:40]}:{e.self_device_time_total / 3e3:.3f}ms"
+               f"x{e.count // 3}" for e in top])
+    require(busy_ms > 0, "the profiler saw no device time")
+
+    main = train_times["rk4/200"]
     print(json.dumps({"kernels": [{
         "name": "K1 integrate_rays_cuda",
         "route": "cuda",
@@ -241,7 +652,32 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": main_err,
         "ms": timings[200][0],
-        "plain_ms": plain_ms}]}), flush=True)
+        "plain_ms": plain_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None}, {
+        "name": "K3 forward_segment_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/adjoint.cu",
+        "replaces": "raytracegr_jl_tpu/ops/pallas_adjoint.py:131",
+        "launches": step_launches["rk4/200"][1],
+        "max_abs_err": adj_err,
+        "ms": main["k3_ms"],
+        "plain_ms": main["k3_plain_ms"],
+        "bound_ms": main["k3_bound"][0],
+        "bound_by": main["k3_bound"][1],
+        "library_ms": None}, {
+        "name": "K4 backward_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/adjoint.cu",
+        "replaces": "raytracegr_jl_tpu/ops/pallas_adjoint.py:203",
+        "launches": step_launches["rk4/200"][2],
+        "max_abs_err": adj_err,
+        "ms": main["k4_ms"],
+        "plain_ms": main["k4_plain_ms"],
+        "bound_ms": main["k4_bound"][0],
+        "bound_by": main["k4_bound"][1],
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

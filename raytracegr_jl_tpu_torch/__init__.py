@@ -2,11 +2,15 @@
 raytracegr_jl_tpu, ported to PyTorch with hand-written CUDA kernels for
 NVIDIA Hopper (H100).
 
-This first slice is the forward render of the reference's examples:
-metrics, camera, scene objects, the geodesic integration (K1: the CUDA
-kernel csrc/geodesic.cu and its plain PyTorch version) and the reference's
-hard shading. Importing the package imports torch and never jax; the CUDA
-kernel is built with nvcc at its first launch.
+Ported so far: the forward render of the reference's examples (metrics,
+camera, scene objects, the geodesic integration with K1, csrc/geodesic.cu,
+and the reference's hard shading), and the training path (pixel-loss
+gradients through the checkpointed adjoint with K3 and K4,
+csrc/adjoint.cu, soft shading, and the Adam fit of grad.py and
+inverse.py). Each kernel has its plain PyTorch version beside it. The
+factories build on the CUDA card unless the caller names another device.
+Importing the package imports torch and never jax; the CUDA kernels are
+built with nvcc at their first launch.
 """
 
 from .ops.metrics import (D, KerrSchildParams, Metric, kerr_schild,
@@ -14,12 +18,18 @@ from .ops.metrics import (D, KerrSchildParams, Metric, kerr_schild,
 from .ops.integrate import IntegratorConfig, TraceResult
 from .ops.geodesic_cm import integrate_rays_cm, integrate_rays_cuda
 from .models.objects import (Disk, Plane, Scene, Sphere, distances,
-                             make_scene, min_distance, shade)
+                             make_scene, min_distance, shade,
+                             shade_soft)
 from .models.camera import Canvas, make_canvas
 from .models.scenes import (SceneSpec, accretion_disk_spec, build, example1,
                             example1_spec, example2, example2_spec,
                             render_spec)
 from .render import RenderConfig, default_tol, render_fn, trace_rays
+from .ops.adjoint import integrate_rays_ckpt, integrate_rays_ckpt_cuda
+from .grad import (InverseParams, default_inverse_cfg, flat_pixel_grid,
+                   make_loss_fn, make_ray_loss_fn, make_ray_render_for_params,
+                   make_render_for_params)
+from .inverse import FitResult, fit, fit_multistart
 from .utils.image import canvas_to_image, load_png, save_png
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

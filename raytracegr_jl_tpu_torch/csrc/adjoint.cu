@@ -1,0 +1,885 @@
+// K3 and K4: the checkpointed adjoint of the geodesic integration on NVIDIA
+// Hopper (sm_90a).
+//
+// K3 replaces the Pallas TPU kernel _fwd_seg_launch of
+// raytracegr_jl_tpu/ops/pallas_adjoint.py: one checkpoint segment, at most
+// seg_len steps of the make_step_cm body per ray, the 34-plane state read at
+// the start and written at the end. Unlike K1 it does not localize: on a hit
+// it records the crossing step (ev_y0, ev_dt, ev_lam, ev_lo, ev_hi) and the
+// ray stops; localization runs afterwards in PyTorch, where it is
+// differentiable.
+//
+// K4 replaces _run_bwd of the same file: the whole backward pass in one
+// launch. Per ray, the segments in reverse; a segment whose checkpoint shows
+// the ray inactive is skipped (an inactive step is the identity); a live one
+// is replayed from its checkpoint, each accepted step's (y, k1, dt_try, hit)
+// kept in local memory, and then walked back with the hand-written adjoint
+// of the step (step_vjp) and of the right-hand side (rhs_vjp). CUDA has no
+// autodiff inside a kernel; the TPU kernel took jax.vjp of the step body.
+// Only y, k1 and ev_y0 carry cotangents: dt_try is detached, so the
+// controller, dt and err_old take none; the masks route cotangents; the
+// detection only decides masks, so object fields get none inside the loop.
+// The (M, a) cotangents are written per ray, [B, 2], and summed by the
+// wrapper: deterministic, and comparable bitwise with the plain version.
+//
+// The plain PyTorch versions are in ops/adjoint.py (forward_segment,
+// backward_plain, step_vjp, rhs_vjp); this file follows them operation by
+// operation (build with --fmad=false). Ties follow JAX's rule: where a max,
+// min or clip meets its bound exactly, the derivative is split half and half.
+//
+// Design: one thread per ray, as K1. Both kernels are bound by arithmetic and
+// divergence, not memory: K3 moves 34 values of state in and out per ray per
+// segment; K4 reads one checkpoint per live segment and recomputes the
+// stages twice (replay, then the adjoint's own forward sweep), so it costs
+// about three forward steps per step. The per-step records of a segment
+// live in local memory, sized for MAX_SEG steps (2.2 KB per thread in f32).
+
+#include "geodesic_common.cuh"
+
+namespace {
+
+enum Plane {
+  PL_Y = 0, PL_LAM = 8, PL_DT = 9, PL_K1 = 10, PL_ACTIVE = 18, PL_HIT = 19,
+  PL_STEPS = 20, PL_ERR_OLD = 21, PL_EV_Y0 = 22, PL_EV_DT = 30, PL_EV_LAM = 31,
+  PL_EV_LO = 32, PL_EV_HI = 33, N_PLANES = 34
+};
+constexpr int MAX_SEG = 32;
+
+template <typename T>
+struct RayState {
+  T y[8], k1[8], ev_y0[8];
+  T lam, dt, active, hit, steps, err_old, ev_dt, ev_lam, ev_lo, ev_hi;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_state(const T* P, int n, int i,
+                                           RayState<T>& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    r.y[c] = P[(PL_Y + c) * n + i];
+    r.k1[c] = P[(PL_K1 + c) * n + i];
+    r.ev_y0[c] = P[(PL_EV_Y0 + c) * n + i];
+  }
+  r.lam = P[PL_LAM * n + i];
+  r.dt = P[PL_DT * n + i];
+  r.active = P[PL_ACTIVE * n + i];
+  r.hit = P[PL_HIT * n + i];
+  r.steps = P[PL_STEPS * n + i];
+  r.err_old = P[PL_ERR_OLD * n + i];
+  r.ev_dt = P[PL_EV_DT * n + i];
+  r.ev_lam = P[PL_EV_LAM * n + i];
+  r.ev_lo = P[PL_EV_LO * n + i];
+  r.ev_hi = P[PL_EV_HI * n + i];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_state(T* P, int n, int i,
+                                            const RayState<T>& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    P[(PL_Y + c) * n + i] = r.y[c];
+    P[(PL_K1 + c) * n + i] = r.k1[c];
+    P[(PL_EV_Y0 + c) * n + i] = r.ev_y0[c];
+  }
+  P[PL_LAM * n + i] = r.lam;
+  P[PL_DT * n + i] = r.dt;
+  P[PL_ACTIVE * n + i] = r.active;
+  P[PL_HIT * n + i] = r.hit;
+  P[PL_STEPS * n + i] = r.steps;
+  P[PL_ERR_OLD * n + i] = r.err_old;
+  P[PL_EV_DT * n + i] = r.ev_dt;
+  P[PL_EV_LAM * n + i] = r.ev_lam;
+  P[PL_EV_LO * n + i] = r.ev_lo;
+  P[PL_EV_HI * n + i] = r.ev_hi;
+}
+
+// The parameter block into shared memory (as K1 loads it).
+template <typename T>
+__device__ __forceinline__ void load_params(Params<T>& p, const T* prm,
+                                            const int* kinds, int n_obj,
+                                            int npts) {
+  const int n_prm = N_CFG + n_obj * OBJ_STRIDE + npts * SMP_STRIDE;
+  for (int j = threadIdx.x; j < n_prm; j += blockDim.x) {
+    const T v = prm[j];
+    if (j < N_CFG) p.cfg[j] = v;
+    else if (j < N_CFG + n_obj * OBJ_STRIDE) p.obj[j - N_CFG] = v;
+    else p.smp[j - N_CFG - n_obj * OBJ_STRIDE] = v;
+  }
+  for (int j = threadIdx.x; j < n_obj; j += blockDim.x) p.kind[j] = kinds[j];
+}
+
+// One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
+// the ray stepped (do); sets the step tried and whether it hit in this step.
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
+                                          int n_obj, int npts, RayState<T>& r,
+                                          T& dt_try_out, bool& hit_now) {
+  StepData<T, TSIT5> s;
+  const T dt_min = p.cfg[P_DT_MIN], lam_max = p.cfg[P_LAM_MAX];
+  T dt_try = nmax(nmin(r.dt, lam_max - r.lam), dt_min);
+  if (!isfinite(dt_try)) dt_try = dt_min;
+  s.dt = dt_try;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    s.y0[c] = r.y[c];
+    s.k[0][c] = r.k1[c];
+  }
+  bool accept, dead, fin = true;
+  T en = T(1), dt_next;
+  if constexpr (TSIT5) {
+    T err[8];
+    tsit5_step<T, KERR>(p, r_mode, s, err);
+    const T rtol = p.cfg[P_RTOL], atol = p.cfg[P_ATOL];
+    T acc = T(0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      fin = fin && isfinite(s.y1[c]);
+      const T sc = atol + rtol * nmax(fabs(s.y0[c]), fabs(s.y1[c]));
+      const T ratio = clip(err[c] / sc, T(-1e15), T(1e15));
+      acc = c == 0 ? ratio * ratio : acc + ratio * ratio;
+    }
+    en = sqrt(nmax(acc / T(8), T(1e-30)));
+    const bool bad = !isfinite(en) || !fin;
+    if (bad) en = T(1e30);  // ERR_BIG
+    accept = en <= T(1);
+    const T en_c = nmax(en, T(1e-10));
+    const T safety = p.cfg[P_SAFETY];
+    const T q_pi = safety * pow(en_c, p.cfg[P_NEG_BETA1])
+                   * pow(nmax(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
+    const T q_rej = safety * pow(en_c, T(-0.2));
+    T q = accept ? q_pi : nmin(q_rej, T(1));
+    q = clip(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
+    dt_next = clip(dt_try * q, dt_min, lam_max);
+    dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];
+  } else {
+    rk4_step<T, KERR>(p, r_mode, s);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) fin = fin && isfinite(s.y1[c]);
+    accept = fin;
+    dt_next = p.cfg[P_RK4_DT];
+    dead = !fin;
+  }
+  const T rho2 = s.y1[1] * s.y1[1] + s.y1[2] * s.y1[2] + s.y1[3] * s.y1[3];
+  dead = dead || rho2 < p.cfg[P_STOP_RHO2];
+
+  hit_now = false;
+  bool active;
+  if (accept) {  // accepted steps are finite
+    T th_lo, th_hi;
+    hit_now = detect<T, TSIT5>(p, n_obj, npts, s, th_lo, th_hi);
+    if (hit_now) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) r.ev_y0[c] = s.y0[c];
+      r.ev_dt = dt_try;
+      r.ev_lam = r.lam;
+      r.ev_lo = th_lo;
+      r.ev_hi = th_hi;
+      r.hit = T(1);
+    }
+    const T lam_acc = r.lam + dt_try;
+    const bool done_span = lam_acc >= p.cfg[P_LAM_END];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      r.y[c] = s.y1[c];
+      r.k1[c] = s.k[6][c];
+    }
+    if (!hit_now) r.lam = lam_acc;
+    active = !hit_now && !done_span && !dead;
+    r.steps = r.steps + T(1);
+    r.err_old = nmax(en, p.cfg[P_QOLD_INIT]);
+  } else {
+    active = !dead;
+  }
+  if (active) r.dt = dt_next;
+  else r.active = T(0);
+  dt_try_out = dt_try;
+  return accept;
+}
+
+// --------------------------------------------------------------------------
+// Reverse mode of the right-hand side (ops/adjoint.py rhs_vjp).
+// --------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ T w_clip(T x, T lo, T hi) {
+  return (x > lo && x < hi) ? T(1) : ((x == lo || x == hi) ? T(0.5) : T(0));
+}
+template <typename T>
+__device__ __forceinline__ T w_max(T x, T b) {
+  return x > b ? T(1) : (x == b ? T(0.5) : T(0));
+}
+
+template <typename T, bool KERR>
+__device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
+                                        const T* yin, const T* ct, T* cty,
+                                        T& Mb, T& ab) {
+  const T sc = p.cfg[P_STATE_CLAMP], rc = p.cfg[P_RHS_CLAMP];
+  T y[8], w_in[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    w_in[c] = w_clip(yin[c], -sc, sc);
+    y[c] = clip(yin[c], -sc, sc);
+  }
+  if constexpr (!KERR) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const T g = ct[c] * w_clip(y[4 + c], -rc, rc);
+      cty[c] = T(0) * w_in[c];
+      cty[4 + c] = g * w_in[4 + c];
+    }
+    Mb = T(0);
+    ab = T(0);
+    return;
+  }
+  // -- forward (as rhs) --
+  const T M = p.cfg[P_M], a = p.cfg[P_A], eps2 = p.cfg[P_EPS2];
+  const T xs = y[1], ys = y[2], zs = y[3];
+  const T u0 = y[4];
+  const T uu[3] = {y[5], y[6], y[7]};
+  const T xyz[3] = {xs, ys, zs};
+  const T aa = a * a;
+  const T rho2_raw = xs * xs + ys * ys + zs * zs;
+  const T bound = r_mode == R_AS_WRITTEN ? aa + eps2 : eps2;
+  const T rho2 = nmax(rho2_raw, bound);
+  const T w_rho = w_max(rho2_raw, bound);
+  const bool live = rho2_raw >= rho2;
+  const T half = (rho2 - aa) / T(2);
+  const T inner0 = sqrt(aa * zs * zs + half * half);
+  T inner = inner0, inv_inner, s = T(0), r, dr_du, dr_dw, inv_2r = T(0);
+  T w_inner = T(1), w_v = T(1);
+  if (r_mode == R_AS_WRITTEN) {
+    inv_inner = T(1) / inner0;
+    s = sqrt(rho2 - aa);
+    r = s / T(2) + inner0;
+    dr_du = T(0.25) / s + T(0.5) * half * inv_inner;
+    dr_dw = aa * zs * inv_inner;
+  } else {
+    if (r_mode == R_TEXTBOOK) {
+      inner = nmax(inner0, p.cfg[P_EPS2_HALF]);
+      w_inner = w_max(inner0, p.cfg[P_EPS2_HALF]);
+      const T v = half + inner;
+      w_v = w_max(v, eps2);
+      r = sqrt(nmax(v, eps2));
+    } else {
+      r = sqrt(half + inner);
+    }
+    inv_inner = T(1) / inner;
+    inv_2r = T(0.5) / r;
+    dr_du = (T(0.5) + T(0.5) * half * inv_inner) * inv_2r;
+    dr_dw = (aa * zs * inv_inner) * inv_2r;
+  }
+  const T r2 = r * r;
+  const T q = r2 * r2 + aa * zs * zs;
+  const T inv_q = T(1) / q;
+  const T r3 = r * r2;
+  const T two_m = T(2) * M;
+  const T f = two_m * r3 * inv_q;
+  const T t3 = T(3) * a * a * zs * zs - r2 * r2;
+  const T df_dr = two_m * r2 * t3 * inv_q * inv_q;
+  const T df_dw = T(-4) * M * r3 * a * a * zs * inv_q * inv_q;
+  const T denom = r2 + aa;
+  const T inv_denom = T(1) / denom;
+  const T inv_r = T(1) / r;
+  const T k1 = (r * xs + a * ys) * inv_denom;
+  const T k2 = (r * ys - a * xs) * inv_denom;
+  const T k3 = zs * inv_r;
+  const T k[4] = {T(1), k1, k2, k3};
+  T du[3], r_c[3], df[3], trc[3], n0[3], n1[3], n2[3], dk[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    du[c] = live ? T(2) * xyz[c] : T(0);
+    T rc_ = dr_du * du[c];
+    if (c == 2) {
+      rc_ = rc_ + dr_dw;
+      df[c] = df_dr * rc_ + df_dw;
+    } else {
+      df[c] = df_dr * rc_;
+    }
+    const T t = T(2) * r * rc_;
+    if (c == 0) {
+      n0[c] = xs * rc_ + r - k1 * t;
+      n1[c] = ys * rc_ - a - k2 * t;
+    } else if (c == 1) {
+      n0[c] = xs * rc_ + a - k1 * t;
+      n1[c] = ys * rc_ + r - k2 * t;
+    } else {
+      n0[c] = xs * rc_ - k1 * t;
+      n1[c] = ys * rc_ - k2 * t;
+    }
+    n2[c] = c == 2 ? (T(1) - k3 * rc_) : -(k3 * rc_);
+    r_c[c] = rc_;
+    trc[c] = t;
+    dk[c][0] = n0[c] * inv_denom;
+    dk[c][1] = n1[c] * inv_denom;
+    dk[c][2] = n2[c] * inv_r;
+  }
+  const T kappa = T(-1) + k1 * k1 + k2 * k2 + k3 * k3;
+  const T d_raw = T(1) + f * kappa;
+  const T dmin = p.cfg[P_DET_MIN];
+  const bool neg = d_raw < T(0);
+  const T d = neg ? nmin(d_raw, -dmin) : nmax(d_raw, dmin);
+  const T w_d = neg ? w_max(-d_raw, dmin) : w_max(d_raw, dmin);
+  const T coef = f / d;
+  const T ku = u0 + k1 * uu[0] + k2 * uu[1] + k3 * uu[2];
+  const T fdot = df[0] * uu[0] + df[1] * uu[1] + df[2] * uu[2];
+  T Dv[3], Ev[3];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    Dv[b] = uu[0] * dk[0][b] + uu[1] * dk[1][b] + uu[2] * dk[2][b];
+    Ev[b] = uu[0] * dk[b][0] + uu[1] * dk[b][1] + uu[2] * dk[b][2];
+  }
+  const T uD = uu[0] * Dv[0] + uu[1] * Dv[1] + uu[2] * Dv[2];
+  const T half_fdot = T(0.5) * fdot;
+  const T s1 = half_fdot * ku + f * uD;
+  T A[4], C[4], Bu[4];
+  A[0] = ku * half_fdot + s1;
+#pragma unroll
+  for (int d_ = 1; d_ < 4; ++d_) {
+    C[d_] = half_fdot * k[d_] + f * Dv[d_ - 1];
+    Bu[d_] = T(0.5) * df[d_ - 1] * ku + f * Ev[d_ - 1];
+    A[d_] = ku * C[d_] + k[d_] * s1 - ku * Bu[d_];
+  }
+  const T kuA = -A[0] + k1 * A[1] + k2 * A[2] + k3 * A[3];
+  const T out4 = A[0] + (-coef) * kuA;
+
+  // -- reverse --
+  T ub[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ub[c] = ct[c] * w_clip(y[4 + c], -rc, rc);
+  const T g4 = ct[4] * w_clip(out4, -rc, rc);
+  T kuAb = (-coef) * g4;
+  T coefb = -(kuA * g4);
+  T Ab[4], kb[4];
+  Ab[0] = g4;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    const T outc = -A[c] + coef * k[c] * kuA;
+    const T gg = ct[4 + c] * w_clip(outc, -rc, rc);
+    Ab[c] = -gg;
+    const T t = coef * k[c];
+    const T tb = kuA * gg;
+    kuAb = kuAb + t * gg;
+    coefb = coefb + k[c] * tb;
+    kb[c] = coef * tb;
+  }
+  Ab[0] = Ab[0] - kuAb;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    Ab[c] = Ab[c] + k[c] * kuAb;
+    kb[c] = kb[c] + A[c] * kuAb;
+  }
+  T kub = T(0), s1b = T(0), Cb[4], Bub[4];
+#pragma unroll
+  for (int d_ = 1; d_ < 4; ++d_) {
+    kub = kub + C[d_] * Ab[d_] - Bu[d_] * Ab[d_];
+    Cb[d_] = ku * Ab[d_];
+    kb[d_] = kb[d_] + s1 * Ab[d_];
+    s1b = s1b + k[d_] * Ab[d_];
+    Bub[d_] = -(ku * Ab[d_]);
+  }
+  T dfb[3], Evb[3], Dvb[3];
+  T fb = T(0);
+#pragma unroll
+  for (int d_ = 1; d_ < 4; ++d_) {
+    dfb[d_ - 1] = T(0.5) * ku * Bub[d_];
+    kub = kub + T(0.5) * df[d_ - 1] * Bub[d_];
+    fb = fb + Ev[d_ - 1] * Bub[d_];
+    Evb[d_ - 1] = f * Bub[d_];
+  }
+  T hfb = T(0);
+#pragma unroll
+  for (int d_ = 1; d_ < 4; ++d_) {
+    hfb = hfb + k[d_] * Cb[d_];
+    kb[d_] = kb[d_] + half_fdot * Cb[d_];
+    fb = fb + Dv[d_ - 1] * Cb[d_];
+    Dvb[d_ - 1] = f * Cb[d_];
+  }
+  kub = kub + half_fdot * Ab[0];
+  hfb = hfb + ku * Ab[0];
+  s1b = s1b + Ab[0];
+  hfb = hfb + ku * s1b;
+  kub = kub + half_fdot * s1b;
+  fb = fb + uD * s1b;
+  const T uDb = f * s1b;
+  const T fdotb = T(0.5) * hfb;
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    ub[b + 1] = ub[b + 1] + Dv[b] * uDb;
+    Dvb[b] = Dvb[b] + uu[b] * uDb;
+  }
+  T dkb[3][3];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ub[c + 1] = ub[c + 1] + dk[b][c] * Evb[b];
+      dkb[b][c] = uu[c] * Evb[b];
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ub[c + 1] = ub[c + 1] + dk[c][b] * Dvb[b];
+      dkb[c][b] = dkb[c][b] + uu[c] * Dvb[b];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    dfb[c] = dfb[c] + uu[c] * fdotb;
+    ub[c + 1] = ub[c + 1] + df[c] * fdotb;
+  }
+  ub[0] = ub[0] + kub;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) {
+    ub[c] = ub[c] + k[c] * kub;
+    kb[c] = kb[c] + y[4 + c] * kub;
+  }
+  fb = fb + coefb / d;
+  const T db = -(coefb * coef) / d;
+  const T drawb = w_d * db;
+  fb = fb + kappa * drawb;
+  const T kappab = f * drawb;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) kb[c] = kb[c] + T(2) * k[c] * kappab;
+
+  T xb[3] = {T(0), T(0), T(0)};
+  T rb = T(0), aab = T(0), inv_denomb = T(0), inv_rb = T(0);
+  T df_drb = T(0), df_dwb = T(0), dr_dub = T(0), dr_dwb = T(0);
+  ab = T(0);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const T n0b = inv_denom * dkb[c][0];
+    inv_denomb = inv_denomb + n0[c] * dkb[c][0];
+    const T n1b = inv_denom * dkb[c][1];
+    inv_denomb = inv_denomb + n1[c] * dkb[c][1];
+    const T n2b = inv_r * dkb[c][2];
+    inv_rb = inv_rb + n2[c] * dkb[c][2];
+    xb[0] = xb[0] + r_c[c] * n0b;
+    xb[1] = xb[1] + r_c[c] * n1b;
+    T rcb = xs * n0b + ys * n1b;
+    if (c == 0) {
+      rb = rb + n0b;
+      ab = ab - n1b;
+    } else if (c == 1) {
+      ab = ab + n0b;
+      rb = rb + n1b;
+    }
+    kb[1] = kb[1] - trc[c] * n0b;
+    kb[2] = kb[2] - trc[c] * n1b;
+    const T trb = -(k1 * n0b) - k2 * n1b;
+    kb[3] = kb[3] - r_c[c] * n2b;
+    rcb = rcb - k3 * n2b;
+    rb = rb + T(2) * r_c[c] * trb;
+    rcb = rcb + T(2) * r * trb;
+    df_drb = df_drb + r_c[c] * dfb[c];
+    rcb = rcb + df_dr * dfb[c];
+    if (c == 2) {
+      df_dwb = df_dwb + dfb[2];
+      dr_dwb = dr_dwb + rcb;
+    }
+    dr_dub = dr_dub + du[c] * rcb;
+    const T dub = dr_du * rcb;
+    xb[c] = xb[c] + (live ? T(2) * dub : T(0));
+  }
+  xb[2] = xb[2] + inv_r * kb[3];
+  inv_rb = inv_rb + zs * kb[3];
+  T nb = inv_denom * kb[2];
+  inv_denomb = inv_denomb + (r * ys - a * xs) * kb[2];
+  rb = rb + ys * nb;
+  xb[1] = xb[1] + r * nb;
+  ab = ab - xs * nb;
+  xb[0] = xb[0] - a * nb;
+  nb = inv_denom * kb[1];
+  inv_denomb = inv_denomb + (r * xs + a * ys) * kb[1];
+  rb = rb + xs * nb;
+  xb[0] = xb[0] + r * nb;
+  ab = ab + ys * nb;
+  xb[1] = xb[1] + a * nb;
+  rb = rb - inv_r * inv_r * inv_rb;
+  const T denomb = -(inv_denom * inv_denom * inv_denomb);
+  T r2b = denomb;
+  aab = aab + denomb;
+  const T iq2 = inv_q * inv_q;
+  const T e = T(-4) * df_dwb;
+  Mb = r3 * aa * zs * iq2 * e;
+  T r3b = M * aa * zs * iq2 * e;
+  ab = ab + T(2) * M * r3 * a * zs * iq2 * e;
+  xb[2] = xb[2] + M * r3 * aa * iq2 * e;
+  T inv_qb = T(2) * M * r3 * aa * zs * inv_q * e;
+  T two_mb = r2 * t3 * iq2 * df_drb;
+  r2b = r2b + two_m * t3 * iq2 * df_drb;
+  const T t3b = two_m * r2 * iq2 * df_drb;
+  inv_qb = inv_qb + T(2) * two_m * r2 * t3 * inv_q * df_drb;
+  ab = ab + T(6) * a * zs * zs * t3b;
+  xb[2] = xb[2] + T(6) * aa * zs * t3b;
+  r2b = r2b - T(2) * r2 * t3b;
+  two_mb = two_mb + r3 * inv_q * fb;
+  r3b = r3b + two_m * inv_q * fb;
+  inv_qb = inv_qb + two_m * r3 * fb;
+  Mb = Mb + T(2) * two_mb;
+  rb = rb + r2 * r3b;
+  r2b = r2b + r * r3b;
+  const T qb = -(inv_q * inv_q * inv_qb);
+  r2b = r2b + T(2) * r2 * qb;
+  aab = aab + zs * zs * qb;
+  xb[2] = xb[2] + T(2) * aa * zs * qb;
+  rb = rb + T(2) * r * r2b;
+  T rho2b = T(0), halfb, inner0b;
+  if (r_mode == R_AS_WRITTEN) {
+    const T sb = T(0.5) * rb - (T(0.25) * dr_dub) / (s * s);
+    halfb = T(0.5) * inv_inner * dr_dub;
+    const T inv_innerb = T(0.5) * half * dr_dub + aa * zs * dr_dwb;
+    aab = aab + zs * inv_inner * dr_dwb;
+    xb[2] = xb[2] + aa * inv_inner * dr_dwb;
+    inner0b = rb - inv_inner * inv_inner * inv_innerb;
+    const T sqb = (T(0.5) * sb) / s;
+    rho2b = rho2b + sqb;
+    aab = aab - sqb;
+  } else {
+    const T inv_2rb = (T(0.5) + T(0.5) * half * inv_inner) * dr_dub
+                      + aa * zs * inv_inner * dr_dwb;
+    halfb = T(0.5) * inv_inner * inv_2r * dr_dub;
+    const T m = inv_2r * dr_dwb;
+    aab = aab + zs * inv_inner * m;
+    xb[2] = xb[2] + aa * inv_inner * m;
+    const T inv_innerb = T(0.5) * half * inv_2r * dr_dub + aa * zs * m;
+    rb = rb - T(2) * inv_2r * inv_2r * inv_2rb;
+    T vb = inv_2r * rb;
+    if (r_mode == R_TEXTBOOK) vb = w_v * vb;
+    halfb = halfb + vb;
+    const T innerb = vb - inv_inner * inv_inner * inv_innerb;
+    inner0b = r_mode == R_TEXTBOOK ? w_inner * innerb : innerb;
+  }
+  // No cotangent where the inner radius is clamped (inner0 may be 0 there).
+  const T wb = inner0b == T(0) ? T(0) : (T(0.5) * inner0b) / inner0;
+  aab = aab + zs * zs * wb;
+  xb[2] = xb[2] + T(2) * aa * zs * wb;
+  halfb = halfb + T(2) * half * wb;
+  rho2b = rho2b + T(0.5) * halfb;
+  aab = aab - T(0.5) * halfb;
+  const T rawb = w_rho * rho2b;
+  if (r_mode == R_AS_WRITTEN) aab = aab + (T(1) - w_rho) * rho2b;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) xb[c] = xb[c] + T(2) * xyz[c] * rawb;
+  ab = ab + T(2) * a * aab;
+  cty[0] = T(0) * w_in[0];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) cty[1 + c] = xb[c] * w_in[1 + c];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) cty[4 + c] = ub[c] * w_in[4 + c];
+}
+
+// Tsitouras tableau row `row`, entry j (ops/integrate.py TS_A).
+__device__ __forceinline__ double ts_a(int row, int j) {
+  const double tab[6][6] = {
+      {TS_A_00, 0, 0, 0, 0, 0},
+      {TS_A_10, TS_A_11, 0, 0, 0, 0},
+      {TS_A_20, TS_A_21, TS_A_22, 0, 0, 0},
+      {TS_A_30, TS_A_31, TS_A_32, TS_A_33, 0, 0},
+      {TS_A_40, TS_A_41, TS_A_42, TS_A_43, TS_A_44, 0},
+      {TS_A_50, TS_A_51, TS_A_52, TS_A_53, TS_A_54, TS_A_55}};
+  return tab[row][j];
+}
+
+// y + dt * sum_{j <= row} TS_A[row][j] k_j, as tsit5_step adds.
+template <typename T>
+__device__ __forceinline__ void stage_input(const T* y, T dt,
+                                            T (*ks)[8], int row,
+                                            T* z) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    T acc = T(ts_a(row, 0)) * ks[0][c];
+#pragma unroll
+    for (int j = 1; j <= row; ++j) acc = acc + T(ts_a(row, j)) * ks[j][c];
+    z[c] = y[c] + dt * acc;
+  }
+}
+
+// Reverse mode of one accepted step (ops/adjoint.py step_vjp):
+// (ct of y_new, ct of k_last) -> (ct of y, ct of k1, ct of M, ct of a).
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
+                                         const T* y, const T* k1, T dt,
+                                         const T* cty, const T* ctk, T* yb,
+                                         T* k1b, T& gM, T& ga) {
+  T g[8], dM, da;
+  if constexpr (TSIT5) {
+    T ks[6][8], z[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) ks[0][c] = k1[c];
+#pragma unroll 1
+    for (int row = 0; row < 5; ++row) {
+      stage_input(y, dt, ks, row, z);
+      rhs<T, KERR>(p, r_mode, z, ks[row + 1]);
+    }
+    stage_input(y, dt, ks, 5, z);
+    rhs_vjp<T, KERR>(p, r_mode, z, ctk, g, gM, ga);
+    T kb[6][8], sb[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const T b = cty[c] + g[c];
+      yb[c] = b;
+      sb[c] = dt * b;
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) kb[j][c] = T(ts_a(5, j)) * sb[c];
+#pragma unroll 1
+    for (int m = 5; m >= 1; --m) {
+      stage_input(y, dt, ks, m - 1, z);
+      rhs_vjp<T, KERR>(p, r_mode, z, kb[m], g, dM, da);
+      gM = gM + dM;
+      ga = ga + da;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        yb[c] = yb[c] + g[c];
+        sb[c] = dt * g[c];
+      }
+      for (int j = 0; j < m; ++j)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          kb[j][c] = kb[j][c] + T(ts_a(m - 1, j)) * sb[c];
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) k1b[c] = kb[0][c];
+  } else {
+    T z2[8], z3[8], z4[8], k2[8], k3[8], k4[8], y1[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) z2[c] = y[c] + T(0.5) * dt * k1[c];
+    rhs<T, KERR>(p, r_mode, z2, k2);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) z3[c] = y[c] + T(0.5) * dt * k2[c];
+    rhs<T, KERR>(p, r_mode, z3, k3);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) z4[c] = y[c] + dt * k3[c];
+    rhs<T, KERR>(p, r_mode, z4, k4);
+    const T dt6 = dt / T(6);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      y1[c] = y[c] + dt6 * (k1[c] + T(2) * k2[c] + T(2) * k3[c] + k4[c]);
+    rhs_vjp<T, KERR>(p, r_mode, y1, ctk, g, gM, ga);
+    T sb[8], k2b[8], k3b[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const T b = cty[c] + g[c];
+      yb[c] = b;
+      sb[c] = dt6 * b;
+      k1b[c] = sb[c];
+      k2b[c] = T(2) * sb[c];
+      k3b[c] = T(2) * sb[c];
+    }
+    rhs_vjp<T, KERR>(p, r_mode, z4, sb, g, dM, da);
+    gM = gM + dM;
+    ga = ga + da;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      yb[c] = yb[c] + g[c];
+      k3b[c] = k3b[c] + dt * g[c];
+    }
+    rhs_vjp<T, KERR>(p, r_mode, z3, k3b, g, dM, da);
+    gM = gM + dM;
+    ga = ga + da;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      yb[c] = yb[c] + g[c];
+      k2b[c] = k2b[c] + T(0.5) * dt * g[c];
+    }
+    rhs_vjp<T, KERR>(p, r_mode, z2, k2b, g, dM, da);
+    gM = gM + dM;
+    ga = ga + da;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      yb[c] = yb[c] + g[c];
+      k1b[c] = k1b[c] + T(0.5) * dt * g[c];
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// The kernels
+// --------------------------------------------------------------------------
+template <typename T, bool KERR, bool TSIT5>
+__global__ void __launch_bounds__(THREADS)
+k3_kernel(const T* __restrict__ P_in, T* __restrict__ P_out,
+          const T* __restrict__ prm, const int* __restrict__ kinds, int n,
+          int r_mode, int n_obj, int npts, int seg_len) {
+  __shared__ Params<T> p;
+  load_params(p, prm, kinds, n_obj, npts);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  RayState<T> r;
+  load_state(P_in, n, i, r);
+  for (int it = 0; it < seg_len && r.active > T(0); ++it) {
+    T dt_try;
+    bool hit_now;
+    body_step<T, KERR, TSIT5>(p, r_mode, n_obj, npts, r, dt_try, hit_now);
+  }
+  store_state(P_out, n, i, r);
+}
+
+template <typename T, bool KERR, bool TSIT5>
+__global__ void __launch_bounds__(THREADS)
+k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
+          T* __restrict__ ct0, T* __restrict__ pbar,
+          const T* __restrict__ prm, const int* __restrict__ kinds, int n,
+          int r_mode, int n_obj, int npts, int seg_len) {
+  __shared__ Params<T> p;
+  load_params(p, prm, kinds, n_obj, npts);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T cy[8], ck1[8], cev[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    cy[c] = ct[(PL_Y + c) * n + i];
+    ck1[c] = ct[(PL_K1 + c) * n + i];
+    cev[c] = ct[(PL_EV_Y0 + c) * n + i];
+  }
+  T pM = T(0), pa = T(0);
+  T ry[MAX_SEG][8], rk[MAX_SEG][8], rdt[MAX_SEG];
+  bool rhit[MAX_SEG];
+  for (int s = n_used - 1; s >= 0; --s) {
+    const T* P = ck + static_cast<size_t>(s) * N_PLANES * n;
+    if (!(P[PL_ACTIVE * n + i] > T(0))) continue;  // inactive: identity
+    RayState<T> r;
+    load_state(P, n, i, r);
+    int nrec = 0;
+    for (int it = 0; it < seg_len && r.active > T(0); ++it) {
+      T y_before[8], k_before[8], dt_try;
+      bool hit_now;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        y_before[c] = r.y[c];
+        k_before[c] = r.k1[c];
+      }
+      if (body_step<T, KERR, TSIT5>(p, r_mode, n_obj, npts, r, dt_try,
+                                    hit_now)) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          ry[nrec][c] = y_before[c];
+          rk[nrec][c] = k_before[c];
+        }
+        rdt[nrec] = dt_try;
+        rhit[nrec] = hit_now;
+        ++nrec;
+      }
+    }
+    for (int j = nrec - 1; j >= 0; --j) {
+      T yb[8], kb[8], gM, ga;
+      step_vjp<T, KERR, TSIT5>(p, r_mode, ry[j], rk[j], rdt[j], cy, ck1, yb,
+                               kb, gM, ga);
+      if (rhit[j]) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          yb[c] = yb[c] + cev[c];
+          cev[c] = T(0);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        cy[c] = yb[c];
+        ck1[c] = kb[c];
+      }
+      pM = pM + gM;
+      pa = pa + ga;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    ct0[(PL_Y + c) * n + i] = cy[c];
+    ct0[(PL_K1 + c) * n + i] = ck1[c];
+    ct0[(PL_EV_Y0 + c) * n + i] = cev[c];
+  }
+  pbar[2 * i] = pM;
+  pbar[2 * i + 1] = pa;
+}
+
+template <typename T>
+int launch_k3(const void* P_in, void* P_out, const void* prm,
+              const void* kinds, int n, int kerr, int tsit5, int r_mode,
+              int n_obj, int npts, int seg_len, void* stream) {
+  if (n_obj < 1 || n_obj > MAX_OBJ || npts < 1 || npts > MAX_SMP || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + THREADS - 1) / THREADS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* in = static_cast<const T*>(P_in);
+  T* out = static_cast<T*>(P_out);
+  const T* pr = static_cast<const T*>(prm);
+  const int* kd = static_cast<const int*>(kinds);
+#define K3_LAUNCH(KERR, TS)                                              \
+  k3_kernel<T, KERR, TS><<<blocks, THREADS, 0, st>>>(in, out, pr, kd, n, \
+                                                     r_mode, n_obj, npts,  \
+                                                     seg_len)
+  if (kerr && tsit5) K3_LAUNCH(true, true);
+  else if (kerr) K3_LAUNCH(true, false);
+  else if (tsit5) K3_LAUNCH(false, true);
+  else K3_LAUNCH(false, false);
+#undef K3_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
+              void* pbar, const void* prm, const void* kinds, int n, int kerr,
+              int tsit5, int r_mode, int n_obj, int npts, int seg_len,
+              void* stream) {
+  if (n_obj < 1 || n_obj > MAX_OBJ || npts < 1 || npts > MAX_SMP || n < 1 ||
+      seg_len < 1 || seg_len > MAX_SEG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + THREADS - 1) / THREADS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* c = static_cast<const T*>(ck);
+  const T* g = static_cast<const T*>(ct);
+  T* g0 = static_cast<T*>(ct0);
+  T* pb = static_cast<T*>(pbar);
+  const T* pr = static_cast<const T*>(prm);
+  const int* kd = static_cast<const int*>(kinds);
+#define K4_LAUNCH(KERR, TS)                                                 \
+  k4_kernel<T, KERR, TS><<<blocks, THREADS, 0, st>>>(c, n_used, g, g0, pb,  \
+                                                     pr, kd, n, r_mode,      \
+                                                     n_obj, npts, seg_len)
+  if (kerr && tsit5) K4_LAUNCH(true, true);
+  else if (kerr) K4_LAUNCH(true, false);
+  else if (tsit5) K4_LAUNCH(false, true);
+  else K4_LAUNCH(false, false);
+#undef K4_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rtgr_k3_f32(const void* P_in, void* P_out, const void* prm,
+                           const void* kinds, int n, int kerr, int tsit5,
+                           int r_mode, int n_obj, int npts, int seg_len,
+                           void* stream) {
+  return launch_k3<float>(P_in, P_out, prm, kinds, n, kerr, tsit5, r_mode,
+                          n_obj, npts, seg_len, stream);
+}
+
+extern "C" int rtgr_k3_f64(const void* P_in, void* P_out, const void* prm,
+                           const void* kinds, int n, int kerr, int tsit5,
+                           int r_mode, int n_obj, int npts, int seg_len,
+                           void* stream) {
+  return launch_k3<double>(P_in, P_out, prm, kinds, n, kerr, tsit5, r_mode,
+                           n_obj, npts, seg_len, stream);
+}
+
+extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
+                           void* ct0, void* pbar, const void* prm,
+                           const void* kinds, int n, int kerr, int tsit5,
+                           int r_mode, int n_obj, int npts, int seg_len,
+                           void* stream) {
+  return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, kinds, n, kerr,
+                          tsit5, r_mode, n_obj, npts, seg_len, stream);
+}
+
+extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
+                           void* ct0, void* pbar, const void* prm,
+                           const void* kinds, int n, int kerr, int tsit5,
+                           int r_mode, int n_obj, int npts, int seg_len,
+                           void* stream) {
+  return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, kinds, n, kerr,
+                           tsit5, r_mode, n_obj, npts, seg_len, stream);
+}

@@ -26,492 +26,9 @@
 // come as ints. Known ulp source: CUDA's pow is not correctly rounded, so
 // the controller's q_pi may differ from a host libm by an ulp.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "geodesic_common.cuh"
 
 namespace {
-
-enum Prm {
-  P_M, P_A, P_EPS2, P_EPS2_HALF, P_STATE_CLAMP, P_RHS_CLAMP, P_DET_MIN,
-  P_RTOL, P_ATOL, P_LAM_MAX, P_LAM_END, P_DT_MIN, P_DT_DEAD, P_RK4_DT,
-  P_SAFETY, P_QMIN, P_QMAX, P_NEG_BETA1, P_BETA2, P_QOLD_INIT, P_STOP_RHO2,
-  N_CFG = 24
-};
-constexpr int OBJ_STRIDE = 8;   // pos1, pos2, pos3, radius, time, r_in, r_out, half
-constexpr int SMP_STRIDE = 8;   // 7 dense-output weights, then theta
-constexpr int MAX_OBJ = 16;
-constexpr int MAX_SMP = 32;
-constexpr int THREADS = 128;
-enum { KIND_SPHERE = 0, KIND_PLANE = 1, KIND_DISK = 2 };
-enum { R_AS_WRITTEN = 0, R_TEXTBOOK = 1, R_TEXTBOOK_NOFLOOR = 2 };
-
-template <typename T>
-struct Params {
-  T cfg[N_CFG];
-  T obj[MAX_OBJ * OBJ_STRIDE];
-  T smp[MAX_SMP * SMP_STRIDE];
-  int kind[MAX_OBJ];
-};
-
-// NaN-propagating min / max / clip, as torch.minimum, torch.maximum,
-// torch.clamp (and jnp.minimum, jnp.maximum, jnp.clip).
-template <typename T> __device__ __forceinline__ T nmax(T a, T b) {
-  return (a != a || b != b) ? a + b : (a > b ? a : b);
-}
-template <typename T> __device__ __forceinline__ T nmin(T a, T b) {
-  return (a != a || b != b) ? a + b : (a < b ? a : b);
-}
-template <typename T> __device__ __forceinline__ T clip(T x, T lo, T hi) {
-  return nmin(nmax(x, lo), hi);
-}
-template <typename T> __device__ __forceinline__ T sgn(T x) {
-  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
-}
-
-// --------------------------------------------------------------------------
-// Right-hand side: y (8) -> ydot (8), clamped in and out.
-// --------------------------------------------------------------------------
-template <typename T, bool KERR>
-__device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
-                                    const T* yin, T* out) {
-  const T sc = p.cfg[P_STATE_CLAMP], rc = p.cfg[P_RHS_CLAMP];
-  T y[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) y[c] = clip(yin[c], -sc, sc);
-  if constexpr (!KERR) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      out[c] = clip(y[4 + c], -rc, rc);
-      out[4 + c] = T(0);
-    }
-    return;
-  }
-  const T M = p.cfg[P_M], a = p.cfg[P_A], eps2 = p.cfg[P_EPS2];
-  const T xs = y[1], ys = y[2], zs = y[3];
-  const T aa = a * a;
-  // ks_parts
-  const T rho2_raw = xs * xs + ys * ys + zs * zs;
-  const T rho2 = r_mode == R_AS_WRITTEN ? nmax(rho2_raw, aa + eps2)
-                                        : nmax(rho2_raw, eps2);
-  const bool live = rho2_raw >= rho2;
-  const T half = (rho2 - aa) / T(2);
-  T inner = sqrt(aa * zs * zs + half * half);
-  T r, dr_du, dr_dw;
-  if (r_mode == R_AS_WRITTEN) {
-    const T inv_inner = T(1) / inner;
-    const T s = sqrt(rho2 - aa);
-    r = s / T(2) + inner;
-    dr_du = T(0.25) / s + T(0.5) * half * inv_inner;
-    dr_dw = aa * zs * inv_inner;
-  } else {
-    if (r_mode == R_TEXTBOOK) {
-      inner = nmax(inner, p.cfg[P_EPS2_HALF]);
-      r = sqrt(nmax(half + inner, eps2));
-    } else {
-      r = sqrt(half + inner);
-    }
-    const T inv_inner = T(1) / inner;
-    const T inv_2r = T(0.5) / r;
-    dr_du = (T(0.5) + T(0.5) * half * inv_inner) * inv_2r;
-    dr_dw = (aa * zs * inv_inner) * inv_2r;
-  }
-  const T r2 = r * r;
-  const T q = r2 * r2 + aa * zs * zs;
-  const T inv_q = T(1) / q;
-  const T r3 = r * r2;
-  const T two_m = T(2) * M;
-  const T f = two_m * r3 * inv_q;
-  const T df_dr = two_m * r2 * (T(3) * a * a * zs * zs - r2 * r2) * inv_q * inv_q;
-  const T df_dw = T(-4) * M * r3 * a * a * zs * inv_q * inv_q;
-  const T denom = r2 + aa;
-  const T inv_denom = T(1) / denom;
-  const T inv_r = T(1) / r;
-  const T k1 = (r * xs + a * ys) * inv_denom;
-  const T k2 = (r * ys - a * xs) * inv_denom;
-  const T k3 = zs * inv_r;
-  const T du[3] = {live ? T(2) * xs : T(0), live ? T(2) * ys : T(0),
-                   live ? T(2) * zs : T(0)};
-  T df[3], dk[3][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    T r_c = dr_du * du[c];
-    if (c == 2) {
-      r_c = r_c + dr_dw;
-      df[c] = df_dr * r_c + df_dw;
-    } else {
-      df[c] = df_dr * r_c;
-    }
-    const T two_r_rc = T(2) * r * r_c;
-    if (c == 0) {
-      dk[c][0] = (xs * r_c + r - k1 * two_r_rc) * inv_denom;
-      dk[c][1] = (ys * r_c - a - k2 * two_r_rc) * inv_denom;
-    } else if (c == 1) {
-      dk[c][0] = (xs * r_c + a - k1 * two_r_rc) * inv_denom;
-      dk[c][1] = (ys * r_c + r - k2 * two_r_rc) * inv_denom;
-    } else {
-      dk[c][0] = (xs * r_c - k1 * two_r_rc) * inv_denom;
-      dk[c][1] = (ys * r_c - k2 * two_r_rc) * inv_denom;
-    }
-    dk[c][2] = (c == 2 ? (T(1) - k3 * r_c) : -(k3 * r_c)) * inv_r;
-  }
-  const T kappa = T(-1) + k1 * k1 + k2 * k2 + k3 * k3;
-  T d = T(1) + f * kappa;
-  const T dmin = p.cfg[P_DET_MIN];
-  d = d < T(0) ? nmin(d, -dmin) : nmax(d, dmin);
-  const T coef = f / d;
-  // closed-form contraction (geodesic_cm)
-  const T u0 = y[4], u1 = y[5], u2 = y[6], u3 = y[7];
-  const T k[4] = {T(1), k1, k2, k3};
-  const T ku = u0 + k1 * u1 + k2 * u2 + k3 * u3;
-  const T fdot = df[0] * u1 + df[1] * u2 + df[2] * u3;
-  T Dv[3], Ev[3];
-#pragma unroll
-  for (int b = 0; b < 3; ++b) {
-    Dv[b] = u1 * dk[0][b] + u2 * dk[1][b] + u3 * dk[2][b];
-    Ev[b] = u1 * dk[b][0] + u2 * dk[b][1] + u3 * dk[b][2];
-  }
-  const T uD = u1 * Dv[0] + u2 * Dv[1] + u3 * Dv[2];
-  const T half_fdot = T(0.5) * fdot;
-  const T s1 = half_fdot * ku + f * uD;
-  T A[4];
-  A[0] = ku * half_fdot + s1;
-#pragma unroll
-  for (int d_ = 1; d_ < 4; ++d_) {
-    const T C_d = half_fdot * k[d_] + f * Dv[d_ - 1];
-    const T Bu_d = T(0.5) * df[d_ - 1] * ku + f * Ev[d_ - 1];
-    A[d_] = ku * C_d + k[d_] * s1 - ku * Bu_d;
-  }
-  const T kuA = -A[0] + k1 * A[1] + k2 * A[2] + k3 * A[3];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[c] = clip(y[4 + c], -rc, rc);
-  out[4] = clip(A[0] + (-coef) * kuA, -rc, rc);
-#pragma unroll
-  for (int c = 1; c < 4; ++c) out[4 + c] = clip(-A[c] + coef * k[c] * kuA, -rc, rc);
-}
-
-// --------------------------------------------------------------------------
-// Scene event: min over objects of the signed distance, and its derivative.
-// --------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ T object_distance(const Params<T>& p, int i,
-                                             const T* x) {
-  const T* o = &p.obj[i * OBJ_STRIDE];
-  const int kind = p.kind[i];
-  if (kind == KIND_PLANE) return x[0] - o[4];
-  const T dx = x[1] - o[0], dy = x[2] - o[1], dz = x[3] - o[2];
-  if (kind == KIND_SPHERE) {
-    const T r = o[3];
-    return sgn(r) * (dx * dx + dy * dy + dz * dz - r * r);
-  }
-  const T rho2 = dx * dx + dy * dy;
-  return nmax(fabs(dz) - o[7], nmax(rho2 - o[6] * o[6], o[5] * o[5] - rho2));
-}
-
-template <typename T>
-__device__ __forceinline__ T event(const Params<T>& p, int n_obj, const T* x) {
-  T d = object_distance(p, 0, x);
-  for (int i = 1; i < n_obj; ++i) d = nmin(d, object_distance(p, i, x));
-  return d;
-}
-
-// (min or max of a and b, its tangent): half to each side on a tie.
-template <typename T, bool MAX>
-__device__ __forceinline__ void balanced(T a, T da, T b, T db, T& m, T& dm) {
-  m = MAX ? nmax(a, b) : nmin(a, b);
-  const T wa = a == m ? (b == m ? T(0.5) : T(1)) : T(0);
-  const T wb = b == m ? (a == m ? T(0.5) : T(1)) : T(0);
-  dm = da * wa + db * wb;
-}
-
-template <typename T>
-__device__ __forceinline__ void object_jvp(const Params<T>& p, int i,
-                                           const T* x, const T* dx_, T& v,
-                                           T& dv) {
-  const T* o = &p.obj[i * OBJ_STRIDE];
-  const int kind = p.kind[i];
-  if (kind == KIND_PLANE) {
-    v = x[0] - o[4];
-    dv = dx_[0];
-    return;
-  }
-  const T dx = x[1] - o[0], dy = x[2] - o[1], dz = x[3] - o[2];
-  if (kind == KIND_SPHERE) {
-    const T r = o[3], s = sgn(r);
-    v = s * (dx * dx + dy * dy + dz * dz - r * r);
-    dv = s * (T(2) * (dx * dx_[1] + dy * dx_[2] + dz * dx_[3]));
-    return;
-  }
-  const T rho2 = dx * dx + dy * dy;
-  const T drho2 = T(2) * (dx * dx_[1] + dy * dx_[2]);
-  const T slab = fabs(dz) - o[7];
-  const T dslab = dz >= T(0) ? dx_[3] : -dx_[3];
-  T ring, dring;
-  balanced<T, true>(rho2 - o[6] * o[6], drho2, o[5] * o[5] - rho2, -drho2,
-                    ring, dring);
-  balanced<T, true>(slab, dslab, ring, dring, v, dv);
-}
-
-template <typename T>
-__device__ __forceinline__ void event_jvp(const Params<T>& p, int n_obj,
-                                          const T* x, const T* dx, T& v,
-                                          T& dv) {
-  object_jvp(p, 0, x, dx, v, dv);
-  for (int i = 1; i < n_obj; ++i) {
-    T vi, dvi;
-    object_jvp(p, i, x, dx, vi, dvi);
-    balanced<T, false>(v, dv, vi, dvi, v, dv);
-  }
-}
-
-// --------------------------------------------------------------------------
-// Dense output at a per-ray theta (same expressions as ops/integrate.py).
-// --------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ void tsit5_bi(T th, T* b) {
-  const T th2 = th * th;
-  b[0] = T(-1.0530884977290216) * th * (th - T(1.3299890189751412))
-         * (th2 - T(1.4364028541716351) * th + T(0.7139816917074209));
-  b[1] = T(0.1017) * th2 * (th2 - T(2.1966568338249754) * th + T(1.2949852507374631));
-  b[2] = T(2.490627285651252793) * th2
-         * (th2 - T(2.38535645472061657) * th + T(1.57803468208092486));
-  b[3] = T(-16.54810288924490272) * (th - T(1.21712927295533244))
-         * (th - T(0.61620406037800089)) * th2;
-  b[4] = T(47.37952196281928122) * (th - T(1.203071208372362603))
-         * (th - T(0.658047292653547382)) * th2;
-  b[5] = T(-34.87065786149660974) * (th - T(1.2))
-         * (th - T(0.666666666666666667)) * th2;
-  b[6] = T(2.5) * (th - T(1.0)) * (th - T(0.6)) * th2;
-}
-
-template <typename T>
-__device__ __forceinline__ T dcubic(T th, T th2, T dth2, T c, T r1, T r2) {
-  const T pp = th - r1, qq = th - r2;
-  return c * ((qq + pp) * th2 + pp * qq * dth2);
-}
-
-template <typename T>
-__device__ __forceinline__ void tsit5_dbi(T th, T* db) {
-  const T th2 = th * th;
-  const T dth2 = T(2) * th;
-  const T u1 = T(-1.0530884977290216) * th;
-  const T v1 = th - T(1.3299890189751412);
-  const T w1 = th2 - T(1.4364028541716351) * th + T(0.7139816917074209);
-  db[0] = (T(-1.0530884977290216) * v1 + u1) * w1
-          + u1 * v1 * (dth2 - T(1.4364028541716351));
-  const T w2 = th2 - T(2.1966568338249754) * th + T(1.2949852507374631);
-  db[1] = T(0.1017) * (dth2 * w2 + th2 * (dth2 - T(2.1966568338249754)));
-  const T w3 = th2 - T(2.38535645472061657) * th + T(1.57803468208092486);
-  db[2] = T(2.490627285651252793) * (dth2 * w3 + th2 * (dth2 - T(2.38535645472061657)));
-  db[3] = dcubic(th, th2, dth2, T(-16.54810288924490272), T(1.21712927295533244),
-                 T(0.61620406037800089));
-  db[4] = dcubic(th, th2, dth2, T(47.37952196281928122), T(1.203071208372362603),
-                 T(0.658047292653547382));
-  db[5] = dcubic(th, th2, dth2, T(-34.87065786149660974), T(1.2),
-                 T(0.666666666666666667));
-  db[6] = dcubic(th, th2, dth2, T(2.5), T(1.0), T(0.6));
-}
-
-// The step's data that dense output needs.
-template <typename T, bool TSIT5>
-struct StepData {
-  T y0[8];
-  T y1[8];
-  T k[7][8];   // Tsit5 stages k1..k7; RK4 keeps k1 in k[0] and f(y1) in k[6]
-  T dt;
-};
-
-// Dense output at theta on the first ROWS components.
-template <typename T, bool TSIT5, int ROWS>
-__device__ __forceinline__ void interp(const StepData<T, TSIT5>& s, T th,
-                                       T* out) {
-  if constexpr (TSIT5) {
-    T b[7];
-    tsit5_bi(th, b);
-#pragma unroll
-    for (int c = 0; c < ROWS; ++c) {
-      T acc = b[0] * s.k[0][c];
-#pragma unroll
-      for (int j = 1; j < 7; ++j) acc = acc + b[j] * s.k[j][c];
-      out[c] = s.y0[c] + s.dt * acc;
-    }
-  } else {
-    const T dt = s.dt;
-#pragma unroll
-    for (int c = 0; c < ROWS; ++c) {
-      const T y0 = s.y0[c], y1 = s.y1[c], f0 = s.k[0][c], f1 = s.k[6][c];
-      out[c] = (T(1) - th) * y0 + th * y1
-               + th * (th - T(1)) * ((T(1) - T(2) * th) * (y1 - y0)
-                                     + (th - T(1)) * dt * f0 + th * dt * f1);
-    }
-  }
-}
-
-template <typename T, bool TSIT5>
-__device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
-                                        T* out) {
-  if constexpr (TSIT5) {
-    T db[7];
-    tsit5_dbi(th, db);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      T acc = db[0] * s.k[0][c];
-#pragma unroll
-      for (int j = 1; j < 7; ++j) acc = acc + db[j] * s.k[j][c];
-      out[c] = s.dt * acc;
-    }
-  } else {
-    const T dt = s.dt;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const T y0 = s.y0[c], y1 = s.y1[c], f0 = s.k[0][c], f1 = s.k[6][c];
-      const T g = (T(1) - T(2) * th) * (y1 - y0) + (th - T(1)) * dt * f0
-                  + th * dt * f1;
-      const T dg = T(-2) * (y1 - y0) + dt * f0 + dt * f1;
-      out[c] = (y1 - y0) + (T(2) * th - T(1)) * g + th * (th - T(1)) * dg;
-    }
-  }
-}
-
-// Detection sweep at the host-precomputed sample thetas: first crossing
-// bracket [th_lo, th_hi]; returns whether the event crossed this step.
-template <typename T, bool TSIT5>
-__device__ __forceinline__ bool detect(const Params<T>& p, int n_obj, int npts,
-                                       const StepData<T, TSIT5>& s, T& th_lo,
-                                       T& th_hi) {
-  const T d_prev = event(p, n_obj, s.y0);
-  T prev = T(0);
-  for (int j = 0; j < npts; ++j) {
-    const T* w = &p.smp[j * SMP_STRIDE];
-    const T th = w[7];
-    T x[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if constexpr (TSIT5) {
-        T acc = w[0] * s.k[0][c];
-#pragma unroll
-        for (int i = 1; i < 7; ++i) acc = acc + w[i] * s.k[i][c];
-        x[c] = s.y0[c] + s.dt * acc;
-      } else {  // w = (1 - th, th (th - 1), 1 - 2 th, th - 1)
-        const T y0 = s.y0[c], y1 = s.y1[c];
-        x[c] = w[0] * y0 + th * y1
-               + w[1] * (w[2] * (y1 - y0) + w[3] * s.dt * s.k[0][c]
-                         + th * s.dt * s.k[6][c]);
-      }
-    }
-    if (event(p, n_obj, x) <= T(0)) {
-      th_lo = prev;
-      th_hi = th;
-      return d_prev > T(0);
-    }
-    prev = th;
-  }
-  return false;
-}
-
-// Bisection of the bracket, then one clipped Newton step: theta*.
-template <typename T, bool TSIT5>
-__device__ __forceinline__ T localize(const Params<T>& p, int n_obj,
-                                      int bisect_iters,
-                                      const StepData<T, TSIT5>& s, T lo, T hi) {
-  for (int b = 0; b < bisect_iters; ++b) {
-    const T mid = T(0.5) * (lo + hi);
-    T x[4];
-    interp<T, TSIT5, 4>(s, mid, x);
-    if (event(p, n_obj, x) > T(0)) lo = mid; else hi = mid;
-  }
-  const T th0 = hi;
-  T x[4], dx[4], val, dval;
-  interp<T, TSIT5, 4>(s, th0, x);
-  dinterp<T, TSIT5>(s, th0, dx);
-  event_jvp(p, n_obj, x, dx, val, dval);
-  const bool ok = fabs(dval) > T(1e-3) * (T(1) + fabs(val));
-  const T delta = (ok ? val : T(0)) / (ok ? dval : T(1));
-  return clip(th0 - clip(delta, T(-1), T(1)), T(0), T(1));
-}
-
-// Tsitouras 5(4) tableau (ops/integrate.py TS_A, TS_BTILDE).
-#define A_(i, j) T(TS_A_##i##j)
-constexpr double TS_A_00 = 0.161;
-constexpr double TS_A_10 = -0.008480655492356989, TS_A_11 = 0.335480655492357;
-constexpr double TS_A_20 = 2.8971530571054935, TS_A_21 = -6.359448489975075,
-                 TS_A_22 = 4.3622954328695815;
-constexpr double TS_A_30 = 5.325864828439257, TS_A_31 = -11.748883564062828,
-                 TS_A_32 = 7.4955393428898365, TS_A_33 = -0.09249506636175525;
-constexpr double TS_A_40 = 5.86145544294642, TS_A_41 = -12.92096931784711,
-                 TS_A_42 = 8.159367898576159, TS_A_43 = -0.071584973281401,
-                 TS_A_44 = -0.028269050394068383;
-constexpr double TS_A_50 = 0.09646076681806523, TS_A_51 = 0.01,
-                 TS_A_52 = 0.4798896504144996, TS_A_53 = 1.379008574103742,
-                 TS_A_54 = -3.290069515436081, TS_A_55 = 2.324710524099774;
-constexpr double TS_BT0 = -0.00178001105222577714,
-                 TS_BT1 = -0.0008164344596567469, TS_BT2 = 0.007880878010261995,
-                 TS_BT3 = -0.1447110071732629, TS_BT4 = 0.5823571654525552,
-                 TS_BT5 = -0.45808210592918697, TS_BT6 = 0.015151515151515152;
-
-template <typename T, bool KERR>
-__device__ __forceinline__ void tsit5_step(const Params<T>& p, int r_mode,
-                                           StepData<T, true>& s, T* err) {
-  const T dt = s.dt;
-  T yt[8];
-  auto (&k)[7][8] = s.k;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) yt[c] = s.y0[c] + dt * (A_(0, 0) * k[0][c]);
-  rhs<T, KERR>(p, r_mode, yt, k[1]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    yt[c] = s.y0[c] + dt * (A_(1, 0) * k[0][c] + A_(1, 1) * k[1][c]);
-  rhs<T, KERR>(p, r_mode, yt, k[2]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    yt[c] = s.y0[c] + dt * (A_(2, 0) * k[0][c] + A_(2, 1) * k[1][c]
-                            + A_(2, 2) * k[2][c]);
-  rhs<T, KERR>(p, r_mode, yt, k[3]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    yt[c] = s.y0[c] + dt * (A_(3, 0) * k[0][c] + A_(3, 1) * k[1][c]
-                            + A_(3, 2) * k[2][c] + A_(3, 3) * k[3][c]);
-  rhs<T, KERR>(p, r_mode, yt, k[4]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    yt[c] = s.y0[c] + dt * (A_(4, 0) * k[0][c] + A_(4, 1) * k[1][c]
-                            + A_(4, 2) * k[2][c] + A_(4, 3) * k[3][c]
-                            + A_(4, 4) * k[4][c]);
-  rhs<T, KERR>(p, r_mode, yt, k[5]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    s.y1[c] = s.y0[c] + dt * (A_(5, 0) * k[0][c] + A_(5, 1) * k[1][c]
-                              + A_(5, 2) * k[2][c] + A_(5, 3) * k[3][c]
-                              + A_(5, 4) * k[4][c] + A_(5, 5) * k[5][c]);
-  rhs<T, KERR>(p, r_mode, s.y1, k[6]);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    err[c] = dt * (T(TS_BT0) * k[0][c] + T(TS_BT1) * k[1][c]
-                   + T(TS_BT2) * k[2][c] + T(TS_BT3) * k[3][c]
-                   + T(TS_BT4) * k[4][c] + T(TS_BT5) * k[5][c]
-                   + T(TS_BT6) * k[6][c]);
-}
-
-template <typename T, bool KERR>
-__device__ __forceinline__ void rk4_step(const Params<T>& p, int r_mode,
-                                         StepData<T, false>& s) {
-  const T dt = s.dt;
-  T yt[8], k2[8], k3[8], k4[8];
-  const T* k1 = s.k[0];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) yt[c] = s.y0[c] + T(0.5) * dt * k1[c];
-  rhs<T, KERR>(p, r_mode, yt, k2);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) yt[c] = s.y0[c] + T(0.5) * dt * k2[c];
-  rhs<T, KERR>(p, r_mode, yt, k3);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) yt[c] = s.y0[c] + dt * k3[c];
-  rhs<T, KERR>(p, r_mode, yt, k4);
-  const T dt6 = dt / T(6);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    s.y1[c] = s.y0[c] + dt6 * (k1[c] + T(2) * k2[c] + T(2) * k3[c] + k4[c]);
-  rhs<T, KERR>(p, r_mode, s.y1, s.k[6]);
-}
 
 template <typename T, bool KERR, bool TSIT5>
 __global__ void __launch_bounds__(THREADS)

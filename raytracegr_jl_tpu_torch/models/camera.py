@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.geometry import inv4
+from ..utils.device import resolve_device
 
 
 class Canvas(NamedTuple):
@@ -43,7 +44,9 @@ def pixel_rays(metric, pos: torch.Tensor, normal: torch.Tensor):
 
 def pixel_grid(pos, widthx, widthy, normal, ni: int, nj: int,
                dtype=torch.float64, device=None):
-    """Pixel positions and tilted (pre-normalisation) normals, [ni, nj, 4]."""
+    """Pixel positions and tilted (pre-normalisation) normals, [ni, nj, 4],
+    on ``device`` (the CUDA card unless another is named)."""
+    device = resolve_device(device)
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
 
@@ -56,7 +59,9 @@ def pixel_grid(pos, widthx, widthy, normal, ni: int, nj: int,
 
 def make_canvas(metric, pos, widthx, widthy, normal, ni: int, nj: int,
                 dtype=torch.float64, device=None) -> Canvas:
-    """The ni x nj canvas of ray initial conditions."""
+    """The ni x nj canvas of ray initial conditions, on ``device`` (the
+    CUDA card unless another is named)."""
+    device = resolve_device(device)
     x, n = pixel_grid(pos, widthx, widthy, normal, ni, nj, dtype, device)
     x, u = pixel_rays(metric, x, n)
     return Canvas(pos=x, normal=u,

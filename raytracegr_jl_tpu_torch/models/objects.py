@@ -16,6 +16,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..ops.metrics import D
+from ..utils.device import resolve_device
 
 KIND_SPHERE = 0
 KIND_PLANE = 1
@@ -59,7 +60,9 @@ class Scene(NamedTuple):
 
 def make_scene(objects: Sequence[Sphere | Plane | Disk],
                dtype=torch.float64, device=None) -> Scene:
-    """Pack a heterogeneous object list into a Scene."""
+    """Pack a heterogeneous object list into a Scene on ``device`` (the
+    CUDA card unless another is named)."""
+    device = resolve_device(device)
     kind, pos, vel, radius, time = [], [], [], [], []
     r_in, r_out, half = [], [], []
     for obj in objects:
@@ -218,9 +221,12 @@ def min_distance(scene: Scene, s: torch.Tensor) -> torch.Tensor:
     return torch.min(distances(scene, s[..., :D]), dim=-1).values
 
 
-def colors(scene: Scene, x: torch.Tensor, freq: float = 12.0) -> torch.Tensor:
-    """RGB colour of every object at point(s) x: ``[..., 4] -> [..., N, 3]``
-    (the reference's hard checker; floored modulo as ``jnp.mod``)."""
+def colors(scene: Scene, x: torch.Tensor, smooth: bool = False,
+           freq: float = 12.0) -> torch.Tensor:
+    """RGB colour of every object at point(s) x: ``[..., 4] -> [..., N, 3]``:
+    the reference's hard checker (floored modulo as ``jnp.mod``), or with
+    ``smooth`` the same-period wave ``(1 - cos(2 pi t)) / 2`` for inverse
+    rendering. ``freq`` scales the sphere checker (reference 12)."""
     rel = x[..., None, 1:] - scene.pos[:, 1:]
     xx, yy, zz = rel[..., 0], rel[..., 1], rel[..., 2]
     r = torch.sqrt(xx * xx + yy * yy + zz * zz)
@@ -229,6 +235,8 @@ def colors(scene: Scene, x: torch.Tensor, freq: float = 12.0) -> torch.Tensor:
     phi = torch.arctan2(yy, xx)
 
     def wave(v):
+        if smooth:
+            return 0.5 - 0.5 * torch.cos(2 * math.pi * v)
         return torch.remainder(v, 1.0)
 
     sphere_rgb = torch.stack([wave(freq * theta / math.pi),
@@ -259,3 +267,23 @@ def shade(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01) -> torch.Tensor
     col = col * dim[..., None]
     miss = torch.tensor([1.0, 0.0, 0.0], dtype=col.dtype, device=col.device)
     return torch.where(hit_any[..., None], col, miss)
+
+
+def shade_soft(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
+               temp: float = 0.05, smooth_colors: bool = True,
+               color_freq: float = 12.0) -> torch.Tensor:
+    """Differentiable shading, a smooth relaxation of ``shade``: object
+    selection by a softmin over distances (softmax of -d/temp), the hit
+    decision by sigmoid((hit_dmin - softmin d)/temp). Recovers ``shade``
+    as temp -> 0."""
+    d = distances(scene, x)
+    n = scene.n_objects
+    w = torch.softmax(-d / temp, dim=-1)
+    dim = (torch.arange(n, dtype=d.dtype, device=d.device) + 1) / n
+    col = colors(scene, x, smooth=smooth_colors,
+                 freq=color_freq) * dim[:, None]
+    obj_col = torch.einsum("...n,...nc->...c", w, col)
+    softmin_d = -temp * torch.logsumexp(-d / temp, dim=-1)
+    p_hit = torch.sigmoid((hit_dmin - softmin_d) / temp)
+    miss = torch.tensor([1.0, 0.0, 0.0], dtype=col.dtype, device=col.device)
+    return p_hit[..., None] * obj_col + (1 - p_hit[..., None]) * miss

@@ -12,6 +12,7 @@ from ..models.camera import Canvas, make_canvas
 from ..models.objects import Disk, Plane, Sphere, make_scene
 from ..ops.metrics import KerrSchildParams, make_metric
 from ..render import IntegratorConfig, RenderConfig, default_tol, trace_rays
+from ..utils.device import resolve_device
 
 
 class SceneSpec(NamedTuple):
@@ -95,7 +96,9 @@ def accretion_disk_spec(ni: int = 1024, nj: int = 1024, M: float = 1.0,
 
 
 def build(spec: SceneSpec, dtype=torch.float64, device=None):
-    """Materialize (metric, scene, canvas) from a spec on ``device``."""
+    """Materialize (metric, scene, canvas) from a spec on ``device`` (the
+    CUDA card unless another is named; without a card that raises)."""
+    device = resolve_device(device)
     metric = make_metric(spec.metric_name, spec.metric_params,
                          r_formula=spec.r_formula)
     scene = make_scene(spec.objects, dtype=dtype, device=device)

@@ -1,0 +1,809 @@
+"""The checkpointed adjoint of the geodesic integration: the differentiable
+path of the port, with K3 (forward segment) and K4 (fused backward replay)
+as CUDA kernels (csrc/adjoint.cu) beside their plain PyTorch versions.
+
+Counterpart of raytracegr_jl_tpu/ops/adjoint.py (``integrate_rays_cm_ckpt``)
+and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
+``integrate_rays_cm_ckpt_pallas``):
+
+* forward: the ``make_step_cm`` body runs in segments of ``seg_len`` steps,
+  one checkpoint of the 13-field state per segment, and stops early once no
+  ray is active;
+* backward: the segments in reverse, each replayed from its checkpoint, and
+  the cotangents pushed back through each step by a hand-written adjoint
+  (``step_vjp``, ``rhs_vjp``), the same in PyTorch and in K4;
+* after the loop, the dead-ray cutoff and ``localize_events_cm`` in plain
+  PyTorch autograd, which carry the event and object gradients.
+
+Which state carries a cotangent follows from the body. ``y``, ``k1`` and
+``ev_y0`` do. ``dt_try`` is detached, so ``dt``, ``err_old`` and the
+controller carry none; ``lam``, ``ev_lam`` and ``ev_dt`` are sums of
+detached steps; the masks (``do``, ``fin``, ``hit_now``) route cotangents
+and take none; detection only decides masks, so the object fields get no
+cotangent inside the loop. The loop's parameter cotangents are therefore
+those of M and a alone, summed per ray (``[B, 2]``) and then over rays with
+one ``torch.sum``, so that the kernel and the plain version can be compared
+bitwise and the sum is deterministic.
+
+The state is packed into ``[34, B]`` planes of the working type (layout
+below); the checkpoint buffer is ``[n_seg + 1, 34, B]``: the state at the
+start of each segment run, then the final state.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..models.objects import Scene
+from .geodesic_cm import (OBJ_FIELDS, StepState, _check_options,
+                          check_kernel_config, geodesic_cm, kernel_params,
+                          kernel_r_mode, localize_events_cm, make_step_cm,
+                          scene_event_cm)
+from .geometry import det_min, sanitize_bounds
+from .integrate import TS_A, IntegratorConfig, TraceResult
+from .metrics import KerrSchildParams, Metric
+
+# Plane layout of the packed state (csrc/adjoint.cu, enum Plane).
+P_Y, P_LAM, P_DT, P_K1, P_ACTIVE, P_HIT, P_STEPS, P_ERR_OLD = (0, 8, 9, 10,
+                                                               18, 19, 20, 21)
+P_EV_Y0, P_EV_DT, P_EV_LAM, P_EV_LO, P_EV_HI = 22, 30, 31, 32, 33
+N_PLANES = 34
+# Longest segment K4 replays: it keeps each step of a segment in local
+# memory (csrc/adjoint.cu MAX_SEG).
+MAX_SEG = 32
+
+
+def pack_state(st: StepState) -> torch.Tensor:
+    """``StepState -> [34, B]`` in the working type (masks as 0/1)."""
+    dt = st.dt
+    row = lambda v: v.to(dt.dtype)[None]  # noqa: E731
+    return torch.cat([st.y, row(st.lam), row(dt), st.k1, row(st.active),
+                      row(st.hit), row(st.steps), row(st.err_old), st.ev_y0,
+                      row(st.ev_dt), row(st.ev_lam), row(st.ev_lo),
+                      row(st.ev_hi)])
+
+
+def unpack_state(P: torch.Tensor) -> StepState:
+    """``[34, B] -> StepState`` (``steps`` stays in the working type)."""
+    return StepState(
+        y=P[P_Y:P_Y + 8], lam=P[P_LAM], dt=P[P_DT], k1=P[P_K1:P_K1 + 8],
+        active=P[P_ACTIVE] > 0, hit=P[P_HIT] > 0, steps=P[P_STEPS],
+        err_old=P[P_ERR_OLD], ev_y0=P[P_EV_Y0:P_EV_Y0 + 8], ev_dt=P[P_EV_DT],
+        ev_lam=P[P_EV_LAM], ev_lo=P[P_EV_LO], ev_hi=P[P_EV_HI])
+
+
+def flatten_params(metric: Metric, scene: Scene) -> torch.Tensor:
+    """``pvec [P]``: M, a, then 8 fields per object in ``OBJ_FIELDS``
+    order, stacked so that gradients flow back to each."""
+    like = scene.pos
+    as_t = lambda v: torch.as_tensor(v, dtype=like.dtype,  # noqa: E731
+                                     device=like.device)
+    parts = [as_t(metric.params.M), as_t(metric.params.a)]
+    for i in range(scene.n_objects):
+        parts += [scene.pos[i, 1], scene.pos[i, 2], scene.pos[i, 3]]
+        parts += [getattr(scene, f)[i] for f in OBJ_FIELDS[3:]]
+    return torch.stack(parts)
+
+
+def segment_length(cfg: IntegratorConfig, seg_len: int | None) -> int:
+    """The JAX rule: at most ``max_steps``, shrunk until it divides
+    ``max_steps`` (so the segments run exactly ``max_steps`` steps)."""
+    seg_len = max(1, min(8 if seg_len is None else seg_len, cfg.max_steps))
+    while cfg.max_steps % seg_len:
+        seg_len -= 1
+    return seg_len
+
+
+# ---------------------------------------------------------------------------
+# The hand-written adjoint of one step (plain version of K4's arithmetic)
+#
+# Ties follow JAX's rule: the derivative of max(x, b) or min(x, b) is split
+# half and half where x == b, so a clip at exactly its bound passes half the
+# cotangent. (torch.clamp would pass all of it.) Every expression below is
+# written out as csrc/adjoint.cu writes it, in the same order.
+# ---------------------------------------------------------------------------
+
+class AdjParams(NamedTuple):
+    """What the adjoint reads: the metric (whose RHS the stages use), M and
+    a as 0-d tensors of the working type, the radius formula's mode (csrc
+    R_*), the metric's kind and the bounds."""
+
+    metric: Metric
+    M: torch.Tensor
+    a: torch.Tensor
+    eps2: float
+    eps2_half: float
+    state_clamp: float
+    rhs_clamp: float
+    det_min: float
+    r_mode: int
+    kerr: bool
+
+
+def adj_params(metric: Metric, dtype, device) -> AdjParams:
+    sc, rc = sanitize_bounds(dtype)
+    eps2 = metric.rho_min * metric.rho_min
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype,  # noqa: E731
+                                     device=device).detach()
+    return AdjParams(metric=metric, M=as_t(metric.params.M),
+                     a=as_t(metric.params.a), eps2=eps2, eps2_half=eps2 / 2,
+                     state_clamp=sc, rhs_clamp=rc, det_min=det_min(dtype),
+                     r_mode=kernel_r_mode(metric),
+                     kerr=metric.name == "kerr_schild")
+
+
+def _w_clip(x, lo, hi):
+    """d clip(x, lo, hi)/dx: 1 inside, 1/2 on a bound, 0 outside or NaN."""
+    one = torch.ones_like(x)
+    return torch.where((x > lo) & (x < hi), one,
+                       torch.where((x == lo) | (x == hi), 0.5 * one,
+                                   torch.zeros_like(x)))
+
+
+def _w_max(x, b):
+    """d max(x, b)/dx: 1 above, 1/2 on a tie, 0 below or NaN."""
+    one = torch.ones_like(x)
+    return torch.where(x > b, one, torch.where(x == b, 0.5 * one,
+                                               torch.zeros_like(x)))
+
+
+def rhs_vjp(p: AdjParams, yin: torch.Tensor, ct: torch.Tensor):
+    """Reverse mode of ``geodesic_cm``: ``(yin [8, B], ct [8, B]) ->
+    (ct_yin [8, B], ct_M [B], ct_a [B])``. Recomputes the forward
+    intermediates, then runs their adjoint in reverse order through the
+    output clip, the contraction, ``coef``'s det clamp, ``ks_parts`` and the
+    radius formula, the rho2 clamp and the input clip."""
+    sc, rc = p.state_clamp, p.rhs_clamp
+    w_in = _w_clip(yin, -sc, sc)
+    y = torch.clamp(yin, -sc, sc)
+    zero = torch.zeros_like(y[0])
+    if not p.kerr:
+        g = ct[:4] * _w_clip(y[4:], -rc, rc)
+        return (torch.cat([torch.zeros_like(g), g]) * w_in, zero, zero)
+
+    # -- forward (csrc rhs) --
+    M, a = p.M, p.a
+    xs, ys, zs = y[1], y[2], y[3]
+    u0, u1, u2, u3 = y[4], y[5], y[6], y[7]
+    uu = (u1, u2, u3)
+    xyz = (xs, ys, zs)
+    aa = a * a
+    rho2_raw = xs * xs + ys * ys + zs * zs
+    bound = aa + p.eps2 if p.r_mode == 0 else torch.full_like(xs, p.eps2)
+    rho2 = torch.maximum(rho2_raw, bound)
+    w_rho = _w_max(rho2_raw, bound)
+    live = rho2_raw >= rho2
+    half = (rho2 - aa) / 2
+    inner0 = torch.sqrt(aa * zs * zs + half * half)
+    if p.r_mode == 0:
+        inv_inner = 1.0 / inner0
+        s = torch.sqrt(rho2 - aa)
+        r = s / 2 + inner0
+        dr_du = 0.25 / s + 0.5 * half * inv_inner
+        dr_dw = aa * zs * inv_inner
+    else:
+        if p.r_mode == 1:
+            inner = torch.clamp_min(inner0, p.eps2_half)
+            w_inner = _w_max(inner0, p.eps2_half)
+            v = half + inner
+            w_v = _w_max(v, p.eps2)
+            r = torch.sqrt(torch.clamp_min(v, p.eps2))
+        else:
+            inner = inner0
+            r = torch.sqrt(half + inner)
+        inv_inner = 1.0 / inner
+        inv_2r = 0.5 / r
+        dr_du = (0.5 + 0.5 * half * inv_inner) * inv_2r
+        dr_dw = (aa * zs * inv_inner) * inv_2r
+    r2 = r * r
+    q = r2 * r2 + aa * zs * zs
+    inv_q = 1.0 / q
+    r3 = r * r2
+    two_m = 2 * M
+    f = two_m * r3 * inv_q
+    t3 = 3 * a * a * zs * zs - r2 * r2
+    df_dr = two_m * r2 * t3 * inv_q * inv_q
+    df_dw = -4 * M * r3 * a * a * zs * inv_q * inv_q
+    denom = r2 + aa
+    inv_denom = 1.0 / denom
+    inv_r = 1.0 / r
+    k1 = (r * xs + a * ys) * inv_denom
+    k2 = (r * ys - a * xs) * inv_denom
+    k3 = zs * inv_r
+    k = (None, k1, k2, k3)
+    du = [torch.where(live, 2 * v_, zero) for v_ in xyz]
+    r_c, df, two_r_rc, n0, n1, n2, dk = [], [], [], [], [], [], []
+    for c in range(3):
+        rc_ = dr_du * du[c]
+        if c == 2:
+            rc_ = rc_ + dr_dw
+            df.append(df_dr * rc_ + df_dw)
+        else:
+            df.append(df_dr * rc_)
+        trc = 2 * r * rc_
+        if c == 0:
+            a0 = xs * rc_ + r - k1 * trc
+            a1 = ys * rc_ - a - k2 * trc
+        elif c == 1:
+            a0 = xs * rc_ + a - k1 * trc
+            a1 = ys * rc_ + r - k2 * trc
+        else:
+            a0 = xs * rc_ - k1 * trc
+            a1 = ys * rc_ - k2 * trc
+        a2 = (1.0 - k3 * rc_) if c == 2 else -(k3 * rc_)
+        r_c.append(rc_), two_r_rc.append(trc)
+        n0.append(a0), n1.append(a1), n2.append(a2)
+        dk.append([a0 * inv_denom, a1 * inv_denom, a2 * inv_r])
+    kappa = -1.0 + k1 * k1 + k2 * k2 + k3 * k3
+    d_raw = 1 + f * kappa
+    neg = d_raw < 0
+    d = torch.where(neg, torch.clamp_max(d_raw, -p.det_min),
+                    torch.clamp_min(d_raw, p.det_min))
+    w_d = torch.where(neg, _w_max(-d_raw, p.det_min),
+                      _w_max(d_raw, p.det_min))
+    coef = f / d
+    ku = u0 + k1 * u1 + k2 * u2 + k3 * u3
+    fdot = df[0] * u1 + df[1] * u2 + df[2] * u3
+    Dv = [u1 * dk[0][b] + u2 * dk[1][b] + u3 * dk[2][b] for b in range(3)]
+    Ev = [u1 * dk[b][0] + u2 * dk[b][1] + u3 * dk[b][2] for b in range(3)]
+    uD = u1 * Dv[0] + u2 * Dv[1] + u3 * Dv[2]
+    half_fdot = 0.5 * fdot
+    s1 = half_fdot * ku + f * uD
+    A = [ku * half_fdot + s1]
+    C, Bu = [None], [None]
+    for d_ in (1, 2, 3):
+        C.append(half_fdot * k[d_] + f * Dv[d_ - 1])
+        Bu.append(0.5 * df[d_ - 1] * ku + f * Ev[d_ - 1])
+        A.append(ku * C[d_] + k[d_] * s1 - ku * Bu[d_])
+    kuA = -A[0] + k1 * A[1] + k2 * A[2] + k3 * A[3]
+    out4 = A[0] + (-coef) * kuA
+    outs = [-A[c] + coef * k[c] * kuA for c in (1, 2, 3)]
+
+    # -- reverse --
+    gu = [ct[c] * _w_clip(y[4 + c], -rc, rc) for c in range(4)]
+    g4 = ct[4] * _w_clip(out4, -rc, rc)
+    ub = list(gu)  # cotangents of u0..u3
+    kuAb = (-coef) * g4
+    coefb = -(kuA * g4)
+    Ab = [g4]
+    kb = [None]
+    for c in (1, 2, 3):
+        gg = ct[4 + c] * _w_clip(outs[c - 1], -rc, rc)
+        Ab.append(-gg)
+        t = coef * k[c]
+        tb = kuA * gg
+        kuAb = kuAb + t * gg
+        coefb = coefb + k[c] * tb
+        kb.append(coef * tb)
+    Ab[0] = Ab[0] - kuAb
+    for c in (1, 2, 3):
+        Ab[c] = Ab[c] + k[c] * kuAb
+        kb[c] = kb[c] + A[c] * kuAb
+    kub = zero
+    s1b = zero
+    Cb, Bub = [None], [None]
+    for d_ in (1, 2, 3):
+        kub = kub + C[d_] * Ab[d_] - Bu[d_] * Ab[d_]
+        Cb.append(ku * Ab[d_])
+        kb[d_] = kb[d_] + s1 * Ab[d_]
+        s1b = s1b + k[d_] * Ab[d_]
+        Bub.append(-(ku * Ab[d_]))
+    dfb, Evb, Dvb = [], [], []
+    fb = zero
+    for d_ in (1, 2, 3):
+        dfb.append(0.5 * ku * Bub[d_])
+        kub = kub + 0.5 * df[d_ - 1] * Bub[d_]
+        fb = fb + Ev[d_ - 1] * Bub[d_]
+        Evb.append(f * Bub[d_])
+    hfb = zero
+    for d_ in (1, 2, 3):
+        hfb = hfb + k[d_] * Cb[d_]
+        kb[d_] = kb[d_] + half_fdot * Cb[d_]
+        fb = fb + Dv[d_ - 1] * Cb[d_]
+        Dvb.append(f * Cb[d_])
+    kub = kub + half_fdot * Ab[0]
+    hfb = hfb + ku * Ab[0]
+    s1b = s1b + Ab[0]
+    hfb = hfb + ku * s1b
+    kub = kub + half_fdot * s1b
+    fb = fb + uD * s1b
+    uDb = f * s1b
+    fdotb = 0.5 * hfb
+    for b in range(3):
+        ub[b + 1] = ub[b + 1] + Dv[b] * uDb
+        Dvb[b] = Dvb[b] + uu[b] * uDb
+    dkb = [[None] * 3 for _ in range(3)]
+    for b in range(3):
+        for c in range(3):
+            ub[c + 1] = ub[c + 1] + dk[b][c] * Evb[b]
+            dkb[b][c] = uu[c] * Evb[b]
+    for b in range(3):
+        for c in range(3):
+            ub[c + 1] = ub[c + 1] + dk[c][b] * Dvb[b]
+            dkb[c][b] = dkb[c][b] + uu[c] * Dvb[b]
+    for c in range(3):
+        dfb[c] = dfb[c] + uu[c] * fdotb
+        ub[c + 1] = ub[c + 1] + df[c] * fdotb
+    ub[0] = ub[0] + kub
+    for c in (1, 2, 3):
+        ub[c] = ub[c] + k[c] * kub
+        kb[c] = kb[c] + y[4 + c] * kub
+    fb = fb + coefb / d
+    db = -(coefb * coef) / d
+    drawb = w_d * db
+    fb = fb + kappa * drawb
+    kappab = f * drawb
+    for c in (1, 2, 3):
+        kb[c] = kb[c] + 2 * k[c] * kappab
+
+    xb = [zero, zero, zero]
+    rb = zero
+    ab = zero
+    aab = zero
+    inv_denomb = zero
+    inv_rb = zero
+    df_drb = zero
+    df_dwb = zero
+    dr_dub = zero
+    dr_dwb = zero
+    for c in range(3):
+        n0b = inv_denom * dkb[c][0]
+        inv_denomb = inv_denomb + n0[c] * dkb[c][0]
+        n1b = inv_denom * dkb[c][1]
+        inv_denomb = inv_denomb + n1[c] * dkb[c][1]
+        n2b = inv_r * dkb[c][2]
+        inv_rb = inv_rb + n2[c] * dkb[c][2]
+        xb[0] = xb[0] + r_c[c] * n0b
+        xb[1] = xb[1] + r_c[c] * n1b
+        rcb = xs * n0b + ys * n1b
+        if c == 0:
+            rb = rb + n0b
+            ab = ab - n1b
+        elif c == 1:
+            ab = ab + n0b
+            rb = rb + n1b
+        kb[1] = kb[1] - two_r_rc[c] * n0b
+        kb[2] = kb[2] - two_r_rc[c] * n1b
+        trb = -(k1 * n0b) - k2 * n1b
+        kb[3] = kb[3] - r_c[c] * n2b
+        rcb = rcb - k3 * n2b
+        rb = rb + 2 * r_c[c] * trb
+        rcb = rcb + 2 * r * trb
+        df_drb = df_drb + r_c[c] * dfb[c]
+        rcb = rcb + df_dr * dfb[c]
+        if c == 2:
+            df_dwb = df_dwb + dfb[2]
+            dr_dwb = dr_dwb + rcb
+        dr_dub = dr_dub + du[c] * rcb
+        dub = dr_du * rcb
+        xb[c] = xb[c] + torch.where(live, 2 * dub, zero)
+    # k3 = zs / r, k2 and k1 over denom
+    xb[2] = xb[2] + inv_r * kb[3]
+    inv_rb = inv_rb + zs * kb[3]
+    nb = inv_denom * kb[2]
+    inv_denomb = inv_denomb + (r * ys - a * xs) * kb[2]
+    rb = rb + ys * nb
+    xb[1] = xb[1] + r * nb
+    ab = ab - xs * nb
+    xb[0] = xb[0] - a * nb
+    nb = inv_denom * kb[1]
+    inv_denomb = inv_denomb + (r * xs + a * ys) * kb[1]
+    rb = rb + xs * nb
+    xb[0] = xb[0] + r * nb
+    ab = ab + ys * nb
+    xb[1] = xb[1] + a * nb
+    rb = rb - inv_r * inv_r * inv_rb
+    denomb = -(inv_denom * inv_denom * inv_denomb)
+    r2b = denomb
+    aab = aab + denomb
+    # df_dw = -4 M r3 a a zs iq iq
+    iq2 = inv_q * inv_q
+    e = -4 * df_dwb
+    Mb = r3 * aa * zs * iq2 * e
+    r3b = M * aa * zs * iq2 * e
+    ab = ab + 2 * M * r3 * a * zs * iq2 * e
+    xb[2] = xb[2] + M * r3 * aa * iq2 * e
+    inv_qb = 2 * M * r3 * aa * zs * inv_q * e
+    # df_dr = two_m r2 t3 iq iq
+    two_mb = r2 * t3 * iq2 * df_drb
+    r2b = r2b + two_m * t3 * iq2 * df_drb
+    t3b = two_m * r2 * iq2 * df_drb
+    inv_qb = inv_qb + 2 * two_m * r2 * t3 * inv_q * df_drb
+    ab = ab + 6 * a * zs * zs * t3b
+    xb[2] = xb[2] + 6 * aa * zs * t3b
+    r2b = r2b - 2 * r2 * t3b
+    # f = two_m r3 iq
+    two_mb = two_mb + r3 * inv_q * fb
+    r3b = r3b + two_m * inv_q * fb
+    inv_qb = inv_qb + two_m * r3 * fb
+    Mb = Mb + 2 * two_mb
+    rb = rb + r2 * r3b
+    r2b = r2b + r * r3b
+    qb = -(inv_q * inv_q * inv_qb)
+    r2b = r2b + 2 * r2 * qb
+    aab = aab + zs * zs * qb
+    xb[2] = xb[2] + 2 * aa * zs * qb
+    rb = rb + 2 * r * r2b
+    # radius
+    rho2b = zero
+    if p.r_mode == 0:
+        sb = 0.5 * rb - (0.25 * dr_dub) / (s * s)
+        halfb = 0.5 * inv_inner * dr_dub
+        inv_innerb = 0.5 * half * dr_dub + aa * zs * dr_dwb
+        aab = aab + zs * inv_inner * dr_dwb
+        xb[2] = xb[2] + aa * inv_inner * dr_dwb
+        inner0b = rb - inv_inner * inv_inner * inv_innerb
+        sqb = (0.5 * sb) / s
+        rho2b = rho2b + sqb
+        aab = aab - sqb
+    else:
+        inv_2rb = ((0.5 + 0.5 * half * inv_inner) * dr_dub
+                   + aa * zs * inv_inner * dr_dwb)
+        halfb = 0.5 * inv_inner * inv_2r * dr_dub
+        m = inv_2r * dr_dwb
+        aab = aab + zs * inv_inner * m
+        xb[2] = xb[2] + aa * inv_inner * m
+        inv_innerb = 0.5 * half * inv_2r * dr_dub + aa * zs * m
+        rb = rb - 2 * inv_2r * inv_2r * inv_2rb
+        vb = inv_2r * rb
+        if p.r_mode == 1:
+            vb = w_v * vb
+        halfb = halfb + vb
+        innerb = vb - inv_inner * inv_inner * inv_innerb
+        inner0b = w_inner * innerb if p.r_mode == 1 else innerb
+    # inner0 = sqrt(aa zs zs + half half); no cotangent where it is clamped
+    wb = torch.where(inner0b == 0, zero, (0.5 * inner0b) / inner0)
+    aab = aab + zs * zs * wb
+    xb[2] = xb[2] + 2 * aa * zs * wb
+    halfb = halfb + 2 * half * wb
+    rho2b = rho2b + 0.5 * halfb
+    aab = aab - 0.5 * halfb
+    rawb = w_rho * rho2b
+    if p.r_mode == 0:
+        aab = aab + (1 - w_rho) * rho2b
+    for c in range(3):
+        xb[c] = xb[c] + 2 * xyz[c] * rawb
+    ab = ab + 2 * a * aab
+    ct_y = torch.stack([zero] + xb + ub) * w_in
+    return ct_y, Mb, ab
+
+
+def _stage_input(y, dt, ks, row):
+    """``y + dt * sum_j TS_A[row][j] k_j``, as ``_tsit5_step_cm`` adds."""
+    coeffs = TS_A[row]
+    acc = coeffs[0] * ks[0]
+    for c_, k_ in zip(coeffs[1:], ks[1:]):
+        acc = acc + c_ * k_
+    return y + dt * acc
+
+
+def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k):
+    """Reverse mode of one accepted step ``(y, k1) -> (y_new, k_last)`` at
+    the (detached) step ``dt``: ``(ct_y_new, ct_k_last) -> (ct_y, ct_k1,
+    ct_M [B], ct_a [B])``. The stages are recomputed from ``(y, k1, dt)``.
+    The error estimate feeds only the controller and the masks, so it
+    takes no cotangent."""
+    rhs = lambda s: geodesic_cm(p.metric, s)  # noqa: E731
+    if tsit5:
+        ks = [k1]
+        for row in range(5):
+            ks.append(rhs(_stage_input(y, dt, ks, row)))
+        y5 = _stage_input(y, dt, ks, 5)
+        g, gM, ga = rhs_vjp(p, y5, ct_k)
+        b = ct_y + g
+        yb = b
+        sb = dt * b
+        kb = [TS_A[5][j] * sb for j in range(6)]
+        for m in range(5, 0, -1):
+            g, dM, da = rhs_vjp(p, _stage_input(y, dt, ks, m - 1), kb[m])
+            gM = gM + dM
+            ga = ga + da
+            yb = yb + g
+            sb = dt * g
+            for j in range(m):
+                kb[j] = kb[j] + TS_A[m - 1][j] * sb
+        return yb, kb[0], gM, ga
+    z2 = y + 0.5 * dt * k1
+    k2 = rhs(z2)
+    z3 = y + 0.5 * dt * k2
+    k3 = rhs(z3)
+    z4 = y + dt * k3
+    k4 = rhs(z4)
+    dt6 = dt / dt.new_tensor(6.0)
+    y1 = y + dt6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    g, gM, ga = rhs_vjp(p, y1, ct_k)
+    b = ct_y + g
+    yb = b
+    sb = dt6 * b
+    k1b = sb
+    k2b = 2 * sb
+    k3b = 2 * sb
+    g, dM, da = rhs_vjp(p, z4, sb)
+    gM, ga = gM + dM, ga + da
+    yb = yb + g
+    k3b = k3b + dt * g
+    g, dM, da = rhs_vjp(p, z3, k3b)
+    gM, ga = gM + dM, ga + da
+    yb = yb + g
+    k2b = k2b + 0.5 * dt * g
+    g, dM, da = rhs_vjp(p, z2, k2b)
+    gM, ga = gM + dM, ga + da
+    yb = yb + g
+    k1b = k1b + 0.5 * dt * g
+    return yb, k1b, gM, ga
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+class Route(NamedTuple):
+    """Everything a segment run and its adjoint need besides the state."""
+
+    metric: Metric  # parameters detached
+    scene: Scene  # detached
+    cfg: IntegratorConfig
+    seg_len: int
+    n_seg: int
+    cuda: bool
+
+
+def forward_segment(route: Route, P: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: ``seg_len`` steps of the body on a packed state
+    ``[34, B]``."""
+    _, body = make_step_cm(route.metric, scene_event_cm(route.scene),
+                           route.cfg)
+    st = unpack_state(P)
+    for _ in range(route.seg_len):
+        st, _ = body(st)
+    return pack_state(st)
+
+
+def backward_plain(route: Route, ck: torch.Tensor, n_used: int,
+                   ct: torch.Tensor):
+    """Plain version of K4: ``(checkpoints, n_used, ct of the final state
+    [34, B]) -> (ct of the initial state [34, B], per-ray (M, a) cotangents
+    [B, 2])``. Segments in reverse; each is replayed from its checkpoint
+    and its accepted steps are walked back with ``step_vjp``. A ray's
+    non-stepping iterations are the identity; where-masks keep them so."""
+    p = adj_params(route.metric, ck.dtype, ck.device)
+    tsit5 = route.cfg.method == "tsit5"
+    _, body = make_step_cm(route.metric, scene_event_cm(route.scene),
+                           route.cfg)
+    ct_y = ct[P_Y:P_Y + 8]
+    ct_k = ct[P_K1:P_K1 + 8]
+    ct_ev = ct[P_EV_Y0:P_EV_Y0 + 8]
+    B = ck.shape[2]
+    pM = torch.zeros(B, dtype=ck.dtype, device=ck.device)
+    pa = torch.zeros_like(pM)
+    for s in range(n_used - 1, -1, -1):
+        st = unpack_state(ck[s])
+        recs = []
+        for _ in range(route.seg_len):
+            nxt, rec = body(st)
+            recs.append((st.y, st.k1, rec))
+            st = nxt
+        for y, k1, rec in reversed(recs):
+            yb, kb, gM, ga = step_vjp(p, tsit5, y, k1, rec.dt_try, ct_y, ct_k)
+            yb = torch.where(rec.hit_now, yb + ct_ev, yb)
+            ct_ev = torch.where(rec.hit_now, torch.zeros_like(ct_ev), ct_ev)
+            ct_y = torch.where(rec.do, yb, ct_y)
+            ct_k = torch.where(rec.do, kb, ct_k)
+            pM = torch.where(rec.do, pM + gM, pM)
+            pa = torch.where(rec.do, pa + ga, pa)
+    ct0 = torch.zeros_like(ct)
+    ct0[P_Y:P_Y + 8] = ct_y
+    ct0[P_K1:P_K1 + 8] = ct_k
+    ct0[P_EV_Y0:P_EV_Y0 + 8] = ct_ev
+    return ct0, torch.stack([pM, pa], dim=1)
+
+
+def _check_kernel_inputs(route: Route, t: torch.Tensor) -> None:
+    check_kernel_config(route.metric, route.scene, route.cfg)
+    if not 0 < route.seg_len <= MAX_SEG:
+        raise ValueError(f"K4 replays segments of at most {MAX_SEG} steps, "
+                         f"got {route.seg_len}")
+    if t.device.type != "cuda":
+        raise ValueError(f"K3 and K4 need CUDA tensors, got {t.device}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {t.dtype}")
+
+
+def launch_args(route: Route, like: torch.Tensor):
+    """K3's and K4's parameter block and kinds on the card, and their int
+    flags: built once per pass (building them syncs with the host)."""
+    _check_kernel_inputs(route, like)
+    prm = torch.tensor(kernel_params(route.metric, route.scene, route.cfg,
+                                     like.dtype), dtype=like.dtype,
+                       device=like.device)
+    kinds = torch.tensor([int(k) for k in route.scene.kind.tolist()],
+                         dtype=torch.int32, device=like.device)
+    return prm, kinds, (int(route.metric.name == "kerr_schild"),
+                        int(route.cfg.method == "tsit5"),
+                        kernel_r_mode(route.metric), kinds.shape[0],
+                        int(route.cfg.interp_points))
+
+
+def _lib():
+    from ..utils import cuda_build
+    return cuda_build.load("adjoint")
+
+
+def forward_segment_cuda(route: Route, P_in: torch.Tensor,
+                         P_out: torch.Tensor, args=None) -> None:
+    """K3: ``seg_len`` steps of every ray of ``P_in [34, B]`` into
+    ``P_out``, on the card; ``args`` from ``launch_args`` (built here if
+    not given). Adds one to ``forward_segment_cuda.launches`` per
+    launch."""
+    if P_in.device.type != "cuda":
+        raise ValueError(f"K3 needs CUDA tensors, got {P_in.device}")
+    prm, kinds, flags = args if args is not None else launch_args(route,
+                                                                  P_in)
+    B = P_in.shape[1]
+    fn = _lib().rtgr_k3_f32 if P_in.dtype == torch.float32 else \
+        _lib().rtgr_k3_f64
+    with torch.cuda.device(P_in.device):
+        rc = fn(ctypes.c_void_p(P_in.data_ptr()),
+                ctypes.c_void_p(P_out.data_ptr()),
+                ctypes.c_void_p(prm.data_ptr()),
+                ctypes.c_void_p(kinds.data_ptr()), B, *flags,
+                route.seg_len,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+    forward_segment_cuda.launches += 1
+
+
+forward_segment_cuda.launches = 0
+
+
+def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
+                  ct: torch.Tensor, args=None):
+    """K4: the whole backward pass in one launch, one thread per ray; the
+    same contract as ``backward_plain``; ``args`` as for K3. Adds one to
+    ``backward_cuda.launches`` per launch."""
+    if ck.device.type != "cuda":
+        raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
+    prm, kinds, flags = args if args is not None else launch_args(route, ck)
+    B = ck.shape[2]
+    ct = ct.contiguous()
+    ct0 = torch.zeros_like(ct)
+    pbar = torch.empty((B, 2), dtype=ck.dtype, device=ck.device)
+    fn = _lib().rtgr_k4_f32 if ck.dtype == torch.float32 else \
+        _lib().rtgr_k4_f64
+    with torch.cuda.device(ck.device):
+        rc = fn(ctypes.c_void_p(ck.data_ptr()), n_used,
+                ctypes.c_void_p(ct.data_ptr()),
+                ctypes.c_void_p(ct0.data_ptr()),
+                ctypes.c_void_p(pbar.data_ptr()),
+                ctypes.c_void_p(prm.data_ptr()),
+                ctypes.c_void_p(kinds.data_ptr()), B, *flags,
+                route.seg_len,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
+    backward_cuda.launches += 1
+    return ct0, pbar
+
+
+backward_cuda.launches = 0
+
+
+def run_segments(route: Route, P0: torch.Tensor):
+    """The forward loop: ``(checkpoints [n_seg + 1, 34, B], n_used)``.
+    Checkpoint s holds the state at the start of segment s, checkpoint
+    ``n_used`` the final state; the loop stops after a segment that leaves
+    no ray active (the early exit of the JAX ``_ckpt_fwd``)."""
+    ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
+                     device=P0.device)
+    ck[0] = P0
+    args = launch_args(route, P0) if route.cuda else None
+    s = 0
+    while s < route.n_seg and bool(ck[s, P_ACTIVE].any()):
+        if route.cuda:
+            forward_segment_cuda(route, ck[s], ck[s + 1], args)
+        else:
+            ck[s + 1] = forward_segment(route, ck[s])
+        s += 1
+    return ck, s
+
+
+class _Checkpointed(torch.autograd.Function):
+    """``(P0 [34, B], pvec [P], route, info) -> final state [34, B]``, with
+    the number of segments run in ``info["n_used"]``; gradients for the
+    y, k1 and ev_y0 planes of P0 and for M, a (pvec[0:2]). The other
+    planes' cotangents are dropped (see the module docstring), and the
+    object fields get none."""
+
+    @staticmethod
+    def forward(ctx, P0, pvec, route, info):
+        ck, n_used = run_segments(route, P0.detach())
+        info["n_used"] = n_used
+        ctx.route, ctx.n_used = route, n_used
+        ctx.save_for_backward(ck)
+        ctx.n_params = pvec.shape[0]
+        return ck[n_used].clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ck,) = ctx.saved_tensors
+        back = backward_cuda if ctx.route.cuda else backward_plain
+        ct0, pbar = back(ctx.route, ck, ctx.n_used, ct)
+        g = torch.zeros(ctx.n_params, dtype=ct.dtype, device=ct.device)
+        g[:2] = torch.sum(pbar, dim=0)
+        return ct0, g, None, None
+
+
+def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
+               dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str
+               ) -> TraceResult:
+    _check_options(cfg)
+    seg = segment_length(cfg, seg_len)
+    pvec = flatten_params(metric, scene)
+    detached = Metric(metric.name,
+                      KerrSchildParams(M=pvec[0].detach(),
+                                       a=pvec[1].detach()),
+                      metric.r_formula, metric.rho_min)
+    route = Route(metric=detached,
+                  scene=Scene(*(f.detach() for f in scene)), cfg=cfg,
+                  seg_len=seg, n_seg=cfg.max_steps // seg,
+                  cuda=mode == "cuda")
+    event_fn = scene_event_cm(scene)
+    init, body = make_step_cm(metric, event_fn, cfg)
+    st0 = init(y0.t(), dt0.detach())
+    if mode == "autograd":
+        st, n_used = st0, 0
+        while n_used < route.n_seg and bool(st.active.any()):
+            for _ in range(seg):
+                st, _ = body(st)
+            n_used += 1
+    else:
+        info = {}
+        st = unpack_state(_Checkpointed.apply(pack_state(st0), pvec, route,
+                                              info))
+        n_used = info["n_used"]
+    # Dead-ray cotangent cutoff: rays killed mid-flight (captured inside
+    # stop_rho or failed at dt_min) froze after a capture spiral whose
+    # step Jacobians are huge; their y is detached (values unchanged), as
+    # in the JAX package. Rays still active at the step budget keep theirs.
+    dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
+    y = torch.where(dead, st.y.detach(), st.y)
+    lam = st.lam
+    if bool(st.hit.any()):
+        th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
+                                             st.ev_dt, st.ev_lo, st.ev_hi)
+        y = torch.where(st.hit, y_star, y)
+        lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, lam)
+    return TraceResult(y=y.t(), lam=lam, hit=st.hit,
+                       steps=st.steps.to(torch.int32), n_iters=n_used * seg)
+
+
+def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
+                            dt0: torch.Tensor, cfg: IntegratorConfig,
+                            seg_len: int | None = None) -> TraceResult:
+    """The oracle the hand adjoint is held against: the same forward, with
+    ``torch.autograd`` taping every step of the plain body (memory grows
+    with the steps; for tests at small sizes, on no path of the package)."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "autograd")
+
+
+def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
+                        dt0: torch.Tensor, cfg: IntegratorConfig,
+                        seg_len: int | None = None) -> TraceResult:
+    """Differentiable integration, plain version (the JAX
+    ``integrate_rays_cm_ckpt``): checkpointed segments of the step body,
+    the hand adjoint on backward. ``y0 [B, 8]``, ``dt0 [B]``; gradients
+    reach y0, M, a and (through the localization) the scene."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "plain")
+
+
+def integrate_rays_ckpt_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
+                             dt0: torch.Tensor, cfg: IntegratorConfig,
+                             seg_len: int | None = None) -> TraceResult:
+    """The same with K3 for each forward segment and one K4 launch on
+    backward (the JAX ``integrate_rays_cm_ckpt_pallas``). Raises for CPU
+    tensors and for what the kernels do not take."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "cuda")

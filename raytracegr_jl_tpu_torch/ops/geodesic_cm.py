@@ -20,7 +20,7 @@ on CUDA divides by a python scalar as a multiplication by its reciprocal).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -281,11 +281,12 @@ def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
     y1, _, k_last, ks = step(rhs, ev_y0, ev_dt, k1)
     interp, dinterp = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 4)
     lo, hi = ev_lo, ev_hi
-    for _ in range(cfg.bisect_iters):
-        mid = 0.5 * (lo + hi)
-        gt = event_fn(interp(mid)) > 0.0
-        lo = torch.where(gt, mid, lo)
-        hi = torch.where(gt, hi, mid)
+    with torch.no_grad():  # the bracket takes no gradient (JAX: sg)
+        for _ in range(cfg.bisect_iters):
+            mid = 0.5 * (lo + hi)
+            gt = event_fn(interp(mid)) > 0.0
+            lo = torch.where(gt, mid, lo)
+            hi = torch.where(gt, hi, mid)
     th_star = newton_polish(event_fn, interp, dinterp, hi)
     interp8, _ = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 8)
     return th_star, interp8(th_star)
@@ -311,40 +312,73 @@ def _sum_sq_rows(r: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
-                      dt0: torch.Tensor, cfg: IntegratorConfig) -> TraceResult:
-    """Plain version of K1: the masked batch loop of the JAX
-    ``integrate_rays_cm`` (``make_step_cm`` body, then one
-    ``localize_events_cm`` pass). ``y0 [B, 8]``, ``dt0 [B]``.
+class StepState(NamedTuple):
+    """The loop state of ``make_step_cm``: the JAX package's 14-tuple
+    without its iteration counter, which the caller's loop keeps. ``y``,
+    ``k1`` and ``ev_y0`` are ``[8, B]``, the rest ``[B]``; ``active`` and
+    ``hit`` are bool, ``steps`` an integer count (int32, or the working
+    float type in a packed checkpoint). The ``ev_*`` fields record each
+    ray's crossing step for ``localize_events_cm``."""
 
-    Every ray steps until it hits, spans ``lam_max``, dies or the loop
-    reaches ``max_steps``; finished rays are frozen by masks."""
+    y: torch.Tensor
+    lam: torch.Tensor
+    dt: torch.Tensor
+    k1: torch.Tensor
+    active: torch.Tensor
+    hit: torch.Tensor
+    steps: torch.Tensor
+    err_old: torch.Tensor
+    ev_y0: torch.Tensor
+    ev_dt: torch.Tensor
+    ev_lam: torch.Tensor
+    ev_lo: torch.Tensor
+    ev_hi: torch.Tensor
+
+
+class StepRecord(NamedTuple):
+    """What one step decided, per ray: the step tried (no gradient), whether
+    the ray stepped (``do``) and whether it hit in this step."""
+
+    dt_try: torch.Tensor
+    do: torch.Tensor
+    hit_now: torch.Tensor
+
+
+def make_step_cm(metric: Metric, event_fn: EventFn, cfg: IntegratorConfig):
+    """``(init, body)`` of the masked batch loop, the counterpart of the JAX
+    ``make_step_cm``: ``init(y [8, B], dt0 [B]) -> StepState`` and
+    ``body(state) -> (state, StepRecord)``, one step of every ray.
+
+    Finished rays are frozen by masks, so a step of an inactive ray is the
+    identity. The body only detects crossings; ``localize_events_cm``
+    localizes them from the ``ev_*`` record after the loop. ``dt_try`` is
+    detached, as the JAX body's ``lax.stop_gradient``: step sizes are
+    solver state, and gradients flow through the stage values only."""
     _check_options(cfg)
     rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
-    event_fn = scene_event_cm(scene)
     adaptive = cfg.method == "tsit5"
     step = _tsit5_step_cm if adaptive else _rk4_step_cm
 
-    y = y0.t().contiguous()
-    B = y.shape[1]
-    lam = torch.zeros_like(dt0)
-    dt = dt0.clone()
-    k1 = rhs(y)
-    active = torch.ones(B, dtype=torch.bool, device=y.device)
-    hit = torch.zeros_like(active)
-    steps = torch.zeros(B, dtype=torch.int32, device=y.device)
-    err_old = torch.full_like(dt0, cfg.qold_init)
-    # Event record: starts finite (dt = 1) so that localization of rays
-    # that never hit stays NaN-free; their result is masked out.
-    ev_y0, ev_dt = y.clone(), torch.ones_like(dt0)
-    ev_lam, ev_lo, ev_hi = (torch.zeros_like(dt0) for _ in range(3))
+    def init(y: torch.Tensor, dt0: torch.Tensor) -> StepState:
+        B = y.shape[1]
+        zero = torch.zeros_like(dt0)
+        return StepState(
+            y=y, lam=zero, dt=dt0.clone(), k1=rhs(y),
+            active=torch.ones(B, dtype=torch.bool, device=y.device),
+            hit=torch.zeros(B, dtype=torch.bool, device=y.device),
+            steps=torch.zeros(B, dtype=torch.int32, device=y.device),
+            err_old=torch.full_like(dt0, cfg.qold_init),
+            # Event record: starts finite (dt = 1) so that localization of
+            # rays that never hit stays NaN-free; their result is masked out.
+            ev_y0=y.clone(), ev_dt=torch.ones_like(dt0), ev_lam=zero,
+            ev_lo=zero, ev_hi=zero)
 
-    it = 0
-    while it < cfg.max_steps and bool(active.any()):
+    def body(st: StepState):
+        y, lam, dt, k1 = st.y, st.lam, st.dt, st.k1
         dt_try = torch.clamp_min(torch.minimum(dt, cfg.lam_max - lam),
                                  cfg.dt_min)
         dt_try = torch.where(torch.isfinite(dt_try), dt_try,
-                             torch.full_like(dt_try, cfg.dt_min))
+                             torch.full_like(dt_try, cfg.dt_min)).detach()
         y_new, err, k_last, ks = step(rhs, y, dt_try, k1)
         fin = torch.all(torch.isfinite(y_new), dim=0)
         if adaptive:
@@ -357,7 +391,7 @@ def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
             accept = en <= 1.0
             en_c = torch.clamp_min(en, 1e-10)
             q_pi = (cfg.safety * en_c ** (-cfg.beta1)
-                    * torch.clamp_min(err_old, cfg.qold_init) ** cfg.beta2)
+                    * torch.clamp_min(st.err_old, cfg.qold_init) ** cfg.beta2)
             q_rej = cfg.safety * en_c ** (-0.2)
             q = torch.where(accept, q_pi, torch.clamp_max(q_rej, 1.0))
             q = torch.clamp(q, cfg.qmin, cfg.qmax)
@@ -373,41 +407,64 @@ def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
             rho2 = y_new[1] ** 2 + y_new[2] ** 2 + y_new[3] ** 2
             dead = dead | (rho2 < cfg.stop_rho ** 2)
 
-        do = active & accept
+        do = st.active & accept
         y_evt = torch.where(fin, y_new, y)
         k_evt = torch.where(fin, k_last, k1)
         # Dying rays: zeroed stages make the interpolant the constant y0.
         ks_evt = (None if ks is None else
                   tuple(torch.where(fin, k, torch.zeros_like(k)) for k in ks))
-        interp, _ = _interpolants(y, y_evt, k1, k_evt, dt_try, ks_evt, 4)
-        crossed, th_lo, th_hi = _detect_scan(event_fn, interp, y, cfg)
+        with torch.no_grad():  # detection only decides masks
+            interp, _ = _interpolants(y, y_evt, k1, k_evt, dt_try, ks_evt, 4)
+            crossed, th_lo, th_hi = _detect_scan(event_fn, interp, y, cfg)
         hit_now = do & crossed
 
         # First hit only: the ray then deactivates.
-        ev_y0 = torch.where(hit_now, y, ev_y0)
-        ev_dt = torch.where(hit_now, dt_try, ev_dt)
-        ev_lam = torch.where(hit_now, lam, ev_lam)
-        ev_lo = torch.where(hit_now, th_lo, ev_lo)
-        ev_hi = torch.where(hit_now, th_hi, ev_hi)
-
         lam_acc = lam + dt_try
         done_span = lam_acc >= cfg.lam_max - 1e-6
-        y = torch.where(do, y_evt, y)
-        lam = torch.where(do & ~hit_now, lam_acc, lam)
-        k1 = torch.where(do, k_evt, k1)
-        hit = hit | hit_now
-        active = active & ~hit_now & ~(do & done_span) & ~dead
-        steps = steps + do.to(torch.int32)
-        dt = torch.where(active, dt_next, dt)
-        err_old = torch.where(do, torch.clamp_min(en, cfg.qold_init), err_old)
-        it += 1
+        active = st.active & ~hit_now & ~(do & done_span) & ~dead
+        new = StepState(
+            y=torch.where(do, y_evt, y),
+            lam=torch.where(do & ~hit_now, lam_acc, lam),
+            dt=torch.where(active, dt_next, dt),
+            k1=torch.where(do, k_evt, k1),
+            active=active,
+            hit=st.hit | hit_now,
+            steps=st.steps + do.to(st.steps.dtype),
+            err_old=torch.where(do, torch.clamp_min(en, cfg.qold_init),
+                                st.err_old),
+            ev_y0=torch.where(hit_now, y, st.ev_y0),
+            ev_dt=torch.where(hit_now, dt_try, st.ev_dt),
+            ev_lam=torch.where(hit_now, lam, st.ev_lam),
+            ev_lo=torch.where(hit_now, th_lo, st.ev_lo),
+            ev_hi=torch.where(hit_now, th_hi, st.ev_hi))
+        return new, StepRecord(dt_try=dt_try, do=do, hit_now=hit_now)
 
-    if bool(hit.any()):
-        th_star, y_star = localize_events_cm(metric, event_fn, cfg, ev_y0,
-                                             ev_dt, ev_lo, ev_hi)
-        y = torch.where(hit, y_star, y)
-        lam = torch.where(hit, ev_lam + th_star * ev_dt, lam)
-    return TraceResult(y=y.t(), lam=lam, hit=hit, steps=steps, n_iters=it)
+    return init, body
+
+
+def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
+                      dt0: torch.Tensor, cfg: IntegratorConfig) -> TraceResult:
+    """Plain version of K1: the masked batch loop of the JAX
+    ``integrate_rays_cm`` (``make_step_cm`` body, then one
+    ``localize_events_cm`` pass). ``y0 [B, 8]``, ``dt0 [B]``.
+
+    Every ray steps until it hits, spans ``lam_max``, dies or the loop
+    reaches ``max_steps``; finished rays are frozen by masks."""
+    event_fn = scene_event_cm(scene)
+    init, body = make_step_cm(metric, event_fn, cfg)
+    st = init(y0.t().contiguous(), dt0)
+    it = 0
+    while it < cfg.max_steps and bool(st.active.any()):
+        st, _ = body(st)
+        it += 1
+    y, lam = st.y, st.lam
+    if bool(st.hit.any()):
+        th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
+                                             st.ev_dt, st.ev_lo, st.ev_hi)
+        y = torch.where(st.hit, y_star, y)
+        lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, lam)
+    return TraceResult(y=y.t(), lam=lam, hit=st.hit, steps=st.steps,
+                       n_iters=it)
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +522,31 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     return blk
 
 
+def kernel_r_mode(metric: Metric) -> int:
+    """The kernels' radius mode (csrc R_*): as written, textbook, or
+    textbook without the ring floor when ``rho_min`` is 0."""
+    r_mode = _R_MODE[metric.r_formula]
+    if r_mode == 1 and metric.rho_min <= 0.0:
+        r_mode = 2
+    return r_mode
+
+
+def check_kernel_config(metric: Metric, scene: Scene,
+                        cfg: IntegratorConfig) -> list:
+    """Raise for what the kernels do not take; the object kinds."""
+    kinds = [int(k) for k in scene.kind.tolist()]
+    if any(k not in _KERNEL_KINDS for k in kinds):
+        raise NotImplementedError(f"object kinds {kinds}: the kernels know "
+                                  f"{_KERNEL_KINDS}")
+    if not 0 < len(kinds) <= _MAX_OBJECTS:
+        raise ValueError(f"the kernels take 1..{_MAX_OBJECTS} objects")
+    if not 0 < cfg.interp_points <= _MAX_SAMPLES:
+        raise ValueError(f"interp_points must be in 1..{_MAX_SAMPLES}")
+    if metric.name not in ("minkowski", "kerr_schild"):
+        raise ValueError(f"unknown metric: {metric.name!r}")
+    return kinds
+
+
 def _find_lib():
     from ..utils import cuda_build
     return cuda_build.load("geodesic")
@@ -484,16 +566,7 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     _check_options(cfg)
     if cfg.sort_rays:
         raise NotImplementedError("sort_rays is not ported to the kernel")
-    kinds = [int(k) for k in scene.kind.tolist()]
-    if any(k not in _KERNEL_KINDS for k in kinds):
-        raise NotImplementedError(f"object kinds {kinds}: the kernel knows "
-                                  f"{_KERNEL_KINDS}")
-    if not 0 < len(kinds) <= _MAX_OBJECTS:
-        raise ValueError(f"the kernel takes 1..{_MAX_OBJECTS} objects")
-    if not 0 < cfg.interp_points <= _MAX_SAMPLES:
-        raise ValueError(f"interp_points must be in 1..{_MAX_SAMPLES}")
-    if metric.name not in ("minkowski", "kerr_schild"):
-        raise ValueError(f"unknown metric: {metric.name!r}")
+    kinds = check_kernel_config(metric, scene, cfg)
     if y0.device.type != "cuda" or dt0.device != y0.device:
         raise ValueError("integrate_rays_cuda needs CUDA tensors on one "
                          f"device, got {y0.device} and {dt0.device}")
@@ -502,9 +575,7 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     if y0.dim() != 2 or y0.shape[1] != 8 or dt0.shape != y0.shape[:1]:
         raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, "
                          f"dt0 {tuple(dt0.shape)}")
-    r_mode = _R_MODE[metric.r_formula]
-    if r_mode == 1 and metric.rho_min <= 0.0:
-        r_mode = 2  # textbook radius without the ring floor
+    r_mode = kernel_r_mode(metric)
 
     lib = _find_lib()
     dev, dtype = y0.device, y0.dtype

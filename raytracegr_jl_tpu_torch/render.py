@@ -1,7 +1,12 @@
 """Render driver (counterpart of raytracegr_jl_tpu/render.py): flatten the
 pixel grid to a ray batch ``[B, 8]``, pick each ray's initial step,
-integrate it with K1 (the CUDA kernel, or its plain PyTorch version) and
-shade the end points with the reference's hard shading."""
+integrate it and shade the end points.
+
+The forward render integrates with K1 (the CUDA kernel, or its plain
+PyTorch version). The differentiable render (``differentiable=True``)
+integrates with the checkpointed adjoint of ops/adjoint.py: K3 and K4 on
+CUDA tensors, their plain versions on CPU tensors. Shading is the
+reference's hard shading, or ``shade_soft`` when ``soft_temp`` is set."""
 
 from __future__ import annotations
 
@@ -10,7 +15,8 @@ from typing import NamedTuple
 import torch
 
 from .models.camera import Canvas
-from .models.objects import Scene, shade
+from .models.objects import Scene, shade, shade_soft
+from .ops.adjoint import integrate_rays_ckpt, integrate_rays_ckpt_cuda
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
                               integrate_rays_cuda)
 from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
@@ -23,10 +29,10 @@ class RenderConfig(NamedTuple):
     """Render settings; the fields of the JAX package's ``RenderConfig``
     without ``pallas_interpret`` (a CUDA kernel has no interpreter).
 
-    ``backend``: ``"cuda"`` (K1's kernel), ``"torch"`` (its plain version)
-    or None, which picks ``"cuda"`` for CUDA tensors and ``"torch"`` for
-    CPU tensors. The differentiable path, soft shading and redshift shading
-    are not ported yet and raise."""
+    ``backend``: ``"cuda"`` (the kernels), ``"torch"`` (their plain
+    versions) or None, which picks ``"cuda"`` for CUDA tensors and
+    ``"torch"`` for CPU tensors. Redshift shading is not ported yet and
+    raises."""
 
     integrator: IntegratorConfig = IntegratorConfig()
     hit_dmin: float = 0.01
@@ -44,13 +50,30 @@ def default_tol(dtype: torch.dtype) -> float:
     return float(torch.finfo(dtype).eps) ** 0.75
 
 
+# The differentiable path's modes, with JAX's names: "ckpt" is the
+# checkpointed adjoint's plain version, "ckpt_cuda" the same with K3 and K4
+# (JAX's "ckpt_pallas"), and "auto" picks "ckpt_cuda" where ``backend``
+# resolves to "cuda" and "ckpt" elsewhere.
+GRAD_MODES = ("auto", "ckpt", "ckpt_cuda")
+
+
 def _check(cfg: RenderConfig) -> None:
-    if cfg.differentiable:
-        raise NotImplementedError("the differentiable path is not ported")
-    if cfg.soft_temp is not None or cfg.shading != "reference":
-        raise NotImplementedError("only reference hard shading is ported")
+    if cfg.shading != "reference":
+        raise NotImplementedError("redshift shading is not ported")
     if cfg.backend not in BACKENDS + (None,):
         raise ValueError(f"unknown backend: {cfg.backend!r}")
+    if not cfg.differentiable:
+        return
+    integ = cfg.integrator
+    if integ.grad_mode == "scan":
+        raise NotImplementedError("grad_mode='scan' is not ported")
+    if integ.grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode: {integ.grad_mode!r}")
+    if integ.grad_groups > 1:
+        raise NotImplementedError("grad_groups > 1 is not ported")
+    if integ.sort_rays:
+        raise NotImplementedError("sort_rays is not ported to the "
+                                  "differentiable path")
 
 
 def resolve_backend(cfg: RenderConfig, x: torch.Tensor) -> str:
@@ -74,8 +97,22 @@ def initial_dt(metric: Metric, y0: torch.Tensor,
 
 def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
                 cfg: RenderConfig) -> TraceResult:
-    """Integrate a flat ray batch ``[B, 8]`` to termination."""
+    """Integrate a flat ray batch ``[B, 8]`` to termination. With
+    ``differentiable`` the result carries gradients to y0, the metric's M
+    and a, and the scene; the initial step does not (the body detaches
+    every step size)."""
     _check(cfg)
+    if cfg.differentiable:
+        with torch.no_grad():
+            dt0 = initial_dt(metric, y0, cfg.integrator)
+        mode = cfg.integrator.grad_mode
+        if mode == "auto":
+            mode = ("ckpt_cuda" if resolve_backend(cfg, y0) == "cuda"
+                    else "ckpt")
+        integrate = (integrate_rays_ckpt_cuda if mode == "ckpt_cuda"
+                     else integrate_rays_ckpt)
+        return integrate(metric, scene, y0, dt0, cfg.integrator,
+                         seg_len=cfg.integrator.grad_seg_len)
     dt0 = initial_dt(metric, y0, cfg.integrator)
     if resolve_backend(cfg, y0) == "cuda":
         return integrate_rays_cuda(metric, scene, y0, dt0, cfg.integrator)
@@ -99,7 +136,13 @@ def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
     def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
         flat = torch.cat([pos, normal], dim=-1).reshape(-1, 8)
         res = trace_batch(metric, scene, flat, cfg)
-        rgb = shade(scene, res.y[..., :4], cfg.hit_dmin)
-        return rgb.reshape(pos.shape[:-1] + (3,))
+        return _shade(scene, res.y, cfg).reshape(pos.shape[:-1] + (3,))
 
     return fn
+
+
+def _shade(scene: Scene, y: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    if cfg.soft_temp is not None:
+        return shade_soft(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
+                          color_freq=cfg.soft_freq)
+    return shade(scene, y[..., :4], cfg.hit_dmin)

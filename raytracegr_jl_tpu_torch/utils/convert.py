@@ -10,10 +10,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..grad import InverseParams
 from ..models.camera import Canvas
 from ..models.objects import Scene
 from ..ops.integrate import IntegratorConfig
 from ..ops.metrics import KerrSchildParams
+
 
 def tensor(a, dtype=None, device=None) -> torch.Tensor:
     """Array -> tensor (a copy), keeping its dtype unless one is given."""
@@ -50,3 +52,14 @@ def integrator_config_from_fields(fields: Mapping) -> IntegratorConfig:
         raise ValueError(f"unknown IntegratorConfig fields: {sorted(unknown)}")
     return IntegratorConfig(**{k: (v.item() if isinstance(v, np.generic)
                                    else v) for k, v in fields.items()})
+
+
+def inverse_params_from_numpy(M, a, sphere_pos, dtype=None,
+                              device=None) -> InverseParams:
+    """The port's ``InverseParams`` module from the JAX ``InverseParams``'s
+    fields (numpy arrays or scalars); the dtype is the arrays' unless one
+    is given."""
+    pos = np.asarray(sphere_pos)
+    return InverseParams(np.asarray(M), np.asarray(a), pos,
+                         dtype=dtype or torch.from_numpy(pos).dtype,
+                         device=device)

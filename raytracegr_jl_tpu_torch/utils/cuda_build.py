@@ -26,13 +26,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# The C entry points: (y0, dt0, y, lam, hit, steps, prm, kinds: pointers;
-# n, kerr, tsit5, r_mode, max_steps, n_obj, npts, bisect_iters: ints;
-# stream) -> cudaError_t.
+# The C entry points, each returning a cudaError_t. K1: (y0, dt0, y, lam,
+# hit, steps, prm, kinds: pointers; n, kerr, tsit5, r_mode, max_steps,
+# n_obj, npts, bisect_iters: ints; stream). K3: (P_in, P_out, prm, kinds;
+# n, kerr, tsit5, r_mode, n_obj, npts, seg_len; stream). K4: (ck; n_used;
+# ct, ct0, pbar, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts, seg_len;
+# stream).
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "geodesic": {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                 + [ctypes.c_void_p]
+    "geodesic": {name: [_P] * 8 + [_I] * 8 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
+    "adjoint": {**{name: [_P] * 4 + [_I] * 7 + [_P]
+                   for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
+                **{name: [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]
+                   for name in ("rtgr_k4_f32", "rtgr_k4_f64")}},
 }
 
 _lock = threading.Lock()
@@ -53,21 +60,27 @@ def find_nvcc() -> str:
 
 
 def _paths(name: str):
+    """Source, library and log paths; the name hashes the source, the
+    shared headers of csrc/ and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}")
     return src, stem + ".so", stem + ".log"
 
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; returns
-    the library's path."""
+    the library's path. Safe to call for several names at once from
+    threads: each runs its own nvcc."""
     src, lib, log = _paths(name)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -88,6 +101,10 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build if needed and load ``csrc/<name>.cu``'s library, with the
     argument and result types of its entry points declared."""
+    lib = _libs.get(name)
+    if lib is not None:  # the launch path: no hashing, no file access
+        return lib
+    build(name)
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(build(name))

@@ -64,3 +64,93 @@ def test_cuda_backend_render_matches_torch_backend():
     rgb_plain = T.trace_rays(metric, scene, canvas,
                              cfg._replace(backend="torch")).rgb
     assert torch.equal(rgb, rgb_plain)
+
+
+def _ckpt_case(n, dtype, method, max_steps):
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    cfg = T.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
+                                rk4_dt=100.0 / max_steps, stop_rho=0.5)
+    integ = cfg.integrator
+    _, scene, canvas = T.build(T.example2_spec(n, n), dtype,
+                               torch.device("cuda"))
+    metric = T.make_metric("kerr_schild", T.KerrSchildParams(M=1.05),
+                           rho_min=0.25)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    seg = A.segment_length(integ, integ.grad_seg_len)
+    route = A.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                    n_seg=max_steps // seg, cuda=True)
+    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+    return A, route, A.pack_state(init(y0.t(), dt0)), (scene, y0, dt0, integ)
+
+
+CKPT_CASES = [(32, torch.float32, "rk4", 40), (32, torch.float32, "tsit5", 16),
+              (16, torch.float64, "rk4", 40), (16, torch.float64, "tsit5", 16)]
+
+
+@pytest.mark.parametrize("n,dtype,method,max_steps", CKPT_CASES)
+def test_k3_k4_match_plain_bitwise(n, dtype, method, max_steps):
+    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
+    before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
+    ck, n_used = A.run_segments(route, P0)
+    ck_p, n_p = A.run_segments(route._replace(cuda=False), P0)
+    torch.cuda.synchronize()
+    assert A.forward_segment_cuda.launches == before[0] + n_used
+    assert n_used == n_p and torch.equal(ck[:n_used + 1], ck_p[:n_p + 1])
+    ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
+    c, p = A.backward_cuda(route, ck, n_used, ct)
+    c_p, p_p = A.backward_plain(route, ck_p, n_p, ct)
+    torch.cuda.synchronize()
+    assert A.backward_cuda.launches == before[1] + 1
+    assert torch.equal(c, c_p) and torch.equal(p, p_p)
+
+
+@pytest.mark.parametrize("n,dtype,method,max_steps", CKPT_CASES)
+def test_k4_gradients_match_autograd(n, dtype, method, max_steps):
+    A, _, _, (scene, y0, dt0, integ) = _ckpt_case(n, dtype, method,
+                                                  max_steps)
+    out = []
+    for fn in (A.integrate_rays_ckpt_cuda, A.integrate_rays_autograd):
+        M = torch.tensor(1.05, dtype=dtype, device=y0.device,
+                         requires_grad=True)
+        a = torch.tensor(0.2, dtype=dtype, device=y0.device,
+                         requires_grad=True)
+        metric = T.make_metric("kerr_schild", T.KerrSchildParams(M, a),
+                               rho_min=0.25)
+        res = fn(metric, scene, y0, dt0, integ, seg_len=integ.grad_seg_len)
+        loss = (res.y[:, :4] ** 2).sum() * 1e-3
+        out.append(torch.stack(torch.autograd.grad(loss, (M, a))))
+    rtol = 1e-10 if dtype == torch.float64 else 2e-3
+    torch.testing.assert_close(out[0], out[1], rtol=rtol, atol=0.0)
+
+
+def test_train_step_launches_k3_and_k4():
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                      forward_segment_cuda)
+    dev = torch.device("cuda")
+    spec = T.example2_spec(24, 24)
+    cfg = T.default_inverse_cfg(torch.float32, max_steps=48, method="tsit5",
+                                stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, torch.float32, dev)
+    truth = T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, device=dev)(
+            truth, xg, ng)
+    grads = []
+    # grad_mode "auto" takes the kernels on CUDA tensors; backend "torch"
+    # or grad_mode "ckpt" the plain versions.
+    for backend, mode in ((None, "auto"), ("torch", "auto"), (None, "ckpt")):
+        c = cfg._replace(backend=backend, integrator=cfg.integrator._replace(
+            grad_mode=mode))
+        p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
+        before = (forward_segment_cuda.launches, backward_cuda.launches)
+        T.make_ray_loss_fn(spec, c, device=dev)(p, xg, ng, target).backward()
+        launched = (forward_segment_cuda.launches > before[0],
+                    backward_cuda.launches > before[1])
+        assert launched == ((True, True) if not grads else (False, False))
+        grads.append(torch.cat([p.M.grad[None], p.a.grad[None],
+                                p.sphere_pos.grad]))
+    assert bool(torch.isfinite(grads[0]).all())
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])

@@ -122,7 +122,7 @@ def _scene_all_kinds():
     return make_scene([Sphere((0, 0, 0, 0), (1, 0, 0, 0), -10.0),
                        Plane(-20.0),
                        Sphere((0, 4, 0, 0), (1, 0, 0, 0), 0.5),
-                       Disk((0, 0, 0, 0), 3.0, 12.0, 0.1)])
+                       Disk((0, 0, 0, 0), 3.0, 12.0, 0.1)], device="cpu")
 
 
 def test_scene_event_matches_jax():

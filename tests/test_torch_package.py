@@ -23,13 +23,16 @@ from raytracegr_jl_tpu_torch.utils import cuda_build  # noqa: E402
 MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.models.scenes",
            "raytracegr_jl_tpu_torch.ops.geodesic_cm",
+           "raytracegr_jl_tpu_torch.ops.adjoint",
+           "raytracegr_jl_tpu_torch.grad",
+           "raytracegr_jl_tpu_torch.inverse",
            "raytracegr_jl_tpu_torch.utils.convert",
            "raytracegr_jl_tpu_torch.utils.cuda_build",
            "raytracegr_jl_tpu_torch.utils.image"]
 
 
 def _small(dtype=torch.float64):
-    metric, scene, canvas = T.build(T.example2_spec(2, 2), dtype)
+    metric, scene, canvas = T.build(T.example2_spec(2, 2), dtype, "cpu")
     y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
     return metric, scene, y0, torch.full((4,), 0.01, dtype=dtype)
 
@@ -60,7 +63,8 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
 
 
 def test_cuda_backend_does_not_fall_back():
-    metric, scene, canvas = T.build(T.example2_spec(2, 2), torch.float64)
+    metric, scene, canvas = T.build(T.example2_spec(2, 2), torch.float64,
+                                    "cpu")
     cfg = T.RenderConfig(backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         T.trace_rays(metric, scene, canvas, cfg)
@@ -76,10 +80,15 @@ def test_unsupported_options_raise():
     with pytest.raises(NotImplementedError, match="sort_rays"):
         integrate_rays_cuda(metric, scene, y0, dt0,
                             T.IntegratorConfig(sort_rays=True))
-    canvas = T.build(T.example2_spec(2, 2), torch.float64)[2]
-    for cfg in (T.RenderConfig(differentiable=True),
-                T.RenderConfig(shading="redshift"),
-                T.RenderConfig(soft_temp=0.05)):
+    canvas = T.build(T.example2_spec(2, 2), torch.float64, "cpu")[2]
+    grad = T.IntegratorConfig()
+    for cfg in (T.RenderConfig(shading="redshift"),
+                T.RenderConfig(differentiable=True,
+                               integrator=grad._replace(grad_mode="scan")),
+                T.RenderConfig(differentiable=True,
+                               integrator=grad._replace(grad_groups=2)),
+                T.RenderConfig(differentiable=True,
+                               integrator=grad._replace(sort_rays=True))):
         with pytest.raises(NotImplementedError):
             T.trace_rays(metric, scene, canvas, cfg)
 
@@ -114,13 +123,14 @@ def test_kernel_params_layout():
 
 def test_kernel_params_match_the_cuda_source():
     """The python side of the parameter block names the slots of the
-    kernel's enum Prm, in order, and the object fields of its comment."""
+    kernels' enum Prm (csrc/geodesic_common.cuh), in order, and the object
+    fields of its comment."""
     import os
     import re
 
     from raytracegr_jl_tpu_torch.ops import geodesic_cm
 
-    with open(os.path.join(cuda_build.CSRC, "geodesic.cu")) as f:
+    with open(os.path.join(cuda_build.CSRC, "geodesic_common.cuh")) as f:
         src = f.read()
     assert f"MAX_OBJ = {geodesic_cm._MAX_OBJECTS};" in src
     assert f"MAX_SMP = {geodesic_cm._MAX_SAMPLES};" in src
@@ -129,3 +139,55 @@ def test_kernel_params_match_the_cuda_source():
     assert names[-1] == f"N_CFG = {N_CFG}"
     assert tuple(n[2:] for n in names[:-1]) == CFG_SLOTS
     assert ", ".join(OBJ_FIELDS) in src
+
+
+def test_factories_default_to_the_card():
+    """Without a device the factories ask for the CUDA card and raise where
+    there is none, rather than building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    spec = T.example2_spec(2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.build(spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.make_scene(spec.objects)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0])
+    assert T.build(spec, device="cpu")[2].pos.device.type == "cpu"
+
+
+def test_adjoint_layout_matches_the_cuda_source():
+    """The packed state's planes and K4's segment cap name the values of
+    csrc/adjoint.cu's enum Plane and MAX_SEG."""
+    import os
+    import re
+
+    from raytracegr_jl_tpu_torch.ops import adjoint
+
+    with open(os.path.join(cuda_build.CSRC, "adjoint.cu")) as f:
+        src = f.read()
+    assert f"MAX_SEG = {adjoint.MAX_SEG};" in src
+    enum = re.search(r"enum Plane \{(.*?)\};", src, re.S).group(1)
+    planes = dict(item.strip().split(" = ") for item in enum.split(","))
+    for name, value in planes.items():
+        py_name = "P_" + name[3:] if name.startswith("PL_") else name
+        assert getattr(adjoint, py_name) == int(value), name
+
+
+def test_ckpt_cuda_wrapper_raises_on_cpu_tensors():
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                      forward_segment_cuda)
+    metric, scene, y0, dt0 = _small()
+    before = (forward_segment_cuda.launches, backward_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.integrate_rays_ckpt_cuda(metric, scene, y0, dt0,
+                                   T.IntegratorConfig(max_steps=4))
+    canvas = T.build(T.example2_spec(2, 2), torch.float64, "cpu")[2]
+    integ = T.IntegratorConfig(max_steps=4)
+    for cfg in (T.RenderConfig(differentiable=True, backend="cuda",
+                               integrator=integ),
+                T.RenderConfig(differentiable=True, integrator=integ._replace(
+                    grad_mode="ckpt_cuda"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            T.trace_rays(metric, scene, canvas, cfg)
+    assert (forward_segment_cuda.launches, backward_cuda.launches) == before

@@ -51,7 +51,7 @@ def rendered(request):
 def test_camera_matches_jax(rendered):
     name, canvas, *_ = rendered
     j_spec_fn, t_spec_fn, _ = SPECS[name]
-    _, _, c = t_build(t_spec_fn(16, 16), torch.float64)
+    _, _, c = t_build(t_spec_fn(16, 16), torch.float64, "cpu")
     np.testing.assert_allclose(c.pos.numpy(), np.asarray(canvas.pos),
                                rtol=1e-13, atol=1e-15)
     np.testing.assert_allclose(c.normal.numpy(), np.asarray(canvas.normal),
