@@ -4,10 +4,11 @@ NVIDIA Hopper (H100).
 
 Ported so far: the forward render of the reference's examples (metrics,
 camera, scene objects, the geodesic integration with K1, csrc/geodesic.cu,
-and the reference's hard shading), and the training path (pixel-loss
-gradients through the checkpointed adjoint with K3 and K4,
-csrc/adjoint.cu, soft shading, and the Adam fit of grad.py and
-inverse.py). Each kernel has its plain PyTorch version beside it. The
+optionally sorted by impact parameter, and the reference's hard shading),
+the training path (pixel-loss gradients through the checkpointed adjoint
+with K3 and K4, csrc/adjoint.cu, soft shading, and the Adam fit of grad.py
+and inverse.py), and the accretion-disk render (mid-flight compaction with
+K2, csrc/compaction.cu, and gravitational-redshift shading). Each kernel has its plain PyTorch version beside it. The
 factories build on the CUDA card unless the caller names another device.
 Importing the package imports torch and never jax; the CUDA kernels are
 built with nvcc at their first launch.
@@ -16,11 +17,13 @@ built with nvcc at their first launch.
 from .ops.metrics import (D, KerrSchildParams, Metric, kerr_schild,
                           make_metric, minkowski)
 from .ops.integrate import IntegratorConfig, TraceResult
-from .ops.geodesic_cm import integrate_rays_cm, integrate_rays_cuda
+from .ops.geodesic_cm import (impact_parameter_order, integrate_rays_cm,
+                              integrate_rays_cuda)
 from .models.objects import (Disk, Plane, Scene, Sphere, distances,
                              make_scene, min_distance, shade,
                              shade_soft)
 from .models.camera import Canvas, make_canvas
+from .models.shading import shade_redshift
 from .models.scenes import (SceneSpec, accretion_disk_spec, build, example1,
                             example1_spec, example2, example2_spec,
                             render_spec)
@@ -30,6 +33,9 @@ from .grad import (InverseParams, default_inverse_cfg, flat_pixel_grid,
                    make_loss_fn, make_ray_loss_fn, make_ray_render_for_params,
                    make_render_for_params)
 from .inverse import FitResult, fit, fit_multistart
+from .compaction import (make_compact_renderer, render_compacted,
+                         trace_batch_compacted)
+from .utils.stats import trace_stats
 from .utils.image import canvas_to_image, load_png, save_png
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

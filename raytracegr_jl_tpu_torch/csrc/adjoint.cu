@@ -38,163 +38,7 @@
 
 namespace {
 
-enum Plane {
-  PL_Y = 0, PL_LAM = 8, PL_DT = 9, PL_K1 = 10, PL_ACTIVE = 18, PL_HIT = 19,
-  PL_STEPS = 20, PL_ERR_OLD = 21, PL_EV_Y0 = 22, PL_EV_DT = 30, PL_EV_LAM = 31,
-  PL_EV_LO = 32, PL_EV_HI = 33, N_PLANES = 34
-};
 constexpr int MAX_SEG = 32;
-
-template <typename T>
-struct RayState {
-  T y[8], k1[8], ev_y0[8];
-  T lam, dt, active, hit, steps, err_old, ev_dt, ev_lam, ev_lo, ev_hi;
-};
-
-template <typename T>
-__device__ __forceinline__ void load_state(const T* P, int n, int i,
-                                           RayState<T>& r) {
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    r.y[c] = P[(PL_Y + c) * n + i];
-    r.k1[c] = P[(PL_K1 + c) * n + i];
-    r.ev_y0[c] = P[(PL_EV_Y0 + c) * n + i];
-  }
-  r.lam = P[PL_LAM * n + i];
-  r.dt = P[PL_DT * n + i];
-  r.active = P[PL_ACTIVE * n + i];
-  r.hit = P[PL_HIT * n + i];
-  r.steps = P[PL_STEPS * n + i];
-  r.err_old = P[PL_ERR_OLD * n + i];
-  r.ev_dt = P[PL_EV_DT * n + i];
-  r.ev_lam = P[PL_EV_LAM * n + i];
-  r.ev_lo = P[PL_EV_LO * n + i];
-  r.ev_hi = P[PL_EV_HI * n + i];
-}
-
-template <typename T>
-__device__ __forceinline__ void store_state(T* P, int n, int i,
-                                            const RayState<T>& r) {
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    P[(PL_Y + c) * n + i] = r.y[c];
-    P[(PL_K1 + c) * n + i] = r.k1[c];
-    P[(PL_EV_Y0 + c) * n + i] = r.ev_y0[c];
-  }
-  P[PL_LAM * n + i] = r.lam;
-  P[PL_DT * n + i] = r.dt;
-  P[PL_ACTIVE * n + i] = r.active;
-  P[PL_HIT * n + i] = r.hit;
-  P[PL_STEPS * n + i] = r.steps;
-  P[PL_ERR_OLD * n + i] = r.err_old;
-  P[PL_EV_DT * n + i] = r.ev_dt;
-  P[PL_EV_LAM * n + i] = r.ev_lam;
-  P[PL_EV_LO * n + i] = r.ev_lo;
-  P[PL_EV_HI * n + i] = r.ev_hi;
-}
-
-// The parameter block into shared memory (as K1 loads it).
-template <typename T>
-__device__ __forceinline__ void load_params(Params<T>& p, const T* prm,
-                                            const int* kinds, int n_obj,
-                                            int npts) {
-  const int n_prm = N_CFG + n_obj * OBJ_STRIDE + npts * SMP_STRIDE;
-  for (int j = threadIdx.x; j < n_prm; j += blockDim.x) {
-    const T v = prm[j];
-    if (j < N_CFG) p.cfg[j] = v;
-    else if (j < N_CFG + n_obj * OBJ_STRIDE) p.obj[j - N_CFG] = v;
-    else p.smp[j - N_CFG - n_obj * OBJ_STRIDE] = v;
-  }
-  for (int j = threadIdx.x; j < n_obj; j += blockDim.x) p.kind[j] = kinds[j];
-}
-
-// One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
-// the ray stepped (do); sets the step tried and whether it hit in this step.
-template <typename T, bool KERR, bool TSIT5>
-__device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
-                                          int n_obj, int npts, RayState<T>& r,
-                                          T& dt_try_out, bool& hit_now) {
-  StepData<T, TSIT5> s;
-  const T dt_min = p.cfg[P_DT_MIN], lam_max = p.cfg[P_LAM_MAX];
-  T dt_try = nmax(nmin(r.dt, lam_max - r.lam), dt_min);
-  if (!isfinite(dt_try)) dt_try = dt_min;
-  s.dt = dt_try;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    s.y0[c] = r.y[c];
-    s.k[0][c] = r.k1[c];
-  }
-  bool accept, dead, fin = true;
-  T en = T(1), dt_next;
-  if constexpr (TSIT5) {
-    T err[8];
-    tsit5_step<T, KERR>(p, r_mode, s, err);
-    const T rtol = p.cfg[P_RTOL], atol = p.cfg[P_ATOL];
-    T acc = T(0);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      fin = fin && isfinite(s.y1[c]);
-      const T sc = atol + rtol * nmax(fabs(s.y0[c]), fabs(s.y1[c]));
-      const T ratio = clip(err[c] / sc, T(-1e15), T(1e15));
-      acc = c == 0 ? ratio * ratio : acc + ratio * ratio;
-    }
-    en = sqrt(nmax(acc / T(8), T(1e-30)));
-    const bool bad = !isfinite(en) || !fin;
-    if (bad) en = T(1e30);  // ERR_BIG
-    accept = en <= T(1);
-    const T en_c = nmax(en, T(1e-10));
-    const T safety = p.cfg[P_SAFETY];
-    const T q_pi = safety * pow(en_c, p.cfg[P_NEG_BETA1])
-                   * pow(nmax(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
-    const T q_rej = safety * pow(en_c, T(-0.2));
-    T q = accept ? q_pi : nmin(q_rej, T(1));
-    q = clip(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
-    dt_next = clip(dt_try * q, dt_min, lam_max);
-    dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];
-  } else {
-    rk4_step<T, KERR>(p, r_mode, s);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) fin = fin && isfinite(s.y1[c]);
-    accept = fin;
-    dt_next = p.cfg[P_RK4_DT];
-    dead = !fin;
-  }
-  const T rho2 = s.y1[1] * s.y1[1] + s.y1[2] * s.y1[2] + s.y1[3] * s.y1[3];
-  dead = dead || rho2 < p.cfg[P_STOP_RHO2];
-
-  hit_now = false;
-  bool active;
-  if (accept) {  // accepted steps are finite
-    T th_lo, th_hi;
-    hit_now = detect<T, TSIT5>(p, n_obj, npts, s, th_lo, th_hi);
-    if (hit_now) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) r.ev_y0[c] = s.y0[c];
-      r.ev_dt = dt_try;
-      r.ev_lam = r.lam;
-      r.ev_lo = th_lo;
-      r.ev_hi = th_hi;
-      r.hit = T(1);
-    }
-    const T lam_acc = r.lam + dt_try;
-    const bool done_span = lam_acc >= p.cfg[P_LAM_END];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      r.y[c] = s.y1[c];
-      r.k1[c] = s.k[6][c];
-    }
-    if (!hit_now) r.lam = lam_acc;
-    active = !hit_now && !done_span && !dead;
-    r.steps = r.steps + T(1);
-    r.err_old = nmax(en, p.cfg[P_QOLD_INIT]);
-  } else {
-    active = !dead;
-  }
-  if (active) r.dt = dt_next;
-  else r.active = T(0);
-  dt_try_out = dt_try;
-  return accept;
-}
 
 // --------------------------------------------------------------------------
 // Reverse mode of the right-hand side (ops/adjoint.py rhs_vjp).

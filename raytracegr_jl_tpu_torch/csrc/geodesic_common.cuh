@@ -1,10 +1,11 @@
 // Device code shared by the kernels of this directory: the parameter block,
 // the Kerr-Schild and Minkowski right-hand side, the scene event and its
 // derivative, dense output, the detection sweep, localization, and the
-// Tsit5 and RK4 stage sweeps. K1 (geodesic.cu), K3 and K4 (adjoint.cu) step
-// alike because they include the same functions. Each follows the plain
-// PyTorch version in ops/geodesic_cm.py operation by operation (build with
-// --fmad=false).
+// Tsit5 and RK4 stage sweeps, the packed loop state and one step of the
+// loop body. K1 (geodesic.cu), K2 (compaction.cu), K3 and K4 (adjoint.cu)
+// step alike because they include the same functions. Each follows the
+// plain PyTorch version in ops/geodesic_cm.py operation by operation (build
+// with --fmad=false).
 
 #pragma once
 
@@ -492,6 +493,238 @@ __device__ __forceinline__ void rk4_step(const Params<T>& p, int r_mode,
   for (int c = 0; c < 8; ++c)
     s.y1[c] = s.y0[c] + dt6 * (k1[c] + T(2) * k2[c] + T(2) * k3[c] + k4[c]);
   rhs<T, KERR>(p, r_mode, s.y1, s.k[6]);
+}
+
+// --------------------------------------------------------------------------
+// The resumable loop state of K2, K3 and K4: the make_step_cm state packed
+// into 34 planes of the working type, ray-minor ([34, n]); masks are 0/1 and
+// the step count is a float (exact to 2^24 in f32, far above any step
+// budget). ops/adjoint.py pack_state / unpack_state hold the same layout.
+// --------------------------------------------------------------------------
+enum Plane {
+  PL_Y = 0, PL_LAM = 8, PL_DT = 9, PL_K1 = 10, PL_ACTIVE = 18, PL_HIT = 19,
+  PL_STEPS = 20, PL_ERR_OLD = 21, PL_EV_Y0 = 22, PL_EV_DT = 30, PL_EV_LAM = 31,
+  PL_EV_LO = 32, PL_EV_HI = 33, N_PLANES = 34
+};
+
+template <typename T>
+struct RayState {
+  T y[8], k1[8], ev_y0[8];
+  T lam, dt, active, hit, steps, err_old, ev_dt, ev_lam, ev_lo, ev_hi;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_state(const T* P, int n, int i,
+                                           RayState<T>& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    r.y[c] = P[(PL_Y + c) * n + i];
+    r.k1[c] = P[(PL_K1 + c) * n + i];
+    r.ev_y0[c] = P[(PL_EV_Y0 + c) * n + i];
+  }
+  r.lam = P[PL_LAM * n + i];
+  r.dt = P[PL_DT * n + i];
+  r.active = P[PL_ACTIVE * n + i];
+  r.hit = P[PL_HIT * n + i];
+  r.steps = P[PL_STEPS * n + i];
+  r.err_old = P[PL_ERR_OLD * n + i];
+  r.ev_dt = P[PL_EV_DT * n + i];
+  r.ev_lam = P[PL_EV_LAM * n + i];
+  r.ev_lo = P[PL_EV_LO * n + i];
+  r.ev_hi = P[PL_EV_HI * n + i];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_state(T* P, int n, int i,
+                                            const RayState<T>& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    P[(PL_Y + c) * n + i] = r.y[c];
+    P[(PL_K1 + c) * n + i] = r.k1[c];
+    P[(PL_EV_Y0 + c) * n + i] = r.ev_y0[c];
+  }
+  P[PL_LAM * n + i] = r.lam;
+  P[PL_DT * n + i] = r.dt;
+  P[PL_ACTIVE * n + i] = r.active;
+  P[PL_HIT * n + i] = r.hit;
+  P[PL_STEPS * n + i] = r.steps;
+  P[PL_ERR_OLD * n + i] = r.err_old;
+  P[PL_EV_DT * n + i] = r.ev_dt;
+  P[PL_EV_LAM * n + i] = r.ev_lam;
+  P[PL_EV_LO * n + i] = r.ev_lo;
+  P[PL_EV_HI * n + i] = r.ev_hi;
+}
+
+// The parameter block into shared memory.
+template <typename T>
+__device__ __forceinline__ void load_params(Params<T>& p, const T* prm,
+                                            const int* kinds, int n_obj,
+                                            int npts) {
+  const int n_prm = N_CFG + n_obj * OBJ_STRIDE + npts * SMP_STRIDE;
+  for (int j = threadIdx.x; j < n_prm; j += blockDim.x) {
+    const T v = prm[j];
+    if (j < N_CFG) p.cfg[j] = v;
+    else if (j < N_CFG + n_obj * OBJ_STRIDE) p.obj[j - N_CFG] = v;
+    else p.smp[j - N_CFG - n_obj * OBJ_STRIDE] = v;
+  }
+  for (int j = threadIdx.x; j < n_obj; j += blockDim.x) p.kind[j] = kinds[j];
+}
+
+// The make_step_cm init of ray i from y0 [8, n] and dt0 [n]: k1 = rhs(y0),
+// and an event record that starts finite (dt = 1), as the plain init's.
+template <typename T, bool KERR>
+__device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
+                                           const T* y0, const T* dt0, int n,
+                                           int i, RayState<T>& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    r.y[c] = y0[c * n + i];
+    r.ev_y0[c] = r.y[c];
+  }
+  rhs<T, KERR>(p, r_mode, r.y, r.k1);
+  r.lam = T(0);
+  r.dt = dt0[i];
+  r.active = T(1);
+  r.hit = T(0);
+  r.steps = T(0);
+  r.err_old = p.cfg[P_QOLD_INIT];
+  r.ev_dt = T(1);
+  r.ev_lam = T(0);
+  r.ev_lo = T(0);
+  r.ev_hi = T(0);
+}
+
+// One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
+// the ray stepped (do); sets the step tried and whether it hit in this step.
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
+                                          int n_obj, int npts, RayState<T>& r,
+                                          T& dt_try_out, bool& hit_now) {
+  StepData<T, TSIT5> s;
+  const T dt_min = p.cfg[P_DT_MIN], lam_max = p.cfg[P_LAM_MAX];
+  T dt_try = nmax(nmin(r.dt, lam_max - r.lam), dt_min);
+  if (!isfinite(dt_try)) dt_try = dt_min;
+  s.dt = dt_try;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    s.y0[c] = r.y[c];
+    s.k[0][c] = r.k1[c];
+  }
+  bool accept, dead, fin = true;
+  T en = T(1), dt_next;
+  if constexpr (TSIT5) {
+    T err[8];
+    tsit5_step<T, KERR>(p, r_mode, s, err);
+    const T rtol = p.cfg[P_RTOL], atol = p.cfg[P_ATOL];
+    T acc = T(0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      fin = fin && isfinite(s.y1[c]);
+      const T sc = atol + rtol * nmax(fabs(s.y0[c]), fabs(s.y1[c]));
+      const T ratio = clip(err[c] / sc, T(-1e15), T(1e15));
+      acc = c == 0 ? ratio * ratio : acc + ratio * ratio;
+    }
+    en = sqrt(nmax(acc / T(8), T(1e-30)));
+    const bool bad = !isfinite(en) || !fin;
+    if (bad) en = T(1e30);  // ERR_BIG
+    accept = en <= T(1);
+    const T en_c = nmax(en, T(1e-10));
+    const T safety = p.cfg[P_SAFETY];
+    const T q_pi = safety * pow(en_c, p.cfg[P_NEG_BETA1])
+                   * pow(nmax(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
+    const T q_rej = safety * pow(en_c, T(-0.2));
+    T q = accept ? q_pi : nmin(q_rej, T(1));
+    q = clip(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
+    dt_next = clip(dt_try * q, dt_min, lam_max);
+    dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];
+  } else {
+    rk4_step<T, KERR>(p, r_mode, s);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) fin = fin && isfinite(s.y1[c]);
+    accept = fin;
+    dt_next = p.cfg[P_RK4_DT];
+    dead = !fin;
+  }
+  const T rho2 = s.y1[1] * s.y1[1] + s.y1[2] * s.y1[2] + s.y1[3] * s.y1[3];
+  dead = dead || rho2 < p.cfg[P_STOP_RHO2];
+
+  hit_now = false;
+  bool active;
+  if (accept) {  // accepted steps are finite
+    T th_lo, th_hi;
+    hit_now = detect<T, TSIT5>(p, n_obj, npts, s, th_lo, th_hi);
+    if (hit_now) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) r.ev_y0[c] = s.y0[c];
+      r.ev_dt = dt_try;
+      r.ev_lam = r.lam;
+      r.ev_lo = th_lo;
+      r.ev_hi = th_hi;
+      r.hit = T(1);
+    }
+    const T lam_acc = r.lam + dt_try;
+    const bool done_span = lam_acc >= p.cfg[P_LAM_END];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      r.y[c] = s.y1[c];
+      r.k1[c] = s.k[6][c];
+    }
+    if (!hit_now) r.lam = lam_acc;
+    active = !hit_now && !done_span && !dead;
+    r.steps = r.steps + T(1);
+    r.err_old = nmax(en, p.cfg[P_QOLD_INIT]);
+  } else {
+    active = !dead;
+  }
+  if (active) r.dt = dt_next;
+  else r.active = T(0);
+  dt_try_out = dt_try;
+  return accept;
+}
+
+// Localization from a ray's event record, the counterpart of the plain
+// localize_events_cm: the crossing step is rebuilt from (ev_y0, ev_dt) with
+// k1 = rhs(ev_y0), which equals bit for bit the FSAL stage the step carried
+// (the same function of the same state), so the stages, the bisection of
+// [ev_lo, ev_hi], the Newton polish and the interpolation are those of the
+// step itself. Writes y* (8) and lam* = ev_lam + theta* ev_dt.
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ void localize_record(const Params<T>& p, int r_mode,
+                                                int n_obj, int bisect_iters,
+                                                const RayState<T>& r, T* y_out,
+                                                T& lam_out) {
+  StepData<T, TSIT5> s;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s.y0[c] = r.ev_y0[c];
+  rhs<T, KERR>(p, r_mode, s.y0, s.k[0]);
+  s.dt = r.ev_dt;
+  if constexpr (TSIT5) {
+    T err[8];
+    tsit5_step<T, KERR>(p, r_mode, s, err);
+  } else {
+    rk4_step<T, KERR>(p, r_mode, s);
+  }
+  const T th = localize<T, TSIT5>(p, n_obj, bisect_iters, s, r.ev_lo,
+                                  r.ev_hi);
+  interp<T, TSIT5, 8>(s, th, y_out);
+  lam_out = r.ev_lam + th * r.ev_dt;
+}
+
+// A ray's result (the plain localized): y* and lam* from the event record
+// for a hit ray, its current y and lam for any other.
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ void ray_result(const Params<T>& p, int r_mode,
+                                           int n_obj, int bisect_iters,
+                                           const RayState<T>& r, T* y_out,
+                                           T& lam_out) {
+  if (r.hit > T(0)) {
+    localize_record<T, KERR, TSIT5>(p, r_mode, n_obj, bisect_iters, r, y_out,
+                                    lam_out);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) y_out[c] = r.y[c];
+  lam_out = r.lam;
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ the wrapper of its CUDA kernel (csrc/geodesic.cu).
 Counterpart of raytracegr_jl_tpu/ops/pallas_geodesic.py: ``ks_parts``,
 ``geodesic_cm``, ``scene_event_cm``, the Tsit5/RK4 stages, the dense-output
 detection sweep, the ``make_step_cm`` body, ``localize_events_cm`` and
-``integrate_rays_cm`` (plain), and ``integrate_rays_cuda`` (the kernel, the
-counterpart of ``integrate_rays_pallas``).
+``integrate_rays_cm`` (plain), ``impact_parameter_order``, and
+``integrate_rays_cuda`` (the kernel, the counterpart of
+``integrate_rays_pallas``).
 
 Layout: the plain version keeps the ray state component-major, ``[8, B]``,
 so that each elementwise operation is one torch call over the batch; the
@@ -449,22 +450,58 @@ def integrate_rays_cm(metric: Metric, scene: Scene, y0: torch.Tensor,
     ``localize_events_cm`` pass). ``y0 [B, 8]``, ``dt0 [B]``.
 
     Every ray steps until it hits, spans ``lam_max``, dies or the loop
-    reaches ``max_steps``; finished rays are frozen by masks."""
+    reaches ``max_steps``; finished rays are frozen by masks.
+    ``cfg.sort_rays`` is ignored, as by the JAX ``xla_cm`` path: it only
+    regroups rays for the kernel's warps."""
     event_fn = scene_event_cm(scene)
     init, body = make_step_cm(metric, event_fn, cfg)
-    st = init(y0.t().contiguous(), dt0)
+    st, it = run_body(body, init(y0.t().contiguous(), dt0), cfg.max_steps)
+    y, lam = localized(metric, event_fn, cfg, st)
+    return TraceResult(y=y.t(), lam=lam, hit=st.hit, steps=st.steps,
+                       n_iters=it)
+
+
+def run_body(body, st: StepState, budget: int):
+    """At most ``budget`` iterations of ``body``, stopping once no ray is
+    active (an inactive ray's step is the identity): ``(state, iters)``."""
     it = 0
-    while it < cfg.max_steps and bool(st.active.any()):
+    while it < budget and bool(st.active.any()):
         st, _ = body(st)
         it += 1
+    return st, it
+
+
+def localized(metric: Metric, event_fn, cfg: IntegratorConfig,
+              st: StepState):
+    """The loop's result ``(y [8, B], lam [B])``: each hit ray localized
+    from its event record, every other ray as it stands (the JAX
+    ``localize_events_cm``'s return)."""
     y, lam = st.y, st.lam
     if bool(st.hit.any()):
         th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
                                              st.ev_dt, st.ev_lo, st.ev_hi)
         y = torch.where(st.hit, y_star, y)
         lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, lam)
-    return TraceResult(y=y.t(), lam=lam, hit=st.hit, steps=st.steps,
-                       n_iters=it)
+    return y, lam
+
+
+def impact_parameter(y0: torch.Tensor) -> torch.Tensor:
+    """Each ray's impact parameter about the coordinate origin, ``[B, 8] ->
+    [B]``: the distance of the origin from the line through x along the
+    spatial direction of u: the JAX package's cheap proxy for a ray's
+    integration cost."""
+    x, u = y0[:, 1:4], y0[:, 5:8]
+    un = u / torch.linalg.norm(u, dim=-1, keepdim=True)
+    perp = x - torch.sum(x * un, -1, keepdim=True) * un
+    return torch.linalg.norm(perp, dim=-1)
+
+
+def impact_parameter_order(y0: torch.Tensor):
+    """``(order, inverse order)`` sorting a ``[B, 8]`` batch by
+    ``impact_parameter``. The sort is stable, as ``jnp.argsort``; rays are
+    integrated independently, so results do not depend on the order."""
+    order = torch.argsort(impact_parameter(y0), stable=True)
+    return order, torch.argsort(order)
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +523,9 @@ N_CFG = 24
 _MAX_OBJECTS = 16
 _MAX_SAMPLES = 32
 _R_MODE = {R_AS_WRITTEN: 0, R_TEXTBOOK: 1}
+# sort_rays sorts only batches larger than this: the JAX package's rule,
+# one TPU tile (TILE_S * LANES rays).
+SORT_MIN_RAYS = 1024
 
 
 def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
@@ -559,13 +599,14 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     counterpart of the JAX ``integrate_rays_pallas``. ``y0 [B, 8]``,
     ``dt0 [B]``, both CUDA tensors of one float dtype.
 
-    Raises for CPU tensors, a failed build, and the options the kernel
-    does not take (``refine_minima``, ``sort_rays``, object kinds it does
-    not know). ``event_gate`` is bitwise-neutral and ignored. Adds one to
+    With ``cfg.sort_rays`` a batch of more than ``SORT_MIN_RAYS`` rays is
+    launched in ``impact_parameter_order``, so that a warp's rays need
+    similar step counts, and the results are put back in the caller's
+    order. Raises for CPU tensors, a failed build, and the options the
+    kernel does not take (``refine_minima``, object kinds it does not
+    know). ``event_gate`` is bitwise-neutral and ignored. Adds one to
     ``integrate_rays_cuda.launches`` per launch."""
     _check_options(cfg)
-    if cfg.sort_rays:
-        raise NotImplementedError("sort_rays is not ported to the kernel")
     kinds = check_kernel_config(metric, scene, cfg)
     if y0.device.type != "cuda" or dt0.device != y0.device:
         raise ValueError("integrate_rays_cuda needs CUDA tensors on one "
@@ -580,6 +621,10 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     lib = _find_lib()
     dev, dtype = y0.device, y0.dtype
     B = y0.shape[0]
+    inv_order = None
+    if cfg.sort_rays and B > SORT_MIN_RAYS:
+        order, inv_order = impact_parameter_order(y0)
+        y0, dt0 = y0[order], dt0[order]
     y_in = y0.t().contiguous()  # [8, B]: coalesced per-component loads
     dt_in = dt0.contiguous()
     prm = torch.tensor(kernel_params(metric, scene, cfg, dtype),
@@ -608,8 +653,11 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
         integrate_rays_cuda.launches += 1
-    return TraceResult(y=y_out.t(), lam=lam, hit=hit > 0, steps=steps,
-                       n_iters=0)
+    y_out, hit = y_out.t(), hit > 0
+    if inv_order is not None:
+        y_out, lam = y_out[inv_order], lam[inv_order]
+        hit, steps = hit[inv_order], steps[inv_order]
+    return TraceResult(y=y_out, lam=lam, hit=hit, steps=steps, n_iters=0)
 
 
 integrate_rays_cuda.launches = 0

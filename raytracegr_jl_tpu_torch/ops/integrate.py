@@ -46,8 +46,10 @@ class IntegratorConfig(NamedTuple):
     The port's integrators run ``method``, the tolerances, the span and
     step bounds, the controller gains, ``interp_points``, ``bisect_iters``
     and ``stop_rho``. ``event_gate`` is bitwise-neutral and ignored.
-    ``refine_minima`` is not ported yet and raises. ``sort_rays`` and the
-    gradient fields belong to paths the port does not have yet."""
+    ``refine_minima`` is not ported yet and raises. ``sort_rays`` orders
+    K1's batch by impact parameter (the plain integrator ignores it; the
+    differentiable path raises). The gradient fields belong to the
+    differentiable path (render.py, ops/adjoint.py)."""
 
     method: str = "tsit5"  # "tsit5" | "rk4"
     rtol: float = 1e-12

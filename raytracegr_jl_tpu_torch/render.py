@@ -6,7 +6,9 @@ The forward render integrates with K1 (the CUDA kernel, or its plain
 PyTorch version). The differentiable render (``differentiable=True``)
 integrates with the checkpointed adjoint of ops/adjoint.py: K3 and K4 on
 CUDA tensors, their plain versions on CPU tensors. Shading is the
-reference's hard shading, or ``shade_soft`` when ``soft_temp`` is set."""
+reference's hard shading, ``shade_soft`` when ``soft_temp`` is set, or the
+gravitational-redshift shading of models/shading.py with
+``shading="redshift"``. The compacted forward render is in compaction.py."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from .models.camera import Canvas
 from .models.objects import Scene, shade, shade_soft
+from .models.shading import shade_redshift
 from .ops.adjoint import integrate_rays_ckpt, integrate_rays_ckpt_cuda
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
                               integrate_rays_cuda)
@@ -23,6 +26,7 @@ from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
 from .ops.metrics import Metric
 
 BACKENDS = ("torch", "cuda")
+SHADINGS = ("reference", "redshift")
 
 
 class RenderConfig(NamedTuple):
@@ -31,8 +35,8 @@ class RenderConfig(NamedTuple):
 
     ``backend``: ``"cuda"`` (the kernels), ``"torch"`` (their plain
     versions) or None, which picks ``"cuda"`` for CUDA tensors and
-    ``"torch"`` for CPU tensors. Redshift shading is not ported yet and
-    raises."""
+    ``"torch"`` for CPU tensors. ``shading``: ``"reference"`` (hard, or
+    soft with ``soft_temp``) or ``"redshift"`` (g-factor beaming)."""
 
     integrator: IntegratorConfig = IntegratorConfig()
     hit_dmin: float = 0.01
@@ -58,8 +62,8 @@ GRAD_MODES = ("auto", "ckpt", "ckpt_cuda")
 
 
 def _check(cfg: RenderConfig) -> None:
-    if cfg.shading != "reference":
-        raise NotImplementedError("redshift shading is not ported")
+    if cfg.shading not in SHADINGS:
+        raise ValueError(f"unknown shading: {cfg.shading!r}")
     if cfg.backend not in BACKENDS + (None,):
         raise ValueError(f"unknown backend: {cfg.backend!r}")
     if not cfg.differentiable:
@@ -136,12 +140,20 @@ def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
     def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
         flat = torch.cat([pos, normal], dim=-1).reshape(-1, 8)
         res = trace_batch(metric, scene, flat, cfg)
-        return _shade(scene, res.y, cfg).reshape(pos.shape[:-1] + (3,))
+        return _shade(metric, scene, flat, res.y, cfg).reshape(
+            pos.shape[:-1] + (3,))
 
     return fn
 
 
-def _shade(scene: Scene, y: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+def _shade(metric: Metric, scene: Scene, y0: torch.Tensor, y: torch.Tensor,
+           cfg: RenderConfig) -> torch.Tensor:
+    """The end states' colours ``[B, 3]``; ``y0`` the launch states (the
+    redshift shading's camera frequency)."""
+    if cfg.shading == "redshift":
+        p = metric.params
+        return shade_redshift(metric, scene, y0, y, p.M, p.a, cfg.hit_dmin,
+                              cfg.beaming, cfg.exposure)
     if cfg.soft_temp is not None:
         return shade_soft(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
                           color_freq=cfg.soft_freq)

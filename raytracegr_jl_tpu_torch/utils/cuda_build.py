@@ -28,14 +28,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 # The C entry points, each returning a cudaError_t. K1: (y0, dt0, y, lam,
 # hit, steps, prm, kinds: pointers; n, kerr, tsit5, r_mode, max_steps,
-# n_obj, npts, bisect_iters: ints; stream). K3: (P_in, P_out, prm, kinds;
-# n, kerr, tsit5, r_mode, n_obj, npts, seg_len; stream). K4: (ck; n_used;
-# ct, ct0, pbar, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts, seg_len;
-# stream).
+# n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0, dt0, P_out,
+# y_fin, lam_fin, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts,
+# bisect_iters, budget, init; stream). K3: (P_in, P_out, prm, kinds; n, kerr,
+# tsit5, r_mode, n_obj, npts, seg_len; stream). K4: (ck; n_used; ct, ct0,
+# pbar, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts, seg_len; stream).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "geodesic": {name: [_P] * 8 + [_I] * 8 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
+    "compaction": {name: [_P] * 8 + [_I] * 9 + [_P]
+                   for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
     "adjoint": {**{name: [_P] * 4 + [_I] * 7 + [_P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
                 **{name: [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]

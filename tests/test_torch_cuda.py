@@ -154,3 +154,67 @@ def test_train_step_launches_k3_and_k4():
                                 p.sphere_pos.grad]))
     assert bool(torch.isfinite(grads[0]).all())
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+
+
+K2_CASES = [(T.accretion_disk_spec(32, 32), torch.float32, TOL32),
+            (T.accretion_disk_spec(16, 16), torch.float64, 1e-8)]
+
+
+@pytest.mark.parametrize("spec,dtype,tol", K2_CASES)
+def test_k2_matches_plain_bitwise(spec, dtype, tol):
+    """K2 against chunk_plain on the same inputs: the first chunk (state
+    built in the kernel), one resumed chunk, and a whole compacted trace
+    with first_chunk 16; every plane of the state and y_fin, lam_fin."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    integ = T.IntegratorConfig(rtol=tol, atol=tol, max_steps=400,
+                               stop_rho=1.0)
+    metric, scene, canvas = T.build(spec, dtype, torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    y_cm = y0.t().contiguous()
+    before = C.chunk_cuda.launches
+    k = C.chunk_cuda(metric, scene, integ, 16, y_cm=y_cm, dt0=dt0)
+    p = C.chunk_plain(metric, scene, integ, 16, y_cm=y_cm, dt0=dt0)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    k2 = C.chunk_cuda(metric, scene, integ, 32, P=k[0])
+    p2 = C.chunk_plain(metric, scene, integ, 32, P=p[0])
+    torch.cuda.synchronize()
+    assert C.chunk_cuda.launches == before + 2
+    for a, b in zip(k2, p2):
+        assert torch.equal(a, b)
+    rk = T.trace_batch_compacted(metric, scene, y0, dt0, integ,
+                                 first_chunk=16)
+    rp = T.trace_batch_compacted(metric, scene, y0, dt0, integ,
+                                 first_chunk=16, backend="torch")
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(rk, f), getattr(rp, f)), f
+
+
+def test_compacted_matches_k1_sorted_and_unsorted():
+    """The compacted chain (K2) against one K1 launch over the sorted batch
+    and over the batch as given: bitwise on every ray, and the images of
+    make_compact_renderer and render_fn are equal."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    metric, scene, canvas = T.build(T.accretion_disk_spec(64, 64),
+                                    torch.float32, torch.device("cuda"))
+    integ = T.IntegratorConfig(rtol=TOL32, atol=TOL32, max_steps=2000,
+                               stop_rho=1.0, sort_rays=True)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    chunks = []
+    comp = T.trace_batch_compacted(metric, scene, y0, dt0, integ,
+                                   first_chunk=32, chunks=chunks)
+    srt = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    uns = integrate_rays_cuda(metric, scene, y0, dt0,
+                              integ._replace(sort_rays=False))
+    assert any(b["rays"] < a["rays"] for a, b in zip(chunks, chunks[1:]))
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(comp, f), getattr(srt, f)), f
+        assert torch.equal(getattr(srt, f), getattr(uns, f)), f
+    cfg = T.RenderConfig(integrator=integ, shading="redshift")
+    before = C.chunk_cuda.launches
+    img = C.make_compact_renderer(metric, scene, cfg)(canvas).rgb
+    assert C.chunk_cuda.launches > before
+    assert torch.equal(img, T.render_fn(metric, scene, cfg)(canvas.pos,
+                                                             canvas.normal))

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it never imports jax, its configs mirror the
-JAX package's, and the CUDA path launches its kernel or raises — on CPU
-tensors, without nvcc, for options the kernel does not take — with no
-quiet fallback to the plain version."""
+JAX package's, and the CUDA path launches its kernels or raises — on CPU
+tensors, without nvcc, for options the kernels do not take — with no
+quiet fallback to the plain versions."""
 
 import subprocess
 import sys
@@ -24,6 +24,9 @@ MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.models.scenes",
            "raytracegr_jl_tpu_torch.ops.geodesic_cm",
            "raytracegr_jl_tpu_torch.ops.adjoint",
+           "raytracegr_jl_tpu_torch.compaction",
+           "raytracegr_jl_tpu_torch.models.shading",
+           "raytracegr_jl_tpu_torch.utils.stats",
            "raytracegr_jl_tpu_torch.grad",
            "raytracegr_jl_tpu_torch.inverse",
            "raytracegr_jl_tpu_torch.utils.convert",
@@ -77,13 +80,9 @@ def test_unsupported_options_raise():
     with pytest.raises(NotImplementedError, match="refine_minima"):
         integrate_rays_cm(metric, scene, y0, dt0,
                           T.IntegratorConfig(refine_minima=True))
-    with pytest.raises(NotImplementedError, match="sort_rays"):
-        integrate_rays_cuda(metric, scene, y0, dt0,
-                            T.IntegratorConfig(sort_rays=True))
     canvas = T.build(T.example2_spec(2, 2), torch.float64, "cpu")[2]
     grad = T.IntegratorConfig()
-    for cfg in (T.RenderConfig(shading="redshift"),
-                T.RenderConfig(differentiable=True,
+    for cfg in (T.RenderConfig(differentiable=True,
                                integrator=grad._replace(grad_mode="scan")),
                 T.RenderConfig(differentiable=True,
                                integrator=grad._replace(grad_groups=2)),
@@ -91,6 +90,42 @@ def test_unsupported_options_raise():
                                integrator=grad._replace(sort_rays=True))):
         with pytest.raises(NotImplementedError):
             T.trace_rays(metric, scene, canvas, cfg)
+    with pytest.raises(NotImplementedError, match="fast_epilogue"):
+        T.make_compact_renderer(metric, scene, T.RenderConfig(),
+                                fast_epilogue=True)
+    with pytest.raises(ValueError, match="shading"):
+        T.trace_rays(metric, scene, canvas, T.RenderConfig(shading="gold"))
+
+
+@pytest.mark.parametrize("cfg", [
+    T.RenderConfig(integrator=T.IntegratorConfig(sort_rays=True)),
+    T.RenderConfig(shading="redshift")], ids=["sort_rays", "redshift"])
+def test_forward_options_render(cfg):
+    """sort_rays (ignored by the plain integrator) and redshift shading,
+    which raised before the disk render was ported, render."""
+    metric, scene, canvas = T.build(T.example2_spec(2, 2), torch.float64,
+                                    "cpu")
+    rgb = T.trace_rays(metric, scene, canvas, cfg).rgb
+    assert rgb.shape == (2, 2, 3) and bool(torch.isfinite(rgb).all())
+    assert float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0
+
+
+def test_k2_wrapper_raises_on_cpu_tensors():
+    """K2 and the compacted render on CPU tensors raise before any launch
+    rather than falling back to the plain chunk."""
+    from raytracegr_jl_tpu_torch.compaction import chunk_cuda
+    metric, scene, y0, dt0 = _small()
+    cfg = T.IntegratorConfig(max_steps=4)
+    before = chunk_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        chunk_cuda(metric, scene, cfg, 4, y_cm=y0.t(), dt0=dt0)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.trace_batch_compacted(metric, scene, y0, dt0, cfg, backend="cuda")
+    canvas = T.build(T.example2_spec(2, 2), torch.float64, "cpu")[2]
+    with pytest.raises(ValueError, match="CUDA"):
+        T.render_compacted(metric, scene, canvas,
+                           T.RenderConfig(integrator=cfg, backend="cuda"))
+    assert chunk_cuda.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -165,8 +200,10 @@ def test_adjoint_layout_matches_the_cuda_source():
     from raytracegr_jl_tpu_torch.ops import adjoint
 
     with open(os.path.join(cuda_build.CSRC, "adjoint.cu")) as f:
+        assert f"MAX_SEG = {adjoint.MAX_SEG};" in f.read()
+    # The packed layout is shared by K2, K3 and K4.
+    with open(os.path.join(cuda_build.CSRC, "geodesic_common.cuh")) as f:
         src = f.read()
-    assert f"MAX_SEG = {adjoint.MAX_SEG};" in src
     enum = re.search(r"enum Plane \{(.*?)\};", src, re.S).group(1)
     planes = dict(item.strip().split(" = ") for item in enum.split(","))
     for name, value in planes.items():
