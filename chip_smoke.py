@@ -1,11 +1,14 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
 raytracegr_jl_tpu_torch/csrc (K1; K3 and K4 of the training path; K2 of the
-compacted render; one nvcc each, in parallel), checks each against its
-plain PyTorch version and K1 against the committed golden images, drives
-the forward render and the training path (one pixel-loss step for two
-configurations, three Adam steps) of the reference's example2 and the
-1024x1024 accretion-disk render (compacted, redshift shading) through the
-kernels, and times them.
+compacted render; one nvcc each, in parallel) and prints each kernel's
+registers and spills, checks each against its plain PyTorch version and K1
+against the committed golden images, drives the forward render and the
+training path (one pixel-loss step for two configurations, three Adam
+steps) of the reference's example2 and the 1024x1024 accretion-disk render
+(compacted, redshift shading) through the kernels, times them, holds the
+detection gate (event_gate) bitwise to the ungated disk render, and
+diagnoses K2 on the disk's packed tail (SASS instruction mix, the tail's
+work replicated and cut, block sizes).
 
     python3 chip_smoke.py
 
@@ -18,7 +21,11 @@ no CUDA device is present. Imports no jax.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -211,6 +218,242 @@ def require_chunks_equal(label: str, kernel, plain) -> float:
         require(torch.equal(a, b), f"{label}: K2 {name} not bitwise equal "
                 f"(max |d| {err:.3e})")
     return err
+
+
+# The diagnosis of K2 on the disk's packed tail (phase 16): a fixed budget
+# of iterations, the block sizes compared, and the kernels whose static SASS
+# instruction mix is counted (K2 resumed and K4, f32 Kerr-Schild Tsit5).
+TAIL_BUDGET = 2000
+TAIL_BLOCKS = (32, 64, 128)
+SASS_KERNELS = {"compaction": "k2_kernel<float, true, true, false",
+                "adjoint": "k4_kernel<float, true, true"}
+# SASS opcode classes (the opcode without its modifiers).
+_SASS_CLASSES = (
+    ("fp32", {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSET", "FSEL",
+              "FCHK", "FRND", "FSWZADD"}),
+    ("fp64", {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX"}),
+    ("mufu", {"MUFU"}),
+    ("lds", {"LDS", "LDSM"}),
+    ("ldl_stl", {"LDL", "STL"}),
+    ("ldc", {"LDC", "ULDC"}),
+    ("ldg_stg", {"LDG", "STG"}),
+    ("branch", {"BRA", "BRX", "BSSY", "BSYNC", "BREAK", "CALL", "RET",
+                "EXIT", "WARPSYNC", "JMP"}),
+)
+
+
+def cuda_tool(name: str):
+    """The path of a CUDA toolkit program, or None."""
+    path = shutil.which(name)
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", name)
+    return path if os.path.isfile(path) else None
+
+
+def demangle(names):
+    """Demangled names (cu++filt, else c++filt, else the names as given)."""
+    tool = cuda_tool("cu++filt") or shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    proc = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                          text=True)
+    out = proc.stdout.splitlines()
+    return out if proc.returncode == 0 and len(out) == len(names) else list(
+        names)
+
+
+def short_name(name: str) -> str:
+    """A demangled kernel name without its return type, namespace and
+    parameter list."""
+    for ns in ("(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(ns, "")
+    name = name.replace("(bool)1", "true").replace("(bool)0", "false")
+    name = re.sub(r"\((?:int|unsigned int)\)(-?\d+)", r"\1", name)
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0]
+
+
+def ptxas_report(log: str):
+    """``[(kernel, registers, stack bytes, spill stores, spill loads)]`` from
+    an ``nvcc -Xptxas -v`` log."""
+    rows, name, props = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name and props == name:
+            stack, st, ld = map(int, m.groups())
+            rows.append([name, None, stack, st, ld])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][0] == name and rows[-1][1] is None:
+            rows[-1][1] = int(m.group(1))
+    names = demangle([r[0] for r in rows])
+    return [(short_name(n), *r[1:]) for n, r in zip(names, rows)]
+
+
+def instruction_mix(sass: str, wanted: str):
+    """Static SASS instruction counts by class of each kernel whose
+    demangled name starts with ``wanted``: ``{name: {class: count, ...}}``,
+    with the total, the operands read from constant bank 3 (the kernels'
+    __constant__ parameters) and the most frequent opcodes."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and cur is not None:
+            funcs[cur].append(m.group(1))
+    result = {}
+    for mangled, name in zip(list(funcs), demangle(list(funcs))):
+        name = short_name(name)
+        if not name.startswith(wanted):
+            continue
+        counts = {c: 0 for c, _ in _SASS_CLASSES}
+        counts.update(other=0, const_bank_operands=0, total=0)
+        hist = {}
+        for ins in funcs[mangled]:
+            toks = ins.split()
+            if toks and toks[0].startswith("@"):
+                toks = toks[1:]
+            if not toks:
+                continue
+            op = toks[0].split(".")[0]
+            hist[toks[0]] = hist.get(toks[0], 0) + 1
+            counts["total"] += 1
+            if "c[0x3]" in ins:
+                counts["const_bank_operands"] += 1
+            for cls, ops in _SASS_CLASSES:
+                if op in ops:
+                    counts[cls] += 1
+                    break
+            else:
+                counts["other"] += 1
+        counts["top_opcodes"] = dict(sorted(hist.items(),
+                                            key=lambda kv: -kv[1])[:24])
+        result[name] = counts
+    return result
+
+
+def sass_report():
+    """``[(library, kernel, counts)]``: the static SASS instruction mix of
+    the ``SASS_KERNELS`` (``cuobjdump -sass`` of the built library), or
+    "not measured" where the toolkit has no cuobjdump."""
+    from raytracegr_jl_tpu_torch.utils import cuda_build
+    tool = cuda_tool("cuobjdump")
+    rows = []
+    for lib, wanted in SASS_KERNELS.items():
+        if tool is None:
+            rows.append((lib, wanted, "not measured (no cuobjdump)"))
+            continue
+        sass = subprocess.run([tool, "-sass", cuda_build._paths(lib)[1]],
+                              capture_output=True, text=True).stdout
+        rows += [(lib, k, c) for k, c in instruction_mix(sass, wanted).items()]
+    return rows
+
+
+def disk_setup(dev):
+    """The disk main path's configuration, rays and initial steps
+    (1024x1024 f32): ``(cfg, metric, scene, canvas, y0, dt0)``."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    cfg = rt.RenderConfig(integrator=rt.IntegratorConfig(
+        method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
+        max_steps=DISK_MAX_STEPS, stop_rho=1.0, sort_rays=True),
+        shading="redshift")
+    metric, scene, canvas = rt.build(rt.accretion_disk_spec(DISK_N, DISK_N),
+                                     torch.float32, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, cfg.integrator)
+    return cfg, metric, scene, canvas, y0, dt0
+
+
+def packed_tail(metric, scene, integ, y0, dt0):
+    """The state after the disk main path's second chunk: the sorted batch
+    at budget 64, packed as trace_batch_compacted packs it, at budget
+    128."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.ops.adjoint import P_ACTIVE
+    _, y_cm, dt_s = C.sorted_batch(y0, dt0)
+    P1 = C.chunk_cuda(metric, scene, integ, 64, y_cm=y_cm, dt0=dt_s)[0]
+    active = P1[P_ACTIVE] > 0
+    size = -(-y0.shape[0] // C.PACK_UNIT) * C.PACK_UNIT
+    keep = C.pack_slots(active, int(active.sum()), size)
+    require(keep is not None, "the first chunk's survivors did not pack")
+    return C.chunk_cuda(metric, scene, integ, 128,
+                        P=P1.index_select(1, keep))[0]
+
+
+def k2_at(args, P: torch.Tensor, budget: int, threads: int):
+    """K2 resumed on the state ``P`` at ``threads`` per block: its C entry
+    point called directly, since ``chunk_cuda`` launches the kernels' one
+    block size. The diagnosis's own launches, not counted. ``args`` from
+    ``chunk_args``."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    prm, flags = args
+    B = P.shape[1]
+    out, y_fin, lam = torch.empty_like(P), P.new_empty((8, B)), P.new_empty(B)
+    fn = C._lib().rtgr_k2_f32 if P.dtype == torch.float32 else \
+        C._lib().rtgr_k2_f64
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    rc = fn(ptr(P), ptr(None), ptr(None), ptr(out), ptr(y_fin), ptr(lam),
+            ptr(prm), B, *flags, int(budget), 0, int(threads),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    require(rc == 0, f"K2 at {threads} threads: CUDA error {rc}")
+    return out, y_fin, lam
+
+
+def diagnose_tail(dev, block_sizes=TAIL_BLOCKS, budget: int = TAIL_BUDGET):
+    """K2 on the disk's packed tail state (after the main path's second
+    chunk) at a fixed budget of iterations, medians of 3 after a warm-up:
+    replicated 1x, 2x and 4x (identical work per ray) and cut to a half and
+    a quarter, through ``chunk_cuda``; then at each of ``block_sizes``
+    threads per block, each launch's result bitwise equal to the one at
+    the largest. Returns one record per timing."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.ops.adjoint import P_ACTIVE
+    cfg, metric, scene, _, y0, dt0 = disk_setup(dev)
+    integ = cfg.integrator
+    tail = packed_tail(metric, scene, integ, y0, dt0)
+    n = tail.shape[1]
+
+    def median_ms(fn, reps=3):
+        return statistics.median([events_ms(fn) for _ in range(reps + 1)][1:])
+
+    recs = []
+    for label, P in (("quarter", tail[:, : n // 4].contiguous()),
+                     ("half", tail[:, : n // 2].contiguous()),
+                     ("1x", tail), ("2x", torch.cat([tail] * 2, 1)),
+                     ("4x", torch.cat([tail] * 4, 1))):
+        recs.append(dict(
+            kind="tail", copies=label, rays=P.shape[1], budget=budget,
+            active=int((P[P_ACTIVE] > 0).sum()), threads=128,
+            ms=median_ms(lambda: C.chunk_cuda(metric, scene, integ, budget,
+                                              P=P))))
+    if block_sizes:
+        args = C.chunk_args(metric, scene, integ, tail)
+        ref = k2_at(args, tail, budget, max(block_sizes))
+        for t in block_sizes:
+            got = k2_at(args, tail, budget, t)
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"K2 at {t} threads differs from {max(block_sizes)}")
+            recs.append(dict(kind="tail_block", copies="1x", rays=n,
+                             budget=budget, threads=t,
+                             ms=median_ms(lambda: k2_at(args, tail, budget,
+                                                        t))))
+    return recs
 
 
 def disk_slice(dev, card: str, reset_counts) -> dict:
@@ -454,6 +697,36 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
     phase("time disk 1024x1024 f32", t0, card=repr(card),
           **{k: f"{v:.4f}" for k, v in times.items()}, **rates)
 
+    # 13b. The detection gate (event_gate): the compacted 1024x1024 trace
+    #      and render with the gate on, bitwise against the ungated ones on
+    #      every ray, and K2's time summed over the chunks of each (medians
+    #      of 5, in turns).
+    t0 = time.perf_counter()
+    g_integ = integ._replace(event_gate=True)
+    g_chunks = []
+    comp_g = C.trace_batch_compacted(metric, scene, y0, dt0, g_integ,
+                                     chunks=g_chunks)
+    bad_g, err_g = mismatch(comp_g, comp)
+    rgb_g = C.make_compact_renderer(metric, scene, cfg._replace(
+        integrator=g_integ))(canvas).rgb
+    torch.cuda.synchronize()
+    img_equal = bool(torch.equal(rgb_g.reshape(-1, 3), img_c))
+    gate_ms = {True: [], False: []}
+    for rep in range(REPEATS):  # after the warm-up above, in turns
+        for g in ((True, False) if rep % 2 else (False, True)):
+            with timed_calls(C, "chunk_cuda") as pairs:
+                C.trace_batch_compacted(metric, scene, y0, dt0,
+                                        integ._replace(event_gate=g))
+            gate_ms[g].append(summed_ms(pairs))
+    on_ms, off_ms = (statistics.median(gate_ms[g]) for g in (True, False))
+    phase("disk 1024x1024 f32 gate on vs off", t0, card=repr(card),
+          rays_differ=bad_g, max_abs_d=err_g, images_equal=img_equal,
+          chunks_equal=g_chunks == chunks,
+          k2_ms_all_chunks_gate_on=f"{on_ms:.4f}",
+          k2_ms_all_chunks_gate_off=f"{off_ms:.4f}")
+    require(bad_g == 0 and img_equal and g_chunks == chunks,
+            f"gate on vs off: {bad_g} rays differ (max |d| {err_g:.3e})")
+
     # 14. One profiled compacted render: the device's busy time (the sum of
     #     its kernels) against the unprofiled render time.
     from torch.autograd import DeviceType
@@ -587,9 +860,11 @@ def main() -> int:
     build_s = time.perf_counter() - tb
     for name in LIBRARIES:
         cuda_build.load(name)
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas {name}:", line.strip(), flush=True)
+        for kern, regs, stack, st, ld in ptxas_report(
+                cuda_build.build_log(name)):
+            print(f"  ptxas {name}: {kern} registers={regs} "
+                  f"stack={stack} spill_stores={st} spill_loads={ld}",
+                  flush=True)
     phase("device+build", t0, card=repr(card), build_s=f"{build_s:.1f}")
 
     bench_cfg = rt.RenderConfig(integrator=rt.IntegratorConfig(
@@ -1051,6 +1326,24 @@ def main() -> int:
 
     # 10-15. The accretion-disk slice (K2).
     k2_entry = disk_slice(dev, card, reset_counts)
+
+    # 16. K2 on the disk's packed tail: the SASS instruction mix of K2's and
+    #     K4's f32 Kerr-Schild Tsit5 kernels, the tail's state replicated
+    #     1x, 2x, 4x and cut to a half and a quarter, and each block size
+    #     (bitwise equal to 128 threads), at a fixed budget of iterations.
+    t0 = time.perf_counter()
+    for lib, kern, counts in sass_report():
+        print(f"  sass {lib}: {kern} {json.dumps(counts)}", flush=True)
+    diag = diagnose_tail(dev)
+    tail = {r["copies"]: r["ms"] for r in diag if r["kind"] == "tail"}
+    blocks = {r["threads"]: r["ms"] for r in diag
+              if r["kind"] == "tail_block"}
+    phase("diagnose K2 packed tail", t0, card=repr(card),
+          rays=diag[2]["rays"], active=diag[2]["active"], budget=TAIL_BUDGET,
+          ms_by_copies={k: f"{v:.4f}" for k, v in tail.items()},
+          ms_1x_by_block={k: f"{v:.4f}" for k, v in blocks.items()},
+          ratio_2x=f"{tail['2x'] / tail['1x']:.3f}",
+          ratio_half=f"{tail['half'] / tail['1x']:.3f}")
 
     main = train_times["rk4/200"]
     print(json.dumps({"kernels": [{

@@ -1,0 +1,224 @@
+"""Before and after on one card: the port's kernel times, and K2's
+packed-tail diagnosis, for any checkout of the repo (this one, or an older
+one unpacked with ``git archive`` into an ignored directory), so that two
+versions can be compared in one run on one card.
+
+    python3 kernel_times.py times [--tree DIR] [--out FILE]
+    python3 kernel_times.py diagnose [--tree DIR] [--out FILE]
+
+``times``: medians of 5, with CUDA events, of the kernels and paths at the
+main paths' shapes: K2 on the 1024x1024 disk (chunks summed, and the last
+chunk alone; with the detection gate on and off), the compacted disk
+render, K1 on example2 at 200x200 and 1024x1024, K3 (summed over
+segments) and K4 in the rk4/200 and tsit5/48 training steps at 200x200
+f32, and those steps end to end.
+
+``diagnose``: chip_smoke.py's diagnosis of the tree's kernels: the
+``ptxas -v`` lines of every kernel, the static SASS instruction mix of
+K2's resumed and K4's f32 Kerr-Schild Tsit5 kernels ("not measured" where
+the toolkit has no cuobjdump), and K2 on the disk's packed tail replicated
+and cut at a fixed budget (the block sizes are chip_smoke.py's, for this
+tree's kernels only).
+
+Prints one JSON line per result; with ``--out`` also writes them to a file.
+Uses chip_smoke.py's helpers (of this checkout) on the tree's package.
+Needs a CUDA card; imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, diagnose_tail,
+                        disk_setup, events_ms, ptxas_report, require,
+                        sass_report, summed_ms, timed_calls)
+
+
+def emit(out: list, kind: str, **fields) -> None:
+    rec = dict(kind=kind, **fields)
+    out.append(rec)
+    print(json.dumps(rec), flush=True)
+
+
+def diagnose(out: list, dev, card: str) -> None:
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    for name in LIBRARIES:
+        for kern, regs, stack, st, ld in ptxas_report(cb.build_log(name)):
+            emit(out, "ptxas", library=name, kernel=kern, registers=regs,
+                 stack_bytes=stack, spill_stores=st, spill_loads=ld)
+    for lib, kern, counts in sass_report():
+        emit(out, "sass", library=lib, kernel=kern, mix=counts)
+    for rec in diagnose_tail(dev, block_sizes=()):
+        emit(out, rec.pop("kind"), card=card, **rec)
+
+
+def times(out: list, dev, card: str) -> None:
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (integrate_rays_cuda,
+                                                         make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+
+    f32 = torch.float32
+    # The disk: the compacted render, K2 per chunk (summed, and the last).
+    cfg, metric, scene, canvas, y0, dt0 = disk_setup(dev)
+    integ = cfg.integrator
+    render = C.make_compact_renderer(metric, scene, cfg)
+    render_ms = cuda_ms(lambda: render(canvas))
+    runs = []
+    for _ in range(REPEATS + 1):
+        with timed_calls(C, "chunk_cuda") as pairs:
+            C.trace_batch_compacted(metric, scene, y0, dt0, integ)
+        torch.cuda.synchronize()
+        runs.append([a.elapsed_time(b) for a, b in pairs])
+    runs = runs[1:]
+    gate = []
+    for _ in range(REPEATS + 1):
+        with timed_calls(C, "chunk_cuda") as pairs:
+            C.trace_batch_compacted(metric, scene, y0, dt0,
+                                    integ._replace(event_gate=True))
+        gate.append(summed_ms(pairs))
+    emit(out, "time", card=card, what="disk 1024x1024 f32",
+         k2_ms_all_chunks_gate_on=statistics.median(gate[1:]),
+         render_ms=render_ms,
+         k2_ms_all_chunks=statistics.median(sum(r) for r in runs),
+         k2_ms_last_chunk=statistics.median(r[-1] for r in runs),
+         k2_ms_per_chunk=[statistics.median(r[i] for r in runs)
+                          for i in range(len(runs[0]))])
+
+    # K1 on example2 (the bench configuration).
+    bench = rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
+                                max_steps=20_000)
+    for n in (200, 1024):
+        metric, scene, canvas = build(example2_spec(n, n), f32, dev)
+        y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+        dt0 = initial_dt(metric, y0, bench)
+        emit(out, "time", card=card, what=f"K1 example2 {n}x{n} f32",
+             k1_ms=cuda_ms(lambda: integrate_rays_cuda(metric, scene, y0,
+                                                       dt0, bench)))
+
+    # The training steps at 200x200 f32: end to end, K3 summed, K4.
+    spec = example2_spec(200, 200)
+    truth = rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+    for label, method, steps in (("rk4/200", "rk4", 200),
+                                 ("tsit5/48", "tsit5", 48)):
+        tcfg = rt.default_inverse_cfg(f32, max_steps=steps, method=method,
+                                      rk4_dt=100.0 / steps, stop_rho=0.5)
+        integ = tcfg.integrator
+        with torch.no_grad():
+            target = rt.make_ray_render_for_params(spec, tcfg, 2, f32, dev)(
+                truth, xg, ng)
+        loss_fn = rt.make_ray_loss_fn(spec, tcfg, 2, f32, dev)
+
+        def step():
+            p = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+            loss_fn(p, xg, ng, target).backward()
+
+        step_ms = cuda_ms(step)
+        M = torch.tensor(1.05, dtype=f32, device=dev)
+        a = torch.tensor(0.0, dtype=f32, device=dev)
+        metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M, a),
+                                rho_min=max(1e-3, 0.5 * integ.stop_rho))
+        _, scene, _ = build(spec, f32, dev)
+        seg = adj.segment_length(integ, integ.grad_seg_len)
+        route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                          n_seg=integ.max_steps // seg, cuda=True)
+        with torch.no_grad():
+            x, u = pixel_rays(metric, xg, ng)
+            y0 = torch.cat([x, u], -1)
+            dt0 = initial_dt(metric, y0, integ)
+            init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+            P0 = adj.pack_state(init(y0.t(), dt0))
+        args = adj.launch_args(route, P0)
+
+        def k3_total():
+            ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=f32,
+                             device=dev)
+            ck[0] = P0
+            total, s = 0.0, 0
+            while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
+                total += events_ms(lambda: adj.forward_segment_cuda(
+                    route, ck[s], ck[s + 1], args))
+                s += 1
+            return total, ck, s
+
+        k3_runs = [k3_total() for _ in range(REPEATS + 1)][1:]
+        _, ck, n_used = k3_runs[0]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
+        k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, n_used, ct,
+                                                  args))
+        emit(out, "time", card=card, what=f"train {label} 200x200 f32",
+             step_ms=step_ms,
+             k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
+             segments=n_used, k4_ms=k4_ms)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", choices=("diagnose", "times"))
+    ap.add_argument("--tree", default=".", help="the checkout to measure")
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    ns = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(ns.tree)
+    sys.path.insert(0, tree)
+    import raytracegr_jl_tpu_torch
+    require(os.path.dirname(os.path.dirname(
+        os.path.abspath(raytracegr_jl_tpu_torch.__file__))) == tree,
+        "the package did not load from the tree given")
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
+        torch.cuda.get_device_name(0))
+    out = []
+    t0 = time.perf_counter()
+    errors = []
+
+    def build_one(name):
+        try:
+            cb.build(name)
+        except Exception as e:  # reported below
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=build_one, args=(n,))
+               for n in LIBRARIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(not errors, "build failed: " + "; ".join(errors))
+    emit(out, "build", tree=tree, card=card,
+         seconds=time.perf_counter() - t0)
+    dev = torch.device("cuda", 0)
+    (diagnose if ns.mode == "diagnose" else times)(out, dev, card)
+    emit(out, "done", tree=tree, mode=ns.mode,
+         seconds=time.perf_counter() - t0)
+    if ns.out:
+        os.makedirs(os.path.dirname(os.path.abspath(ns.out)), exist_ok=True)
+        with open(ns.out, "w") as f:
+            for rec in out:
+                f.write(json.dumps(rec) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

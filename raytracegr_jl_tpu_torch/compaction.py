@@ -36,10 +36,10 @@ from .models.camera import Canvas
 from .models.objects import Scene
 from .ops.adjoint import (N_PLANES, P_ACTIVE, P_HIT, P_STEPS, pack_state,
                           unpack_state)
-from .ops.geodesic_cm import (_check_options, check_kernel_config,
-                              impact_parameter_order, kernel_params,
-                              kernel_r_mode, localized, make_step_cm,
-                              run_body, scene_event_cm)
+from .ops.geodesic_cm import (MAX_THREADS, _check_options,
+                              impact_parameter_order, launch_config,
+                              localized, make_step_cm, run_body,
+                              scene_event_cm)
 from .ops.integrate import IntegratorConfig, TraceResult
 from .ops.metrics import Metric
 from .render import (BACKENDS, RenderConfig, _check, _shade, initial_dt,
@@ -78,17 +78,11 @@ def chunk_plain(metric: Metric, scene: Scene, cfg: IntegratorConfig,
 
 def chunk_args(metric: Metric, scene: Scene, cfg: IntegratorConfig,
                like: torch.Tensor):
-    """K2's parameter block and object kinds on ``like``'s device and its
-    int flags, built once per trace (building them syncs with the host)."""
-    _check_options(cfg)
-    kinds = check_kernel_config(metric, scene, cfg)
-    prm = torch.tensor(kernel_params(metric, scene, cfg, like.dtype),
-                       dtype=like.dtype, device=like.device)
-    kind_t = torch.tensor(kinds, dtype=torch.int32, device=like.device)
-    return prm, kind_t, (int(metric.name == "kerr_schild"),
-                         int(cfg.method == "tsit5"), kernel_r_mode(metric),
-                         len(kinds), int(cfg.interp_points),
-                         int(cfg.bisect_iters))
+    """K2's parameter block on ``like``'s device and its int flags
+    (``launch_config``'s, then ``bisect_iters``), built once per trace
+    (building them syncs with the host)."""
+    prm, flags = launch_config(metric, scene, cfg, like, "compaction")
+    return prm, flags + (int(cfg.bisect_iters),)
 
 
 def _lib():
@@ -119,8 +113,8 @@ def chunk_cuda(metric: Metric, scene: Scene, cfg: IntegratorConfig,
                          + ("" if dt0 is None else f", {tuple(dt0.shape)}"))
     if budget < 0:
         raise ValueError(f"budget must be >= 0, got {budget}")
-    prm, kinds, flags = args if args is not None else chunk_args(
-        metric, scene, cfg, src)
+    prm, flags = args if args is not None else chunk_args(metric, scene, cfg,
+                                                          src)
     B = src.shape[1]
     dev, dtype = src.device, src.dtype
     src = src.contiguous()
@@ -133,8 +127,8 @@ def chunk_cuda(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     with torch.cuda.device(dev):
         rc = fn(ptr(src if P is not None else None),
                 ptr(src if P is None else None), ptr(dt_in), ptr(P_out),
-                ptr(y_fin), ptr(lam_fin), ptr(prm), ptr(kinds), B, *flags,
-                int(budget), int(P is None),
+                ptr(y_fin), ptr(lam_fin), ptr(prm), B, *flags, int(budget),
+                int(P is None), MAX_THREADS,
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {rc}")

@@ -28,15 +28,29 @@
 // min or clip meets its bound exactly, the derivative is split half and half.
 //
 // Design: one thread per ray, as K1. Both kernels are bound by arithmetic and
-// divergence, not memory: K3 moves 34 values of state in and out per ray per
+// latency, not memory: K3 moves 34 values of state in and out per ray per
 // segment; K4 reads one checkpoint per live segment and recomputes the
 // stages twice (replay, then the adjoint's own forward sweep), so it costs
 // about three forward steps per step. The per-step records of a segment
 // live in local memory, sized for MAX_SEG steps (2.2 KB per thread in f32).
+// A training batch of 200x200 rays makes ~9.5 warps per SM, too few to hide
+// a local-memory round trip, so nothing on the step's own chain goes
+// through local memory: the Tsit5 adjoint's stages are unrolled at compile
+// time (stage_input<ROW>, back_stage<M>), its tableau entries are
+// immediates (ts_a folds), and its stage arrays ks and kb live in registers
+// (f32 Kerr-Schild: 222 registers, no spills; before, ks, kb and the tableau
+// were ~3,900 local loads and stores). Only the per-step records stay in
+// local memory. As in K1 and K2 the parameters are constant-bank operands
+// (launch_with_params) and the training path's scene compile-time
+// (SC_SPS4, example2 with 4 detection samples). Blocks of MAX_THREADS.
 
 #include "geodesic_common.cuh"
 
 namespace {
+
+// The fixed scenes of this library's main paths: the training path
+// (example2, 4 detection samples).
+constexpr int FIXED_SCENES = 1 << SC_SPS4;
 
 constexpr int MAX_SEG = 32;
 
@@ -61,7 +75,7 @@ __device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     w_in[c] = w_clip(yin[c], -sc, sc);
-    y[c] = clip(yin[c], -sc, sc);
+    y[c] = clipn(yin[c], -sc, sc);
   }
   if constexpr (!KERR) {
 #pragma unroll
@@ -83,7 +97,7 @@ __device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
   const T aa = a * a;
   const T rho2_raw = xs * xs + ys * ys + zs * zs;
   const T bound = r_mode == R_AS_WRITTEN ? aa + eps2 : eps2;
-  const T rho2 = nmax(rho2_raw, bound);
+  const T rho2 = fmaxn(rho2_raw, bound);
   const T w_rho = w_max(rho2_raw, bound);
   const bool live = rho2_raw >= rho2;
   const T half = (rho2 - aa) / T(2);
@@ -98,11 +112,11 @@ __device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
     dr_dw = aa * zs * inv_inner;
   } else {
     if (r_mode == R_TEXTBOOK) {
-      inner = nmax(inner0, p.cfg[P_EPS2_HALF]);
+      inner = fmaxn(inner0, p.cfg[P_EPS2_HALF]);
       w_inner = w_max(inner0, p.cfg[P_EPS2_HALF]);
       const T v = half + inner;
       w_v = w_max(v, eps2);
-      r = sqrt(nmax(v, eps2));
+      r = sqrt(fmaxn(v, eps2));
     } else {
       r = sqrt(half + inner);
     }
@@ -160,7 +174,7 @@ __device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
   const T d_raw = T(1) + f * kappa;
   const T dmin = p.cfg[P_DET_MIN];
   const bool neg = d_raw < T(0);
-  const T d = neg ? nmin(d_raw, -dmin) : nmax(d_raw, dmin);
+  const T d = neg ? fminn(d_raw, -dmin) : fmaxn(d_raw, dmin);
   const T w_d = neg ? w_max(-d_raw, dmin) : w_max(d_raw, dmin);
   const T coef = f / d;
   const T ku = u0 + k1 * uu[0] + k2 * uu[1] + k3 * uu[2];
@@ -413,30 +427,42 @@ __device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
   for (int c = 0; c < 4; ++c) cty[4 + c] = ub[c] * w_in[4 + c];
 }
 
-// Tsitouras tableau row `row`, entry j (ops/integrate.py TS_A).
-__device__ __forceinline__ double ts_a(int row, int j) {
-  const double tab[6][6] = {
-      {TS_A_00, 0, 0, 0, 0, 0},
-      {TS_A_10, TS_A_11, 0, 0, 0, 0},
-      {TS_A_20, TS_A_21, TS_A_22, 0, 0, 0},
-      {TS_A_30, TS_A_31, TS_A_32, TS_A_33, 0, 0},
-      {TS_A_40, TS_A_41, TS_A_42, TS_A_43, TS_A_44, 0},
-      {TS_A_50, TS_A_51, TS_A_52, TS_A_53, TS_A_54, TS_A_55}};
-  return tab[row][j];
-}
-
-// y + dt * sum_{j <= row} TS_A[row][j] k_j, as tsit5_step adds.
-template <typename T>
+// y + dt * sum_{j <= ROW} TS_A[ROW][j] k_j, as tsit5_step adds.
+template <int ROW, typename T>
 __device__ __forceinline__ void stage_input(const T* y, T dt,
-                                            T (*ks)[8], int row,
-                                            T* z) {
+                                            const T (*ks)[8], T* z) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    T acc = T(ts_a(row, 0)) * ks[0][c];
+    T acc = T(ts_a(ROW, 0)) * ks[0][c];
 #pragma unroll
-    for (int j = 1; j <= row; ++j) acc = acc + T(ts_a(row, j)) * ks[j][c];
+    for (int j = 1; j <= ROW; ++j) acc = acc + T(ts_a(ROW, j)) * ks[j][c];
     z[c] = y[c] + dt * acc;
   }
+}
+
+// One stage of the Tsit5 step's reverse sweep (step_vjp's loop over m, from
+// 5 down to 1): the cotangent kb[M] of stage M pulled back through the RHS
+// at that stage's input, into y's cotangent, (M, a) and the earlier stages.
+template <int M, typename T, bool KERR>
+__device__ __forceinline__ void back_stage(const Params<T>& p, int r_mode,
+                                           const T* y, T dt,
+                                           const T (*ks)[8], T (*kb)[8],
+                                           T* yb, T& gM, T& ga) {
+  T z[8], g[8], sb[8], dM, da;
+  stage_input<M - 1>(y, dt, ks, z);
+  rhs_vjp<T, KERR>(p, r_mode, z, kb[M], g, dM, da);
+  gM = gM + dM;
+  ga = ga + da;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    yb[c] = yb[c] + g[c];
+    sb[c] = dt * g[c];
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      kb[j][c] = kb[j][c] + T(ts_a(M - 1, j)) * sb[c];
 }
 
 // Reverse mode of one accepted step (ops/adjoint.py step_vjp):
@@ -451,12 +477,17 @@ __device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
     T ks[6][8], z[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) ks[0][c] = k1[c];
-#pragma unroll 1
-    for (int row = 0; row < 5; ++row) {
-      stage_input(y, dt, ks, row, z);
-      rhs<T, KERR>(p, r_mode, z, ks[row + 1]);
-    }
-    stage_input(y, dt, ks, 5, z);
+    stage_input<0>(y, dt, ks, z);
+    rhs<T, KERR>(p, r_mode, z, ks[1]);
+    stage_input<1>(y, dt, ks, z);
+    rhs<T, KERR>(p, r_mode, z, ks[2]);
+    stage_input<2>(y, dt, ks, z);
+    rhs<T, KERR>(p, r_mode, z, ks[3]);
+    stage_input<3>(y, dt, ks, z);
+    rhs<T, KERR>(p, r_mode, z, ks[4]);
+    stage_input<4>(y, dt, ks, z);
+    rhs<T, KERR>(p, r_mode, z, ks[5]);
+    stage_input<5>(y, dt, ks, z);
     rhs_vjp<T, KERR>(p, r_mode, z, ctk, g, gM, ga);
     T kb[6][8], sb[8];
 #pragma unroll
@@ -469,22 +500,11 @@ __device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
     for (int j = 0; j < 6; ++j)
 #pragma unroll
       for (int c = 0; c < 8; ++c) kb[j][c] = T(ts_a(5, j)) * sb[c];
-#pragma unroll 1
-    for (int m = 5; m >= 1; --m) {
-      stage_input(y, dt, ks, m - 1, z);
-      rhs_vjp<T, KERR>(p, r_mode, z, kb[m], g, dM, da);
-      gM = gM + dM;
-      ga = ga + da;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        yb[c] = yb[c] + g[c];
-        sb[c] = dt * g[c];
-      }
-      for (int j = 0; j < m; ++j)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          kb[j][c] = kb[j][c] + T(ts_a(m - 1, j)) * sb[c];
-    }
+    back_stage<5, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+    back_stage<4, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+    back_stage<3, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+    back_stage<2, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+    back_stage<1, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
 #pragma unroll
     for (int c = 0; c < 8; ++c) k1b[c] = kb[0][c];
   } else {
@@ -543,14 +563,11 @@ __device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
 // --------------------------------------------------------------------------
 // The kernels
 // --------------------------------------------------------------------------
-template <typename T, bool KERR, bool TSIT5>
-__global__ void __launch_bounds__(THREADS)
-k3_kernel(const T* __restrict__ P_in, T* __restrict__ P_out,
-          const T* __restrict__ prm, const int* __restrict__ kinds, int n,
+template <typename T, bool KERR, bool TSIT5, int SC>
+__global__ void __launch_bounds__(MAX_THREADS)
+k3_kernel(const T* __restrict__ P_in, T* __restrict__ P_out, int n,
           int r_mode, int n_obj, int npts, int seg_len) {
-  __shared__ Params<T> p;
-  load_params(p, prm, kinds, n_obj, npts);
-  __syncthreads();
+  const Params<T>& p = cparams<T>();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   RayState<T> r;
@@ -558,20 +575,18 @@ k3_kernel(const T* __restrict__ P_in, T* __restrict__ P_out,
   for (int it = 0; it < seg_len && r.active > T(0); ++it) {
     T dt_try;
     bool hit_now;
-    body_step<T, KERR, TSIT5>(p, r_mode, n_obj, npts, r, dt_try, hit_now);
+    body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
+                                  hit_now);
   }
   store_state(P_out, n, i, r);
 }
 
-template <typename T, bool KERR, bool TSIT5>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool KERR, bool TSIT5, int SC>
+__global__ void __launch_bounds__(MAX_THREADS)
 k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
-          T* __restrict__ ct0, T* __restrict__ pbar,
-          const T* __restrict__ prm, const int* __restrict__ kinds, int n,
-          int r_mode, int n_obj, int npts, int seg_len) {
-  __shared__ Params<T> p;
-  load_params(p, prm, kinds, n_obj, npts);
-  __syncthreads();
+          T* __restrict__ ct0, T* __restrict__ pbar, int n, int r_mode,
+          int n_obj, int npts, int seg_len) {
+  const Params<T>& p = cparams<T>();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T cy[8], ck1[8], cev[8];
@@ -598,8 +613,8 @@ k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
         y_before[c] = r.y[c];
         k_before[c] = r.k1[c];
       }
-      if (body_step<T, KERR, TSIT5>(p, r_mode, n_obj, npts, r, dt_try,
-                                    hit_now)) {
+      if (body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
+                                        hit_now)) {
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           ry[nrec][c] = y_before[c];
@@ -641,89 +656,78 @@ k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
 }
 
 template <typename T>
-int launch_k3(const void* P_in, void* P_out, const void* prm,
-              const void* kinds, int n, int kerr, int tsit5, int r_mode,
-              int n_obj, int npts, int seg_len, void* stream) {
-  if (n_obj < 1 || n_obj > MAX_OBJ || npts < 1 || npts > MAX_SMP || n < 1)
+int launch_k3(const void* P_in, void* P_out, const void* prm, int n, int kerr,
+              int tsit5, int r_mode, int scene, int n_obj, int npts,
+              int seg_len, void* stream) {
+  if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + THREADS - 1) / THREADS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   const T* in = static_cast<const T*>(P_in);
   T* out = static_cast<T*>(P_out);
-  const T* pr = static_cast<const T*>(prm);
-  const int* kd = static_cast<const int*>(kinds);
-#define K3_LAUNCH(KERR, TS)                                              \
-  k3_kernel<T, KERR, TS><<<blocks, THREADS, 0, st>>>(in, out, pr, kd, n, \
-                                                     r_mode, n_obj, npts,  \
-                                                     seg_len)
-  if (kerr && tsit5) K3_LAUNCH(true, true);
-  else if (kerr) K3_LAUNCH(true, false);
-  else if (tsit5) K3_LAUNCH(false, true);
-  else K3_LAUNCH(false, false);
-#undef K3_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+    bool ok;
+    RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
+                  k3_kernel<T, KERR_, TSIT5_, SC_>
+                  <<<blocks, MAX_THREADS, 0, st>>>(in, out, n, r_mode, n_obj,
+                                                   npts, seg_len))
+    return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+  }));
 }
 
 template <typename T>
 int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
-              void* pbar, const void* prm, const void* kinds, int n, int kerr,
-              int tsit5, int r_mode, int n_obj, int npts, int seg_len,
+              void* pbar, const void* prm, int n, int kerr, int tsit5,
+              int r_mode, int scene, int n_obj, int npts, int seg_len,
               void* stream) {
-  if (n_obj < 1 || n_obj > MAX_OBJ || npts < 1 || npts > MAX_SMP || n < 1 ||
+  if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
       seg_len < 1 || seg_len > MAX_SEG)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + THREADS - 1) / THREADS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   const T* c = static_cast<const T*>(ck);
   const T* g = static_cast<const T*>(ct);
   T* g0 = static_cast<T*>(ct0);
   T* pb = static_cast<T*>(pbar);
-  const T* pr = static_cast<const T*>(prm);
-  const int* kd = static_cast<const int*>(kinds);
-#define K4_LAUNCH(KERR, TS)                                                 \
-  k4_kernel<T, KERR, TS><<<blocks, THREADS, 0, st>>>(c, n_used, g, g0, pb,  \
-                                                     pr, kd, n, r_mode,      \
-                                                     n_obj, npts, seg_len)
-  if (kerr && tsit5) K4_LAUNCH(true, true);
-  else if (kerr) K4_LAUNCH(true, false);
-  else if (tsit5) K4_LAUNCH(false, true);
-  else K4_LAUNCH(false, false);
-#undef K4_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+    bool ok;
+    RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
+                  k4_kernel<T, KERR_, TSIT5_, SC_>
+                  <<<blocks, MAX_THREADS, 0, st>>>(c, n_used, g, g0, pb, n,
+                                                   r_mode, n_obj, npts,
+                                                   seg_len))
+    return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+  }));
 }
 
 }  // namespace
 
 extern "C" int rtgr_k3_f32(const void* P_in, void* P_out, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int n_obj, int npts, int seg_len,
-                           void* stream) {
-  return launch_k3<float>(P_in, P_out, prm, kinds, n, kerr, tsit5, r_mode,
+                           int n, int kerr, int tsit5, int r_mode, int scene,
+                           int n_obj, int npts, int seg_len, void* stream) {
+  return launch_k3<float>(P_in, P_out, prm, n, kerr, tsit5, r_mode, scene,
                           n_obj, npts, seg_len, stream);
 }
 
 extern "C" int rtgr_k3_f64(const void* P_in, void* P_out, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int n_obj, int npts, int seg_len,
-                           void* stream) {
-  return launch_k3<double>(P_in, P_out, prm, kinds, n, kerr, tsit5, r_mode,
+                           int n, int kerr, int tsit5, int r_mode, int scene,
+                           int n_obj, int npts, int seg_len, void* stream) {
+  return launch_k3<double>(P_in, P_out, prm, n, kerr, tsit5, r_mode, scene,
                            n_obj, npts, seg_len, stream);
 }
 
 extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
-                           void* ct0, void* pbar, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int n_obj, int npts, int seg_len,
-                           void* stream) {
-  return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, kinds, n, kerr,
-                          tsit5, r_mode, n_obj, npts, seg_len, stream);
+                           void* ct0, void* pbar, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
+                           int n_obj, int npts, int seg_len, void* stream) {
+  return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
+                          r_mode, scene, n_obj, npts, seg_len, stream);
 }
 
 extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
-                           void* ct0, void* pbar, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int n_obj, int npts, int seg_len,
-                           void* stream) {
-  return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, kinds, n, kerr,
-                           tsit5, r_mode, n_obj, npts, seg_len, stream);
+                           void* ct0, void* pbar, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
+                           int n_obj, int npts, int seg_len, void* stream) {
+  return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
+                           r_mode, scene, n_obj, npts, seg_len, stream);
 }

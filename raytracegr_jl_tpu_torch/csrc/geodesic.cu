@@ -23,27 +23,30 @@
 // stage the step carried bit for bit. So one step body and one localization
 // serve K1, K2, K3 and K4.
 //
-// Parameters arrive in one array of the working type, filled in double on
-// the host (kernel_params in ops/geodesic_cm.py): the configuration block,
-// 8 fields per object (pos1, pos2, pos3, radius, time, r_in, r_out, half),
-// and per detection sample its dense-output weights and theta. Object kinds
-// come as ints. Known ulp source: CUDA's pow is not correctly rounded, so
-// the controller's q_pi may differ from a host libm by an ulp.
+// Parameters arrive as the bytes of Params<T> (geodesic_common.cuh), packed
+// in double on the host and rounded to the working type
+// (ops/geodesic_cm.py pack_params): the configuration block, 8 fields per
+// object (pos1, pos2, pos3, radius, time, r_in, r_out, half), per detection
+// sample its dense-output weights and theta, and the object kinds. They are
+// copied into constant memory on the launch's stream before the launch.
+// Known ulp source: CUDA's pow is not correctly rounded, so the controller's
+// q_pi may differ from a host libm by an ulp.
 
 #include "geodesic_common.cuh"
 
 namespace {
 
-template <typename T, bool KERR, bool TSIT5>
-__global__ void __launch_bounds__(THREADS)
+// The fixed scenes of this library's main paths: example2's render and the
+// disk's single launch.
+constexpr int FIXED_SCENES = (1 << SC_SPS9) | (1 << SC_SD9);
+
+template <typename T, bool KERR, bool TSIT5, int SC>
+__global__ void __launch_bounds__(MAX_THREADS)
 k1_kernel(const T* __restrict__ y0, const T* __restrict__ dt0,
           T* __restrict__ y_out, T* __restrict__ lam_out,
-          int* __restrict__ hit_out, int* __restrict__ steps_out,
-          const T* __restrict__ prm, const int* __restrict__ kinds, int n,
+          int* __restrict__ hit_out, int* __restrict__ steps_out, int n,
           int r_mode, int max_steps, int n_obj, int npts, int bisect_iters) {
-  __shared__ Params<T> p;
-  load_params(p, prm, kinds, n_obj, npts);
-  __syncthreads();
+  const Params<T>& p = cparams<T>();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   RayState<T> r;
@@ -51,10 +54,11 @@ k1_kernel(const T* __restrict__ y0, const T* __restrict__ dt0,
   for (int it = 0; it < max_steps && r.active > T(0); ++it) {
     T dt_try;
     bool hit_now;
-    body_step<T, KERR, TSIT5>(p, r_mode, n_obj, npts, r, dt_try, hit_now);
+    body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
+                                  hit_now);
   }
   T ys[8], lam;
-  ray_result<T, KERR, TSIT5>(p, r_mode, n_obj, bisect_iters, r, ys, lam);
+  ray_result<T, KERR, TSIT5, SC>(p, r_mode, n_obj, bisect_iters, r, ys, lam);
 #pragma unroll
   for (int c = 0; c < 8; ++c) y_out[c * n + i] = ys[c];
   lam_out[i] = lam;
@@ -62,59 +66,46 @@ k1_kernel(const T* __restrict__ y0, const T* __restrict__ dt0,
   steps_out[i] = static_cast<int>(r.steps);
 }
 
-template <typename T, bool KERR, bool TSIT5>
-void launch_one(const void* y0, const void* dt0, void* y, void* lam, void* hit,
-                void* steps, const void* prm, const void* kinds, int n,
-                int r_mode, int max_steps, int n_obj, int npts,
-                int bisect_iters, cudaStream_t stream) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  k1_kernel<T, KERR, TSIT5><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(y0), static_cast<const T*>(dt0),
-      static_cast<T*>(y), static_cast<T*>(lam), static_cast<int*>(hit),
-      static_cast<int*>(steps), static_cast<const T*>(prm),
-      static_cast<const int*>(kinds), n, r_mode, max_steps, n_obj, npts,
-      bisect_iters);
-}
-
 template <typename T>
 int launch(const void* y0, const void* dt0, void* y, void* lam, void* hit,
-           void* steps, const void* prm, const void* kinds, int n, int kerr,
-           int tsit5, int r_mode, int max_steps, int n_obj, int npts,
+           void* steps, const void* prm, int n, int kerr, int tsit5,
+           int r_mode, int scene, int max_steps, int n_obj, int npts,
            int bisect_iters, void* stream) {
-  if (n_obj < 1 || n_obj > MAX_OBJ || npts < 1 || npts > MAX_SMP)
+  if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kerr && tsit5)
-    launch_one<T, true, true>(y0, dt0, y, lam, hit, steps, prm, kinds, n,
-                              r_mode, max_steps, n_obj, npts, bisect_iters, st);
-  else if (kerr)
-    launch_one<T, true, false>(y0, dt0, y, lam, hit, steps, prm, kinds, n,
-                               r_mode, max_steps, n_obj, npts, bisect_iters, st);
-  else if (tsit5)
-    launch_one<T, false, true>(y0, dt0, y, lam, hit, steps, prm, kinds, n,
-                               r_mode, max_steps, n_obj, npts, bisect_iters, st);
-  else
-    launch_one<T, false, false>(y0, dt0, y, lam, hit, steps, prm, kinds, n,
-                                r_mode, max_steps, n_obj, npts, bisect_iters, st);
-  return static_cast<int>(cudaGetLastError());
+  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
+  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+    bool ok;
+    RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
+                  k1_kernel<T, KERR_, TSIT5_, SC_>
+                  <<<blocks, MAX_THREADS, 0, st>>>(
+                      static_cast<const T*>(y0), static_cast<const T*>(dt0),
+                      static_cast<T*>(y), static_cast<T*>(lam),
+                      static_cast<int*>(hit), static_cast<int*>(steps), n,
+                      r_mode, max_steps, n_obj, npts, bisect_iters))
+    return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+  }));
 }
 
 }  // namespace
 
 extern "C" int rtgr_k1_f32(const void* y0, const void* dt0, void* y, void* lam,
-                           void* hit, void* steps, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int max_steps, int n_obj, int npts,
+                           void* hit, void* steps, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
+                           int max_steps, int n_obj, int npts,
                            int bisect_iters, void* stream) {
-  return launch<float>(y0, dt0, y, lam, hit, steps, prm, kinds, n, kerr, tsit5,
-                       r_mode, max_steps, n_obj, npts, bisect_iters, stream);
+  return launch<float>(y0, dt0, y, lam, hit, steps, prm, n, kerr, tsit5,
+                       r_mode, scene, max_steps, n_obj, npts, bisect_iters,
+                       stream);
 }
 
 extern "C" int rtgr_k1_f64(const void* y0, const void* dt0, void* y, void* lam,
-                           void* hit, void* steps, const void* prm,
-                           const void* kinds, int n, int kerr, int tsit5,
-                           int r_mode, int max_steps, int n_obj, int npts,
+                           void* hit, void* steps, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
+                           int max_steps, int n_obj, int npts,
                            int bisect_iters, void* stream) {
-  return launch<double>(y0, dt0, y, lam, hit, steps, prm, kinds, n, kerr, tsit5,
-                        r_mode, max_steps, n_obj, npts, bisect_iters, stream);
+  return launch<double>(y0, dt0, y, lam, hit, steps, prm, n, kerr, tsit5,
+                        r_mode, scene, max_steps, n_obj, npts, bisect_iters,
+                        stream);
 }

@@ -1,31 +1,132 @@
 // Device code shared by the kernels of this directory: the parameter block,
 // the Kerr-Schild and Minkowski right-hand side, the scene event and its
-// derivative, dense output, the detection sweep, localization, and the
-// Tsit5 and RK4 stage sweeps, the packed loop state and one step of the
-// loop body. K1 (geodesic.cu), K2 (compaction.cu), K3 and K4 (adjoint.cu)
+// derivative, dense output, the detection sweep and its gate, localization,
+// and the Tsit5 and RK4 stage sweeps, the packed loop state and one step of
+// the loop body. K1 (geodesic.cu), K2 (compaction.cu), K3 and K4 (adjoint.cu)
 // step alike because they include the same functions. Each follows the
 // plain PyTorch version in ops/geodesic_cm.py operation by operation (build
 // with --fmad=false).
+//
+// What bounds a step on the H100: one ray per thread runs a long serial
+// chain (six right-hand sides of 3 IEEE square roots and ~5 IEEE divisions
+// each, three pows in the controller, a 9-sample detection sweep) on few
+// warps: the disk's packed tail holds ~11 per SM. Measured there (PERF.md),
+// half the rays take 0.71x the time of all of them and twice the rays
+// 1.79x: past ~5 warps per SM the schedulers' issue, not only latency,
+// sets the pace, so only fewer instructions per step pay. The design:
+// * The parameter block lives in constant memory, one copy per library and
+//   working type (c_params_f32, c_params_f64), filled before each launch by
+//   a device-to-device cudaMemcpyToSymbolAsync on the launch's stream, with
+//   no host sync. Every thread reads the same address, so the step's
+//   constants are constant-bank operands of its instructions, not
+//   shared-memory loads on its critical path. The stream orders the copy
+//   before its kernel; the launches of a library and type on different
+//   streams are serialized by launch_with_params, so that no copy overwrites
+//   the constants of a kernel still running.
+// * The scenes of the main paths are compile-time (scene codes SC_SPS9,
+//   SC_SD9, SC_SPS4: their object kinds and detection samples): the sweep
+//   and the event are unrolled, each weight and object field is an operand
+//   at a known offset, and no branch on an object kind is left. SC_ANY
+//   takes any scene at run time, as a kernel of its own.
+// * The sweep evaluates all samples without an early exit, so that their
+//   independent chains interleave; the first crossing is picked after.
+// * Clamps and limits are one NaN-propagating FMNMX each in f32 (fmaxn,
+//   fminn, clipn) where that gives the select's value, and the controller
+//   runs only the pows of the branch it takes.
+// * Optionally (P_GATE, cfg.event_gate) the sweep is skipped for a ray
+//   whose dense output provably stays clear of every object this step.
+// * Blocks of MAX_THREADS (128) threads. Blocks of 32 and 64 were measured
+//   no faster on the disk's packed tail (PERF.md); K2 alone takes the block
+//   size as an argument, for that measurement.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+#include <type_traits>
+
 namespace {
 enum Prm {
   P_M, P_A, P_EPS2, P_EPS2_HALF, P_STATE_CLAMP, P_RHS_CLAMP, P_DET_MIN,
   P_RTOL, P_ATOL, P_LAM_MAX, P_LAM_END, P_DT_MIN, P_DT_DEAD, P_RK4_DT,
   P_SAFETY, P_QMIN, P_QMAX, P_NEG_BETA1, P_BETA2, P_QOLD_INIT, P_STOP_RHO2,
-  N_CFG = 24
+  P_GATE, P_BMAX0, P_BMAX1, P_BMAX2, P_BMAX3, P_BMAX4, P_BMAX5, P_BMAX6,
+  P_HERM1, P_HERM2, P_HERM3, N_CFG = 32
 };
 constexpr int OBJ_STRIDE = 8;   // pos1, pos2, pos3, radius, time, r_in, r_out, half
 constexpr int SMP_STRIDE = 8;   // 7 dense-output weights, then theta
 constexpr int MAX_OBJ = 16;
 constexpr int MAX_SMP = 32;
-constexpr int THREADS = 128;
+constexpr int MAX_THREADS = 128;
 enum { KIND_SPHERE = 0, KIND_PLANE = 1, KIND_DISK = 2 };
 enum { R_AS_WRITTEN = 0, R_TEXTBOOK = 1, R_TEXTBOOK_NOFLOOR = 2 };
+// Scenes known at compile time (their kinds and detection samples), and
+// SC_ANY, which takes kinds and counts at run time. SC_SPS9: sphere, plane,
+// sphere, 9 samples (example2's render); SC_SD9: sphere, disk, 9 samples
+// (the accretion disk); SC_SPS4: example2 with the training path's 4.
+enum { SC_ANY = 0, SC_SPS9 = 1, SC_SD9 = 2, SC_SPS4 = 3 };
+__host__ __device__ constexpr int sc_nobj(int sc) {
+  return sc == SC_SD9 ? 2 : 3;
+}
+__host__ __device__ constexpr int sc_npts(int sc) {
+  return sc == SC_SPS4 ? 4 : 9;
+}
+
+// Host: the kernel of (kerr, tsit5, scene), with KERR_, TSIT5_ (bools) and SC_
+// (a scene code) as compile-time constants in the launch statement given as
+// the last argument; sets ok to false where none is instantiated. A library
+// instantiates the fixed scenes of its main paths (its FIXED_SCENES, a mask
+// of scene codes), for its f32 Kerr-Schild kernels only.
+#define RTGR_BOOL(cond, NAME, ...)                                           \
+  if (cond) {                                                                \
+    constexpr bool NAME = true;                                              \
+    __VA_ARGS__;                                                             \
+  } else {                                                                   \
+    constexpr bool NAME = false;                                             \
+    __VA_ARGS__;                                                             \
+  }
+#define RTGR_FIXED(CODE, tsit5, ...)                                         \
+  if constexpr ((FIXED_SCENES >> (CODE)) & 1) {                              \
+    constexpr int SC_ = CODE;                                                \
+    RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__)                                    \
+  } else {                                                                   \
+    ok = false;                                                              \
+  }
+#define RTGR_DISPATCH(ok, T, kerr, tsit5, scene, ...)                        \
+  ok = true;                                                                 \
+  if ((scene) == SC_ANY) {                                                   \
+    constexpr int SC_ = SC_ANY;                                              \
+    RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))            \
+  } else if constexpr (std::is_same<T, float>::value) {                      \
+    constexpr bool KERR_ = true;                                             \
+    if (!(kerr)) {                                                           \
+      ok = false;                                                            \
+    } else if ((scene) == SC_SPS9) {                                         \
+      RTGR_FIXED(SC_SPS9, tsit5, __VA_ARGS__)                                \
+    } else if ((scene) == SC_SD9) {                                          \
+      RTGR_FIXED(SC_SD9, tsit5, __VA_ARGS__)                                 \
+    } else if ((scene) == SC_SPS4) {                                         \
+      RTGR_FIXED(SC_SPS4, tsit5, __VA_ARGS__)                                \
+    } else {                                                                 \
+      ok = false;                                                            \
+    }                                                                        \
+  } else {                                                                   \
+    ok = false;                                                              \
+  }
+
+// Host: whether a launch's counts and block size are ones the kernels take
+// (a fixed scene's own counts; blocks of whole warps up to MAX_THREADS).
+inline bool launch_ok(int fixed_scenes, int scene, int n, int n_obj, int npts,
+                      int threads) {
+  if (n < 1 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
+    return false;
+  if (scene == SC_ANY)
+    return n_obj >= 1 && n_obj <= MAX_OBJ && npts >= 1 && npts <= MAX_SMP;
+  return scene > 0 && scene < 31 && ((fixed_scenes >> scene) & 1) &&
+         npts == sc_npts(scene) && n_obj == sc_nobj(scene);
+}
 
 template <typename T>
 struct Params {
@@ -34,6 +135,78 @@ struct Params {
   T smp[MAX_SMP * SMP_STRIDE];
   int kind[MAX_OBJ];
 };
+
+__constant__ Params<float> c_params_f32;
+__constant__ Params<double> c_params_f64;
+
+template <typename T>
+__device__ __forceinline__ const Params<T>& cparams() {
+  if constexpr (std::is_same<T, float>::value) return c_params_f32;
+  else return c_params_f64;
+}
+
+// Host: one launch of this library's kernels of type T on stream st. The
+// parameter block (the bytes of Params<T> in device memory, packed by
+// ops/geodesic_cm.py pack_params) is copied into the library's constant copy
+// on st, then launch() puts the kernel on st, so the stream orders the two.
+// The constant copy is shared by every launch of the library and type on
+// the device: a copy on another stream could overwrite it while an earlier
+// kernel still reads it. So the launches are serialized: a mutex keeps each
+// copy and its launch together on the host, an event is recorded on st
+// after every launch, and a launch on another stream than the previous one
+// first waits for that event. On one stream, as on every main path, the
+// cost is the event record.
+constexpr int MAX_DEVICES = 64;
+
+template <typename T, typename Launch>
+cudaError_t launch_with_params(const void* prm, cudaStream_t st,
+                               Launch&& launch) {
+  struct Last {
+    cudaStream_t stream;
+    cudaEvent_t done;
+  };
+  static std::mutex mu;
+  static Last last[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  Last& l = last[dev];
+  if (l.done == nullptr)
+    err = cudaEventCreateWithFlags(&l.done, cudaEventDisableTiming);
+  else if (st != l.stream)
+    err = cudaStreamWaitEvent(st, l.done, 0);
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, float>::value)
+    err = cudaMemcpyToSymbolAsync(c_params_f32, prm, sizeof(Params<T>), 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  else
+    err = cudaMemcpyToSymbolAsync(c_params_f64, prm, sizeof(Params<T>), 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess) err = launch();
+  // Recorded whether or not the launch went out: the copy did.
+  const cudaError_t rec = cudaEventRecord(l.done, st);
+  l.stream = st;
+  return err != cudaSuccess ? err : rec;
+}
+
+// Objects, samples and kinds of a scene: compile-time constants for the
+// fixed scenes, the run-time values for SC_ANY.
+template <int SC>
+__device__ __forceinline__ int scene_nobj(int n_obj) {
+  return SC == SC_ANY ? n_obj : sc_nobj(SC);
+}
+template <int SC>
+__device__ __forceinline__ int scene_npts(int npts) {
+  return SC == SC_ANY ? npts : sc_npts(SC);
+}
+template <typename T, int SC>
+__device__ __forceinline__ int scene_kind(const Params<T>& p, int i) {
+  if constexpr (SC == SC_ANY) return p.kind[i];
+  else if constexpr (SC == SC_SD9) return i == 0 ? KIND_SPHERE : KIND_DISK;
+  else return i == 1 ? KIND_PLANE : KIND_SPHERE;
+}
 
 // NaN-propagating min / max / clip, as torch.minimum, torch.maximum,
 // torch.clamp (and jnp.minimum, jnp.maximum, jnp.clip).
@@ -45,6 +218,36 @@ template <typename T> __device__ __forceinline__ T nmin(T a, T b) {
 }
 template <typename T> __device__ __forceinline__ T clip(T x, T lo, T hi) {
   return nmin(nmax(x, lo), hi);
+}
+// nmax, nmin and clip as one NaN-propagating FMNMX each in f32 (PTX max.NaN
+// and min.NaN, sm_80+), instead of a compare-and-select chain. They equal
+// nmax and nmin except where +0 meets -0 (either zero may come back) and in
+// a NaN's payload (canonical). So they serve where no such tie can arise
+// (a bound that is never zero: the state, RHS and determinant clamps, the
+// controller's limits; operands that are +0 when zero) or where the result
+// is only compared with zero (the scene event and its gate bound); a NaN
+// result fails the same tests either way. f64 has no such instruction and
+// keeps the select.
+template <typename T> __device__ __forceinline__ T fmaxn(T a, T b) {
+  return nmax(a, b);
+}
+template <typename T> __device__ __forceinline__ T fminn(T a, T b) {
+  return nmin(a, b);
+}
+#ifdef __CUDA_ARCH__
+template <> __device__ __forceinline__ float fmaxn<float>(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+template <> __device__ __forceinline__ float fminn<float>(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+#endif
+template <typename T> __device__ __forceinline__ T clipn(T x, T lo, T hi) {
+  return fminn(fmaxn(x, lo), hi);
 }
 template <typename T> __device__ __forceinline__ T sgn(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
@@ -59,11 +262,11 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
   const T sc = p.cfg[P_STATE_CLAMP], rc = p.cfg[P_RHS_CLAMP];
   T y[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) y[c] = clip(yin[c], -sc, sc);
+  for (int c = 0; c < 8; ++c) y[c] = clipn(yin[c], -sc, sc);
   if constexpr (!KERR) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      out[c] = clip(y[4 + c], -rc, rc);
+      out[c] = clipn(y[4 + c], -rc, rc);
       out[4 + c] = T(0);
     }
     return;
@@ -73,8 +276,8 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
   const T aa = a * a;
   // ks_parts
   const T rho2_raw = xs * xs + ys * ys + zs * zs;
-  const T rho2 = r_mode == R_AS_WRITTEN ? nmax(rho2_raw, aa + eps2)
-                                        : nmax(rho2_raw, eps2);
+  const T rho2 = r_mode == R_AS_WRITTEN ? fmaxn(rho2_raw, aa + eps2)
+                                        : fmaxn(rho2_raw, eps2);
   const bool live = rho2_raw >= rho2;
   const T half = (rho2 - aa) / T(2);
   T inner = sqrt(aa * zs * zs + half * half);
@@ -87,8 +290,8 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
     dr_dw = aa * zs * inv_inner;
   } else {
     if (r_mode == R_TEXTBOOK) {
-      inner = nmax(inner, p.cfg[P_EPS2_HALF]);
-      r = sqrt(nmax(half + inner, eps2));
+      inner = fmaxn(inner, p.cfg[P_EPS2_HALF]);
+      r = sqrt(fmaxn(half + inner, eps2));
     } else {
       r = sqrt(half + inner);
     }
@@ -139,7 +342,7 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
   const T kappa = T(-1) + k1 * k1 + k2 * k2 + k3 * k3;
   T d = T(1) + f * kappa;
   const T dmin = p.cfg[P_DET_MIN];
-  d = d < T(0) ? nmin(d, -dmin) : nmax(d, dmin);
+  d = d < T(0) ? fminn(d, -dmin) : fmaxn(d, dmin);
   const T coef = f / d;
   // closed-form contraction (geodesic_cm)
   const T u0 = y[4], u1 = y[5], u2 = y[6], u3 = y[7];
@@ -165,20 +368,22 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
   }
   const T kuA = -A[0] + k1 * A[1] + k2 * A[2] + k3 * A[3];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) out[c] = clip(y[4 + c], -rc, rc);
-  out[4] = clip(A[0] + (-coef) * kuA, -rc, rc);
+  for (int c = 0; c < 4; ++c) out[c] = clipn(y[4 + c], -rc, rc);
+  out[4] = clipn(A[0] + (-coef) * kuA, -rc, rc);
 #pragma unroll
-  for (int c = 1; c < 4; ++c) out[4 + c] = clip(-A[c] + coef * k[c] * kuA, -rc, rc);
+  for (int c = 1; c < 4; ++c)
+    out[4 + c] = clipn(-A[c] + coef * k[c] * kuA, -rc, rc);
 }
 
 // --------------------------------------------------------------------------
 // Scene event: min over objects of the signed distance, and its derivative.
+// The kind is an argument: a constant for the fixed scenes, whose branches
+// then fold away.
 // --------------------------------------------------------------------------
 template <typename T>
 __device__ __forceinline__ T object_distance(const Params<T>& p, int i,
-                                             const T* x) {
+                                             int kind, const T* x) {
   const T* o = &p.obj[i * OBJ_STRIDE];
-  const int kind = p.kind[i];
   if (kind == KIND_PLANE) return x[0] - o[4];
   const T dx = x[1] - o[0], dy = x[2] - o[1], dz = x[3] - o[2];
   if (kind == KIND_SPHERE) {
@@ -186,13 +391,17 @@ __device__ __forceinline__ T object_distance(const Params<T>& p, int i,
     return sgn(r) * (dx * dx + dy * dy + dz * dz - r * r);
   }
   const T rho2 = dx * dx + dy * dy;
-  return nmax(fabs(dz) - o[7], nmax(rho2 - o[6] * o[6], o[5] * o[5] - rho2));
+  return fmaxn(fabs(dz) - o[7],
+               fmaxn(rho2 - o[6] * o[6], o[5] * o[5] - rho2));
 }
 
-template <typename T>
+template <typename T, int SC>
 __device__ __forceinline__ T event(const Params<T>& p, int n_obj, const T* x) {
-  T d = object_distance(p, 0, x);
-  for (int i = 1; i < n_obj; ++i) d = nmin(d, object_distance(p, i, x));
+  const int n = scene_nobj<SC>(n_obj);
+  T d = object_distance(p, 0, scene_kind<T, SC>(p, 0), x);
+#pragma unroll
+  for (int i = 1; i < n; ++i)
+    d = fminn(d, object_distance(p, i, scene_kind<T, SC>(p, i), x));
   return d;
 }
 
@@ -206,11 +415,10 @@ __device__ __forceinline__ void balanced(T a, T da, T b, T db, T& m, T& dm) {
 }
 
 template <typename T>
-__device__ __forceinline__ void object_jvp(const Params<T>& p, int i,
+__device__ __forceinline__ void object_jvp(const Params<T>& p, int i, int kind,
                                            const T* x, const T* dx_, T& v,
                                            T& dv) {
   const T* o = &p.obj[i * OBJ_STRIDE];
-  const int kind = p.kind[i];
   if (kind == KIND_PLANE) {
     v = x[0] - o[4];
     dv = dx_[0];
@@ -233,16 +441,66 @@ __device__ __forceinline__ void object_jvp(const Params<T>& p, int i,
   balanced<T, true>(slab, dslab, ring, dring, v, dv);
 }
 
-template <typename T>
+template <typename T, int SC>
 __device__ __forceinline__ void event_jvp(const Params<T>& p, int n_obj,
                                           const T* x, const T* dx, T& v,
                                           T& dv) {
-  object_jvp(p, 0, x, dx, v, dv);
-  for (int i = 1; i < n_obj; ++i) {
+  const int n = scene_nobj<SC>(n_obj);
+  object_jvp(p, 0, scene_kind<T, SC>(p, 0), x, dx, v, dv);
+#pragma unroll
+  for (int i = 1; i < n; ++i) {
     T vi, dvi;
-    object_jvp(p, i, x, dx, vi, dvi);
+    object_jvp(p, i, scene_kind<T, SC>(p, i), x, dx, vi, dvi);
     balanced<T, false>(v, dv, vi, dvi, v, dv);
   }
+}
+
+// The detection gate's scene bound (ops/geodesic_cm.py scene_crossing_bound,
+// the JAX package's _scene_bound_from_get): a lower bound of the event over
+// the position box [lo, hi], by interval arithmetic per kind.
+template <typename T>
+__device__ __forceinline__ T sq_min(T lo, T hi, T c) {
+  const T m = fmaxn(fmaxn(lo - c, T(0)), fmaxn(c - hi, T(0)));
+  return m * m;
+}
+template <typename T>
+__device__ __forceinline__ T sq_max(T lo, T hi, T c) {
+  const T m = fmaxn(fabs(lo - c), fabs(hi - c));
+  return m * m;
+}
+
+template <typename T>
+__device__ __forceinline__ T object_bound(const Params<T>& p, int i, int kind,
+                                          const T* lo, const T* hi) {
+  const T* o = &p.obj[i * OBJ_STRIDE];
+  if (kind == KIND_PLANE) return lo[0] - o[4];
+  if (kind == KIND_SPHERE) {
+    const T r = o[3];
+    if (r < T(0)) {
+      const T sq = sq_max(lo[1], hi[1], o[0]) + sq_max(lo[2], hi[2], o[1])
+                   + sq_max(lo[3], hi[3], o[2]);
+      return r * r - sq;
+    }
+    const T sq = sq_min(lo[1], hi[1], o[0]) + sq_min(lo[2], hi[2], o[1])
+                 + sq_min(lo[3], hi[3], o[2]);
+    return sq - r * r;
+  }
+  const T sz = sq_min(lo[3], hi[3], o[2]);
+  const T rho_lo = sq_min(lo[1], hi[1], o[0]) + sq_min(lo[2], hi[2], o[1]);
+  const T rho_hi = sq_max(lo[1], hi[1], o[0]) + sq_max(lo[2], hi[2], o[1]);
+  return fmaxn(sqrt(sz) - o[7],
+               fmaxn(rho_lo - o[6] * o[6], o[5] * o[5] - rho_hi));
+}
+
+template <typename T, int SC>
+__device__ __forceinline__ T scene_bound(const Params<T>& p, int n_obj,
+                                         const T* lo, const T* hi) {
+  const int n = scene_nobj<SC>(n_obj);
+  T d = object_bound(p, 0, scene_kind<T, SC>(p, 0), lo, hi);
+#pragma unroll
+  for (int i = 1; i < n; ++i)
+    d = fminn(d, object_bound(p, i, scene_kind<T, SC>(p, i), lo, hi));
+  return d;
 }
 
 // --------------------------------------------------------------------------
@@ -355,14 +613,22 @@ __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
 }
 
 // Detection sweep at the host-precomputed sample thetas: first crossing
-// bracket [th_lo, th_hi]; returns whether the event crossed this step.
-template <typename T, bool TSIT5>
+// bracket [th_lo, th_hi]; returns whether the event crossed this step. Every
+// sample is evaluated (no early exit, so the samples' chains interleave) and
+// the first one at or below zero gives the bracket, as the plain version's
+// masked scan does.
+template <typename T, bool TSIT5, int SC>
 __device__ __forceinline__ bool detect(const Params<T>& p, int n_obj, int npts,
                                        const StepData<T, TSIT5>& s, T& th_lo,
                                        T& th_hi) {
-  const T d_prev = event(p, n_obj, s.y0);
+  const T d_prev = event<T, SC>(p, n_obj, s.y0);
+  const int np = scene_npts<SC>(npts);
   T prev = T(0);
-  for (int j = 0; j < npts; ++j) {
+  bool found = false;
+  th_lo = T(0);
+  th_hi = T(0);
+#pragma unroll
+  for (int j = 0; j < np; ++j) {
     const T* w = &p.smp[j * SMP_STRIDE];
     const T th = w[7];
     T x[4];
@@ -380,18 +646,47 @@ __device__ __forceinline__ bool detect(const Params<T>& p, int n_obj, int npts,
                          + th * s.dt * s.k[6][c]);
       }
     }
-    if (event(p, n_obj, x) <= T(0)) {
-      th_lo = prev;
-      th_hi = th;
-      return d_prev > T(0);
-    }
+    const bool now = !found && event<T, SC>(p, n_obj, x) <= T(0);
+    th_lo = now ? prev : th_lo;
+    th_hi = now ? th : th_hi;
+    found = found || now;
     prev = th;
   }
-  return false;
+  return found && d_prev > T(0);
+}
+
+// The detection gate (cfg.event_gate; the JAX package's _detect_event_cm):
+// whether the step's dense output may reach an object. The dense output
+// stays within C of y0 (sup-norm envelopes of its basis over theta in [0, 1],
+// P_BMAX* for Tsit5, P_HERM* for the cubic Hermite of RK4), and the scene
+// bound over that box is a lower bound of the event; where it is positive
+// no sample can cross and the sweep is skipped, bitwise neutrally.
+template <typename T, bool TSIT5, int SC>
+__device__ __forceinline__ bool may_cross(const Params<T>& p, int n_obj,
+                                          const StepData<T, TSIT5>& s) {
+  T lo[4], hi[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    T C;
+    if constexpr (TSIT5) {
+      T acc = p.cfg[P_BMAX0] * fabs(s.k[0][c]);
+#pragma unroll
+      for (int j = 1; j < 7; ++j)
+        acc = acc + p.cfg[P_BMAX0 + j] * fabs(s.k[j][c]);
+      C = s.dt * acc;
+    } else {
+      C = p.cfg[P_HERM1] * fabs(s.y1[c] - s.y0[c])
+          + s.dt * (p.cfg[P_HERM2] * fabs(s.k[0][c])
+                    + p.cfg[P_HERM3] * fabs(s.k[6][c]));
+    }
+    lo[c] = s.y0[c] - C;
+    hi[c] = s.y0[c] + C;
+  }
+  return scene_bound<T, SC>(p, n_obj, lo, hi) <= T(0);
 }
 
 // Bisection of the bracket, then one clipped Newton step: theta*.
-template <typename T, bool TSIT5>
+template <typename T, bool TSIT5, int SC>
 __device__ __forceinline__ T localize(const Params<T>& p, int n_obj,
                                       int bisect_iters,
                                       const StepData<T, TSIT5>& s, T lo, T hi) {
@@ -399,13 +694,13 @@ __device__ __forceinline__ T localize(const Params<T>& p, int n_obj,
     const T mid = T(0.5) * (lo + hi);
     T x[4];
     interp<T, TSIT5, 4>(s, mid, x);
-    if (event(p, n_obj, x) > T(0)) lo = mid; else hi = mid;
+    if (event<T, SC>(p, n_obj, x) > T(0)) lo = mid; else hi = mid;
   }
   const T th0 = hi;
   T x[4], dx[4], val, dval;
   interp<T, TSIT5, 4>(s, th0, x);
   dinterp<T, TSIT5>(s, th0, dx);
-  event_jvp(p, n_obj, x, dx, val, dval);
+  event_jvp<T, SC>(p, n_obj, x, dx, val, dval);
   const bool ok = fabs(dval) > T(1e-3) * (T(1) + fabs(val));
   const T delta = (ok ? val : T(0)) / (ok ? dval : T(1));
   return clip(th0 - clip(delta, T(-1), T(1)), T(0), T(1));
@@ -425,6 +720,19 @@ constexpr double TS_A_40 = 5.86145544294642, TS_A_41 = -12.92096931784711,
 constexpr double TS_A_50 = 0.09646076681806523, TS_A_51 = 0.01,
                  TS_A_52 = 0.4798896504144996, TS_A_53 = 1.379008574103742,
                  TS_A_54 = -3.290069515436081, TS_A_55 = 2.324710524099774;
+// TS_A[row][j] as a constant expression: with row and j known at compile
+// time (unrolled loops, template arguments) it folds to an immediate.
+__host__ __device__ constexpr double ts_a(int row, int j) {
+  return row == 0 ? TS_A_00
+       : row == 1 ? (j == 0 ? TS_A_10 : TS_A_11)
+       : row == 2 ? (j == 0 ? TS_A_20 : j == 1 ? TS_A_21 : TS_A_22)
+       : row == 3 ? (j == 0 ? TS_A_30 : j == 1 ? TS_A_31 : j == 2 ? TS_A_32
+                                                                : TS_A_33)
+       : row == 4 ? (j == 0 ? TS_A_40 : j == 1 ? TS_A_41 : j == 2 ? TS_A_42
+                     : j == 3 ? TS_A_43 : TS_A_44)
+       : (j == 0 ? TS_A_50 : j == 1 ? TS_A_51 : j == 2 ? TS_A_52
+          : j == 3 ? TS_A_53 : j == 4 ? TS_A_54 : TS_A_55);
+}
 constexpr double TS_BT0 = -0.00178001105222577714,
                  TS_BT1 = -0.0008164344596567469, TS_BT2 = 0.007880878010261995,
                  TS_BT3 = -0.1447110071732629, TS_BT4 = 0.5823571654525552,
@@ -555,21 +863,6 @@ __device__ __forceinline__ void store_state(T* P, int n, int i,
   P[PL_EV_HI * n + i] = r.ev_hi;
 }
 
-// The parameter block into shared memory.
-template <typename T>
-__device__ __forceinline__ void load_params(Params<T>& p, const T* prm,
-                                            const int* kinds, int n_obj,
-                                            int npts) {
-  const int n_prm = N_CFG + n_obj * OBJ_STRIDE + npts * SMP_STRIDE;
-  for (int j = threadIdx.x; j < n_prm; j += blockDim.x) {
-    const T v = prm[j];
-    if (j < N_CFG) p.cfg[j] = v;
-    else if (j < N_CFG + n_obj * OBJ_STRIDE) p.obj[j - N_CFG] = v;
-    else p.smp[j - N_CFG - n_obj * OBJ_STRIDE] = v;
-  }
-  for (int j = threadIdx.x; j < n_obj; j += blockDim.x) p.kind[j] = kinds[j];
-}
-
 // The make_step_cm init of ray i from y0 [8, n] and dt0 [n]: k1 = rhs(y0),
 // and an event record that starts finite (dt = 1), as the plain init's.
 template <typename T, bool KERR>
@@ -596,7 +889,7 @@ __device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
 
 // One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
 // the ray stepped (do); sets the step tried and whether it hit in this step.
-template <typename T, bool KERR, bool TSIT5>
+template <typename T, bool KERR, bool TSIT5, int SC>
 __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
                                           int n_obj, int npts, RayState<T>& r,
                                           T& dt_try_out, bool& hit_now) {
@@ -621,20 +914,24 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
     for (int c = 0; c < 8; ++c) {
       fin = fin && isfinite(s.y1[c]);
       const T sc = atol + rtol * nmax(fabs(s.y0[c]), fabs(s.y1[c]));
-      const T ratio = clip(err[c] / sc, T(-1e15), T(1e15));
+      const T ratio = clipn(err[c] / sc, T(-1e15), T(1e15));
       acc = c == 0 ? ratio * ratio : acc + ratio * ratio;
     }
-    en = sqrt(nmax(acc / T(8), T(1e-30)));
+    en = sqrt(fmaxn(acc / T(8), T(1e-30)));
     const bool bad = !isfinite(en) || !fin;
     if (bad) en = T(1e30);  // ERR_BIG
     accept = en <= T(1);
-    const T en_c = nmax(en, T(1e-10));
+    const T en_c = fmaxn(en, T(1e-10));
     const T safety = p.cfg[P_SAFETY];
-    const T q_pi = safety * pow(en_c, p.cfg[P_NEG_BETA1])
-                   * pow(nmax(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
-    const T q_rej = safety * pow(en_c, T(-0.2));
-    T q = accept ? q_pi : nmin(q_rej, T(1));
-    q = clip(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
+    // Only the taken branch's pows run (q_pi for an accepted step, q_rej
+    // for a rejected one): the values are those of computing both.
+    T q;
+    if (accept)
+      q = safety * pow(en_c, p.cfg[P_NEG_BETA1])
+          * pow(fmaxn(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
+    else
+      q = fminn(safety * pow(en_c, T(-0.2)), T(1));
+    q = clipn(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
     dt_next = clip(dt_try * q, dt_min, lam_max);
     dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];
   } else {
@@ -652,7 +949,11 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
   bool active;
   if (accept) {  // accepted steps are finite
     T th_lo, th_hi;
-    hit_now = detect<T, TSIT5>(p, n_obj, npts, s, th_lo, th_hi);
+    // The gate is one flag for the whole launch; where it is on, each ray
+    // decides for itself (a warp runs the sweep if any of its rays may
+    // cross).
+    hit_now = (p.cfg[P_GATE] == T(0) || may_cross<T, TSIT5, SC>(p, n_obj, s))
+              && detect<T, TSIT5, SC>(p, n_obj, npts, s, th_lo, th_hi);
     if (hit_now) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) r.ev_y0[c] = s.y0[c];
@@ -672,7 +973,7 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
     if (!hit_now) r.lam = lam_acc;
     active = !hit_now && !done_span && !dead;
     r.steps = r.steps + T(1);
-    r.err_old = nmax(en, p.cfg[P_QOLD_INIT]);
+    r.err_old = fmaxn(en, p.cfg[P_QOLD_INIT]);
   } else {
     active = !dead;
   }
@@ -688,7 +989,7 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
 // (the same function of the same state), so the stages, the bisection of
 // [ev_lo, ev_hi], the Newton polish and the interpolation are those of the
 // step itself. Writes y* (8) and lam* = ev_lam + theta* ev_dt.
-template <typename T, bool KERR, bool TSIT5>
+template <typename T, bool KERR, bool TSIT5, int SC>
 __device__ __forceinline__ void localize_record(const Params<T>& p, int r_mode,
                                                 int n_obj, int bisect_iters,
                                                 const RayState<T>& r, T* y_out,
@@ -704,22 +1005,22 @@ __device__ __forceinline__ void localize_record(const Params<T>& p, int r_mode,
   } else {
     rk4_step<T, KERR>(p, r_mode, s);
   }
-  const T th = localize<T, TSIT5>(p, n_obj, bisect_iters, s, r.ev_lo,
-                                  r.ev_hi);
+  const T th = localize<T, TSIT5, SC>(p, n_obj, bisect_iters, s, r.ev_lo,
+                                      r.ev_hi);
   interp<T, TSIT5, 8>(s, th, y_out);
   lam_out = r.ev_lam + th * r.ev_dt;
 }
 
 // A ray's result (the plain localized): y* and lam* from the event record
 // for a hit ray, its current y and lam for any other.
-template <typename T, bool KERR, bool TSIT5>
+template <typename T, bool KERR, bool TSIT5, int SC>
 __device__ __forceinline__ void ray_result(const Params<T>& p, int r_mode,
                                            int n_obj, int bisect_iters,
                                            const RayState<T>& r, T* y_out,
                                            T& lam_out) {
   if (r.hit > T(0)) {
-    localize_record<T, KERR, TSIT5>(p, r_mode, n_obj, bisect_iters, r, y_out,
-                                    lam_out);
+    localize_record<T, KERR, TSIT5, SC>(p, r_mode, n_obj, bisect_iters, r,
+                                        y_out, lam_out);
     return;
   }
 #pragma unroll

@@ -39,8 +39,8 @@ import torch
 
 from ..models.objects import Scene
 from .geodesic_cm import (OBJ_FIELDS, StepState, _check_options,
-                          check_kernel_config, geodesic_cm, kernel_params,
-                          kernel_r_mode, localize_events_cm, make_step_cm,
+                          check_kernel_config, geodesic_cm, kernel_r_mode,
+                          launch_config, localize_events_cm, make_step_cm,
                           scene_event_cm)
 from .geometry import det_min, sanitize_bounds
 from .integrate import TS_A, IntegratorConfig, TraceResult
@@ -613,18 +613,11 @@ def _check_kernel_inputs(route: Route, t: torch.Tensor) -> None:
 
 
 def launch_args(route: Route, like: torch.Tensor):
-    """K3's and K4's parameter block and kinds on the card, and their int
-    flags: built once per pass (building them syncs with the host)."""
+    """K3's and K4's parameter block on the card and their int flags
+    (``launch_config``'s): built once per pass."""
     _check_kernel_inputs(route, like)
-    prm = torch.tensor(kernel_params(route.metric, route.scene, route.cfg,
-                                     like.dtype), dtype=like.dtype,
-                       device=like.device)
-    kinds = torch.tensor([int(k) for k in route.scene.kind.tolist()],
-                         dtype=torch.int32, device=like.device)
-    return prm, kinds, (int(route.metric.name == "kerr_schild"),
-                        int(route.cfg.method == "tsit5"),
-                        kernel_r_mode(route.metric), kinds.shape[0],
-                        int(route.cfg.interp_points))
+    return launch_config(route.metric, route.scene, route.cfg, like,
+                         "adjoint")
 
 
 def _lib():
@@ -640,17 +633,14 @@ def forward_segment_cuda(route: Route, P_in: torch.Tensor,
     launch."""
     if P_in.device.type != "cuda":
         raise ValueError(f"K3 needs CUDA tensors, got {P_in.device}")
-    prm, kinds, flags = args if args is not None else launch_args(route,
-                                                                  P_in)
+    prm, flags = args if args is not None else launch_args(route, P_in)
     B = P_in.shape[1]
     fn = _lib().rtgr_k3_f32 if P_in.dtype == torch.float32 else \
         _lib().rtgr_k3_f64
     with torch.cuda.device(P_in.device):
         rc = fn(ctypes.c_void_p(P_in.data_ptr()),
                 ctypes.c_void_p(P_out.data_ptr()),
-                ctypes.c_void_p(prm.data_ptr()),
-                ctypes.c_void_p(kinds.data_ptr()), B, *flags,
-                route.seg_len,
+                ctypes.c_void_p(prm.data_ptr()), B, *flags, route.seg_len,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
@@ -667,7 +657,7 @@ def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
     ``backward_cuda.launches`` per launch."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
-    prm, kinds, flags = args if args is not None else launch_args(route, ck)
+    prm, flags = args if args is not None else launch_args(route, ck)
     B = ck.shape[2]
     ct = ct.contiguous()
     ct0 = torch.zeros_like(ct)
@@ -679,9 +669,7 @@ def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
                 ctypes.c_void_p(ct.data_ptr()),
                 ctypes.c_void_p(ct0.data_ptr()),
                 ctypes.c_void_p(pbar.data_ptr()),
-                ctypes.c_void_p(prm.data_ptr()),
-                ctypes.c_void_p(kinds.data_ptr()), B, *flags,
-                route.seg_len,
+                ctypes.c_void_p(prm.data_ptr()), B, *flags, route.seg_len,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")

@@ -6,7 +6,8 @@ Counterpart of raytracegr_jl_tpu/ops/pallas_geodesic.py: ``ks_parts``,
 detection sweep, the ``make_step_cm`` body, ``localize_events_cm`` and
 ``integrate_rays_cm`` (plain), ``impact_parameter_order``, and
 ``integrate_rays_cuda`` (the kernel, the counterpart of
-``integrate_rays_pallas``).
+``integrate_rays_pallas``), and what every kernel's launch shares: the
+parameter block (``pack_params``), the scene code and the block size.
 
 Layout: the plain version keeps the ray state component-major, ``[8, B]``,
 so that each elementwise operation is one torch call over the batch; the
@@ -28,9 +29,9 @@ import torch
 from ..models.objects import (KIND_DISK, KIND_DISTANCE, KIND_DISTANCE_JVP,
                               KIND_PLANE, KIND_SPHERE, Scene, balanced_min)
 from .geometry import clamp_det, det_min, sanitize_bounds
-from .integrate import (ERR_BIG, TS_A, TS_BTILDE, IntegratorConfig,
-                        TraceResult, hermite_dinterp, hermite_interp,
-                        tsit5_bi, tsit5_dbi)
+from .integrate import (BMAX_TSIT5, ERR_BIG, HERMITE_ENV, TS_A, TS_BTILDE,
+                        IntegratorConfig, TraceResult, hermite_dinterp,
+                        hermite_interp, tsit5_bi, tsit5_dbi)
 from .metrics import (R_AS_WRITTEN, R_TEXTBOOK, Metric, _scalar,
                       clamped_rho2, kerr_schild_radius_partials)
 
@@ -169,7 +170,64 @@ def scene_event_cm(scene: Scene) -> EventFn:
         return d, dd
 
     event.jvp = jvp
+    event.bound = scene_crossing_bound(scene)
     return event
+
+
+def _sq_min(lo, hi, c):
+    """min of (v - c)^2 over v in [lo, hi]."""
+    m = torch.maximum(torch.clamp_min(lo - c, 0.0),
+                      torch.clamp_min(c - hi, 0.0))
+    return m * m
+
+
+def _sq_max(lo, hi, c):
+    """max of (v - c)^2 over v in [lo, hi]."""
+    m = torch.maximum(torch.abs(lo - c), torch.abs(hi - c))
+    return m * m
+
+
+def scene_crossing_bound(scene: Scene):
+    """A lower bound of the scene event over a position box (the JAX
+    package's ``_scene_bound_from_get``): ``bound(lo, hi) -> [B]`` for the
+    box's corners, two lists of 4 rows (t, x, y, z), is at most the event
+    at every point of the box. Interval arithmetic per kind: a sphere's
+    squared distance (the inside-out sky sphere's from its far corner), the
+    plane's earliest time, the disk's slab and ring constraints. None where
+    the scene holds another kind. The detection gate's certificate."""
+    kinds = [int(k) for k in scene.kind.tolist()]
+    if any(k not in (KIND_SPHERE, KIND_PLANE, KIND_DISK) for k in kinds):
+        return None
+    gets = [_object_get(scene, i) for i in range(len(kinds))]
+
+    def bound(lo, hi):
+        d = None
+        for kind, get in zip(kinds, gets):
+            if kind == KIND_PLANE:
+                di = lo[0] - get("time")
+            elif kind == KIND_SPHERE:
+                r = get("radius")
+                near = (_sq_min(lo[1], hi[1], get("pos", 1))
+                        + _sq_min(lo[2], hi[2], get("pos", 2))
+                        + _sq_min(lo[3], hi[3], get("pos", 3)))
+                far = (_sq_max(lo[1], hi[1], get("pos", 1))
+                       + _sq_max(lo[2], hi[2], get("pos", 2))
+                       + _sq_max(lo[3], hi[3], get("pos", 3)))
+                di = torch.where(r < 0, r * r - far, near - r * r)
+            else:
+                sz = _sq_min(lo[3], hi[3], get("pos", 3))
+                rho_lo = (_sq_min(lo[1], hi[1], get("pos", 1))
+                          + _sq_min(lo[2], hi[2], get("pos", 2)))
+                rho_hi = (_sq_max(lo[1], hi[1], get("pos", 1))
+                          + _sq_max(lo[2], hi[2], get("pos", 2)))
+                r_in, r_out = get("r_in"), get("r_out")
+                di = torch.maximum(torch.sqrt(sz) - get("half"),
+                                   torch.maximum(rho_lo - r_out * r_out,
+                                                 r_in * r_in - rho_hi))
+            d = di if d is None else torch.minimum(d, di)
+        return d
+
+    return bound
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +316,28 @@ def _detect_scan(event_fn, interp, y0, cfg: IntegratorConfig):
         found = found | new
         prev_th = th
     return found & (d_prev > 0.0), th_lo, th_hi
+
+
+def may_cross(bound, y0, y1, f0, f1, dt, ks):
+    """The detection gate: ``[B]`` bool, False where the step's dense output
+    provably stays clear of every object (the box ``y0 +- C`` from the
+    envelopes ``BMAX_TSIT5`` or ``HERMITE_ENV``, and the scene's lower
+    bound over it is positive), so that no sample of the sweep can see a
+    crossing. Position rows only; ``ks`` the Tsit5 stages or None (RK4's
+    Hermite). The kernels' ``may_cross`` computes the same, in this
+    order."""
+    if ks is not None:
+        acc = BMAX_TSIT5[0] * torch.abs(ks[0][:4])
+        for bm, k in zip(BMAX_TSIT5[1:], ks[1:]):
+            acc = acc + bm * torch.abs(k[:4])
+        C = dt * acc
+    else:
+        c1, c2, c3 = HERMITE_ENV
+        C = (c1 * torch.abs(y1[:4] - y0[:4])
+             + dt * (c2 * torch.abs(f0[:4]) + c3 * torch.abs(f1[:4])))
+    lo = [y0[c] - C[c] for c in range(4)]
+    hi = [y0[c] + C[c] for c in range(4)]
+    return bound(lo, hi) <= 0.0
 
 
 def newton_polish(event_fn, interp, dinterp, th0):
@@ -354,11 +434,18 @@ def make_step_cm(metric: Metric, event_fn: EventFn, cfg: IntegratorConfig):
     identity. The body only detects crossings; ``localize_events_cm``
     localizes them from the ``ev_*`` record after the loop. ``dt_try`` is
     detached, as the JAX body's ``lax.stop_gradient``: step sizes are
-    solver state, and gradients flow through the stage values only."""
+    solver state, and gradients flow through the stage values only.
+
+    With ``cfg.event_gate`` (and an event that carries a ``bound``, as
+    ``scene_event_cm``'s does) the detection sweep is skipped for the rays
+    that ``may_cross`` clears, and for the whole batch when it clears them
+    all; results are bitwise those without the gate."""
     _check_options(cfg)
     rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
     adaptive = cfg.method == "tsit5"
     step = _tsit5_step_cm if adaptive else _rk4_step_cm
+    bound = getattr(event_fn, "bound", None)
+    gate = cfg.event_gate and bound is not None
 
     def init(y: torch.Tensor, dt0: torch.Tensor) -> StepState:
         B = y.shape[1]
@@ -416,7 +503,17 @@ def make_step_cm(metric: Metric, event_fn: EventFn, cfg: IntegratorConfig):
                   tuple(torch.where(fin, k, torch.zeros_like(k)) for k in ks))
         with torch.no_grad():  # detection only decides masks
             interp, _ = _interpolants(y, y_evt, k1, k_evt, dt_try, ks_evt, 4)
-            crossed, th_lo, th_hi = _detect_scan(event_fn, interp, y, cfg)
+            may = (may_cross(bound, y, y_evt, k1, k_evt, dt_try, ks_evt)
+                   if gate else None)
+            if may is not None and not bool(may.any()):
+                # No ray may cross: the sweep is skipped (JAX's cond).
+                crossed = torch.zeros_like(do)
+                th_lo = th_hi = torch.zeros_like(dt_try)
+            else:
+                crossed, th_lo, th_hi = _detect_scan(event_fn, interp, y,
+                                                     cfg)
+                if may is not None:  # decided per ray, as in the kernels
+                    crossed = crossed & may
         hit_now = do & crossed
 
         # First hit only: the ray then deactivates.
@@ -513,19 +610,40 @@ def impact_parameter_order(y0: torch.Tensor):
 OBJ_FIELDS = ("pos1", "pos2", "pos3", "radius", "time", "r_in", "r_out",
               "half")
 _KERNEL_KINDS = (KIND_SPHERE, KIND_PLANE, KIND_DISK)
-# The kernel's configuration block, in the order of csrc/geodesic.cu's
-# enum Prm (P_<NAME>), padded to N_CFG slots.
+# The kernels' configuration block, in the order of csrc/geodesic_common.cuh's
+# enum Prm (P_<NAME>), N_CFG slots.
 CFG_SLOTS = ("M", "A", "EPS2", "EPS2_HALF", "STATE_CLAMP", "RHS_CLAMP",
              "DET_MIN", "RTOL", "ATOL", "LAM_MAX", "LAM_END", "DT_MIN",
              "DT_DEAD", "RK4_DT", "SAFETY", "QMIN", "QMAX", "NEG_BETA1",
-             "BETA2", "QOLD_INIT", "STOP_RHO2")
-N_CFG = 24
+             "BETA2", "QOLD_INIT", "STOP_RHO2", "GATE", "BMAX0", "BMAX1",
+             "BMAX2", "BMAX3", "BMAX4", "BMAX5", "BMAX6", "HERM1", "HERM2",
+             "HERM3")
+N_CFG = 32
 _MAX_OBJECTS = 16
 _MAX_SAMPLES = 32
 _R_MODE = {R_AS_WRITTEN: 0, R_TEXTBOOK: 1}
 # sort_rays sorts only batches larger than this: the JAX package's rule,
 # one TPU tile (TILE_S * LANES rays).
 SORT_MIN_RAYS = 1024
+# csrc Params<T>: N_CFG + 8 slots per object and per sample of the working
+# type at their maximum counts, then MAX_OBJ int32 kinds. Its bytes are what
+# launch_with_params copies into the kernels' constant memory.
+PARAM_VALUES = N_CFG + 8 * _MAX_OBJECTS + 8 * _MAX_SAMPLES
+PARAMS_BYTES = {dt: PARAM_VALUES * dt.itemsize + 4 * _MAX_OBJECTS
+                for dt in (torch.float32, torch.float64)}
+# Scene codes (csrc SC_*): scenes whose object kinds and detection samples
+# the f32 Kerr-Schild kernels of a library know at compile time, by the
+# main paths that run them (csrc FIXED_SCENES of each library); SC_ANY
+# takes kinds and counts at run time.
+SC_ANY, SC_SPS9, SC_SD9, SC_SPS4 = 0, 1, 2, 3
+_SCENE_CODES = {((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 9): SC_SPS9,
+                ((KIND_SPHERE, KIND_DISK), 9): SC_SD9,
+                ((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 4): SC_SPS4}
+FIXED_SCENES = {"geodesic": (SC_SPS9, SC_SD9), "compaction": (SC_SD9,),
+                "adjoint": (SC_SPS4,)}
+# Threads per block of every launch (csrc MAX_THREADS). Blocks of 32 and
+# 64 threads were measured no faster on the disk's packed tail (PERF.md).
+MAX_THREADS = 128
 
 
 def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
@@ -533,7 +651,9 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     """The kernel's parameter block as python floats, computed in double
     and rounded to ``dtype`` by the caller's tensor, like JAX's python
     scalars: configuration, then 8 fields per object, then 8 slots per
-    detection sample (its dense-output weights, then theta)."""
+    detection sample (its dense-output weights, then theta). M and a are
+    read from the metric (a tensor's value syncs with its device; see
+    ``pack_params``)."""
     state_clamp, rhs_clamp = sanitize_bounds(dtype)
     eps2 = metric.rho_min * metric.rho_min
     M, a = (float(metric.params.M), float(metric.params.a))
@@ -544,9 +664,10 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
         DT_MIN=cfg.dt_min, DT_DEAD=2 * cfg.dt_min, RK4_DT=cfg.rk4_dt,
         SAFETY=cfg.safety, QMIN=cfg.qmin, QMAX=cfg.qmax,
         NEG_BETA1=-cfg.beta1, BETA2=cfg.beta2, QOLD_INIT=cfg.qold_init,
-        STOP_RHO2=cfg.stop_rho ** 2)
+        STOP_RHO2=cfg.stop_rho ** 2, GATE=float(bool(cfg.event_gate)),
+        **{f"BMAX{j}": b for j, b in enumerate(BMAX_TSIT5)},
+        **{f"HERM{j + 1}": c for j, c in enumerate(HERMITE_ENV)})
     blk = [slots[k] for k in CFG_SLOTS]
-    blk += [0.0] * (N_CFG - len(blk))
     pos = scene.pos.tolist()
     rest = [getattr(scene, f).tolist() for f in OBJ_FIELDS[3:]]
     for i in range(scene.n_objects):
@@ -560,6 +681,73 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
             w = [1 - th, th * (th - 1), 1 - 2 * th, th - 1, 0.0, 0.0, 0.0]
         blk += w + [th]
     return blk
+
+
+def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """The bytes of csrc ``Params<T>`` on ``device`` (uint8,
+    ``PARAMS_BYTES[dtype]``): ``kernel_params`` at fixed offsets (the
+    configuration, then the objects' rows from slot ``N_CFG``, the samples'
+    from ``N_CFG + 8 * 16``, zeros between), then the 16 int32 object kinds.
+    Every launch copies it into the kernels' constant memory on its stream
+    (csrc launch_with_params). Where M or a is a tensor its slot is filled
+    on the device, so a training step's parameters reach the kernels
+    without a host sync.
+    Raises for what the kernels do not take (``check_kernel_config``)."""
+    kinds = check_kernel_config(metric, scene, cfg)
+    params = metric.params
+    tensors = {i: v for i, v in enumerate((params.M, params.a))
+               if isinstance(v, torch.Tensor)}
+    if tensors:
+        metric = metric._replace(params=params._replace(
+            **{("M", "a")[i]: 0.0 for i in tensors}))
+    blk = kernel_params(metric, scene, cfg, dtype)
+    n_obj = len(kinds)
+    vals = [0.0] * PARAM_VALUES
+    vals[:N_CFG] = blk[:N_CFG]
+    obj = N_CFG + 8 * n_obj
+    vals[N_CFG:obj] = blk[N_CFG:obj]
+    smp = N_CFG + 8 * _MAX_OBJECTS
+    vals[smp:smp + len(blk) - obj] = blk[obj:]
+    kind_t = torch.tensor(kinds + [0] * (_MAX_OBJECTS - n_obj),
+                          dtype=torch.int32)
+    host = torch.cat([torch.tensor(vals, dtype=dtype).view(torch.uint8),
+                      kind_t.view(torch.uint8)])
+    out = host.to(device)
+    for i, v in tensors.items():
+        out[:PARAM_VALUES * dtype.itemsize].view(dtype)[i] = v.detach()
+    return out
+
+
+def scene_code(kinds, npts: int, dtype: torch.dtype, kerr: bool,
+               library: str) -> int:
+    """The kernel of ``library`` (csrc/<library>.cu) that a launch takes, as
+    a scene code: a fixed scene for an f32 Kerr-Schild launch whose object
+    kinds and sample count are one of the library's ``FIXED_SCENES``,
+    ``SC_ANY`` otherwise. The dispatch is exact: each code is its own
+    kernel."""
+    code = _SCENE_CODES.get((tuple(int(k) for k in kinds), int(npts)))
+    if (code not in FIXED_SCENES[library] or dtype != torch.float32
+            or not kerr):
+        return SC_ANY
+    return code
+
+
+def launch_config(metric: Metric, scene: Scene, cfg: IntegratorConfig,
+                  like: torch.Tensor, library: str):
+    """What every launch of ``library``'s kernels over ``like``'s device and
+    dtype shares: ``(prm, flags)``, the packed parameter block on the
+    device and the int flags ``(kerr, tsit5, r_mode, scene, n_obj, npts)``.
+    Built once per trace or pass."""
+    _check_options(cfg)
+    kinds = check_kernel_config(metric, scene, cfg)
+    kerr = metric.name == "kerr_schild"
+    prm = pack_params(metric, scene, cfg, like.dtype, like.device)
+    return prm, (int(kerr), int(cfg.method == "tsit5"),
+                 kernel_r_mode(metric),
+                 scene_code(kinds, cfg.interp_points, like.dtype, kerr,
+                            library),
+                 len(kinds), int(cfg.interp_points))
 
 
 def kernel_r_mode(metric: Metric) -> int:
@@ -604,10 +792,9 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     similar step counts, and the results are put back in the caller's
     order. Raises for CPU tensors, a failed build, and the options the
     kernel does not take (``refine_minima``, object kinds it does not
-    know). ``event_gate`` is bitwise-neutral and ignored. Adds one to
-    ``integrate_rays_cuda.launches`` per launch."""
+    know). Adds one to ``integrate_rays_cuda.launches`` per launch."""
     _check_options(cfg)
-    kinds = check_kernel_config(metric, scene, cfg)
+    check_kernel_config(metric, scene, cfg)
     if y0.device.type != "cuda" or dt0.device != y0.device:
         raise ValueError("integrate_rays_cuda needs CUDA tensors on one "
                          f"device, got {y0.device} and {dt0.device}")
@@ -616,7 +803,6 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     if y0.dim() != 2 or y0.shape[1] != 8 or dt0.shape != y0.shape[:1]:
         raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, "
                          f"dt0 {tuple(dt0.shape)}")
-    r_mode = kernel_r_mode(metric)
 
     lib = _find_lib()
     dev, dtype = y0.device, y0.dtype
@@ -627,9 +813,8 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
         y0, dt0 = y0[order], dt0[order]
     y_in = y0.t().contiguous()  # [8, B]: coalesced per-component loads
     dt_in = dt0.contiguous()
-    prm = torch.tensor(kernel_params(metric, scene, cfg, dtype),
-                       dtype=dtype, device=dev)
-    kind_t = torch.tensor(kinds, dtype=torch.int32, device=dev)
+    prm, (kerr, tsit5, r_mode, code, n_obj, npts) = launch_config(
+        metric, scene, cfg, y0, "geodesic")
     y_out = torch.empty_like(y_in)
     lam = torch.empty_like(dt_in)
     hit = torch.empty(B, dtype=torch.int32, device=dev)
@@ -637,19 +822,12 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     if B > 0:
         fn = lib.rtgr_k1_f32 if dtype == torch.float32 else lib.rtgr_k1_f64
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         with torch.cuda.device(dev):
-            rc = fn(ctypes.c_void_p(y_in.data_ptr()),
-                    ctypes.c_void_p(dt_in.data_ptr()),
-                    ctypes.c_void_p(y_out.data_ptr()),
-                    ctypes.c_void_p(lam.data_ptr()),
-                    ctypes.c_void_p(hit.data_ptr()),
-                    ctypes.c_void_p(steps.data_ptr()),
-                    ctypes.c_void_p(prm.data_ptr()),
-                    ctypes.c_void_p(kind_t.data_ptr()),
-                    B, int(metric.name == "kerr_schild"),
-                    int(cfg.method == "tsit5"), r_mode, int(cfg.max_steps),
-                    len(kinds), int(cfg.interp_points),
-                    int(cfg.bisect_iters), ctypes.c_void_p(stream))
+            rc = fn(ptr(y_in), ptr(dt_in), ptr(y_out), ptr(lam), ptr(hit),
+                    ptr(steps), ptr(prm), B, kerr, tsit5, r_mode, code,
+                    int(cfg.max_steps), n_obj, npts, int(cfg.bisect_iters),
+                    ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
         integrate_rays_cuda.launches += 1

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 # Tsitouras 5(4) tableau (FSAL), the published coefficients.
@@ -44,8 +45,9 @@ class IntegratorConfig(NamedTuple):
     ``IntegratorConfig`` (its docstrings give each field's rationale).
 
     The port's integrators run ``method``, the tolerances, the span and
-    step bounds, the controller gains, ``interp_points``, ``bisect_iters``
-    and ``stop_rho``. ``event_gate`` is bitwise-neutral and ignored.
+    step bounds, the controller gains, ``interp_points``, ``bisect_iters``,
+    ``stop_rho`` and ``event_gate`` (the detection sweep skipped per ray
+    where it provably sees no crossing; bitwise-neutral, off by default).
     ``refine_minima`` is not ported yet and raises. ``sort_rays`` orders
     K1's batch by impact parameter (the plain integrator ignores it; the
     differentiable path raises). The gradient fields belong to the
@@ -150,6 +152,23 @@ def tsit5_dbi(th):
     return db1, db2, db3, db4, db5, db6, db7
 
 
+def dense_output_envelopes():
+    """Static sup-norm envelopes of the dense-output basis over theta in
+    [0, 1], with a 1% + 1e-6 margin (the JAX package's
+    ``_dense_output_envelopes``; the detection gate needs an
+    over-approximation): ``(BMAX_TSIT5 [7], (C1, C2, C3))`` with
+    ``|H(theta) - y0| <= dt * sum_j BMAX_j |k_j|`` (Tsit5) and
+    ``|H(theta) - y0| <= C1 |y1 - y0| + dt (C2 |f0| + C3 |f1|)`` (Hermite)."""
+    th = np.linspace(0.0, 1.0, 65537)
+    bmax = tuple(float(np.abs(np.asarray(b)).max() * 1.01 + 1e-6)
+                 for b in tsit5_bi(th))
+    a1 = th + th * (th - 1) * (1 - 2 * th)
+    a2 = th * (th - 1) ** 2
+    a3 = th * th * (th - 1)
+    herm = tuple(float(np.abs(a).max() * 1.01 + 1e-6) for a in (a1, a2, a3))
+    return bmax, herm
+
+
 def hairer_init_dt(f: RHS, y0: torch.Tensor, rtol, atol, order: int = 5,
                    lam_span: float = 100.0) -> torch.Tensor:
     """Per-ray automatic initial step size (Hairer, Norsett & Wanner II.4).
@@ -167,3 +186,6 @@ def hairer_init_dt(f: RHS, y0: torch.Tensor, rtol, atol, order: int = 5,
     dt1 = torch.where(dmax <= 1e-15, torch.clamp_min(dt0 * 1e-3, 1e-6),
                       (0.01 / dmax) ** (1.0 / (order + 1)))
     return torch.minimum(100.0 * dt0, torch.clamp_max(dt1, lam_span))
+
+
+BMAX_TSIT5, HERMITE_ENV = dense_output_envelopes()

@@ -26,22 +26,25 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# The C entry points, each returning a cudaError_t. K1: (y0, dt0, y, lam,
-# hit, steps, prm, kinds: pointers; n, kerr, tsit5, r_mode, max_steps,
-# n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0, dt0, P_out,
-# y_fin, lam_fin, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts,
-# bisect_iters, budget, init; stream). K3: (P_in, P_out, prm, kinds; n, kerr,
-# tsit5, r_mode, n_obj, npts, seg_len; stream). K4: (ck; n_used; ct, ct0,
-# pbar, prm, kinds; n, kerr, tsit5, r_mode, n_obj, npts, seg_len; stream).
+# The C entry points, each returning a cudaError_t. Every one takes the
+# packed parameter block (prm: ops/geodesic_cm.py pack_params), copies it
+# into the library's constant memory on the stream and launches there. K1:
+# (y0, dt0, y, lam, hit, steps, prm: pointers; n, kerr, tsit5, r_mode,
+# scene, max_steps, n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0,
+# dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
+# npts, bisect_iters, budget, init, threads (per block); stream). K3: (P_in,
+# P_out, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len; stream).
+# K4: (ck; n_used; ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene, n_obj,
+# npts, seg_len; stream).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "geodesic": {name: [_P] * 8 + [_I] * 8 + [_P]
+    "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
-    "compaction": {name: [_P] * 8 + [_I] * 9 + [_P]
+    "compaction": {name: [_P] * 7 + [_I] * 11 + [_P]
                    for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
-    "adjoint": {**{name: [_P] * 4 + [_I] * 7 + [_P]
+    "adjoint": {**{name: [_P] * 3 + [_I] * 8 + [_P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
-                **{name: [_P, _I] + [_P] * 5 + [_I] * 7 + [_P]
+                **{name: [_P, _I] + [_P] * 4 + [_I] * 8 + [_P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")}},
 }
 

@@ -218,3 +218,119 @@ def test_compacted_matches_k1_sorted_and_unsorted():
     assert C.chunk_cuda.launches > before
     assert torch.equal(img, T.render_fn(metric, scene, cfg)(canvas.pos,
                                                              canvas.normal))
+
+
+def test_k2_gate_on_matches_gate_off():
+    """The compacted trace through K2 with the detection gate on and off,
+    and the plain trace with the gate on: bitwise on every ray."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    integ = T.IntegratorConfig(rtol=TOL32, atol=TOL32, max_steps=2000,
+                               stop_rho=1.0, sort_rays=True)
+    metric, scene, canvas = T.build(T.accretion_disk_spec(48, 48),
+                                    torch.float32, torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    on, off = (C.trace_batch_compacted(metric, scene, y0, dt0,
+                                       integ._replace(event_gate=g),
+                                       first_chunk=32)
+               for g in (True, False))
+    plain = C.trace_batch_compacted(metric, scene, y0, dt0,
+                                    integ._replace(event_gate=True,
+                                                   max_steps=400),
+                                    first_chunk=32, backend="torch")
+    cut = C.trace_batch_compacted(metric, scene, y0, dt0,
+                                  integ._replace(event_gate=True,
+                                                 max_steps=400),
+                                  first_chunk=32)
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+        assert torch.equal(getattr(cut, f), getattr(plain, f)), f
+
+
+@pytest.mark.parametrize("n,dtype", [(64, torch.float32),
+                                     (32, torch.float64)])
+def test_k4_tsit5_matches_plain_bitwise(n, dtype):
+    """K4's Tsit5 adjoint (its stages unrolled at compile time) at the
+    training path's configuration (tsit5/48), against backward_plain on the
+    same checkpoints."""
+    A, route, P0, _ = _ckpt_case(n, dtype, "tsit5", 48)
+    ck, n_used = A.run_segments(route, P0)
+    gen = torch.Generator(device=P0.device).manual_seed(1)
+    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
+    c, p = A.backward_cuda(route, ck, n_used, ct)
+    c_p, p_p = A.backward_plain(route, ck, n_used, ct)
+    torch.cuda.synchronize()
+    assert torch.equal(c, c_p) and torch.equal(p, p_p)
+
+
+@pytest.mark.parametrize("dtype,method,max_steps", [
+    (torch.float32, "rk4", 40), (torch.float32, "tsit5", 48),
+    (torch.float64, "rk4", 40), (torch.float64, "tsit5", 48)])
+def test_gate_on_matches_gate_off_k1_k3_k4(dtype, method, max_steps):
+    """The detection gate in K1, K3 and K4 on example2 at 32x32 (sphere,
+    plane, sphere: every object bound of the gate), with RK4's Hermite
+    envelope and Tsit5's; f32 through the compile-time scenes, f64 through
+    SC_ANY. Gate on against gate off through the kernels, and against the
+    plain version with the gate on: bitwise."""
+    dev = torch.device("cuda")
+    tol = TOL32 if dtype == torch.float32 else 1e-9
+    integ = T.IntegratorConfig(method=method, rtol=tol, atol=tol, rk4_dt=0.5,
+                               max_steps=400 if method == "rk4" else 4000)
+    metric, scene, canvas = T.build(T.example2_spec(32, 32), dtype, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    gated = integ._replace(event_gate=True)
+    on = integrate_rays_cuda(metric, scene, y0, dt0, gated)
+    off = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    plain = integrate_rays_cm(metric, scene, y0, dt0, gated)
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+        assert torch.equal(getattr(on, f), getattr(plain, f)), f
+
+    A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps)
+    g_route = route._replace(cfg=route.cfg._replace(event_gate=True))
+    ck_on, n_on = A.run_segments(g_route, P0)
+    ck_off, n_off = A.run_segments(route, P0)
+    ck_p, n_p = A.run_segments(g_route._replace(cuda=False), P0)
+    assert n_on == n_off == n_p
+    assert torch.equal(ck_on[:n_on + 1], ck_off[:n_on + 1])
+    assert torch.equal(ck_on[:n_on + 1], ck_p[:n_on + 1])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
+    c_on, p_on = A.backward_cuda(g_route, ck_on, n_on, ct)
+    c_off, p_off = A.backward_cuda(route, ck_off, n_off, ct)
+    c_p, p_p = A.backward_plain(g_route, ck_p, n_p, ct)
+    torch.cuda.synchronize()
+    assert torch.equal(c_on, c_off) and torch.equal(p_on, p_off)
+    assert torch.equal(c_on, c_p) and torch.equal(p_on, p_p)
+
+
+def test_launches_on_two_streams_keep_their_parameters():
+    """A library's launches share one constant copy of the parameters. A
+    long K1 launch on one stream, then short ones with another mass on a
+    second stream, queued without a sync: each result equals the same
+    launch run alone (the library serializes its launches across
+    streams, so no copy overwrites the constants of a running kernel)."""
+    dev = torch.device("cuda")
+    integ = T.IntegratorConfig(rtol=TOL32, atol=TOL32, max_steps=20_000)
+    metric, scene, canvas = T.build(T.example2_spec(128, 128), torch.float32,
+                                    dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    heavy = metric._replace(params=metric.params._replace(M=1.3))
+    ys, dts = y0[:512].contiguous(), dt0[:512].contiguous()
+    want_long = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    want_short = integrate_rays_cuda(heavy, scene, ys, dts, integ)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        got_long = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    with torch.cuda.stream(s2):
+        got_short = [integrate_rays_cuda(heavy, scene, ys, dts, integ)
+                     for _ in range(3)]
+    torch.cuda.synchronize()
+    assert not torch.equal(want_short.y, want_long.y[:512])
+    for got, want in [(got_long, want_long)] + [(g, want_short)
+                                                 for g in got_short]:
+        for f in ("y", "lam", "hit", "steps"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
