@@ -1,14 +1,17 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
 raytracegr_jl_tpu_torch/csrc (K1; K3 and K4 of the training path; K2 of the
-compacted render; one nvcc each, in parallel) and prints each kernel's
-registers and spills, checks each against its plain PyTorch version and K1
-against the committed golden images, drives the forward render and the
-training path (one pixel-loss step for two configurations, three Adam
-steps) of the reference's example2 and the 1024x1024 accretion-disk render
-(compacted, redshift shading) through the kernels, times them, holds the
-detection gate (event_gate) bitwise to the ungated disk render, and
-diagnoses K2 on the disk's packed tail (SASS instruction mix, the tail's
-work replicated and cut, block sizes).
+compacted render; one build per library, in parallel) and prints each
+kernel's registers and spills, checks each against its plain PyTorch
+version (K1 also taking its own initial step, K3's one launch against the
+per-segment chain) and K1 against the committed golden images, drives the
+forward render and the training path (one pixel-loss step for two
+configurations, three Adam steps) of the reference's example2 and the
+1024x1024 accretion-disk render (compacted, redshift shading) through the
+kernels, counting launches, eager initial steps and host syncs, times
+them, diagnoses K1 (its time four ways, the step census, scheduler
+cycles per warp-iteration), holds the detection gate (event_gate) bitwise to the
+ungated disk render, and diagnoses K2 on the disk's packed tail (SASS
+instruction mix, the tail's work replicated and cut, block sizes).
 
     python3 chip_smoke.py
 
@@ -189,6 +192,43 @@ def timed_calls(module, name: str):
             orig.launches = timed.launches
 
 
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """Within the block, each call of ``module.<name>`` is recorded in the
+    list it yields."""
+    orig = getattr(module, name)
+    calls = []
+
+    def recorded(*args, **kwargs):
+        calls.append(name)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def sync_count():
+    """Counts the host syncs that PyTorch's CUDA sync debug mode reports
+    inside the block (a read of a tensor on the card, a blocking copy):
+    yields a dict whose ``"n"`` is set when the block ends."""
+    import warnings
+    out = {"n": 0}
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    out["n"] = sum("synchronizing cuda operation" in str(w.message).lower()
+                   for w in caught)
+
+
 def summed_ms(pairs) -> float:
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs)
@@ -226,7 +266,8 @@ def require_chunks_equal(label: str, kernel, plain) -> float:
 TAIL_BUDGET = 2000
 TAIL_BLOCKS = (32, 64, 128)
 SASS_KERNELS = {"compaction": "k2_kernel<float, true, true, false",
-                "adjoint": "k4_kernel<float, true, true"}
+                "adjoint": "k4_kernel<float, true, true",
+                "geodesic": "k1_kernel<float, true, true, 1"}
 # SASS opcode classes (the opcode without its modifiers).
 _SASS_CLASSES = (
     ("fp32", {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSET", "FSEL",
@@ -362,6 +403,359 @@ def sass_report():
                               capture_output=True, text=True).stdout
         rows += [(lib, k, c) for k, c in instruction_mix(sass, wanted).items()]
     return rows
+
+
+# K1's diagnosis (phase 5b): the caps on max_steps whose times give the
+# slowest warps' time per iteration, and the H100's schedulers (132 SMs of 4).
+K1_CAPS = (8, 16, 32, 64)
+SCHEDULERS = 132 * 4
+
+
+def k1_takes_own_step() -> bool:
+    """Whether the loaded package's K1 takes the initial step in its
+    prologue (``integrate_rays_cuda(..., dt0=None, ...)``); the diagnosis
+    and kernel_times.py also run on older checkouts (``--tree``)."""
+    import inspect
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    dt0 = inspect.signature(integrate_rays_cuda).parameters["dt0"]
+    return "None" in str(dt0.annotation)
+
+
+def k1_main_call(metric, scene, y0, dt0, integ):
+    """A closure that calls K1 as the loaded package's ``render_fn`` calls
+    it on the card: with the launch setup built once where the wrapper
+    takes one, and with ``dt0=None`` where K1 takes its own initial
+    step."""
+    import inspect
+    from raytracegr_jl_tpu_torch.ops import geodesic_cm as G
+    if "launch" not in inspect.signature(G.integrate_rays_cuda).parameters:
+        return lambda: G.integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    launch = G.launch_config(metric, scene, integ, y0, "geodesic")
+    dt = None if k1_takes_own_step() else dt0
+    return lambda: G.integrate_rays_cuda(metric, scene, y0, dt, integ,
+                                         launch)
+
+
+def k3_single_launch() -> bool:
+    """Whether the loaded package's K3 runs a whole forward pass in one
+    launch (``forward_segment_cuda(route, ck, args)``) rather than one
+    segment per launch."""
+    import inspect
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    return "ck" in inspect.signature(adj.forward_segment_cuda).parameters
+
+
+def k3_forward_ms(route, P0, args):
+    """K3's launches of one forward pass from ``P0``, each between CUDA
+    events, the host's reads outside them: ``(ms summed, checkpoints,
+    n_used)``. One launch where K3 runs the whole pass, else one per
+    segment (older checkouts)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
+                     device=P0.device)
+    ck[0] = P0
+    if k3_single_launch():
+        used, ms = events_call(lambda: adj.forward_segment_cuda(route, ck,
+                                                                args))
+        return ms, ck, int(used[0])
+    total, s = 0.0, 0
+    while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
+        total += events_ms(lambda: adj.forward_segment_cuda(
+            route, ck[s], ck[s + 1], args))
+        s += 1
+    return total, ck, s
+
+
+def k1_entry(metric, scene, integ, y0, dt0, max_steps=None):
+    """A closure that launches K1 through its C entry point on inputs and a
+    parameter block built beforehand, so that the window holds the launch
+    alone; returns the steps output. Not counted. ``dt0`` None where K1
+    takes the initial step itself."""
+    from raytracegr_jl_tpu_torch.ops import geodesic_cm as G
+    prm, (kerr, tsit5, r_mode, code, n_obj, npts) = G.launch_config(
+        metric, scene, integ, y0, "geodesic")
+    B = y0.shape[0]
+    y_in = y0.t().contiguous()
+    dt_in = None if dt0 is None else dt0.contiguous()
+    y_out, lam = torch.empty_like(y_in), y0.new_empty(B)
+    hit = torch.empty(B, dtype=torch.int32, device=y0.device)
+    steps = torch.empty_like(hit)
+    lib = G._find_lib()
+    fn = lib.rtgr_k1_f32 if y0.dtype == torch.float32 else lib.rtgr_k1_f64
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
+    args = [ptr(y_in), ptr(dt_in), ptr(y_out), ptr(lam), ptr(hit),
+            ptr(steps), ptr(prm), B, kerr, tsit5, r_mode, code,
+            int(integ.max_steps if max_steps is None else max_steps), n_obj,
+            npts, int(integ.bisect_iters),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+
+    def run():
+        rc = fn(*args)
+        require(rc == 0, f"K1 C entry: CUDA error {rc}")
+        return steps
+
+    run.buffers = (y_in, dt_in, y_out, lam, hit, prm)  # alive while run is
+    return run
+
+
+def profiled_kernels(fn, names, reps: int = REPEATS):
+    """The device kernels of ``reps`` runs of ``fn()`` (after a warm-up)
+    whose names contain one of ``names``, from torch.profiler:
+    ``[(name, start_us, end_us)]`` in start order; empty where the profiler
+    sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events() if e.device_type == DeviceType.CUDA
+           and any(n in e.name for n in names)]
+    return sorted(evs, key=lambda e: e[1])
+
+
+def kernel_alone_ms(fn, name: str, reps: int = REPEATS):
+    """Median device time (ms) of the kernels named ``name`` in ``reps``
+    runs of ``fn()``, from the profiler; None where it saw none."""
+    evs = profiled_kernels(fn, (name,), reps)
+    if not evs:
+        return None
+    return statistics.median((b - a) / 1e3 for _, a, b in evs)
+
+
+def sm_clock_mhz(fn, seconds: float = 1.5):
+    """``(sm clock, max sm clock)`` in MHz, as nvidia-smi reads them while
+    ``fn()`` runs back to back on another thread: the median of its
+    samples. ``(None, None)`` where nvidia-smi reads none."""
+    stop = threading.Event()
+
+    def busy():
+        while not stop.is_set():
+            fn()
+            torch.cuda.synchronize()
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    samples = []
+    try:
+        time.sleep(0.3)
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                 "--format=csv,noheader,nounits", "-i", "0"],
+                capture_output=True, text=True, timeout=30).stdout.strip()
+            try:
+                samples.append(tuple(float(v) for v in out.split(",")[:2]))
+            except ValueError:
+                pass
+            time.sleep(0.1)
+    finally:
+        stop.set()
+        worker.join()
+    if not samples:
+        return None, None
+    return (statistics.median(v[0] for v in samples),
+            statistics.median(v[1] for v in samples))
+
+
+def warp_stats(per_ray: torch.Tensor):
+    """``(warp-iterations, useful share)`` of per-ray iteration counts in
+    launch order: the sum over warps of 32 of their slowest lane, and the
+    share of those warps' lane-iterations that run a ray."""
+    s = per_ray.to(torch.int64)
+    s = torch.nn.functional.pad(s, (0, -s.numel() % 32)).reshape(-1, 32)
+    warp_iters = int(s.max(1).values.sum())
+    return warp_iters, float(s.sum()) / (32 * warp_iters)
+
+
+def mean_order_probe(dev):
+    """Which order ``torch.mean`` over a last axis of 8 adds in on this
+    card, for a contiguous ``[B, 8]`` operand and for one laid out
+    component-major (as the initial step's right-hand sides are): the share
+    of rows equal to each candidate (left to right; a tree over lanes
+    ((0+1)+(2+3))+((4+5)+(6+7)); four accumulators
+    (((0+4)+(1+5))+(2+6))+(3+7)), each divided by 8."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.rand((40_000, 8), generator=gen, device=dev)
+    out = {}
+    for layout, t in (("contiguous", q), ("component_major",
+                                          q.t().contiguous().t())):
+        m = torch.mean(t, dim=-1)
+        c = [t[:, i] for i in range(8)]
+        l2r = c[0]
+        for i in range(1, 8):
+            l2r = l2r + c[i]
+        tree = ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5])
+                                                  + (c[6] + c[7]))
+        acc4 = (((c[0] + c[4]) + (c[1] + c[5])) + (c[2] + c[6])) + (c[3]
+                                                                    + c[7])
+        out[layout] = {k: float((m == v / 8).double().mean())
+                       for k, v in (("left_to_right", l2r), ("lane_tree", tree),
+                                    ("four_accumulators", acc4))}
+    return out
+
+
+def k1_work(metric, scene, integ, y0, dt0):
+    """The work of K1 on these rays, from the plain step body stepped on
+    the card: per-ray iterations (accepted and rejected steps), accepted
+    steps, hits, and the plain body's operations per ray-iteration and per
+    localization."""
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (localize_events_cm,
+                                                         make_step_cm,
+                                                         scene_event_cm)
+    event_fn = scene_event_cm(scene)
+    init, body = make_step_cm(metric, event_fn, integ)
+    with torch.no_grad():
+        st = init(y0.t().contiguous(), dt0)
+        one = lambda t: t[..., :1]  # noqa: E731
+        step_flops = count_flops(lambda: body(type(st)(*map(one, st))))
+        iters = torch.zeros(y0.shape[0], dtype=torch.int64, device=y0.device)
+        it = 0
+        while it < integ.max_steps and bool(st.active.any()):
+            iters += st.active
+            st, _ = body(st)
+            it += 1
+        loc_flops = count_flops(lambda: localize_events_cm(
+            metric, event_fn, integ, one(st.ev_y0), one(st.ev_dt),
+            one(st.ev_lo), one(st.ev_hi)))
+    return dict(iters=iters, steps=st.steps.to(torch.int64),
+                hits=int(st.hit.sum()), step_flops=step_flops,
+                loc_flops=loc_flops)
+
+
+def diagnose_k1(dev, card: str, sizes=(200, 1024)):
+    """K1 on example2 f32 (the bench configuration), the diagnosis of where
+    its time goes; one record per measurement. At each size: the kernel's
+    device time alone (profiler), CUDA events around its C entry point with
+    the parameter block built beforehand, around the whole
+    ``integrate_rays_cuda`` call, around ``render_fn``, and the eager
+    initial step alone; the step census from the plain body on the card
+    (warp-iterations in launch order, the useful share of lanes, K1's
+    bound) and scheduler cycles per warp-iteration at the SM clock nvidia-smi
+    reads under load. At 200x200, K1 with max_steps capped (``K1_CAPS``):
+    the slope is the slowest warps' time per iteration. Then the order
+    ``torch.mean`` adds in, and a profile of one rk4/200 forward pass of
+    the training path (K3's launches and the gaps between them)."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    takes_none = k1_takes_own_step()
+    integ = rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
+                                max_steps=20_000)
+    cfg = rt.RenderConfig(integrator=integ)
+    recs = []
+    for n in sizes:
+        metric, scene, canvas = build(example2_spec(n, n), torch.float32, dev)
+        y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+        dt0 = initial_dt(metric, y0, integ)
+        entry = k1_entry(metric, scene, integ, y0, dt0)
+        fn = rt.render_fn(metric, scene, cfg)
+        rec = dict(kind="k1", rays=n * n, card=card,
+                   kernel_alone_ms=kernel_alone_ms(entry, "k1_kernel"),
+                   c_entry_ms=cuda_ms(entry),
+                   call_ms=cuda_ms(lambda: integrate_rays_cuda(
+                       metric, scene, y0, dt0, integ)),
+                   main_call_ms=cuda_ms(k1_main_call(metric, scene, y0, dt0,
+                                                     integ)),
+                   render_ms=cuda_ms(lambda: fn(canvas.pos, canvas.normal)),
+                   initial_dt_ms=cuda_ms(lambda: initial_dt(metric, y0,
+                                                            integ)))
+        if takes_none:
+            own = k1_entry(metric, scene, integ, y0, None)
+            rec.update(
+                kernel_alone_dt0_none_ms=kernel_alone_ms(own, "k1_kernel"),
+                c_entry_dt0_none_ms=cuda_ms(own))
+        steps = entry().to(torch.int64)
+        work = k1_work(metric, scene, integ, y0, dt0)
+        rec["census_steps_differ_from_k1"] = int((work["steps"]
+                                                  != steps).sum())
+        warp_it, useful = warp_stats(work["iters"])
+        warp_acc, useful_acc = warp_stats(steps)
+        mhz, max_mhz = sm_clock_mhz(entry)
+        t_ms = rec["kernel_alone_ms"] or rec["c_entry_ms"]
+        slots = (t_ms * 1e-3 * SCHEDULERS * mhz * 1e6 / warp_it
+                 if mhz else None)
+        B = y0.shape[0]
+        flops = (int(work["iters"].sum()) * work["step_flops"]
+                 + work["hits"] * work["loc_flops"])
+        b_ms, b_by = bound(flops, B * 9 * 4 + B * 11 * 4)
+        rec.update(ray_iterations=int(work["iters"].sum()),
+                   accepted=int(steps.sum()), hits=work["hits"],
+                   steps_p50=int(steps.median()),
+                   steps_max=int(steps.max()),
+                   steps_mean=float(steps.double().mean()),
+                   warp_iterations=warp_it, useful_share=useful,
+                   warp_accepted_steps=warp_acc,
+                   useful_share_accepted=useful_acc,
+                   flops_per_step=work["step_flops"],
+                   flops_per_localization=work["loc_flops"],
+                   bound_ms=b_ms, bound_by=b_by, sm_clock_mhz=mhz,
+                   max_sm_clock_mhz=max_mhz,
+                   scheduler_cycles_per_warp_iteration=slots)
+        recs.append(rec)
+        if n == 200:
+            caps = {c: cuda_ms(k1_entry(metric, scene, integ, y0, dt0, c))
+                    for c in K1_CAPS}
+            xs, ys = list(caps), list(caps.values())
+            mx, my = statistics.mean(xs), statistics.mean(ys)
+            slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+                     / sum((x - mx) ** 2 for x in xs))
+            recs.append(dict(kind="k1_caps", rays=n * n, card=card,
+                             ms_by_cap=caps, us_per_iteration=slope * 1e3,
+                             intercept_ms=my - slope * mx))
+    recs.append(dict(kind="mean_order", card=card,
+                     shares=mean_order_probe(dev)))
+    recs.append(dict(kind="k3_trace", card=card, **k3_trace(dev)))
+    return recs
+
+
+def k3_trace(dev):
+    """One rk4/200 forward pass of the training path at 200x200 f32
+    (``run_segments``) under the profiler: K3's device kernels, their
+    durations and the gaps between them (us), and the pass's wall time."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    f32 = torch.float32
+    integ = rt.default_inverse_cfg(f32, max_steps=200, method="rk4",
+                                   rk4_dt=0.5, stop_rho=0.5).integrator
+    metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(
+        torch.tensor(1.05, dtype=f32, device=dev),
+        torch.tensor(0.0, dtype=f32, device=dev)), rho_min=0.25)
+    _, scene, canvas = build(example2_spec(200, 200), f32, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    seg = adj.segment_length(integ, integ.grad_seg_len)
+    route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                      n_seg=integ.max_steps // seg, cuda=True)
+    with torch.no_grad():
+        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+        P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        out["n_used"] = adj.run_segments(route, P0)[1]
+        torch.cuda.synchronize()
+        out.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
+
+    evs = profiled_kernels(run, ("k3_kernel", "k3_close"), reps=1)
+    return dict(segments=out["n_used"],
+                kernels=[e[0].split("(")[0][-40:] for e in evs],
+                durations_us=[round(b - a, 3) for _, a, b in evs],
+                gaps_us=[round(b[1] - a[2], 3) for a, b in zip(evs, evs[1:])],
+                first_to_last_us=(round(evs[-1][2] - evs[0][1], 3)
+                                  if evs else None),
+                pass_wall_ms=round(out["wall_ms"][-1], 4))
 
 
 def disk_setup(dev):
@@ -876,16 +1270,21 @@ def main() -> int:
         return metric, scene, y0
 
     def compare(label, spec, dtype, integ):
-        """K1 against its plain version on the same (y0, dt0) on the card.
-        Both round operation by operation alike (the kernel is built with
-        --fmad=false), so hit, steps, y and lam must agree bitwise on every
-        ray; the pixel bar is a second check. Returns max |dy|, |dlam|."""
+        """K1 against its plain version on the same (y0, dt0) on the card,
+        and K1 taking each ray's initial step in its prologue
+        (``dt0=None``) against the same plain run on the plain
+        ``initial_dt``. Both round operation by operation alike (the kernel
+        is built with --fmad=false), so hit, steps, y and lam must agree
+        bitwise on every ray; the pixel bar is a second check. Returns max
+        |dy|, |dlam|."""
         t0 = time.perf_counter()
         metric, scene, y0 = rays(spec, dtype)
         dt0 = initial_dt(metric, y0, integ)
         ker = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+        own = integrate_rays_cuda(metric, scene, y0, None, integ)
         torch.cuda.synchronize()
         plain = integrate_rays_cm(metric, scene, y0, dt0, integ)
+        bad_own, err_own = mismatch(own, plain)
         hit_eq = (ker.hit == plain.hit)
         st_eq = (ker.steps == plain.steps)
         max_dy = float((ker.y - plain.y).abs().max())
@@ -900,7 +1299,8 @@ def main() -> int:
               pixels_within_2lsb=f"{within:.6f}",
               hits=int(plain.hit.sum()),
               mean_steps=f"{float(plain.steps.double().mean()):.2f}",
-              plain_iters=plain.n_iters)
+              plain_iters=plain.n_iters, own_step_rays_differ=bad_own,
+              own_step_max_abs_d=f"{err_own:.3e}")
         require(bool(hit_eq.all()), f"{label}: hit differs on "
                 f"{int((~hit_eq).sum())} rays")
         require(bool(st_eq.all()), f"{label}: steps differ on "
@@ -910,7 +1310,9 @@ def main() -> int:
                 f"max |dlam| {max_dlam:.3e})")
         require(within >= MIN_PIXELS_WITHIN_2LSB,
                 f"{label}: only {within:.4%} of pixels within 2 LSB")
-        return max(max_dy, max_dlam)
+        require(bad_own == 0, f"{label}: K1 with its own initial step "
+                f"differs on {bad_own} rays (max |d| {err_own:.3e})")
+        return max(max_dy, max_dlam, err_own)
 
     # 2. Kernel against plain version on the card. The disk scene is the
     #    only one that sends a disk object through K1; max_steps 400 bounds
@@ -943,6 +1345,7 @@ def main() -> int:
             ("golden64_e2", example2_spec(64, 64), golden_cfg),
             ("sphere2", example2_spec(200, 200), ref_cfg),
             ("sphere", example1_spec(200, 200), ref_cfg)]:
+        compare(f"{name} f64", spec, torch.float64, cfg.integrator)
         t0 = time.perf_counter()
         canvas = rt.render_spec(spec, torch.float64, cfg, device=dev)
         img = rt.canvas_to_image(canvas.rgb).astype(np.int32)
@@ -960,11 +1363,18 @@ def main() -> int:
     t0 = time.perf_counter()
     metric, scene, canvas = build(example2_spec(200, 200), torch.float32, dev)
     fn = rt.render_fn(metric, scene, bench_cfg)
-    reset_counts()
-    rgb = fn(canvas.pos, canvas.normal)
+    fn(canvas.pos, canvas.normal)  # builds the launch setup once
     torch.cuda.synchronize()
-    launches = integrate_rays_cuda.launches
-    require(launches >= 1, "the main path did not launch K1")
+    with counted_calls(rt.render, "initial_dt") as eager_init, \
+            sync_count() as syncs:
+        reset_counts()
+        rgb = fn(canvas.pos, canvas.normal)
+        launches = integrate_rays_cuda.launches
+    torch.cuda.synchronize()
+    require(launches == 1, f"the main path launched K1 {launches} times")
+    require(not eager_init, "the main path ran the eager initial step")
+    require(syncs["n"] == 0, f"the main path synced the host {syncs['n']} "
+            "times")
     require(tuple(rgb.shape) == (200, 200, 3)
             and bool(torch.isfinite(rgb).all()), "bad main-path output")
     plain_fn = rt.render_fn(metric, scene,
@@ -972,11 +1382,14 @@ def main() -> int:
     rgb_plain = plain_fn(canvas.pos, canvas.normal)
     within = frac_within_2lsb(rgb, rgb_plain)
     phase("main path example2 200x200 f32", t0, k1_launches=launches,
+          eager_initial_steps=len(eager_init), host_syncs=syncs["n"],
           pixels_within_2lsb_of_plain=f"{within:.6f}")
     require(within >= MIN_PIXELS_WITHIN_2LSB, "main path disagrees with plain")
-    main_err = compare("example2 200x200 f32 (the main path's shape)",
-                       example2_spec(200, 200), torch.float32,
-                       bench_cfg.integrator)
+    main_err = max(
+        compare("example2 200x200 f32 (the main path's shape)",
+                example2_spec(200, 200), torch.float32, bench_cfg.integrator),
+        compare("example2 1024x1024 f32", example2_spec(1024, 1024),
+                torch.float32, bench_cfg.integrator))
 
     # 5. Times (bench configuration: f32, tsit5, eps^(3/4), 20000 steps).
     timings = {}
@@ -986,13 +1399,18 @@ def main() -> int:
         y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
         dt0 = initial_dt(metric, y0, bench_cfg.integrator)
         fn = rt.render_fn(metric, scene, bench_cfg)
+        main_ms = cuda_ms(k1_main_call(metric, scene, y0, dt0,
+                                       bench_cfg.integrator))
         k_ms = cuda_ms(lambda: integrate_rays_cuda(
             metric, scene, y0, dt0, bench_cfg.integrator))
         r_ms = cuda_ms(lambda: fn(canvas.pos, canvas.normal))
-        timings[n] = (k_ms, r_ms)
+        i_ms = cuda_ms(lambda: initial_dt(metric, y0, bench_cfg.integrator))
+        timings[n] = (main_ms, r_ms)
         phase(f"time {n}x{n} f32", t0, card=repr(card),
-              k1_ms=f"{k_ms:.4f}", k1_rays_per_s=f"{n * n / k_ms * 1e3:.1f}",
-              render_ms=f"{r_ms:.4f}",
+              k1_main_path_ms=f"{main_ms:.4f}",
+              k1_rays_per_s=f"{n * n / main_ms * 1e3:.1f}",
+              k1_given_dt0_setup_per_call_ms=f"{k_ms:.4f}",
+              eager_initial_dt_ms=f"{i_ms:.4f}", render_ms=f"{r_ms:.4f}",
               render_rays_per_s=f"{n * n / r_ms * 1e3:.1f}")
     t0 = time.perf_counter()
     metric, scene, canvas = build(example2_spec(200, 200), torch.float32, dev)
@@ -1030,6 +1448,14 @@ def main() -> int:
     phase("K1 bound 200x200 f32", t0, ray_iterations=k1_iters, hits=hits,
           flops_per_step=k1_step_flops, flops_per_localization=k1_loc_flops,
           bound_ms=f"{k1_bound[0]:.6f}", bound_by=k1_bound[1])
+
+    # 5b. K1's diagnosis at 200x200 and 1024x1024 (diagnose_k1): its time
+    #     four ways, the step census and bound, scheduler cycles per
+    #     warp-iteration, the capped runs; torch.mean's order; one rk4/200
+    #     forward pass of the training path under the profiler.
+    t0 = time.perf_counter()
+    for rec in diagnose_k1(dev, card):
+        phase(f"diagnose K1 {rec.pop('kind')}", t0, **rec)
 
     # 6. K3 and K4 against their plain versions on the same inputs, and
     #    K4's (M, a) gradients against torch.autograd of the plain body.
@@ -1069,21 +1495,58 @@ def main() -> int:
             keep[lo:lo + 8] = 1
         return ct * keep
 
+    def k3_pass(route, P0, args=None):
+        """K3's one launch from ``P0``: (checkpoints, n_used, the rays' end
+        segments), the host's one read."""
+        ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape),
+                         dtype=P0.dtype, device=dev)
+        ck[0] = P0
+        used = adj.forward_segment_cuda(route, ck,
+                                        args or adj.launch_args(route, P0))
+        return ck, int(used[0]), used[1:]
+
+    def require_k3_equal(label, route, P0):
+        """K3's one launch against the plain per-segment chain: bitwise on
+        n_used, the end segments and every checkpoint value a reader takes
+        (``adj.read_mask``). Returns (max |d|, kernel's checkpoints,
+        n_used, plain checkpoints)."""
+        ck_k, n_k, ends_k = k3_pass(route, P0)
+        ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
+        torch.cuda.synchronize()
+        require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
+        ends_p = adj.end_segments(ck_p, n_p, route.n_seg)
+        require(torch.equal(ends_k, ends_p), f"{label}: K3's end segments "
+                f"differ on {int((ends_k != ends_p).sum())} rays")
+        mask = adj.read_mask(ends_p, n_p)
+        a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
+        err = float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        require(torch.equal(a.view(bits), b.view(bits)),
+                f"{label}: K3 not bitwise equal (max |d| {err:.3e})")
+        return err, ck_k, n_k, ck_p
+
     def compare_adjoint(label, n, dtype, method, max_steps):
         t0 = time.perf_counter()
         integ = train_cfg(dtype, method, max_steps).integrator
         metric, scene, y0, dt0, route, P0 = ckpt_setup(n, dtype, integ)
-        ck_k, n_k = adj.run_segments(route, P0)
-        ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
-        torch.cuda.synchronize()
-        require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
-        d3 = (ck_k[:n_k + 1] - ck_p[:n_p + 1]).abs().nan_to_num(0.0)
-        k3_err = float(d3.max())
-        require(torch.equal(ck_k[:n_k + 1], ck_p[:n_p + 1]),
-                f"{label}: K3 not bitwise equal (max |d| {k3_err:.3e})")
+        k3_err, ck_k, n_k, ck_p = require_k3_equal(label, route, P0)
+        # Every ray at the end of its span (it stops after its first step)
+        # and every third inactive from the start: n_used is 1.
+        P_stop = P0.clone()
+        P_stop[adj.P_LAM] = integ.lam_max
+        P_stop[adj.P_ACTIVE, ::3] = 0
+        err_stop, _, n_stop, _ = require_k3_equal(f"{label} stopped", route,
+                                                  P_stop)
+        require(n_stop == 1, f"{label}: the stopped batch ran {n_stop} "
+                "segments")
+        k3_err = max(k3_err, err_stop)
+        with sync_count() as syncs:
+            adj.run_segments(route, P0)
+        require(syncs["n"] == 1, f"{label}: the forward pass synced the host "
+                f"{syncs['n']} times")
         ct = diff_ct(P0)
         c_k, p_k = adj.backward_cuda(route, ck_k, n_k, ct)
-        c_p, p_p = adj.backward_plain(route, ck_p, n_p, ct)
+        c_p, p_p = adj.backward_plain(route, ck_p, n_k, ct)
         torch.cuda.synchronize()
         k4_err = max(float((c_k - c_p).abs().max()),
                      float((p_k - p_p).abs().max()))
@@ -1108,6 +1571,7 @@ def main() -> int:
         g_o = grads(adj.integrate_rays_autograd)
         rel = max(abs(k - o) / abs(o) for k, o in zip(g_k, g_o))
         phase(f"K3/K4 vs plain {label}", t0, segments=n_k,
+              forward_host_syncs=syncs["n"],
               hits=int(ck_k[n_k, adj.P_HIT].sum()),
               k3_max_abs_err=k3_err, k4_max_abs_err=k4_err,
               grad_M_kernel=f"{g_k[0]:.9e}", grad_M_autograd=f"{g_o[0]:.9e}",
@@ -1174,8 +1638,9 @@ def main() -> int:
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
-        require(counts[1] >= 1 and counts[2] >= 1,
-                f"{label}: the training step did not launch K3 and K4")
+        require(counts[1] == 1 and counts[2] == 1,
+                f"{label}: the training step launched K3 {counts[1]} and K4 "
+                f"{counts[2]} times, not once each")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
                 f"{label}: non-finite loss or gradients")
         require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
@@ -1205,8 +1670,8 @@ def main() -> int:
           losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
           M=f"{float(res.final_params.M.detach()):.9f}",
           max_param_diff_vs_plain=f"{fit_diff:.3e}")
-    require(fit_counts[1] >= 3 and fit_counts[2] >= 3,
-            "fit did not launch K3 and K4 in each step")
+    require(fit_counts[1] == 3 and fit_counts[2] == 3,
+            "fit did not launch K3 and K4 once in each step")
     require(bool(torch.isfinite(res.loss_history).all())
             and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
@@ -1230,27 +1695,24 @@ def main() -> int:
 
         args = adj.launch_args(route, P0)
 
-        def k3_total():
-            """K3's launches of one forward pass, each between events."""
-            ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape),
-                             dtype=f32, device=dev)
-            ck[0] = P0
-            total, s = 0.0, 0
-            while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
-                total += events_ms(lambda: adj.forward_segment_cuda(
-                    route, ck[s], ck[s + 1], args))
-                s += 1
-            return total, ck, s
-
-        k3_runs = [k3_total() for _ in range(REPEATS)]
+        k3_runs = [k3_forward_ms(route, P0, args)
+                   for _ in range(REPEATS + 1)][1:]
         k3_ms = statistics.median(r[0] for r in k3_runs)
         _, ck, n_used = k3_runs[0]
+        k3_device_ms = sum(b - a for _, a, b in profiled_kernels(
+            lambda: adj.run_segments(route, P0),
+            ("k3_kernel", "k3_close"))) / 1e3 / REPEATS
         ct = diff_ct(P0)
         k4_ms = statistics.median(
             events_ms(lambda: adj.backward_cuda(route, ck, n_used, ct, args))
             for _ in range(REPEATS))
-        k3_plain_ms = events_ms(
+        (ck_p, n_p), k3_plain_ms = events_call(
             lambda: adj.run_segments(route._replace(cuda=False), P0))
+        mask = adj.read_mask(adj.end_segments(ck_p, n_p, route.n_seg), n_p)
+        require(n_p == n_used and torch.equal(
+            ck[:n_used + 1][mask].view(torch.int32),
+            ck_p[:n_p + 1][mask].view(torch.int32)),
+            f"{label}: K3 at 200x200 differs from the plain chain")
         k4_plain_ms = events_ms(lambda: adj.backward_plain(
             route._replace(cuda=False), ck, n_used, ct))
         # Work of this run: each ray's iterations while active, at the
@@ -1282,7 +1744,9 @@ def main() -> int:
               step_ms=f"{step_ms:.4f}",
               fwd_bwd_rays_per_s=f"{B / step_ms * 1e3:.1f}",
               plain_step_ms=f"{plain_step_ms[label]:.4f}",
-              k3_ms_all_segments=f"{k3_ms:.4f}", k4_ms=f"{k4_ms:.4f}",
+              k3_ms_all_segments=f"{k3_ms:.4f}",
+              k3_device_ms_per_pass=f"{k3_device_ms:.4f}",
+              k4_ms=f"{k4_ms:.4f}",
               k3_plain_ms=f"{k3_plain_ms:.4f}",
               k4_plain_ms=f"{k4_plain_ms:.4f}", segments=n_used,
               k3_launches_per_step=step_launches[label][1],

@@ -5,13 +5,22 @@ versions can be compared in one run on one card.
 
     python3 kernel_times.py times [--tree DIR] [--out FILE]
     python3 kernel_times.py diagnose [--tree DIR] [--out FILE]
+    python3 kernel_times.py diagnose-k1 [--tree DIR] [--out FILE]
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
 main paths' shapes: K2 on the 1024x1024 disk (chunks summed, and the last
 chunk alone; with the detection gate on and off), the compacted disk
-render, K1 on example2 at 200x200 and 1024x1024, K3 (summed over
-segments) and K4 in the rk4/200 and tsit5/48 training steps at 200x200
-f32, and those steps end to end.
+render, K1 on example2 at 200x200 and 1024x1024 (the kernel alone from the
+profiler, the call as the tree's render_fn makes it, the call given dt0,
+the render), K3 (its launches of a forward pass summed) and K4 in the
+rk4/200 and tsit5/48 training steps at 200x200 f32, and those steps end
+to end.
+
+``diagnose-k1``: chip_smoke.py's diagnosis of K1 (``diagnose_k1``: its
+time four ways, the step census, warp-iterations, scheduler cycles per
+warp-iteration, the capped runs, torch.mean's order, a profile of one
+rk4/200 forward pass of the training path), with K1's ptxas and SASS
+lines.
 
 ``diagnose``: chip_smoke.py's diagnosis of the tree's kernels: the
 ``ptxas -v`` lines of every kernel, the static SASS instruction mix of
@@ -36,9 +45,11 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, diagnose_tail,
-                        disk_setup, events_ms, ptxas_report, require,
-                        sass_report, summed_ms, timed_calls)
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, diagnose_k1,
+                        diagnose_tail, disk_setup, k1_entry, k1_main_call,
+                        k1_takes_own_step, k3_forward_ms, kernel_alone_ms,
+                        profiled_kernels, ptxas_report, require, sass_report,
+                        summed_ms, timed_calls)
 
 
 def emit(out: list, kind: str, **fields) -> None:
@@ -57,6 +68,18 @@ def diagnose(out: list, dev, card: str) -> None:
         emit(out, "sass", library=lib, kernel=kern, mix=counts)
     for rec in diagnose_tail(dev, block_sizes=()):
         emit(out, rec.pop("kind"), card=card, **rec)
+
+
+def diagnose_k1_times(out: list, dev, card: str) -> None:
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    for kern, regs, stack, st, ld in ptxas_report(cb.build_log("geodesic")):
+        emit(out, "ptxas", library="geodesic", kernel=kern, registers=regs,
+             stack_bytes=stack, spill_stores=st, spill_loads=ld)
+    for lib, kern, counts in sass_report():
+        if lib == "geodesic":
+            emit(out, "sass", library=lib, kernel=kern, mix=counts)
+    for rec in diagnose_k1(dev, card):
+        emit(out, rec.pop("kind"), **rec)
 
 
 def times(out: list, dev, card: str) -> None:
@@ -98,16 +121,29 @@ def times(out: list, dev, card: str) -> None:
          k2_ms_per_chunk=[statistics.median(r[i] for r in runs)
                           for i in range(len(runs[0]))])
 
-    # K1 on example2 (the bench configuration).
+    # K1 on example2 (the bench configuration): the kernel alone (profiler;
+    # given dt0, and taking its own initial step where it can), the call as
+    # render_fn makes it, the call given dt0 with its launch set up anew,
+    # and the render.
     bench = rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
                                 max_steps=20_000)
     for n in (200, 1024):
         metric, scene, canvas = build(example2_spec(n, n), f32, dev)
         y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
         dt0 = initial_dt(metric, y0, bench)
-        emit(out, "time", card=card, what=f"K1 example2 {n}x{n} f32",
-             k1_ms=cuda_ms(lambda: integrate_rays_cuda(metric, scene, y0,
-                                                       dt0, bench)))
+        fn = rt.render_fn(metric, scene, rt.RenderConfig(integrator=bench))
+        rec = dict(
+            k1_kernel_ms=kernel_alone_ms(
+                k1_entry(metric, scene, bench, y0, dt0), "k1_kernel"),
+            k1_main_call_ms=cuda_ms(k1_main_call(metric, scene, y0, dt0,
+                                                 bench)),
+            k1_ms=cuda_ms(lambda: integrate_rays_cuda(metric, scene, y0,
+                                                      dt0, bench)),
+            render_ms=cuda_ms(lambda: fn(canvas.pos, canvas.normal)))
+        if k1_takes_own_step():
+            rec["k1_kernel_own_step_ms"] = kernel_alone_ms(
+                k1_entry(metric, scene, bench, y0, None), "k1_kernel")
+        emit(out, "time", card=card, what=f"K1 example2 {n}x{n} f32", **rec)
 
     # The training steps at 200x200 f32: end to end, K3 summed, K4.
     spec = example2_spec(200, 200)
@@ -144,32 +180,25 @@ def times(out: list, dev, card: str) -> None:
             P0 = adj.pack_state(init(y0.t(), dt0))
         args = adj.launch_args(route, P0)
 
-        def k3_total():
-            ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=f32,
-                             device=dev)
-            ck[0] = P0
-            total, s = 0.0, 0
-            while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
-                total += events_ms(lambda: adj.forward_segment_cuda(
-                    route, ck[s], ck[s + 1], args))
-                s += 1
-            return total, ck, s
-
-        k3_runs = [k3_total() for _ in range(REPEATS + 1)][1:]
+        k3_runs = [k3_forward_ms(route, P0, args)
+                   for _ in range(REPEATS + 1)][1:]
         _, ck, n_used = k3_runs[0]
         gen = torch.Generator(device=dev).manual_seed(0)
         ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
         k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, n_used, ct,
                                                   args))
+        k3_kernels = profiled_kernels(lambda: adj.run_segments(route, P0),
+                                      ("k3_kernel", "k3_close"))
         emit(out, "time", card=card, what=f"train {label} 200x200 f32",
              step_ms=step_ms,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
-             segments=n_used, k4_ms=k4_ms)
+             k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
+             / 1e3 / REPEATS, segments=n_used, k4_ms=k4_ms)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("diagnose", "times"))
+    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "times"))
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
     ns = ap.parse_args()
@@ -209,7 +238,8 @@ def main() -> int:
     emit(out, "build", tree=tree, card=card,
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
-    (diagnose if ns.mode == "diagnose" else times)(out, dev, card)
+    {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
+     "times": times}[ns.mode](out, dev, card)
     emit(out, "done", tree=tree, mode=ns.mode,
          seconds=time.perf_counter() - t0)
     if ns.out:

@@ -2,12 +2,16 @@
 // Hopper (sm_90a).
 //
 // K3 replaces the Pallas TPU kernel _fwd_seg_launch of
-// raytracegr_jl_tpu/ops/pallas_adjoint.py: one checkpoint segment, at most
-// seg_len steps of the make_step_cm body per ray, the 34-plane state read at
-// the start and written at the end. Unlike K1 it does not localize: on a hit
-// it records the crossing step (ev_y0, ev_dt, ev_lam, ev_lo, ev_hi) and the
-// ray stops; localization runs afterwards in PyTorch, where it is
-// differentiable.
+// raytracegr_jl_tpu/ops/pallas_adjoint.py, which the JAX package launches
+// once per checkpoint segment: at most seg_len steps of the make_step_cm
+// body per ray, the 34-plane state read at the start and written at the end.
+// Here one launch runs the whole forward pass: each ray walks its segments
+// and writes each checkpoint itself, since a ray's next checkpoint depends
+// only on its own last one; the per-segment launches' grid-wide barriers,
+// their host syncs and their launch costs are gone (k3_kernel, k3_close).
+// Unlike K1 it does not localize: on a hit it records the crossing step
+// (ev_y0, ev_dt, ev_lam, ev_lo, ev_hi) and the ray stops; localization runs
+// afterwards in PyTorch, where it is differentiable.
 //
 // K4 replaces _run_bwd of the same file: the whole backward pass in one
 // launch. Per ray, the segments in reverse; a segment whose checkpoint shows
@@ -28,8 +32,8 @@
 // min or clip meets its bound exactly, the derivative is split half and half.
 //
 // Design: one thread per ray, as K1. Both kernels are bound by arithmetic and
-// latency, not memory: K3 moves 34 values of state in and out per ray per
-// segment; K4 reads one checkpoint per live segment and recomputes the
+// latency, not memory: K3 writes 34 values of state per ray per segment it
+// runs; K4 reads one checkpoint per live segment and recomputes the
 // stages twice (replay, then the adjoint's own forward sweep), so it costs
 // about three forward steps per step. The per-step records of a segment
 // live in local memory, sized for MAX_SEG steps (2.2 KB per thread in f32).
@@ -563,22 +567,65 @@ __device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
 // --------------------------------------------------------------------------
 // The kernels
 // --------------------------------------------------------------------------
+// K3: the whole forward pass in one launch. Ray i walks its segments from
+// checkpoint 0: while it is active at the start of segment s (s < n_seg), it
+// runs at most seg_len steps and writes checkpoint s + 1 itself; the first s
+// at whose start it is inactive (n_seg if none) is its end segment e_i,
+// written to ends[i]. The launches of the per-segment chain wrote the same
+// states: a ray's segments depend only on its own state, so nothing needs a
+// grid-wide barrier between them. n_used, the number of segments the chain
+// runs (the first s at which no ray is active), is the largest e_i: one
+// atomicMax per warp into used. k3_close then completes what the chain's
+// launches past a ray's end would have left for its readers.
 template <typename T, bool KERR, bool TSIT5, int SC>
 __global__ void __launch_bounds__(MAX_THREADS)
-k3_kernel(const T* __restrict__ P_in, T* __restrict__ P_out, int n,
-          int r_mode, int n_obj, int npts, int seg_len) {
+k3_kernel(T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
+          int n, int r_mode, int n_obj, int npts, int seg_len, int n_seg) {
   const Params<T>& p = cparams<T>();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  RayState<T> r;
-  load_state(P_in, n, i, r);
-  for (int it = 0; it < seg_len && r.active > T(0); ++it) {
-    T dt_try;
-    bool hit_now;
-    body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
-                                  hit_now);
+  int end = 0;
+  if (i < n) {
+    const size_t stride = static_cast<size_t>(N_PLANES) * n;
+    RayState<T> r;
+    load_state(ck, n, i, r);
+    while (end < n_seg && r.active > T(0)) {
+      for (int it = 0; it < seg_len && r.active > T(0); ++it) {
+        T dt_try;
+        bool hit_now;
+        body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
+                                      hit_now);
+      }
+      ++end;
+      store_state(ck + end * stride, n, i, r);
+    }
+    ends[i] = end;
   }
-  store_state(P_out, n, i, r);
+  // Every lane of the warp reaches here (no early return above).
+  end = __reduce_max_sync(0xffffffffu, end);
+  if ((threadIdx.x & 31) == 0 && end > 0) atomicMax(used, end);
+}
+
+// After k3_kernel, for a ray that ended before n_used: its final state
+// (checkpoint e_i) copied into checkpoint n_used, and P_ACTIVE = 0 in the
+// checkpoints between, which is all that K4 (the planes' ACTIVE flag of a
+// checkpoint where the ray is inactive) and the forward's result (checkpoint
+// n_used) read there. The chain's launches wrote a frozen copy of the whole
+// state into each of them.
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+k3_close(T* __restrict__ ck, const int* __restrict__ used,
+         const int* __restrict__ ends, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int n_used = *used, e = ends[i];
+  if (e >= n_used) return;
+  const size_t stride = static_cast<size_t>(N_PLANES) * n;
+  const T* src = ck + e * stride;
+  T* dst = ck + n_used * stride;
+#pragma unroll
+  for (int q = 0; q < N_PLANES; ++q) dst[q * n + i] = src[q * n + i];
+  for (int s = e + 1; s < n_used; ++s)
+    ck[s * stride + PL_ACTIVE * n + i] = T(0);
 }
 
 template <typename T, bool KERR, bool TSIT5, int SC>
@@ -655,24 +702,32 @@ k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
   pbar[2 * i + 1] = pa;
 }
 
+// K3's pass: used (1 int) zeroed, k3_kernel, then k3_close, all on st.
 template <typename T>
-int launch_k3(const void* P_in, void* P_out, const void* prm, int n, int kerr,
-              int tsit5, int r_mode, int scene, int n_obj, int npts,
-              int seg_len, void* stream) {
-  if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS))
+int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
+              int kerr, int tsit5, int r_mode, int scene, int n_obj, int npts,
+              int seg_len, int n_seg, void* stream) {
+  if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
+      seg_len < 1 || n_seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
-  const T* in = static_cast<const T*>(P_in);
-  T* out = static_cast<T*>(P_out);
-  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+  T* c = static_cast<T*>(ck);
+  int* u = static_cast<int*>(used);
+  int* e = static_cast<int*>(ends);
+  cudaError_t err = cudaMemsetAsync(u, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_with_params<T>(prm, st, [&] {
     bool ok;
     RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
                   k3_kernel<T, KERR_, TSIT5_, SC_>
-                  <<<blocks, MAX_THREADS, 0, st>>>(in, out, n, r_mode, n_obj,
-                                                   npts, seg_len))
+                  <<<blocks, MAX_THREADS, 0, st>>>(c, u, e, n, r_mode, n_obj,
+                                                   npts, seg_len, n_seg))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
-  }));
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k3_close<T><<<blocks, MAX_THREADS, 0, st>>>(c, u, e, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -702,20 +757,27 @@ int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
 
 }  // namespace
 
-extern "C" int rtgr_k3_f32(const void* P_in, void* P_out, const void* prm,
+#if RTGR_F32
+extern "C" int rtgr_k3_f32(void* ck, void* used, void* ends, const void* prm,
                            int n, int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len, void* stream) {
-  return launch_k3<float>(P_in, P_out, prm, n, kerr, tsit5, r_mode, scene,
-                          n_obj, npts, seg_len, stream);
+                           int n_obj, int npts, int seg_len, int n_seg,
+                           void* stream) {
+  return launch_k3<float>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
+                          n_obj, npts, seg_len, n_seg, stream);
 }
+#endif
 
-extern "C" int rtgr_k3_f64(const void* P_in, void* P_out, const void* prm,
+#if RTGR_F64
+extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
                            int n, int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len, void* stream) {
-  return launch_k3<double>(P_in, P_out, prm, n, kerr, tsit5, r_mode, scene,
-                           n_obj, npts, seg_len, stream);
+                           int n_obj, int npts, int seg_len, int n_seg,
+                           void* stream) {
+  return launch_k3<double>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
+                           n_obj, npts, seg_len, n_seg, stream);
 }
+#endif
 
+#if RTGR_F32
 extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
@@ -723,7 +785,9 @@ extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
   return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
                           r_mode, scene, n_obj, npts, seg_len, stream);
 }
+#endif
 
+#if RTGR_F64
 extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
@@ -731,3 +795,4 @@ extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
   return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
                            r_mode, scene, n_obj, npts, seg_len, stream);
 }
+#endif

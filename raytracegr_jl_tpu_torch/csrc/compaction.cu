@@ -114,6 +114,7 @@ int launch_k2(const void* P_in, const void* y0, const void* dt0, void* P_out,
 
 }  // namespace
 
+#if RTGR_F32
 extern "C" int rtgr_k2_f32(const void* P_in, const void* y0, const void* dt0,
                            void* P_out, void* y_fin, void* lam_fin,
                            const void* prm, int n, int kerr, int tsit5,
@@ -124,7 +125,9 @@ extern "C" int rtgr_k2_f32(const void* P_in, const void* y0, const void* dt0,
                           tsit5, r_mode, scene, n_obj, npts, bisect_iters,
                           budget, init, threads, stream);
 }
+#endif
 
+#if RTGR_F64
 extern "C" int rtgr_k2_f64(const void* P_in, const void* y0, const void* dt0,
                            void* P_out, void* y_fin, void* lam_fin,
                            const void* prm, int n, int kerr, int tsit5,
@@ -135,3 +138,4 @@ extern "C" int rtgr_k2_f64(const void* P_in, const void* y0, const void* dt0,
                            tsit5, r_mode, scene, n_obj, npts, bisect_iters,
                            budget, init, threads, stream);
 }
+#endif

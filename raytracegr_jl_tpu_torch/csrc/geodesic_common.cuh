@@ -47,6 +47,19 @@
 #include <mutex>
 #include <type_traits>
 
+// Each library is two translation units (utils/cuda_build.py): one defines
+// the f32 entry points (RTGR_F32), as whole-program device code, the other
+// the f64 ones (RTGR_F64), as relocatable device code linked to
+// csrc/pow64.cu, the double pow as PyTorch's kernels compute it (see tpow).
+// Relocatable code turns the f32 kernels' division and square-root slow
+// paths into ABI calls (K1: 127 to 153 registers, 13% slower), so the f32
+// kernels stay whole-program. Built as one unit, both are defined.
+#if !defined(RTGR_F32) && !defined(RTGR_F64)
+#define RTGR_F32 1
+#define RTGR_F64 1
+#endif
+extern "C" __device__ double rtgr_pow64(double x, double y);
+
 namespace {
 enum Prm {
   P_M, P_A, P_EPS2, P_EPS2_HALF, P_STATE_CLAMP, P_RHS_CLAMP, P_DET_MIN,
@@ -248,6 +261,14 @@ template <> __device__ __forceinline__ float fminn<float>(float a, float b) {
 #endif
 template <typename T> __device__ __forceinline__ T clipn(T x, T lo, T hi) {
   return fminn(fmaxn(x, lo), hi);
+}
+// pow with the bits of torch.pow on the card: powf inline for f32; for f64
+// the pow of csrc/pow64.cu, built with contraction on as PyTorch is (under
+// this file's --fmad=false libdevice's double pow rounds apart on about one
+// input in a million).
+template <typename T> __device__ __forceinline__ T tpow(T x, T y) {
+  if constexpr (std::is_same<T, float>::value) return pow(x, y);
+  else return rtgr_pow64(x, y);
 }
 template <typename T> __device__ __forceinline__ T sgn(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
@@ -865,6 +886,8 @@ __device__ __forceinline__ void store_state(T* P, int n, int i,
 
 // The make_step_cm init of ray i from y0 [8, n] and dt0 [n]: k1 = rhs(y0),
 // and an event record that starts finite (dt = 1), as the plain init's.
+// With dt0 null the step is left at 0 for the caller to set
+// (initial_step).
 template <typename T, bool KERR>
 __device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
                                            const T* y0, const T* dt0, int n,
@@ -876,7 +899,7 @@ __device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
   }
   rhs<T, KERR>(p, r_mode, r.y, r.k1);
   r.lam = T(0);
-  r.dt = dt0[i];
+  r.dt = dt0 != nullptr ? dt0[i] : T(0);
   r.active = T(1);
   r.hit = T(0);
   r.steps = T(0);
@@ -885,6 +908,57 @@ __device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
   r.ev_lam = T(0);
   r.ev_lo = T(0);
   r.ev_hi = T(0);
+}
+
+// Hairer's initial step (ops/integrate.py hairer_init_dt, order 5) of the
+// ray at y0, whose right-hand side f0 = rhs(y0) the caller has (init_state's
+// k1): one more rhs, at y0 + dt0 f0, and the norms, selections and clamps of
+// the plain version operation by operation. Its three means are sums over
+// the 8 components left to right, then a division by 8 (mean8); 0.01 / dmax
+// is a reciprocal times 0.01, as PyTorch evaluates a python scalar over a
+// tensor; the exponent 1/6 is the double 1/6 rounded to T, as PyTorch rounds
+// a python float exponent; torch.where, maximum, minimum and clamp are
+// selects and NaN-propagating nmax/nmin.
+template <typename T, bool KERR>
+__device__ __forceinline__ T hairer_init_dt(const Params<T>& p, int r_mode,
+                                            const T* y0, const T* f0) {
+  const T rtol = p.cfg[P_RTOL], atol = p.cfg[P_ATOL];
+  T sc[8], s0 = T(0), s1 = T(0);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    sc[c] = atol + fabs(y0[c]) * rtol;
+    const T u = y0[c] / sc[c], v = f0[c] / sc[c];
+    s0 = c == 0 ? u * u : s0 + u * u;
+    s1 = c == 0 ? v * v : s1 + v * v;
+  }
+  const T d0 = sqrt(s0 / T(8)), d1 = sqrt(s1 / T(8));
+  const bool small = d0 < T(1e-5) || d1 < T(1e-5);
+  const T dt0 = small ? T(1e-6) : d0 * T(0.01) / d1;
+  T y1[8], f1[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) y1[c] = y0[c] + dt0 * f0[c];
+  rhs<T, KERR>(p, r_mode, y1, f1);
+  T s2 = T(0);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const T w = (f1[c] - f0[c]) / sc[c];
+    s2 = c == 0 ? w * w : s2 + w * w;
+  }
+  const T d2 = sqrt(s2 / T(8)) / dt0;
+  const T dmax = nmax(d1, d2);
+  const T dt1 = dmax <= T(1e-15)
+                    ? nmax(dt0 * T(1e-3), T(1e-6))
+                    : tpow((T(1) / dmax) * T(0.01), T(1.0 / 6.0));
+  return nmin(dt0 * T(100), nmin(dt1, p.cfg[P_LAM_MAX]));
+}
+
+// A ray's first step where the caller gives none: Hairer's for Tsit5 (the
+// render.initial_dt), the constant rk4_dt for RK4.
+template <typename T, bool KERR, bool TSIT5>
+__device__ __forceinline__ T initial_step(const Params<T>& p, int r_mode,
+                                          const T* y0, const T* f0) {
+  if constexpr (TSIT5) return hairer_init_dt<T, KERR>(p, r_mode, y0, f0);
+  else return p.cfg[P_RK4_DT];
 }
 
 // One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
@@ -927,10 +1001,10 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
     // for a rejected one): the values are those of computing both.
     T q;
     if (accept)
-      q = safety * pow(en_c, p.cfg[P_NEG_BETA1])
-          * pow(fmaxn(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
+      q = safety * tpow(en_c, p.cfg[P_NEG_BETA1])
+          * tpow(fmaxn(r.err_old, p.cfg[P_QOLD_INIT]), p.cfg[P_BETA2]);
     else
-      q = fminn(safety * pow(en_c, T(-0.2)), T(1));
+      q = fminn(safety * tpow(en_c, T(-0.2)), T(1));
     q = clipn(q, p.cfg[P_QMIN], p.cfg[P_QMAX]);
     dt_next = clip(dt_try * q, dt_min, lam_max);
     dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];

@@ -94,9 +94,32 @@ def make_scene(objects: Sequence[Sphere | Plane | Disk],
     def t(v):
         return torch.tensor(v, dtype=dtype, device=device)
 
-    return Scene(kind=torch.tensor(kind, dtype=torch.int32, device=device),
-                 pos=t(pos), vel=t(vel), radius=t(radius), time=t(time),
-                 r_in=t(r_in), r_out=t(r_out), half=t(half))
+    return Scene(kind=kind_tensor(kind, device), pos=t(pos), vel=t(vel),
+                 radius=t(radius), time=t(time), r_in=t(r_in),
+                 r_out=t(r_out), half=t(half))
+
+
+def kind_tensor(kinds: Sequence[int], device=None) -> torch.Tensor:
+    """The ``[N]`` int32 kind tensor of a scene, carrying its kinds as host
+    ints (``host_kinds``), so that ``object_kinds`` never reads them back
+    from the card."""
+    t = torch.tensor(list(kinds), dtype=torch.int32, device=device)
+    t.host_kinds = tuple(int(k) for k in kinds)
+    return t
+
+
+def object_kinds(scene: Scene) -> tuple:
+    """The scene's object kinds as host ints, without a read from the card:
+    the copy that ``kind_tensor`` keeps on the tensor, else the values of a
+    CPU tensor. A kind tensor on the card made otherwise is read once (a
+    host sync) and the copy kept on it."""
+    kinds = getattr(scene.kind, "host_kinds", None)
+    if kinds is not None:
+        return kinds
+    kinds = tuple(int(k) for k in scene.kind.tolist())
+    if scene.kind.device.type != "cpu":
+        scene.kind.host_kinds = kinds
+    return kinds
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +275,12 @@ def colors(scene: Scene, x: torch.Tensor, smooth: bool = False,
                        torch.where(kind == KIND_PLANE, plane_rgb, disk_rgb))
 
 
+def _miss_colour(like: torch.Tensor) -> torch.Tensor:
+    """Red, ``[3]``, made on ``like``'s device (no copy from the host, which
+    would sync it with the card)."""
+    return (torch.arange(3, device=like.device) == 0).to(like.dtype)
+
+
 def shade(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01) -> torch.Tensor:
     """Final ray position(s) ``[..., 4]`` -> RGB ``[..., 3]``: the object with
     the smallest distance strictly below ``hit_dmin`` (earliest index on
@@ -265,8 +294,7 @@ def shade(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01) -> torch.Tensor
         omin.shape + (1, 3))).squeeze(-2)
     dim = (omin.to(col.dtype) + 1) / n
     col = col * dim[..., None]
-    miss = torch.tensor([1.0, 0.0, 0.0], dtype=col.dtype, device=col.device)
-    return torch.where(hit_any[..., None], col, miss)
+    return torch.where(hit_any[..., None], col, _miss_colour(col))
 
 
 def shade_soft(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
@@ -285,5 +313,5 @@ def shade_soft(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
     obj_col = torch.einsum("...n,...nc->...c", w, col)
     softmin_d = -temp * torch.logsumexp(-d / temp, dim=-1)
     p_hit = torch.sigmoid((hit_dmin - softmin_d) / temp)
-    miss = torch.tensor([1.0, 0.0, 0.0], dtype=col.dtype, device=col.device)
+    miss = _miss_colour(col)
     return p_hit[..., None] * obj_col + (1 - p_hit[..., None]) * miss

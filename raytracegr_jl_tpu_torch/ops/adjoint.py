@@ -8,7 +8,8 @@ and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
 
 * forward: the ``make_step_cm`` body runs in segments of ``seg_len`` steps,
   one checkpoint of the 13-field state per segment, and stops early once no
-  ray is active;
+  ray is active (on the card one K3 launch runs every ray through its
+  segments, and the host reads the count of segments once);
 * backward: the segments in reverse, each replayed from its checkpoint, and
   the cotangents pushed back through each step by a hand-written adjoint
   (``step_vjp``, ``rhs_vjp``), the same in PyTorch and in K4;
@@ -625,26 +626,39 @@ def _lib():
     return cuda_build.load("adjoint")
 
 
-def forward_segment_cuda(route: Route, P_in: torch.Tensor,
-                         P_out: torch.Tensor, args=None) -> None:
-    """K3: ``seg_len`` steps of every ray of ``P_in [34, B]`` into
-    ``P_out``, on the card; ``args`` from ``launch_args`` (built here if
-    not given). Adds one to ``forward_segment_cuda.launches`` per
-    launch."""
-    if P_in.device.type != "cuda":
-        raise ValueError(f"K3 needs CUDA tensors, got {P_in.device}")
-    prm, flags = args if args is not None else launch_args(route, P_in)
-    B = P_in.shape[1]
-    fn = _lib().rtgr_k3_f32 if P_in.dtype == torch.float32 else \
+def forward_segment_cuda(route: Route, ck: torch.Tensor,
+                         args=None) -> torch.Tensor:
+    """K3: the whole forward pass in one launch, on the card. ``ck`` is
+    the checkpoint buffer ``[n_seg + 1, 34, B]`` with the initial state in
+    ``ck[0]``; each ray runs its segments and writes their checkpoints.
+    Returns ``used [1 + B]`` (int32, on the card, not read here):
+    ``used[0]`` is ``n_used`` and ``used[1 + i]`` ray i's end segment (the
+    first at whose start it is inactive). For every ``s < n_used`` the
+    buffer then holds what the per-segment chain (``run_segments``' plain
+    route) holds wherever a reader looks: the whole state of a ray active
+    at the start of segment s, ``P_ACTIVE = 0`` of one inactive there, and
+    every ray's whole final state in ``ck[n_used]``. ``args`` from
+    ``launch_args`` (built here if not given). Adds one to
+    ``forward_segment_cuda.launches`` per pass."""
+    if ck.device.type != "cuda":
+        raise ValueError(f"K3 needs CUDA tensors, got {ck.device}")
+    if ck.dim() != 3 or ck.shape[0] != route.n_seg + 1 or (
+            ck.shape[1] != N_PLANES) or not ck.is_contiguous():
+        raise ValueError(f"bad checkpoint buffer {tuple(ck.shape)}")
+    prm, flags = args if args is not None else launch_args(route, ck)
+    B = ck.shape[2]
+    used = torch.empty(1 + B, dtype=torch.int32, device=ck.device)
+    fn = _lib().rtgr_k3_f32 if ck.dtype == torch.float32 else \
         _lib().rtgr_k3_f64
-    with torch.cuda.device(P_in.device):
-        rc = fn(ctypes.c_void_p(P_in.data_ptr()),
-                ctypes.c_void_p(P_out.data_ptr()),
-                ctypes.c_void_p(prm.data_ptr()), B, *flags, route.seg_len,
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(ck.device):
+        rc = fn(ptr(ck), ptr(used), ptr(used[1:]), ptr(prm), B, *flags,
+                route.seg_len, route.n_seg,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
     forward_segment_cuda.launches += 1
+    return used
 
 
 forward_segment_cuda.launches = 0
@@ -684,19 +698,55 @@ def run_segments(route: Route, P0: torch.Tensor):
     """The forward loop: ``(checkpoints [n_seg + 1, 34, B], n_used)``.
     Checkpoint s holds the state at the start of segment s, checkpoint
     ``n_used`` the final state; the loop stops after a segment that leaves
-    no ray active (the early exit of the JAX ``_ckpt_fwd``)."""
+    no ray active (the early exit of the JAX ``_ckpt_fwd``). The plain
+    route launches one segment at a time and checks for an active ray
+    before each; the kernel route is one K3 launch, whose ``n_used`` the
+    host reads once. Past a ray's end the kernel route leaves only what is
+    read (``forward_segment_cuda``)."""
     ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
                      device=P0.device)
     ck[0] = P0
-    args = launch_args(route, P0) if route.cuda else None
+    if route.cuda:
+        if P0.shape[1] == 0:
+            return ck, 0
+        used = forward_segment_cuda(route, ck, launch_args(route, P0))
+        return ck, int(used[0])
     s = 0
     while s < route.n_seg and bool(ck[s, P_ACTIVE].any()):
-        if route.cuda:
-            forward_segment_cuda(route, ck[s], ck[s + 1], args)
-        else:
-            ck[s + 1] = forward_segment(route, ck[s])
+        ck[s + 1] = forward_segment(route, ck[s])
         s += 1
     return ck, s
+
+
+def end_segments(ck: torch.Tensor, n_used: int, n_seg: int) -> torch.Tensor:
+    """Per ray, the first segment at whose start it is inactive (``n_seg``
+    where it never is), from checkpoints ``ck[0 .. n_used]`` of the
+    per-segment chain: K3's ``used[1:]``."""
+    inactive = ck[:n_used + 1, P_ACTIVE] <= 0  # [n_used + 1, B]
+    first = inactive.to(torch.int8).argmax(0).to(torch.int32)
+    return torch.where(inactive.any(0), first, torch.full_like(first, n_seg))
+
+
+def read_mask(ends: torch.Tensor, n_used: int) -> torch.Tensor:
+    """``[n_used + 1, 34, B]`` bool: the values of checkpoints ``ck[0 ..
+    n_used]`` that their readers take, given the rays' end segments: every
+    plane of ray i up to its end segment and at ``n_used`` (the forward's
+    result), and ``P_ACTIVE`` everywhere (K4 reads only that flag where the
+    ray is inactive). The kernel route writes these; the plain route writes
+    frozen copies of the whole state in the rest."""
+    s = torch.arange(n_used + 1, device=ends.device)[:, None]
+    rows = (s <= ends[None, :]) | (s == n_used)
+    mask = rows[:, None, :].repeat(1, N_PLANES, 1)
+    mask[:, P_ACTIVE] = True
+    return mask
+
+
+def used_segments(ends: torch.Tensor, n_seg: int) -> int:
+    """``n_used`` from the rays' end segments: the segments the chain runs
+    stop at the first whose start finds no ray active, so it is the largest
+    end segment (at most ``n_seg``; 0 for no rays). K3 computes it on the
+    card with one atomicMax per warp."""
+    return min(n_seg, int(ends.max())) if ends.numel() else 0
 
 
 class _Checkpointed(torch.autograd.Function):
@@ -725,6 +775,13 @@ class _Checkpointed(torch.autograd.Function):
         return ct0, g, None, None
 
 
+def _detached(scene: Scene) -> Scene:
+    """The scene's fields without their graph; the kind tensor (ints, with
+    its host copy of the kinds) as it is."""
+    return scene._replace(**{f: getattr(scene, f).detach()
+                             for f in Scene._fields if f != "kind"})
+
+
 def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str
                ) -> TraceResult:
@@ -736,7 +793,7 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                                        a=pvec[1].detach()),
                       metric.r_formula, metric.rho_min)
     route = Route(metric=detached,
-                  scene=Scene(*(f.detach() for f in scene)), cfg=cfg,
+                  scene=_detached(scene), cfg=cfg,
                   seg_len=seg, n_seg=cfg.max_steps // seg,
                   cuda=mode == "cuda")
     event_fn = scene_event_cm(scene)

@@ -27,7 +27,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..models.objects import (KIND_DISK, KIND_DISTANCE, KIND_DISTANCE_JVP,
-                              KIND_PLANE, KIND_SPHERE, Scene, balanced_min)
+                              KIND_PLANE, KIND_SPHERE, Scene, balanced_min,
+                              object_kinds)
 from .geometry import clamp_det, det_min, sanitize_bounds
 from .integrate import (BMAX_TSIT5, ERR_BIG, HERMITE_ENV, TS_A, TS_BTILDE,
                         IntegratorConfig, TraceResult, hermite_dinterp,
@@ -147,7 +148,7 @@ def _object_get(scene: Scene, i: int):
 def scene_event_cm(scene: Scene) -> EventFn:
     """Min-distance event on component-major positions ``[4+, B] -> [B]``
     (only rows 0..3 are read)."""
-    kinds = [int(k) for k in scene.kind.tolist()]
+    kinds = object_kinds(scene)
     gets = [_object_get(scene, i) for i in range(len(kinds))]
 
     def event(y):
@@ -195,7 +196,7 @@ def scene_crossing_bound(scene: Scene):
     squared distance (the inside-out sky sphere's from its far corner), the
     plane's earliest time, the disk's slab and ring constraints. None where
     the scene holds another kind. The detection gate's certificate."""
-    kinds = [int(k) for k in scene.kind.tolist()]
+    kinds = object_kinds(scene)
     if any(k not in (KIND_SPHERE, KIND_PLANE, KIND_DISK) for k in kinds):
         return None
     gets = [_object_get(scene, i) for i in range(len(kinds))]
@@ -646,14 +647,10 @@ FIXED_SCENES = {"geodesic": (SC_SPS9, SC_SD9), "compaction": (SC_SD9,),
 MAX_THREADS = 128
 
 
-def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
-                  dtype: torch.dtype):
-    """The kernel's parameter block as python floats, computed in double
-    and rounded to ``dtype`` by the caller's tensor, like JAX's python
-    scalars: configuration, then 8 fields per object, then 8 slots per
-    detection sample (its dense-output weights, then theta). M and a are
-    read from the metric (a tensor's value syncs with its device; see
-    ``pack_params``)."""
+def _config_slots(metric: Metric, cfg: IntegratorConfig,
+                  dtype: torch.dtype) -> list:
+    """The configuration block, ``CFG_SLOTS`` in order, as python floats
+    (M and a read from the metric: see ``pack_params`` for tensors)."""
     state_clamp, rhs_clamp = sanitize_bounds(dtype)
     eps2 = metric.rho_min * metric.rho_min
     M, a = (float(metric.params.M), float(metric.params.a))
@@ -667,11 +664,13 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
         STOP_RHO2=cfg.stop_rho ** 2, GATE=float(bool(cfg.event_gate)),
         **{f"BMAX{j}": b for j, b in enumerate(BMAX_TSIT5)},
         **{f"HERM{j + 1}": c for j, c in enumerate(HERMITE_ENV)})
-    blk = [slots[k] for k in CFG_SLOTS]
-    pos = scene.pos.tolist()
-    rest = [getattr(scene, f).tolist() for f in OBJ_FIELDS[3:]]
-    for i in range(scene.n_objects):
-        blk += pos[i][1:4] + [col[i] for col in rest]
+    return [slots[k] for k in CFG_SLOTS]
+
+
+def _sample_slots(cfg: IntegratorConfig) -> list:
+    """8 slots per detection sample: its dense-output weights, then
+    theta."""
+    blk = []
     npts = cfg.interp_points
     for i in range(1, npts + 1):
         th = i / npts
@@ -683,16 +682,40 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     return blk
 
 
+def _object_rows(scene: Scene, dtype: torch.dtype) -> torch.Tensor:
+    """``[N, 8]`` on the scene's device: each object's ``OBJ_FIELDS``,
+    rounded to ``dtype``."""
+    return torch.stack([scene.pos[:, 1], scene.pos[:, 2], scene.pos[:, 3]]
+                       + [getattr(scene, f) for f in OBJ_FIELDS[3:]],
+                       dim=1).detach().to(dtype)
+
+
+def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
+                  dtype: torch.dtype):
+    """The kernel's parameter block as python floats, computed in double
+    and rounded to ``dtype`` by the caller's tensor, like JAX's python
+    scalars: configuration, then 8 fields per object, then 8 slots per
+    detection sample (its dense-output weights, then theta). Reads the
+    scene's values (from the card where they lie there); ``pack_params``
+    builds the same block without a read."""
+    rows = _object_rows(scene, torch.float64).reshape(-1).tolist()
+    return _config_slots(metric, cfg, dtype) + rows + _sample_slots(cfg)
+
+
 def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
                 dtype: torch.dtype, device) -> torch.Tensor:
     """The bytes of csrc ``Params<T>`` on ``device`` (uint8,
-    ``PARAMS_BYTES[dtype]``): ``kernel_params`` at fixed offsets (the
-    configuration, then the objects' rows from slot ``N_CFG``, the samples'
-    from ``N_CFG + 8 * 16``, zeros between), then the 16 int32 object kinds.
-    Every launch copies it into the kernels' constant memory on its stream
-    (csrc launch_with_params). Where M or a is a tensor its slot is filled
-    on the device, so a training step's parameters reach the kernels
-    without a host sync.
+    ``PARAMS_BYTES[dtype]``): the configuration, then the objects' rows
+    from slot ``N_CFG``, the samples' from ``N_CFG + 8 * 16``, zeros
+    between (the values of ``kernel_params``), then the 16 int32 object
+    kinds. Every launch copies it into the kernels' constant memory on its
+    stream (csrc launch_with_params).
+
+    Nothing is read back from the card: the configuration, samples and
+    kinds are host values, copied to a card from pinned memory without a
+    host sync; the object rows, and M and a where they are tensors (the
+    training path), are copied on the device from the scene's and the
+    metric's tensors, so their current values reach the kernels.
     Raises for what the kernels do not take (``check_kernel_config``)."""
     kinds = check_kernel_config(metric, scene, cfg)
     params = metric.params
@@ -701,21 +724,25 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     if tensors:
         metric = metric._replace(params=params._replace(
             **{("M", "a")[i]: 0.0 for i in tensors}))
-    blk = kernel_params(metric, scene, cfg, dtype)
     n_obj = len(kinds)
     vals = [0.0] * PARAM_VALUES
-    vals[:N_CFG] = blk[:N_CFG]
-    obj = N_CFG + 8 * n_obj
-    vals[N_CFG:obj] = blk[N_CFG:obj]
+    vals[:N_CFG] = _config_slots(metric, cfg, dtype)
     smp = N_CFG + 8 * _MAX_OBJECTS
-    vals[smp:smp + len(blk) - obj] = blk[obj:]
-    kind_t = torch.tensor(kinds + [0] * (_MAX_OBJECTS - n_obj),
+    samples = _sample_slots(cfg)
+    vals[smp:smp + len(samples)] = samples
+    kind_t = torch.tensor(list(kinds) + [0] * (_MAX_OBJECTS - n_obj),
                           dtype=torch.int32)
     host = torch.cat([torch.tensor(vals, dtype=dtype).view(torch.uint8),
                       kind_t.view(torch.uint8)])
-    out = host.to(device)
+    device = torch.device(device)
+    if device.type == "cuda":
+        out = host.pin_memory().to(device, non_blocking=True)
+    else:
+        out = host.to(device)
+    out_vals = out[:PARAM_VALUES * dtype.itemsize].view(dtype)
+    out_vals[N_CFG:N_CFG + 8 * n_obj] = _object_rows(scene, dtype).reshape(-1)
     for i, v in tensors.items():
-        out[:PARAM_VALUES * dtype.itemsize].view(dtype)[i] = v.detach()
+        out_vals[i] = v.detach()
     return out
 
 
@@ -738,7 +765,8 @@ def launch_config(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     """What every launch of ``library``'s kernels over ``like``'s device and
     dtype shares: ``(prm, flags)``, the packed parameter block on the
     device and the int flags ``(kerr, tsit5, r_mode, scene, n_obj, npts)``.
-    Built once per trace or pass."""
+    Reads nothing from the card (``pack_params``). Built once per trace or
+    pass, or once for a fixed scene and configuration (``render_fn``)."""
     _check_options(cfg)
     kinds = check_kernel_config(metric, scene, cfg)
     kerr = metric.name == "kerr_schild"
@@ -760,12 +788,13 @@ def kernel_r_mode(metric: Metric) -> int:
 
 
 def check_kernel_config(metric: Metric, scene: Scene,
-                        cfg: IntegratorConfig) -> list:
-    """Raise for what the kernels do not take; the object kinds."""
-    kinds = [int(k) for k in scene.kind.tolist()]
+                        cfg: IntegratorConfig) -> tuple:
+    """Raise for what the kernels do not take; the object kinds (host
+    ints: no read from the card)."""
+    kinds = object_kinds(scene)
     if any(k not in _KERNEL_KINDS for k in kinds):
-        raise NotImplementedError(f"object kinds {kinds}: the kernels know "
-                                  f"{_KERNEL_KINDS}")
+        raise NotImplementedError(f"object kinds {list(kinds)}: the kernels "
+                                  f"know {_KERNEL_KINDS}")
     if not 0 < len(kinds) <= _MAX_OBJECTS:
         raise ValueError(f"the kernels take 1..{_MAX_OBJECTS} objects")
     if not 0 < cfg.interp_points <= _MAX_SAMPLES:
@@ -781,28 +810,46 @@ def _find_lib():
 
 
 def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
-                        dt0: torch.Tensor, cfg: IntegratorConfig
-                        ) -> TraceResult:
+                        dt0: torch.Tensor | None, cfg: IntegratorConfig,
+                        launch=None) -> TraceResult:
     """Run K1 (csrc/geodesic.cu) over a ray batch on the card: the
-    counterpart of the JAX ``integrate_rays_pallas``. ``y0 [B, 8]``,
-    ``dt0 [B]``, both CUDA tensors of one float dtype.
+    counterpart of the JAX ``integrate_rays_pallas``. ``y0 [B, 8]`` and
+    ``dt0 [B]`` CUDA tensors of one float dtype; with ``dt0=None`` the
+    kernel takes each ray's initial step in its prologue, equal bit for bit
+    to ``render.initial_dt`` (Hairer's heuristic for Tsit5, ``rk4_dt`` for
+    RK4). ``launch``: the ``(prm, flags)`` of ``launch_config(metric,
+    scene, cfg, y0, "geodesic")``, built once by a caller that traces one
+    scene and configuration many times (``render_fn``); built here if not
+    given.
 
     With ``cfg.sort_rays`` a batch of more than ``SORT_MIN_RAYS`` rays is
     launched in ``impact_parameter_order``, so that a warp's rays need
     similar step counts, and the results are put back in the caller's
     order. Raises for CPU tensors, a failed build, and the options the
     kernel does not take (``refine_minima``, object kinds it does not
-    know). Adds one to ``integrate_rays_cuda.launches`` per launch."""
-    _check_options(cfg)
-    check_kernel_config(metric, scene, cfg)
-    if y0.device.type != "cuda" or dt0.device != y0.device:
+    know). Reads nothing from the card. Adds one to
+    ``integrate_rays_cuda.launches`` per launch."""
+    if launch is None:
+        _check_options(cfg)
+        check_kernel_config(metric, scene, cfg)
+    if y0.device.type != "cuda" or (dt0 is not None
+                                    and dt0.device != y0.device):
         raise ValueError("integrate_rays_cuda needs CUDA tensors on one "
-                         f"device, got {y0.device} and {dt0.device}")
-    if y0.dtype not in (torch.float32, torch.float64) or dt0.dtype != y0.dtype:
-        raise TypeError(f"unsupported dtypes {y0.dtype}, {dt0.dtype}")
-    if y0.dim() != 2 or y0.shape[1] != 8 or dt0.shape != y0.shape[:1]:
-        raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, "
-                         f"dt0 {tuple(dt0.shape)}")
+                         f"device, got {y0.device} and "
+                         f"{None if dt0 is None else dt0.device}")
+    if y0.dtype not in (torch.float32, torch.float64) or (
+            dt0 is not None and dt0.dtype != y0.dtype):
+        raise TypeError(f"unsupported dtypes {y0.dtype}, "
+                        f"{None if dt0 is None else dt0.dtype}")
+    if y0.dim() != 2 or y0.shape[1] != 8 or (
+            dt0 is not None and dt0.shape != y0.shape[:1]):
+        raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, dt0 "
+                         f"{None if dt0 is None else tuple(dt0.shape)}")
+    if launch is None:
+        launch = launch_config(metric, scene, cfg, y0, "geodesic")
+    prm, (kerr, tsit5, r_mode, code, n_obj, npts) = launch
+    if prm.device != y0.device or prm.numel() != PARAMS_BYTES[y0.dtype]:
+        raise ValueError("the launch setup is for another device or dtype")
 
     lib = _find_lib()
     dev, dtype = y0.device, y0.dtype
@@ -810,19 +857,19 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     inv_order = None
     if cfg.sort_rays and B > SORT_MIN_RAYS:
         order, inv_order = impact_parameter_order(y0)
-        y0, dt0 = y0[order], dt0[order]
+        y0 = y0[order]
+        dt0 = None if dt0 is None else dt0[order]
     y_in = y0.t().contiguous()  # [8, B]: coalesced per-component loads
-    dt_in = dt0.contiguous()
-    prm, (kerr, tsit5, r_mode, code, n_obj, npts) = launch_config(
-        metric, scene, cfg, y0, "geodesic")
+    dt_in = None if dt0 is None else dt0.contiguous()
     y_out = torch.empty_like(y_in)
-    lam = torch.empty_like(dt_in)
+    lam = torch.empty(B, dtype=dtype, device=dev)
     hit = torch.empty(B, dtype=torch.int32, device=dev)
     steps = torch.empty(B, dtype=torch.int32, device=dev)
     if B > 0:
         fn = lib.rtgr_k1_f32 if dtype == torch.float32 else lib.rtgr_k1_f64
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+        ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+            None if t is None else t.data_ptr())
         with torch.cuda.device(dev):
             rc = fn(ptr(y_in), ptr(dt_in), ptr(y_out), ptr(lam), ptr(hit),
                     ptr(steps), ptr(prm), B, kerr, tsit5, r_mode, code,

@@ -169,22 +169,37 @@ def dense_output_envelopes():
     return bmax, herm
 
 
+def mean8(q: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis of 8: summed left to right, then divided by
+    8. The order is fixed on every device, and K1 repeats it;
+    ``torch.mean`` on the card adds in an order that depends on the
+    operand's layout."""
+    s = q[..., 0]
+    for c in range(1, 8):
+        s = s + q[..., c]
+    return s / 8
+
+
 def hairer_init_dt(f: RHS, y0: torch.Tensor, rtol, atol, order: int = 5,
                    lam_span: float = 100.0) -> torch.Tensor:
     """Per-ray automatic initial step size (Hairer, Norsett & Wanner II.4).
-    ``y0`` is ``[B, 8]``; ``f`` maps ``[B, 8] -> [B, 8]``."""
+    ``y0`` is ``[B, 8]``; ``f`` maps ``[B, 8] -> [B, 8]``. K1 computes the
+    same in its prologue (csrc geodesic_common.cuh ``hairer_init_dt``),
+    operation by operation: the norms' sums left to right (``mean8``),
+    ``0.01 / dmax`` as a reciprocal times 0.01 (as PyTorch evaluates a
+    scalar over a tensor)."""
     f0 = f(y0)
     sc = atol + torch.abs(y0) * rtol
-    d0 = torch.sqrt(torch.mean((y0 / sc) ** 2, dim=-1))
-    d1 = torch.sqrt(torch.mean((f0 / sc) ** 2, dim=-1))
+    d0 = torch.sqrt(mean8((y0 / sc) ** 2))
+    d1 = torch.sqrt(mean8((f0 / sc) ** 2))
     small = (d0 < 1e-5) | (d1 < 1e-5)
     dt0 = torch.where(small, torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
     y1 = y0 + dt0[..., None] * f0
     f1 = f(y1)
-    d2 = torch.sqrt(torch.mean(((f1 - f0) / sc) ** 2, dim=-1)) / dt0
+    d2 = torch.sqrt(mean8(((f1 - f0) / sc) ** 2)) / dt0
     dmax = torch.maximum(d1, d2)
     dt1 = torch.where(dmax <= 1e-15, torch.clamp_min(dt0 * 1e-3, 1e-6),
-                      (0.01 / dmax) ** (1.0 / (order + 1)))
+                      (torch.reciprocal(dmax) * 0.01) ** (1.0 / (order + 1)))
     return torch.minimum(100.0 * dt0, torch.clamp_max(dt1, lam_span))
 
 

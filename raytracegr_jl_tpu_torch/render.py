@@ -21,7 +21,7 @@ from .models.objects import Scene, shade, shade_soft
 from .models.shading import shade_redshift
 from .ops.adjoint import integrate_rays_ckpt, integrate_rays_ckpt_cuda
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
-                              integrate_rays_cuda)
+                              integrate_rays_cuda, launch_config)
 from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
 from .ops.metrics import Metric
 
@@ -100,11 +100,12 @@ def initial_dt(metric: Metric, y0: torch.Tensor,
 
 
 def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
-                cfg: RenderConfig) -> TraceResult:
+                cfg: RenderConfig, launch=None) -> TraceResult:
     """Integrate a flat ray batch ``[B, 8]`` to termination. With
     ``differentiable`` the result carries gradients to y0, the metric's M
     and a, and the scene; the initial step does not (the body detaches
-    every step size)."""
+    every step size). ``launch``: K1's launch setup (``launch_config``) for
+    the CUDA backend, where the caller keeps one."""
     _check(cfg)
     if cfg.differentiable:
         with torch.no_grad():
@@ -117,9 +118,12 @@ def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
                      else integrate_rays_ckpt)
         return integrate(metric, scene, y0, dt0, cfg.integrator,
                          seg_len=cfg.integrator.grad_seg_len)
-    dt0 = initial_dt(metric, y0, cfg.integrator)
     if resolve_backend(cfg, y0) == "cuda":
-        return integrate_rays_cuda(metric, scene, y0, dt0, cfg.integrator)
+        # K1 takes each ray's initial step (initial_dt's, bit for bit) in
+        # its prologue.
+        return integrate_rays_cuda(metric, scene, y0, None, cfg.integrator,
+                                   launch)
+    dt0 = initial_dt(metric, y0, cfg.integrator)
     return integrate_rays_cm(metric, scene, y0, dt0, cfg.integrator)
 
 
@@ -134,12 +138,27 @@ def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,
 
 
 def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
-    """``(pos, normal) -> rgb`` closure over a fixed scene and config."""
+    """``(pos, normal) -> rgb`` closure over a fixed scene and config. On
+    the CUDA backend K1's launch setup is built at the first call for each
+    device and dtype and kept (no read from the card); where M or a is a
+    tensor, whose value the caller may change between calls, it is built
+    anew for each call."""
     _check(cfg)
+    params = metric.params
+    keep = not cfg.differentiable and not any(
+        isinstance(v, torch.Tensor) for v in (params.M, params.a))
+    launches = {}
 
     def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
         flat = torch.cat([pos, normal], dim=-1).reshape(-1, 8)
-        res = trace_batch(metric, scene, flat, cfg)
+        launch = None
+        if keep and resolve_backend(cfg, flat) == "cuda":
+            key = (flat.device, flat.dtype)
+            if key not in launches:
+                launches[key] = launch_config(metric, scene, cfg.integrator,
+                                              flat, "geodesic")
+            launch = launches[key]
+        res = trace_batch(metric, scene, flat, cfg, launch)
         return _shade(metric, scene, flat, res.y, cfg).reshape(
             pos.shape[:-1] + (3,))
 

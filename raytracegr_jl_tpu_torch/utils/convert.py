@@ -12,7 +12,7 @@ import torch
 
 from ..grad import InverseParams
 from ..models.camera import Canvas
-from ..models.objects import Scene
+from ..models.objects import Scene, kind_tensor
 from ..ops.integrate import IntegratorConfig
 from ..ops.metrics import KerrSchildParams
 
@@ -26,7 +26,8 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray], dtype=None,
                      device=None) -> Scene:
     """A ``Scene`` from the JAX ``Scene``'s fields, ``{name: array}``."""
     return Scene(**{
-        f: tensor(fields[f], torch.int32 if f == "kind" else dtype, device)
+        f: (kind_tensor(np.asarray(fields[f]).tolist(), device)
+            if f == "kind" else tensor(fields[f], dtype, device))
         for f in Scene._fields})
 
 

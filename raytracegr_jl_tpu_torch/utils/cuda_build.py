@@ -21,19 +21,28 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "raytracegr_jl_tpu_torch")
-# sm_90a (Hopper). --fmad=false: every operation rounds on its own, like
-# the plain PyTorch version the kernel is checked against.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+# sm_90a (Hopper). A library's source is built twice, with --fmad=false
+# (every operation rounds on its own, like the plain PyTorch version the
+# kernel is checked against): its f32 entry points as whole-program device
+# code, its f64 ones as relocatable device code, linked to csrc/pow64.cu
+# (the kernels' double pow), which is built with contraction on, as
+# PyTorch's kernels are. See csrc/geodesic_common.cuh.
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_COMMON = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = _COMMON + ("--fmad=false", "-Xptxas", "-v")
+F32_FLAGS = NVCC_FLAGS + ("-DRTGR_F32=1",)
+F64_FLAGS = NVCC_FLAGS + ("-rdc=true", "-DRTGR_F64=1")
+POW_FLAGS = _COMMON + ("-rdc=true", "--fmad=true")
+LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # The C entry points, each returning a cudaError_t. Every one takes the
 # packed parameter block (prm: ops/geodesic_cm.py pack_params), copies it
 # into the library's constant memory on the stream and launches there. K1:
 # (y0, dt0, y, lam, hit, steps, prm: pointers; n, kerr, tsit5, r_mode,
 # scene, max_steps, n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0,
 # dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
-# npts, bisect_iters, budget, init, threads (per block); stream). K3: (P_in,
-# P_out, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len; stream).
+# npts, bisect_iters, budget, init, threads (per block); stream). K3: (ck,
+# used, ends, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len, n_seg;
+# stream).
 # K4: (ck; n_used; ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene, n_obj,
 # npts, seg_len; stream).
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -42,7 +51,7 @@ _SIGNATURES = {
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
     "compaction": {name: [_P] * 7 + [_I] * 11 + [_P]
                    for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
-    "adjoint": {**{name: [_P] * 3 + [_I] * 8 + [_P]
+    "adjoint": {**{name: [_P] * 4 + [_I] * 9 + [_P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
                 **{name: [_P, _I] + [_P] * 4 + [_I] * 8 + [_P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")}},
@@ -65,13 +74,17 @@ def find_nvcc() -> str:
                        "kernels cannot be built")
 
 
+POW_SRC = os.path.join(CSRC, "pow64.cu")
+
+
 def _paths(name: str):
     """Source, library and log paths; the name hashes the source, the
-    shared headers of csrc/ and the flags."""
+    shared headers of csrc/, pow64.cu and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(F32_FLAGS + F64_FLAGS + POW_FLAGS
+                                     + LINK_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+    for path in [src, POW_SRC] + [os.path.join(CSRC, h) for h in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}")
@@ -80,21 +93,44 @@ def _paths(name: str):
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an identical build exists; returns
-    the library's path. Safe to call for several names at once from
-    threads: each runs its own nvcc."""
+    the library's path. Its f32 half, its f64 half and pow64.cu compile in
+    parallel, then one nvcc links them. Safe to call for several names at
+    once from threads: each runs its own nvcc."""
     src, lib, log = _paths(name)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
-                           f"{proc.stderr[-4000:]}")
-    with open(log, "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}"
+    nvcc = find_nvcc()
+    objs = (f"{tmp}.f32.o", f"{tmp}.f64.o", f"{tmp}.pow.o")
+    compiles = [(src, [nvcc, *F32_FLAGS, "-c", src, "-o", objs[0]]),
+                (src, [nvcc, *F64_FLAGS, "-c", src, "-o", objs[1]]),
+                (POW_SRC, [nvcc, *POW_FLAGS, "-c", POW_SRC, "-o", objs[2]])]
+    link = ("the link", [nvcc, *LINK_FLAGS, *objs, "-o", f"{tmp}.so"])
+    report = []
+
+    def check(what, proc, out, err):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{what}:\n{err[-4000:]}")
+        report.append(out + err)
+
+    try:
+        procs = [(what, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True))
+                 for what, cmd in compiles]
+        outs = [(what, p, *p.communicate()) for what, p in procs]
+        for args in outs:
+            check(*args)
+        proc = subprocess.run(link[1], capture_output=True, text=True)
+        check(link[0], proc, proc.stdout, proc.stderr)
+        with open(log, "w") as f:
+            f.write("".join(report[:2]))
+        os.replace(f"{tmp}.so", lib)
+    finally:
+        for path in objs + (f"{tmp}.so",):
+            if os.path.exists(path):
+                os.remove(path)
     return lib
 
 

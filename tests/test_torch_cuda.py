@@ -1,5 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version on the
-same CUDA tensors. Both round operation by operation alike (the kernel is
+"""The kernels on the card against their plain PyTorch versions on the
+same CUDA tensors. Both round operation by operation alike (the kernels are
 built with --fmad=false), so they agree bitwise. Needs a CUDA device; run
 with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (tests/conftest.py imports jax, which a GPU machine need not have)."""
@@ -90,6 +90,17 @@ CKPT_CASES = [(32, torch.float32, "rk4", 40), (32, torch.float32, "tsit5", 16),
               (16, torch.float64, "rk4", 40), (16, torch.float64, "tsit5", 16)]
 
 
+def _read_equal(A, route, ck, n_used, ck_p, n_p):
+    """K3's checkpoints against the per-segment chain's: the same n_used,
+    and bitwise on every value that K4 and the forward's result read (the
+    whole state of a ray up to its end segment and at n_used, P_ACTIVE
+    everywhere: ``read_mask``)."""
+    mask = A.read_mask(A.end_segments(ck_p, n_p, route.n_seg), n_p)
+    bits = torch.int32 if ck.dtype == torch.float32 else torch.int64
+    return n_used == n_p and torch.equal(ck[:n_used + 1][mask].view(bits),
+                                         ck_p[:n_p + 1][mask].view(bits))
+
+
 @pytest.mark.parametrize("n,dtype,method,max_steps", CKPT_CASES)
 def test_k3_k4_match_plain_bitwise(n, dtype, method, max_steps):
     A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
@@ -97,8 +108,8 @@ def test_k3_k4_match_plain_bitwise(n, dtype, method, max_steps):
     ck, n_used = A.run_segments(route, P0)
     ck_p, n_p = A.run_segments(route._replace(cuda=False), P0)
     torch.cuda.synchronize()
-    assert A.forward_segment_cuda.launches == before[0] + n_used
-    assert n_used == n_p and torch.equal(ck[:n_used + 1], ck_p[:n_p + 1])
+    assert A.forward_segment_cuda.launches == before[0] + 1
+    assert _read_equal(A, route, ck, n_used, ck_p, n_p)
     ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
     c, p = A.backward_cuda(route, ck, n_used, ct)
     c_p, p_p = A.backward_plain(route, ck_p, n_p, ct)
@@ -147,9 +158,9 @@ def test_train_step_launches_k3_and_k4():
         p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
         before = (forward_segment_cuda.launches, backward_cuda.launches)
         T.make_ray_loss_fn(spec, c, device=dev)(p, xg, ng, target).backward()
-        launched = (forward_segment_cuda.launches > before[0],
-                    backward_cuda.launches > before[1])
-        assert launched == ((True, True) if not grads else (False, False))
+        launched = (forward_segment_cuda.launches - before[0],
+                    backward_cuda.launches - before[1])
+        assert launched == ((1, 1) if not grads else (0, 0))
         grads.append(torch.cat([p.M.grad[None], p.a.grad[None],
                                 p.sphere_pos.grad]))
     assert bool(torch.isfinite(grads[0]).all())
@@ -293,8 +304,8 @@ def test_gate_on_matches_gate_off_k1_k3_k4(dtype, method, max_steps):
     ck_off, n_off = A.run_segments(route, P0)
     ck_p, n_p = A.run_segments(g_route._replace(cuda=False), P0)
     assert n_on == n_off == n_p
-    assert torch.equal(ck_on[:n_on + 1], ck_off[:n_on + 1])
-    assert torch.equal(ck_on[:n_on + 1], ck_p[:n_on + 1])
+    assert _read_equal(A, route, ck_on, n_on, ck_p, n_p)
+    assert _read_equal(A, route, ck_off, n_off, ck_p, n_p)
     gen = torch.Generator(device=dev).manual_seed(2)
     ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
     c_on, p_on = A.backward_cuda(g_route, ck_on, n_on, ct)
@@ -334,3 +345,124 @@ def test_launches_on_two_streams_keep_their_parameters():
                                                  for g in got_short]:
         for f in ("y", "lam", "hit", "steps"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _example2_rays(n_rays, dtype):
+    """The first ``n_rays`` of example2's 200x200 batch."""
+    metric, scene, canvas = T.build(T.example2_spec(200, 200), dtype,
+                                    torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    return metric, scene, y0[:n_rays].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rays", [1, 31, 33, 4103, 40_000])
+def test_k1_own_initial_step_matches_plain_bitwise(n_rays, dtype):
+    """K1 with dt0=None takes each ray's initial step in its prologue: the
+    same as the plain initial_dt followed by the plain integrator, bit for
+    bit on every ray, steps included (Tsit5, example2); and two launches
+    give the same result."""
+    tol = TOL32 if dtype == torch.float32 else 1e-9
+    integ = T.IntegratorConfig(rtol=tol, atol=tol, max_steps=20_000)
+    metric, scene, y0 = _example2_rays(n_rays, dtype)
+    before = integrate_rays_cuda.launches
+    k = integrate_rays_cuda(metric, scene, y0, None, integ)
+    again = integrate_rays_cuda(metric, scene, y0, None, integ)
+    torch.cuda.synchronize()
+    assert integrate_rays_cuda.launches == before + 2
+    p = integrate_rays_cm(metric, scene, y0, initial_dt(metric, y0, integ),
+                          integ)
+    for f in ("hit", "steps", "y", "lam"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(getattr(k, f), getattr(again, f)), f
+
+
+def test_k1_own_initial_step_rk4_and_sorted():
+    """dt0=None with RK4 (the constant rk4_dt) and with sort_rays."""
+    metric, scene, canvas = T.build(T.accretion_disk_spec(48, 48),
+                                    torch.float32, torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    for integ in (T.IntegratorConfig(method="rk4", rk4_dt=0.5,
+                                     max_steps=400, stop_rho=1.0),
+                  T.IntegratorConfig(rtol=TOL32, atol=TOL32, max_steps=400,
+                                     stop_rho=1.0, sort_rays=True)):
+        k = integrate_rays_cuda(metric, scene, y0, None, integ)
+        g = integrate_rays_cuda(metric, scene, y0,
+                                initial_dt(metric, y0, integ), integ)
+        torch.cuda.synchronize()
+        for f in ("hit", "steps", "y", "lam"):
+            assert torch.equal(getattr(k, f), getattr(g, f)), f
+
+
+def test_render_launches_once_without_host_syncs():
+    """render_fn on the card: one K1 launch per call, no eager initial step,
+    and no host sync once its launch setup is built."""
+    import warnings
+
+    from raytracegr_jl_tpu_torch import render
+    metric, scene, canvas = T.build(T.example2_spec(32, 32), torch.float32,
+                                    torch.device("cuda"))
+    fn = T.render_fn(metric, scene, T.RenderConfig(
+        integrator=T.IntegratorConfig(rtol=TOL32, atol=TOL32)))
+    fn(canvas.pos, canvas.normal)
+    torch.cuda.synchronize()
+    calls = []
+    orig = render.initial_dt
+    render.initial_dt = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    before = integrate_rays_cuda.launches
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(canvas.pos, canvas.normal)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        render.initial_dt = orig
+    assert integrate_rays_cuda.launches == before + 1
+    assert not calls
+    assert not [w for w in caught
+                if "synchronizing cuda operation" in str(w.message).lower()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method,max_steps", [("rk4", 200), ("tsit5", 48)])
+def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
+    """K3's single launch against the plain per-segment chain at the
+    training configurations: n_used, the end segments and every value a
+    reader takes, bitwise; a batch where every ray stops in segment 0 (and
+    every third is inactive from the start); one host sync per pass; two
+    launches equal."""
+    import warnings
+    n = 48 if dtype == torch.float32 else 24
+    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
+    P_stop = P0.clone()
+    P_stop[A.P_LAM] = route.cfg.lam_max
+    P_stop[A.P_ACTIVE, ::3] = 0
+    for P, stopped in ((P0, False), (P_stop, True)):
+        ck = torch.empty((route.n_seg + 1,) + tuple(P.shape), dtype=dtype,
+                         device=P.device)
+        ck[0] = P
+        before = A.forward_segment_cuda.launches
+        used = A.forward_segment_cuda(route, ck)
+        assert A.forward_segment_cuda.launches == before + 1
+        n_used = int(used[0])
+        ck_p, n_p = A.run_segments(route._replace(cuda=False), P)
+        assert _read_equal(A, route, ck, n_used, ck_p, n_p)
+        assert torch.equal(used[1:], A.end_segments(ck_p, n_p, route.n_seg))
+        assert n_used == A.used_segments(used[1:], route.n_seg)
+        if stopped:
+            assert n_used == 1
+        ck2, n2 = A.run_segments(route, P)
+        assert n2 == n_used and _read_equal(A, route, ck2, n2, ck_p, n_p)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            A.run_segments(route, P0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "synchronizing cuda operation" in str(w.message).lower()]
+    assert len(syncs) == 1
