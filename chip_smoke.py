@@ -3,11 +3,16 @@ raytracegr_jl_tpu_torch/csrc (K1; K3 and K4 of the training path; K2 of the
 compacted render; one build per library, in parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
-per-segment chain) and K1 against the committed golden images, drives the
-forward render and the training path (one pixel-loss step for two
-configurations, three Adam steps) of the reference's example2 and the
-1024x1024 accretion-disk render (compacted, redshift shading) through the
-kernels, counting launches, eager initial steps and host syncs, times
+per-segment chain, the grouped K3 and K4 of the vectorized multistart
+against theirs and against one launch per start) and K1 against the
+committed golden images, drives the forward render and the training path
+(one pixel-loss step for two configurations, three Adam steps) of the
+reference's example2, the inversion of BASELINE config 5 (the lensing
+scene at 32x32: M and z recovered in 60 Adam steps, the vectorized
+multistart against the serial one, a resumed fit against an uninterrupted
+one) and the 1024x1024 accretion-disk render (compacted, redshift shading)
+through the kernels, counting launches, eager initial steps and host syncs,
+times
 them, diagnoses K1 (its time four ways, the step census, scheduler
 cycles per warp-iteration), holds the detection gate (event_gate) bitwise to the
 ungated disk render, and diagnoses K2 on the disk's packed tail (SASS
@@ -848,6 +853,387 @@ def diagnose_tail(dev, block_sizes=TAIL_BLOCKS, budget: int = TAIL_BUDGET):
                              ms=median_ms(lambda: k2_at(args, tail, budget,
                                                         t))))
     return recs
+
+
+# The inversion slice (BASELINE config 5): the lensing scene at 32x32 f32,
+# the JAX package's heavy test's fit (tests/test_inverse.py:69-107). Its
+# bars: M within 1% of the truth's 0.5 and |z| below 0.01 after 60 Adam
+# steps. The vectorized multistart against the serial one: the same start
+# selected, and the loss histories within VEC_SERIAL_RTOL of each other
+# (relative to the largest loss): K3 and K4 are bitwise equal grouped and
+# ungrouped, but the camera, the losses' means and the (M, a) cotangent
+# sums reduce over other batch shapes, so the f32 losses differ by a few
+# units in the last place, which 10 Adam steps do not amplify past 1e-4.
+INV_N = 32
+INV_STEPS = 60
+INV_STARTS = ((0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1))
+VEC_SERIAL_RTOL = 1e-4
+
+
+def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N):
+    """The lensing scene at n x n for each (M, z) start: per start its
+    (route, P0) on the card, and the grouped route over all starts' rays
+    (start-major, one table row per start) with its initial state."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    integ = rt.default_inverse_cfg(dtype, max_steps=120, method=method,
+                                   rk4_dt=0.5, stop_rho=0.5).integrator
+    integ = integ._replace(lam_max=60.0)
+    spec = rt.lensing_inverse_spec(n, n)
+    _, scene, _ = rt.build(spec, dtype, dev)
+    xg, ng = rt.flat_pixel_grid(spec, dtype, dev)
+    seg = adj.segment_length(integ, integ.grad_seg_len)
+    singles, rows = [], []
+    with torch.no_grad():
+        for M, z in starts:
+            metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(
+                torch.tensor(M, dtype=dtype, device=dev),
+                torch.tensor(0.0, dtype=dtype, device=dev)),
+                r_formula="textbook", rho_min=0.25)
+            sc = scene._replace(pos=scene.pos.clone())
+            sc.pos[0, 3] = z
+            x, u = pixel_rays(metric, xg, ng)
+            y0 = torch.cat([x, u], -1)
+            init, _ = make_step_cm(metric, scene_event_cm(sc), integ)
+            P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+            singles.append((adj.Route(metric=metric, scene=sc, cfg=integ,
+                                      seg_len=seg,
+                                      n_seg=integ.max_steps // seg,
+                                      cuda=True), P0))
+            rows.append(adj.flatten_params(metric, sc))
+    grouped = singles[0][0]._replace(groups=torch.stack(rows).contiguous())
+    return singles, grouped, torch.cat([P for _, P in singles], dim=1)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def require_grouped_equal(label: str, dev, dtype, method: str):
+    """Grouped K3 (with k3_close) and K4 against their grouped plain
+    versions on the same CUDA tensors, and against one ungrouped launch
+    per start, ray by ray; all bitwise. Returns (max |d|, segments,
+    hits)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    singles, grouped, P0 = inverse_case(dev, dtype, method)
+    B = singles[0][1].shape[1]
+
+    def k3(route, P):
+        ck = torch.empty((route.n_seg + 1,) + tuple(P.shape), dtype=P.dtype,
+                         device=dev)
+        ck[0] = P
+        used = adj.forward_segment_cuda(route, ck, adj.launch_args(route, P))
+        return ck, int(used[0]), used[1:]
+
+    ck_k, n_k, ends_k = k3(grouped, P0)
+    ck_p, n_p = adj.run_segments(grouped._replace(cuda=False), P0)
+    torch.cuda.synchronize()
+    require(n_k == n_p, f"{label}: grouped K3 ran {n_k} segments, plain {n_p}")
+    ends_p = adj.end_segments(ck_p, n_p, grouped.n_seg)
+    require(torch.equal(ends_k, ends_p), f"{label}: grouped K3's end "
+            "segments differ")
+    mask = adj.read_mask(ends_p, n_p)
+    a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
+    err = max_err(a, b)
+    require(bits_equal(a, b), f"{label}: grouped K3 not bitwise equal to the "
+            f"grouped plain chain (max |d| {err:.3e})")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
+    c_k, p_k = adj.backward_cuda(grouped, ck_k, n_k, ct)
+    c_p, p_p = adj.backward_plain(grouped._replace(cuda=False), ck_p, n_p, ct)
+    torch.cuda.synchronize()
+    err = max(err, max_err(c_k, c_p), max_err(p_k, p_p))
+    require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
+            f"{label}: grouped K4 not bitwise equal to the grouped plain "
+            f"version (max |d| {err:.3e})")
+    for s, (route, P) in enumerate(singles):
+        rays = slice(s * B, (s + 1) * B)
+        ck, n, _ = k3(route, P)
+        c, p = adj.backward_cuda(route, ck, n, ct[:, rays])
+        torch.cuda.synchronize()
+        require(n <= n_k and bits_equal(ck[n], ck_k[n_k][:, rays])
+                and bits_equal(c, c_k[:, rays]) and bits_equal(p, p_k[rays]),
+                f"{label}: start {s}: the grouped launch differs from its "
+                "own ungrouped launch")
+    hits = int(ck_k[n_k, adj.P_HIT].sum())
+    require(hits > 0, f"{label}: no ray hit the sphere")
+    return err, n_k, hits
+
+
+def inverse_slice(dev, card: str, reset_counts) -> list:
+    """The inversion slice: grouped K3 and K4 against their grouped plain
+    versions and against ungrouped launches (f32 and f64), config 5's
+    recovery through fit (K3 and K4 on the card), the vectorized
+    multistart (the main path of this slice: one grouped K3 and K4 launch
+    per Adam step, counted) against the serial one, step times at N = 1,
+    4 and 16, a resumed fit against an uninterrupted one, the grouped
+    kernels' times, their plain versions' and their bounds, and the
+    lensing scene's fixed scene code against SC_ANY. Returns the grouped
+    K3 and K4 entries of the kernels line."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (SC_ANY,
+                                                         make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.utils import checkpoint
+    f32 = torch.float32
+
+    # 1. Grouped against plain, and against one launch per start.
+    grouped_err = 0.0
+    for dtype, method in ((f32, "rk4"), (torch.float64, "rk4"),
+                          (f32, "tsit5")):
+        t0 = time.perf_counter()
+        label = f"lensing {INV_N}x{INV_N} {str(dtype)[6:]} {method}"
+        err, n_used, hits = require_grouped_equal(label, dev, dtype, method)
+        grouped_err = max(grouped_err, err)
+        phase(f"grouped K3/K4 vs plain and vs ungrouped {label}", t0,
+              starts=len(INV_STARTS), segments=n_used, hits=hits,
+              max_abs_err=err)
+
+    # 2. Config 5's recovery through K3 and K4.
+    t0 = time.perf_counter()
+    spec = rt.lensing_inverse_spec(INV_N, INV_N)
+    cfg = rt.default_inverse_cfg(f32, max_steps=120, rk4_dt=0.5,
+                                 soft_temp=0.05, stop_rho=0.5)._replace(
+        soft_freq=2.0)
+    cfg = cfg._replace(integrator=cfg.integrator._replace(lam_max=60.0))
+    truth = rt.InverseParams(0.5, 0.0, [0.0, 5.0, 12.0, 0.0], f32, dev)
+    with torch.no_grad():
+        target = rt.make_render_for_params(spec, cfg, 0, f32, dev)(truth)
+    trainable = rt.InverseParams(1.0, 0.0, [0.0, 0.0, 0.0, 1.0], f32, dev)
+    kw = dict(sphere_index=0, trainable=trainable, dtype=f32, device=dev)
+    init = rt.InverseParams(0.53, 0.0, [0.0, 5.0, 12.0, 0.03], f32, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    res = rt.fit(spec, target, init, cfg, steps=INV_STEPS,
+                 learning_rate=5e-3, **kw)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - tw) * 1e3 / INV_STEPS
+    k3n, k4n = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
+    m = float(res.params.M.detach())
+    z = float(res.params.sphere_pos.detach()[3])
+    hist = res.loss_history.tolist()
+    phase("config 5 recovery lensing 32x32 f32 60 Adam steps", t0,
+          card=repr(card), M=f"{m:.7f}", z=f"{z:.7f}",
+          M_rel_err=f"{abs(m - 0.5) / 0.5:.3e}",
+          best_loss=f"{float(res.loss):.6e}", first_loss=f"{hist[0]:.6e}",
+          last_loss=f"{hist[-1]:.6e}",
+          losses=[f"{v:.4e}" for v in hist[::6]],
+          ms_per_step=f"{fit_ms:.3f}", k3_launches=k3n, k4_launches=k4n)
+    require(k3n == INV_STEPS and k4n == INV_STEPS,
+            f"config 5: {k3n} K3 and {k4n} K4 launches in {INV_STEPS} steps")
+    require(abs(m - 0.5) / 0.5 < 0.01 and abs(z) < 0.01,
+            f"config 5 not recovered: M {m}, z {z}")
+    require(float(res.params.a.detach()) == 0.0, "config 5: the spin moved")
+
+    # 3. The vectorized multistart (this slice's main path, counted) against
+    #    the serial one, and step times at N = 1, 4 and 16.
+    t0 = time.perf_counter()
+
+    def inits(n):
+        return [rt.InverseParams(0.5 + 0.04 * ((k % 5) - 2) / 2, 0.0,
+                                 [0.0, 5.0, 12.0, 0.02 * ((k % 7) - 3)],
+                                 f32, dev) for k in range(n)]
+
+    def timed_fit(n, vectorized, steps):
+        starts = inits(n)
+        reset_counts()
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        r = rt.fit_multistart(spec, target, starts, cfg,
+                              vectorized=vectorized, steps=steps,
+                              learning_rate=5e-3, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - tw) * 1e3 / steps
+        return r, ms, (adj.forward_segment_cuda.launches,
+                       adj.backward_cuda.launches), starts
+
+    vec, _, main_counts, starts = timed_fit(4, True, 10)
+    ser, _, ser_counts, _ = timed_fit(4, False, 10)
+
+    def picked(r):
+        first = r.params_history["sphere_pos"][0]
+        return [k for k, s in enumerate(starts)
+                if torch.equal(s.sphere_pos.detach(), first)
+                and torch.equal(s.M.detach(), r.params_history["M"][0])]
+
+    scale = float(ser.loss_history.abs().max())
+    rel = float((vec.loss_history - ser.loss_history).abs().max()) / scale
+    require(main_counts == (10, 10), f"vectorized fit of 4 starts launched "
+            f"K3 {main_counts[0]} and K4 {main_counts[1]} times in 10 steps")
+    require(picked(vec) == picked(ser) and len(picked(vec)) == 1,
+            f"vectorized picked start {picked(vec)}, serial {picked(ser)}")
+    require(rel <= VEC_SERIAL_RTOL, f"vectorized and serial loss histories "
+            f"differ by {rel:.3e} (bar {VEC_SERIAL_RTOL})")
+    step_ms, per_step = {}, {}
+    for n, vectorized in ((1, True), (4, True), (16, True), (4, False)):
+        timed_fit(n, vectorized, 2)  # warm-up
+        runs = [timed_fit(n, vectorized, 5) for _ in range(3)]
+        step_ms[(n, vectorized)] = statistics.median(r[1] for r in runs)
+        per_step[(n, vectorized)] = [c / 5 for c in runs[-1][2]]
+    for n in (1, 4, 16):
+        require(per_step[(n, True)] == [1.0, 1.0], f"vectorized N={n}: "
+                f"{per_step[(n, True)]} K3/K4 launches per step")
+    phase("main path vectorized multistart lensing 32x32 f32", t0,
+          card=repr(card), starts=4, steps=10,
+          k3_launches=main_counts[0], k4_launches=main_counts[1],
+          serial_k3_launches=ser_counts[0], picked=picked(vec),
+          picked_serial=picked(ser), loss_hist_rel_diff=f"{rel:.3e}",
+          bar=VEC_SERIAL_RTOL,
+          ms_per_step={f"{'vec' if v else 'serial'}{n}": f"{ms:.3f}"
+                       for (n, v), ms in step_ms.items()},
+          rays_per_s={f"{'vec' if v else 'serial'}{n}":
+                      f"{n * INV_N * INV_N / ms * 1e3:.1f}"
+                      for (n, v), ms in step_ms.items()},
+          launches_per_step={f"N{n}": per_step[(n, True)]
+                             for n in (1, 4, 16)})
+
+    # Where a vectorized step's time goes (4 starts): the device's busy
+    #    time from the profiler, read against the unprofiled step time.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        timed_fit(4, True, 2)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    vec4_ms = step_ms[(4, True)]
+    phase("profile vectorized step lensing 32x32 f32 4 starts", t0,
+          card=repr(card), step_ms=f"{vec4_ms:.3f}",
+          device_busy_ms_per_step=f"{busy_ms:.3f}",
+          device_idle_share=f"{max(0.0, 1 - busy_ms / vec4_ms):.4f}",
+          device_kernels_per_step=f"{sum(e.count for e in kernels) / 2:.0f}",
+          top=[f"{e.key[:40]}:{e.self_device_time_total / 2e3:.3f}ms"
+               f"x{e.count // 2}" for e in top])
+    require(busy_ms > 0, "the profiler saw no device time")
+
+    # 4. A fit checkpointed after 3 steps, restored and run 3 more, against
+    #    6 uninterrupted steps, with a 6-step cosine schedule.
+    t0 = time.perf_counter()
+    sched = rt.cosine_decay_schedule(5e-3, 6, alpha=0.1)
+    full = rt.fit(spec, target, init, cfg, steps=6, learning_rate=sched, **kw)
+    part = rt.fit(spec, target, init, cfg, steps=3, learning_rate=sched, **kw)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_fit.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = {"params": part.final_params, "opt_state": part.opt_state}
+    back = checkpoint.restore(checkpoint.save(path, state), state)
+    rest = rt.fit(spec, target, back["params"], cfg, steps=3,
+                  learning_rate=sched, opt_state=back["opt_state"], **kw)
+    same = torch.equal(rest.loss_history, full.loss_history[3:]) and all(
+        torch.equal(getattr(rest.final_params, k), getattr(full.final_params,
+                                                           k))
+        for k in ("M", "a", "sphere_pos"))
+    phase("checkpoint resume on the card lensing 32x32 f32", t0,
+          bitwise_equal=same, device=str(back["params"].M.device),
+          M_full=f"{float(full.final_params.M.detach()):.9f}",
+          M_resumed=f"{float(rest.final_params.M.detach()):.9f}")
+    require(same and back["params"].M.device.type == "cuda",
+            "the resumed fit differs from the uninterrupted one")
+
+    # 5. The grouped kernels' times at N = 4 (rk4/120, as the fit runs
+    #    them) beside one ungrouped launch per start, their plain versions,
+    #    SC_ANY against the fixed scene code, and their bounds.
+    t0 = time.perf_counter()
+    singles, grouped, P0 = inverse_case(dev, f32, "rk4")
+    args = adj.launch_args(grouped, P0)
+    prm, flags = args
+    any_args = (prm, flags[:3] + (SC_ANY,) + flags[4:])
+    ct = torch.randn(P0.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(2), dtype=f32, device=dev)
+
+    def k3_ms(route, P, a):
+        runs = [k3_forward_ms(route, P, a) for _ in range(REPEATS + 1)][1:]
+        return statistics.median(r[0] for r in runs), runs[0][1], runs[0][2]
+
+    def k4_ms(route, ck, n, c, a):
+        return statistics.median(
+            events_ms(lambda: adj.backward_cuda(route, ck, n, c, a))
+            for _ in range(REPEATS))
+
+    g3, ck, n_used = k3_ms(grouped, P0, args)
+    g4 = k4_ms(grouped, ck, n_used, ct, args)
+    g3_any = k3_ms(grouped, P0, any_args)[0]
+    g4_any = k4_ms(grouped, ck, n_used, ct, any_args)
+    B = singles[0][1].shape[1]
+    u3 = u4 = u3_any = u4_any = 0.0
+    for s, (route, P) in enumerate(singles):
+        a = adj.launch_args(route, P)
+        a_any = (a[0], a[1][:3] + (SC_ANY,) + a[1][4:])
+        t3, ck_s, n_s = k3_ms(route, P, a)
+        u3 += t3
+        u3_any += k3_ms(route, P, a_any)[0]
+        c = ct[:, s * B:(s + 1) * B].contiguous()
+        u4 += k4_ms(route, ck_s, n_s, c, a)
+        u4_any += k4_ms(route, ck_s, n_s, c, a_any)
+    plain = grouped._replace(cuda=False)
+    (ck_p, n_p), k3_plain_ms = events_call(lambda: adj.run_segments(plain,
+                                                                    P0))
+    k4_plain_ms = events_ms(lambda: adj.backward_plain(plain, ck, n_used, ct))
+    # This run's work: each ray's iterations while active at the plain
+    # body's count for one ray, K4 also each accepted step's reverse step.
+    with torch.no_grad():
+        metric, scene = adj.route_rows(plain, P0.shape[1])
+        _, body = make_step_cm(metric, scene_event_cm(scene), grouped.cfg)
+        m1, s1 = adj.route_rows(plain._replace(groups=grouped.groups[:1]),
+                                1)
+        _, body1 = make_step_cm(m1, scene_event_cm(s1), grouped.cfg)
+        st = adj.unpack_state(P0)
+        one = lambda t: t[..., :1]  # noqa: E731
+        step_flops = count_flops(lambda: body1(type(st)(*map(one, st))))
+        p = adj.adj_params(m1, f32, dev)
+        vjp_flops = count_flops(lambda: adj.step_vjp(
+            p, False, one(st.y), one(st.k1), one(st.dt),
+            one(ct[adj.P_Y:adj.P_Y + 8]), one(ct[adj.P_K1:adj.P_K1 + 8])))
+        iters = accepted = 0
+        for _ in range(n_used * grouped.seg_len):
+            iters += int(st.active.sum())
+            st, rec = body(st)
+            accepted += int(rec.do.sum())
+    R = P0.shape[1]
+    table_bytes = grouped.groups.numel() * 4
+    k3_bound = bound(iters * step_flops,
+                     n_used * 2 * adj.N_PLANES * R * 4 + table_bytes)
+    k4_bound = bound(iters * step_flops + accepted * vjp_flops,
+                     (n_used + 2) * adj.N_PLANES * R * 4 + R * 2 * 4
+                     + table_bytes)
+    phase("time grouped K3/K4 lensing 32x32 f32 rk4/120 4 starts", t0,
+          card=repr(card), rays=R, segments=n_used,
+          k3_grouped_ms=f"{g3:.4f}", k3_ungrouped_4_launches_ms=f"{u3:.4f}",
+          k4_grouped_ms=f"{g4:.4f}", k4_ungrouped_4_launches_ms=f"{u4:.4f}",
+          k3_grouped_sc_any_ms=f"{g3_any:.4f}",
+          k4_grouped_sc_any_ms=f"{g4_any:.4f}",
+          k3_ungrouped_sc_any_ms=f"{u3_any:.4f}",
+          k4_ungrouped_sc_any_ms=f"{u4_any:.4f}",
+          scene_code=flags[3], k3_plain_ms=f"{k3_plain_ms:.4f}",
+          k4_plain_ms=f"{k4_plain_ms:.4f}", ray_iterations=iters,
+          accepted=accepted, flops_per_step=step_flops,
+          flops_per_step_vjp=vjp_flops,
+          k3_bound_ms=f"{k3_bound[0]:.6f}", k3_bound_by=k3_bound[1],
+          k4_bound_ms=f"{k4_bound[0]:.6f}", k4_bound_by=k4_bound[1])
+    entry = dict(route="cuda", source="raytracegr_jl_tpu_torch/csrc/adjoint.cu",
+                 max_abs_err=grouped_err, library_ms=None)
+    return [dict(name="K3 grouped forward_segment_cuda (route.groups)",
+                 replaces="raytracegr_jl_tpu/ops/pallas_adjoint.py:131",
+                 launches=main_counts[0], ms=g3, plain_ms=k3_plain_ms,
+                 bound_ms=k3_bound[0], bound_by=k3_bound[1], **entry),
+            dict(name="K4 grouped backward_cuda (route.groups)",
+                 replaces="raytracegr_jl_tpu/ops/pallas_adjoint.py:203",
+                 launches=main_counts[1], ms=g4, plain_ms=k4_plain_ms,
+                 bound_ms=k4_bound[0], bound_by=k4_bound[1], **entry)]
 
 
 def disk_slice(dev, card: str, reset_counts) -> dict:
@@ -1788,6 +2174,9 @@ def main() -> int:
                f"x{e.count // 3}" for e in top])
     require(busy_ms > 0, "the profiler saw no device time")
 
+    # 9b. The inversion slice (config 5; grouped K3 and K4).
+    inverse_entries = inverse_slice(dev, card, reset_counts)
+
     # 10-15. The accretion-disk slice (K2).
     k2_entry = disk_slice(dev, card, reset_counts)
 
@@ -1843,7 +2232,7 @@ def main() -> int:
         "plain_ms": main["k4_plain_ms"],
         "bound_ms": main["k4_bound"][0],
         "bound_by": main["k4_bound"][1],
-        "library_ms": None}, k2_entry]}), flush=True)
+        "library_ms": None}, k2_entry] + inverse_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,7 @@ versions can be compared in one run on one card.
     python3 kernel_times.py times [--tree DIR] [--out FILE]
     python3 kernel_times.py diagnose [--tree DIR] [--out FILE]
     python3 kernel_times.py diagnose-k1 [--tree DIR] [--out FILE]
+    python3 kernel_times.py sass [--tree DIR] [--out FILE]
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
 main paths' shapes: K2 on the 1024x1024 disk (chunks summed, and the last
@@ -22,6 +23,12 @@ warp-iteration, the capped runs, torch.mean's order, a profile of one
 rk4/200 forward pass of the training path), with K1's ptxas and SASS
 lines.
 
+``sass``: for every kernel of the tree's three libraries, its ``ptxas
+-v`` line (registers, stack, spills) and its static SASS: the count of
+instructions and a digest of their text, so that two trees' builds of a
+kernel can be told identical or not (the ungrouped K3 and K4 of a tree
+with grouped variants against the parent's).
+
 ``diagnose``: chip_smoke.py's diagnosis of the tree's kernels: the
 ``ptxas -v`` lines of every kernel, the static SASS instruction mix of
 K2's resumed and K4's f32 Kerr-Schild Tsit5 kernels ("not measured" where
@@ -37,7 +44,9 @@ Needs a CUDA card; imports no jax.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import re
 import os
 import statistics
 import subprocess
@@ -45,10 +54,11 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, diagnose_k1,
-                        diagnose_tail, disk_setup, k1_entry, k1_main_call,
-                        k1_takes_own_step, k3_forward_ms, kernel_alone_ms,
-                        profiled_kernels, ptxas_report, require, sass_report,
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, cuda_tool,
+                        demangle, diagnose_k1, diagnose_tail, disk_setup,
+                        k1_entry, k1_main_call, k1_takes_own_step,
+                        k3_forward_ms, kernel_alone_ms, profiled_kernels,
+                        ptxas_report, require, sass_report, short_name,
                         summed_ms, timed_calls)
 
 
@@ -68,6 +78,38 @@ def diagnose(out: list, dev, card: str) -> None:
         emit(out, "sass", library=lib, kernel=kern, mix=counts)
     for rec in diagnose_tail(dev, block_sizes=()):
         emit(out, rec.pop("kind"), card=card, **rec)
+
+
+def sass_digests(out: list, dev, card: str) -> None:
+    """Each kernel's ptxas line, and its SASS instruction count and the
+    digest of its instructions' text (addresses and encodings left out)."""
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    tool = cuda_tool("cuobjdump")
+    for name in LIBRARIES:
+        for kern, regs, stack, st, ld in ptxas_report(cb.build_log(name)):
+            emit(out, "ptxas", library=name, kernel=kern, registers=regs,
+                 stack_bytes=stack, spill_stores=st, spill_loads=ld)
+        if tool is None:
+            emit(out, "sass", library=name,
+                 digest="not measured (no cuobjdump)")
+            continue
+        sass = subprocess.run([tool, "-sass", cb._paths(name)[1]],
+                              capture_output=True, text=True).stdout
+        funcs, cur = {}, None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = m.group(1)
+                funcs[cur] = []
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if m and cur is not None:
+                funcs[cur].append(" ".join(m.group(1).split()))
+        for mangled, kern in zip(list(funcs), demangle(list(funcs))):
+            text = "\n".join(funcs[mangled]).encode()
+            emit(out, "sass", library=name, kernel=short_name(kern),
+                 instructions=len(funcs[mangled]),
+                 digest=hashlib.sha256(text).hexdigest()[:16])
 
 
 def diagnose_k1_times(out: list, dev, card: str) -> None:
@@ -198,7 +240,8 @@ def times(out: list, dev, card: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "times"))
+    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "sass",
+                                     "times"))
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
     ns = ap.parse_args()
@@ -239,7 +282,7 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
     {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
-     "times": times}[ns.mode](out, dev, card)
+     "sass": sass_digests, "times": times}[ns.mode](out, dev, card)
     emit(out, "done", tree=tree, mode=ns.mode,
          seconds=time.perf_counter() - t0)
     if ns.out:

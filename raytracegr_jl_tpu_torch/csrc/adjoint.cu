@@ -46,15 +46,24 @@
 // were ~3,900 local loads and stores). Only the per-step records stay in
 // local memory. As in K1 and K2 the parameters are constant-bank operands
 // (launch_with_params) and the training path's scene compile-time
-// (SC_SPS4, example2 with 4 detection samples). Blocks of MAX_THREADS.
+// (SC_SPS4, example2 with 4 detection samples; SC_S4, the inversion's
+// lensing scene). Blocks of MAX_THREADS.
+//
+// Grouped launches (GROUPED, a table in device memory): one K3 and one K4
+// launch carry all starts of a vectorized multistart fit, each ray reading
+// M, a and the object rows of its start (GroupParams in
+// geodesic_common.cuh); the starts' rays are a batch as one start's are, so
+// a step costs one launch of each at any number of starts. The ungrouped
+// instantiations compile as they did before the flag.
 
 #include "geodesic_common.cuh"
 
 namespace {
 
 // The fixed scenes of this library's main paths: the training path
-// (example2, 4 detection samples).
-constexpr int FIXED_SCENES = 1 << SC_SPS4;
+// (example2, 4 detection samples) and the inversion's lensing scene (one
+// sphere, 4 samples).
+constexpr int FIXED_SCENES = (1 << SC_SPS4) | (1 << SC_S4);
 
 constexpr int MAX_SEG = 32;
 
@@ -70,8 +79,8 @@ __device__ __forceinline__ T w_max(T x, T b) {
   return x > b ? T(1) : (x == b ? T(0.5) : T(0));
 }
 
-template <typename T, bool KERR>
-__device__ __forceinline__ void rhs_vjp(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void rhs_vjp(const PP& p, int r_mode,
                                         const T* yin, const T* ct, T* cty,
                                         T& Mb, T& ab) {
   const T sc = p.cfg[P_STATE_CLAMP], rc = p.cfg[P_RHS_CLAMP];
@@ -447,8 +456,8 @@ __device__ __forceinline__ void stage_input(const T* y, T dt,
 // One stage of the Tsit5 step's reverse sweep (step_vjp's loop over m, from
 // 5 down to 1): the cotangent kb[M] of stage M pulled back through the RHS
 // at that stage's input, into y's cotangent, (M, a) and the earlier stages.
-template <int M, typename T, bool KERR>
-__device__ __forceinline__ void back_stage(const Params<T>& p, int r_mode,
+template <int M, typename T, bool KERR, typename PP>
+__device__ __forceinline__ void back_stage(const PP& p, int r_mode,
                                            const T* y, T dt,
                                            const T (*ks)[8], T (*kb)[8],
                                            T* yb, T& gM, T& ga) {
@@ -471,8 +480,8 @@ __device__ __forceinline__ void back_stage(const Params<T>& p, int r_mode,
 
 // Reverse mode of one accepted step (ops/adjoint.py step_vjp):
 // (ct of y_new, ct of k_last) -> (ct of y, ct of k1, ct of M, ct of a).
-template <typename T, bool KERR, bool TSIT5>
-__device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, bool TSIT5, typename PP>
+__device__ __forceinline__ void step_vjp(const PP& p, int r_mode,
                                          const T* y, const T* k1, T dt,
                                          const T* cty, const T* ctk, T* yb,
                                          T* k1b, T& gM, T& ga) {
@@ -577,12 +586,17 @@ __device__ __forceinline__ void step_vjp(const Params<T>& p, int r_mode,
 // runs (the first s at which no ray is active), is the largest e_i: one
 // atomicMax per warp into used. k3_close then completes what the chain's
 // launches past a ray's end would have left for its readers.
-template <typename T, bool KERR, bool TSIT5, int SC>
+// GROUPED: each ray's M, a and object rows from its group's row of groups
+// (GroupParams); rays_per_group and group_stride are read only then.
+template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
 k3_kernel(T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
-          int n, int r_mode, int n_obj, int npts, int seg_len, int n_seg) {
-  const Params<T>& p = cparams<T>();
+          int n, int r_mode, int n_obj, int npts, int seg_len, int n_seg,
+          const T* __restrict__ groups, int rays_per_group,
+          int group_stride) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  decltype(auto) p = ray_params<T, GROUPED>(groups, rays_per_group,
+                                            group_stride, i);
   int end = 0;
   if (i < n) {
     const size_t stride = static_cast<size_t>(N_PLANES) * n;
@@ -628,14 +642,16 @@ k3_close(T* __restrict__ ck, const int* __restrict__ used,
     ck[s * stride + PL_ACTIVE * n + i] = T(0);
 }
 
-template <typename T, bool KERR, bool TSIT5, int SC>
+template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
 k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
           T* __restrict__ ct0, T* __restrict__ pbar, int n, int r_mode,
-          int n_obj, int npts, int seg_len) {
-  const Params<T>& p = cparams<T>();
+          int n_obj, int npts, int seg_len, const T* __restrict__ groups,
+          int rays_per_group, int group_stride) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  decltype(auto) p = ray_params<T, GROUPED>(groups, rays_per_group,
+                                            group_stride, i);
   T cy[8], ck1[8], cev[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -702,12 +718,24 @@ k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
   pbar[2 * i + 1] = pa;
 }
 
+// The group table's arguments: none (groups null: one parameter set), or
+// G rows of group_stride values, at least M, a and each object's row, for
+// rays_per_group consecutive rays each.
+inline bool groups_ok(const void* groups, int n, int n_obj,
+                      int rays_per_group, int group_stride) {
+  return groups == nullptr ||
+         (rays_per_group >= 1 && n % rays_per_group == 0 &&
+          group_stride >= 2 + OBJ_STRIDE * n_obj);
+}
+
 // K3's pass: used (1 int) zeroed, k3_kernel, then k3_close, all on st.
 template <typename T>
 int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
               int kerr, int tsit5, int r_mode, int scene, int n_obj, int npts,
-              int seg_len, int n_seg, void* stream) {
+              int seg_len, int n_seg, const void* groups, int rays_per_group,
+              int group_stride, void* stream) {
   if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
+      !groups_ok(groups, n, n_obj, rays_per_group, group_stride) ||
       seg_len < 1 || n_seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -715,14 +743,17 @@ int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
   T* c = static_cast<T*>(ck);
   int* u = static_cast<int*>(used);
   int* e = static_cast<int*>(ends);
+  const T* gr = static_cast<const T*>(groups);
   cudaError_t err = cudaMemsetAsync(u, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_with_params<T>(prm, st, [&] {
     bool ok;
-    RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
-                  k3_kernel<T, KERR_, TSIT5_, SC_>
-                  <<<blocks, MAX_THREADS, 0, st>>>(c, u, e, n, r_mode, n_obj,
-                                                   npts, seg_len, n_seg))
+    RTGR_BOOL(gr != nullptr, GROUPED_,
+              RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
+                            k3_kernel<T, KERR_, TSIT5_, SC_, GROUPED_>
+                            <<<blocks, MAX_THREADS, 0, st>>>(
+                                c, u, e, n, r_mode, n_obj, npts, seg_len,
+                                n_seg, gr, rays_per_group, group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -734,8 +765,10 @@ template <typename T>
 int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
               void* pbar, const void* prm, int n, int kerr, int tsit5,
               int r_mode, int scene, int n_obj, int npts, int seg_len,
+              const void* groups, int rays_per_group, int group_stride,
               void* stream) {
   if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
+      !groups_ok(groups, n, n_obj, rays_per_group, group_stride) ||
       seg_len < 1 || seg_len > MAX_SEG)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -744,13 +777,15 @@ int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
   const T* g = static_cast<const T*>(ct);
   T* g0 = static_cast<T*>(ct0);
   T* pb = static_cast<T*>(pbar);
+  const T* gr = static_cast<const T*>(groups);
   return static_cast<int>(launch_with_params<T>(prm, st, [&] {
     bool ok;
-    RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
-                  k4_kernel<T, KERR_, TSIT5_, SC_>
-                  <<<blocks, MAX_THREADS, 0, st>>>(c, n_used, g, g0, pb, n,
-                                                   r_mode, n_obj, npts,
-                                                   seg_len))
+    RTGR_BOOL(gr != nullptr, GROUPED_,
+              RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
+                            k4_kernel<T, KERR_, TSIT5_, SC_, GROUPED_>
+                            <<<blocks, MAX_THREADS, 0, st>>>(
+                                c, n_used, g, g0, pb, n, r_mode, n_obj, npts,
+                                seg_len, gr, rays_per_group, group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   }));
 }
@@ -761,9 +796,11 @@ int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
 extern "C" int rtgr_k3_f32(void* ck, void* used, void* ends, const void* prm,
                            int n, int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len, int n_seg,
-                           void* stream) {
+                           const void* groups, int rays_per_group,
+                           int group_stride, void* stream) {
   return launch_k3<float>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
-                          n_obj, npts, seg_len, n_seg, stream);
+                          n_obj, npts, seg_len, n_seg, groups, rays_per_group,
+                          group_stride, stream);
 }
 #endif
 
@@ -771,9 +808,11 @@ extern "C" int rtgr_k3_f32(void* ck, void* used, void* ends, const void* prm,
 extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
                            int n, int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len, int n_seg,
-                           void* stream) {
+                           const void* groups, int rays_per_group,
+                           int group_stride, void* stream) {
   return launch_k3<double>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
-                           n_obj, npts, seg_len, n_seg, stream);
+                           n_obj, npts, seg_len, n_seg, groups,
+                           rays_per_group, group_stride, stream);
 }
 #endif
 
@@ -781,9 +820,12 @@ extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
 extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len, void* stream) {
+                           int n_obj, int npts, int seg_len,
+                           const void* groups, int rays_per_group,
+                           int group_stride, void* stream) {
   return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
-                          r_mode, scene, n_obj, npts, seg_len, stream);
+                          r_mode, scene, n_obj, npts, seg_len, groups,
+                          rays_per_group, group_stride, stream);
 }
 #endif
 
@@ -791,8 +833,11 @@ extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
 extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len, void* stream) {
+                           int n_obj, int npts, int seg_len,
+                           const void* groups, int rays_per_group,
+                           int group_stride, void* stream) {
   return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
-                           r_mode, scene, n_obj, npts, seg_len, stream);
+                           r_mode, scene, n_obj, npts, seg_len, groups,
+                           rays_per_group, group_stride, stream);
 }
 #endif

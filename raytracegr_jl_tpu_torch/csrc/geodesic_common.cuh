@@ -78,13 +78,14 @@ enum { R_AS_WRITTEN = 0, R_TEXTBOOK = 1, R_TEXTBOOK_NOFLOOR = 2 };
 // Scenes known at compile time (their kinds and detection samples), and
 // SC_ANY, which takes kinds and counts at run time. SC_SPS9: sphere, plane,
 // sphere, 9 samples (example2's render); SC_SD9: sphere, disk, 9 samples
-// (the accretion disk); SC_SPS4: example2 with the training path's 4.
-enum { SC_ANY = 0, SC_SPS9 = 1, SC_SD9 = 2, SC_SPS4 = 3 };
+// (the accretion disk); SC_SPS4: example2 with the training path's 4;
+// SC_S4: one sphere, 4 samples (the lensing scene of the inversion).
+enum { SC_ANY = 0, SC_SPS9 = 1, SC_SD9 = 2, SC_SPS4 = 3, SC_S4 = 4 };
 __host__ __device__ constexpr int sc_nobj(int sc) {
-  return sc == SC_SD9 ? 2 : 3;
+  return sc == SC_S4 ? 1 : (sc == SC_SD9 ? 2 : 3);
 }
 __host__ __device__ constexpr int sc_npts(int sc) {
-  return sc == SC_SPS4 ? 4 : 9;
+  return (sc == SC_SPS4 || sc == SC_S4) ? 4 : 9;
 }
 
 // Host: the kernel of (kerr, tsit5, scene), with KERR_, TSIT5_ (bools) and SC_
@@ -122,6 +123,8 @@ __host__ __device__ constexpr int sc_npts(int sc) {
       RTGR_FIXED(SC_SD9, tsit5, __VA_ARGS__)                                 \
     } else if ((scene) == SC_SPS4) {                                         \
       RTGR_FIXED(SC_SPS4, tsit5, __VA_ARGS__)                                \
+    } else if ((scene) == SC_S4) {                                           \
+      RTGR_FIXED(SC_S4, tsit5, __VA_ARGS__)                                  \
     } else {                                                                 \
       ok = false;                                                            \
     }                                                                        \
@@ -156,6 +159,69 @@ template <typename T>
 __device__ __forceinline__ const Params<T>& cparams() {
   if constexpr (std::is_same<T, float>::value) return c_params_f32;
   else return c_params_f64;
+}
+
+// The parameters of a ray of a grouped launch (K3 and K4 over several
+// parameter sets at once: G groups of rays_per_group consecutive rays, one
+// start of a multistart fit each). They read as Params<T> do, and are the
+// constant block but for M, a and the objects' rows, which come from the
+// ray's group row in device memory: M, a, then OBJ_STRIDE values per object
+// (ops/adjoint.py flatten_params, one row per group). Every device function
+// takes either (its parameter type PP is a template argument), so the
+// ungrouped kernels, instantiated with Params<T>, compile as before. Where
+// rays_per_group is a multiple of 32 every warp lies in one group and reads
+// one row, a broadcast load; where it is not, a warp that straddles two
+// groups reads two rows, one load each: correct, but serialized.
+template <typename T>
+struct GroupCfg {
+  const T* g;
+  __device__ __forceinline__ T operator[](int k) const {
+    return k == P_M ? __ldg(g)
+                    : (k == P_A ? __ldg(g + 1) : cparams<T>().cfg[k]);
+  }
+};
+template <typename T>
+struct GroupObj {
+  const T* g;
+  __device__ __forceinline__ const T& operator[](int k) const {
+    return g[2 + k];
+  }
+};
+template <typename T>
+struct ConstSmp {
+  __device__ __forceinline__ const T& operator[](int k) const {
+    return cparams<T>().smp[k];
+  }
+};
+template <typename T>
+struct ConstKind {
+  __device__ __forceinline__ int operator[](int k) const {
+    return cparams<T>().kind[k];
+  }
+};
+template <typename T>
+struct GroupParams {
+  GroupCfg<T> cfg;
+  GroupObj<T> obj;
+  ConstSmp<T> smp;
+  ConstKind<T> kind;
+};
+template <typename T>
+__device__ __forceinline__ GroupParams<T> group_params(const T* groups,
+                                                       int rays_per_group,
+                                                       int stride, int i) {
+  const T* g = groups + static_cast<size_t>(i / rays_per_group) * stride;
+  return GroupParams<T>{{g}, {g}, {}, {}};
+}
+
+// Ray i's parameters in a kernel: the constant block itself (ungrouped), or
+// its group's view (GROUPED).
+template <typename T, bool GROUPED>
+__device__ __forceinline__
+    std::conditional_t<GROUPED, GroupParams<T>, const Params<T>&>
+    ray_params(const T* groups, int rays_per_group, int stride, int i) {
+  if constexpr (GROUPED) return group_params(groups, rays_per_group, stride, i);
+  else return cparams<T>();
 }
 
 // Host: one launch of this library's kernels of type T on stream st. The
@@ -214,10 +280,11 @@ template <int SC>
 __device__ __forceinline__ int scene_npts(int npts) {
   return SC == SC_ANY ? npts : sc_npts(SC);
 }
-template <typename T, int SC>
-__device__ __forceinline__ int scene_kind(const Params<T>& p, int i) {
+template <typename T, int SC, typename PP>
+__device__ __forceinline__ int scene_kind(const PP& p, int i) {
   if constexpr (SC == SC_ANY) return p.kind[i];
   else if constexpr (SC == SC_SD9) return i == 0 ? KIND_SPHERE : KIND_DISK;
+  else if constexpr (SC == SC_S4) return KIND_SPHERE;
   else return i == 1 ? KIND_PLANE : KIND_SPHERE;
 }
 
@@ -277,8 +344,8 @@ template <typename T> __device__ __forceinline__ T sgn(T x) {
 // --------------------------------------------------------------------------
 // Right-hand side: y (8) -> ydot (8), clamped in and out.
 // --------------------------------------------------------------------------
-template <typename T, bool KERR>
-__device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void rhs(const PP& p, int r_mode,
                                     const T* yin, T* out) {
   const T sc = p.cfg[P_STATE_CLAMP], rc = p.cfg[P_RHS_CLAMP];
   T y[8];
@@ -401,8 +468,8 @@ __device__ __forceinline__ void rhs(const Params<T>& p, int r_mode,
 // The kind is an argument: a constant for the fixed scenes, whose branches
 // then fold away.
 // --------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ T object_distance(const Params<T>& p, int i,
+template <typename T, typename PP>
+__device__ __forceinline__ T object_distance(const PP& p, int i,
                                              int kind, const T* x) {
   const T* o = &p.obj[i * OBJ_STRIDE];
   if (kind == KIND_PLANE) return x[0] - o[4];
@@ -416,8 +483,8 @@ __device__ __forceinline__ T object_distance(const Params<T>& p, int i,
                fmaxn(rho2 - o[6] * o[6], o[5] * o[5] - rho2));
 }
 
-template <typename T, int SC>
-__device__ __forceinline__ T event(const Params<T>& p, int n_obj, const T* x) {
+template <typename T, int SC, typename PP>
+__device__ __forceinline__ T event(const PP& p, int n_obj, const T* x) {
   const int n = scene_nobj<SC>(n_obj);
   T d = object_distance(p, 0, scene_kind<T, SC>(p, 0), x);
 #pragma unroll
@@ -435,8 +502,8 @@ __device__ __forceinline__ void balanced(T a, T da, T b, T db, T& m, T& dm) {
   dm = da * wa + db * wb;
 }
 
-template <typename T>
-__device__ __forceinline__ void object_jvp(const Params<T>& p, int i, int kind,
+template <typename T, typename PP>
+__device__ __forceinline__ void object_jvp(const PP& p, int i, int kind,
                                            const T* x, const T* dx_, T& v,
                                            T& dv) {
   const T* o = &p.obj[i * OBJ_STRIDE];
@@ -462,8 +529,8 @@ __device__ __forceinline__ void object_jvp(const Params<T>& p, int i, int kind,
   balanced<T, true>(slab, dslab, ring, dring, v, dv);
 }
 
-template <typename T, int SC>
-__device__ __forceinline__ void event_jvp(const Params<T>& p, int n_obj,
+template <typename T, int SC, typename PP>
+__device__ __forceinline__ void event_jvp(const PP& p, int n_obj,
                                           const T* x, const T* dx, T& v,
                                           T& dv) {
   const int n = scene_nobj<SC>(n_obj);
@@ -490,8 +557,8 @@ __device__ __forceinline__ T sq_max(T lo, T hi, T c) {
   return m * m;
 }
 
-template <typename T>
-__device__ __forceinline__ T object_bound(const Params<T>& p, int i, int kind,
+template <typename T, typename PP>
+__device__ __forceinline__ T object_bound(const PP& p, int i, int kind,
                                           const T* lo, const T* hi) {
   const T* o = &p.obj[i * OBJ_STRIDE];
   if (kind == KIND_PLANE) return lo[0] - o[4];
@@ -513,8 +580,8 @@ __device__ __forceinline__ T object_bound(const Params<T>& p, int i, int kind,
                fmaxn(rho_lo - o[6] * o[6], o[5] * o[5] - rho_hi));
 }
 
-template <typename T, int SC>
-__device__ __forceinline__ T scene_bound(const Params<T>& p, int n_obj,
+template <typename T, int SC, typename PP>
+__device__ __forceinline__ T scene_bound(const PP& p, int n_obj,
                                          const T* lo, const T* hi) {
   const int n = scene_nobj<SC>(n_obj);
   T d = object_bound(p, 0, scene_kind<T, SC>(p, 0), lo, hi);
@@ -638,8 +705,8 @@ __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
 // sample is evaluated (no early exit, so the samples' chains interleave) and
 // the first one at or below zero gives the bracket, as the plain version's
 // masked scan does.
-template <typename T, bool TSIT5, int SC>
-__device__ __forceinline__ bool detect(const Params<T>& p, int n_obj, int npts,
+template <typename T, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ bool detect(const PP& p, int n_obj, int npts,
                                        const StepData<T, TSIT5>& s, T& th_lo,
                                        T& th_hi) {
   const T d_prev = event<T, SC>(p, n_obj, s.y0);
@@ -682,8 +749,8 @@ __device__ __forceinline__ bool detect(const Params<T>& p, int n_obj, int npts,
 // P_BMAX* for Tsit5, P_HERM* for the cubic Hermite of RK4), and the scene
 // bound over that box is a lower bound of the event; where it is positive
 // no sample can cross and the sweep is skipped, bitwise neutrally.
-template <typename T, bool TSIT5, int SC>
-__device__ __forceinline__ bool may_cross(const Params<T>& p, int n_obj,
+template <typename T, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ bool may_cross(const PP& p, int n_obj,
                                           const StepData<T, TSIT5>& s) {
   T lo[4], hi[4];
 #pragma unroll
@@ -707,8 +774,8 @@ __device__ __forceinline__ bool may_cross(const Params<T>& p, int n_obj,
 }
 
 // Bisection of the bracket, then one clipped Newton step: theta*.
-template <typename T, bool TSIT5, int SC>
-__device__ __forceinline__ T localize(const Params<T>& p, int n_obj,
+template <typename T, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ T localize(const PP& p, int n_obj,
                                       int bisect_iters,
                                       const StepData<T, TSIT5>& s, T lo, T hi) {
   for (int b = 0; b < bisect_iters; ++b) {
@@ -759,8 +826,8 @@ constexpr double TS_BT0 = -0.00178001105222577714,
                  TS_BT3 = -0.1447110071732629, TS_BT4 = 0.5823571654525552,
                  TS_BT5 = -0.45808210592918697, TS_BT6 = 0.015151515151515152;
 
-template <typename T, bool KERR>
-__device__ __forceinline__ void tsit5_step(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void tsit5_step(const PP& p, int r_mode,
                                            StepData<T, true>& s, T* err) {
   const T dt = s.dt;
   T yt[8];
@@ -802,8 +869,8 @@ __device__ __forceinline__ void tsit5_step(const Params<T>& p, int r_mode,
                    + T(TS_BT6) * k[6][c]);
 }
 
-template <typename T, bool KERR>
-__device__ __forceinline__ void rk4_step(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void rk4_step(const PP& p, int r_mode,
                                          StepData<T, false>& s) {
   const T dt = s.dt;
   T yt[8], k2[8], k3[8], k4[8];
@@ -888,8 +955,8 @@ __device__ __forceinline__ void store_state(T* P, int n, int i,
 // and an event record that starts finite (dt = 1), as the plain init's.
 // With dt0 null the step is left at 0 for the caller to set
 // (initial_step).
-template <typename T, bool KERR>
-__device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void init_state(const PP& p, int r_mode,
                                            const T* y0, const T* dt0, int n,
                                            int i, RayState<T>& r) {
 #pragma unroll
@@ -919,8 +986,8 @@ __device__ __forceinline__ void init_state(const Params<T>& p, int r_mode,
 // tensor; the exponent 1/6 is the double 1/6 rounded to T, as PyTorch rounds
 // a python float exponent; torch.where, maximum, minimum and clamp are
 // selects and NaN-propagating nmax/nmin.
-template <typename T, bool KERR>
-__device__ __forceinline__ T hairer_init_dt(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ T hairer_init_dt(const PP& p, int r_mode,
                                             const T* y0, const T* f0) {
   const T rtol = p.cfg[P_RTOL], atol = p.cfg[P_ATOL];
   T sc[8], s0 = T(0), s1 = T(0);
@@ -954,8 +1021,8 @@ __device__ __forceinline__ T hairer_init_dt(const Params<T>& p, int r_mode,
 
 // A ray's first step where the caller gives none: Hairer's for Tsit5 (the
 // render.initial_dt), the constant rk4_dt for RK4.
-template <typename T, bool KERR, bool TSIT5>
-__device__ __forceinline__ T initial_step(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, bool TSIT5, typename PP>
+__device__ __forceinline__ T initial_step(const PP& p, int r_mode,
                                           const T* y0, const T* f0) {
   if constexpr (TSIT5) return hairer_init_dt<T, KERR>(p, r_mode, y0, f0);
   else return p.cfg[P_RK4_DT];
@@ -963,8 +1030,8 @@ __device__ __forceinline__ T initial_step(const Params<T>& p, int r_mode,
 
 // One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
 // the ray stepped (do); sets the step tried and whether it hit in this step.
-template <typename T, bool KERR, bool TSIT5, int SC>
-__device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ bool body_step(const PP& p, int r_mode,
                                           int n_obj, int npts, RayState<T>& r,
                                           T& dt_try_out, bool& hit_now) {
   StepData<T, TSIT5> s;
@@ -1063,8 +1130,8 @@ __device__ __forceinline__ bool body_step(const Params<T>& p, int r_mode,
 // (the same function of the same state), so the stages, the bisection of
 // [ev_lo, ev_hi], the Newton polish and the interpolation are those of the
 // step itself. Writes y* (8) and lam* = ev_lam + theta* ev_dt.
-template <typename T, bool KERR, bool TSIT5, int SC>
-__device__ __forceinline__ void localize_record(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ void localize_record(const PP& p, int r_mode,
                                                 int n_obj, int bisect_iters,
                                                 const RayState<T>& r, T* y_out,
                                                 T& lam_out) {
@@ -1087,8 +1154,8 @@ __device__ __forceinline__ void localize_record(const Params<T>& p, int r_mode,
 
 // A ray's result (the plain localized): y* and lam* from the event record
 // for a hit ray, its current y and lam for any other.
-template <typename T, bool KERR, bool TSIT5, int SC>
-__device__ __forceinline__ void ray_result(const Params<T>& p, int r_mode,
+template <typename T, bool KERR, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ void ray_result(const PP& p, int r_mode,
                                            int n_obj, int bisect_iters,
                                            const RayState<T>& r, T* y_out,
                                            T& lam_out) {

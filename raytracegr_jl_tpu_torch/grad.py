@@ -50,10 +50,28 @@ def _with_sphere(scene: Scene, index: int, pos: torch.Tensor) -> Scene:
     return scene._replace(pos=torch.cat(rows))
 
 
-def _metric(spec: SceneSpec, params: InverseParams, cfg: RenderConfig):
-    return make_metric(spec.metric_name,
-                       KerrSchildParams(M=params.M, a=params.a),
+def _metric(spec: SceneSpec, params: InverseParams, cfg: RenderConfig,
+            rays: int | None = None):
+    """The metric of ``params``; with ``rays``, of stacked params (``M
+    [N]``, ``a [N]``), per ray: each start's value for its ``rays``
+    consecutive rays (``[N * rays]``)."""
+    M, a = params.M, params.a
+    if rays is not None:
+        M, a = M.repeat_interleave(rays), a.repeat_interleave(rays)
+    return make_metric(spec.metric_name, KerrSchildParams(M=M, a=a),
                        r_formula=spec.r_formula, rho_min=_grad_rho_min(cfg))
+
+
+def _with_spheres(scene: Scene, index: int, pos: torch.Tensor,
+                  rays: int) -> Scene:
+    """``scene`` per ray for stacked sphere poses ``pos [N, 4]``: object
+    ``index`` at each start's pose for its ``rays`` consecutive rays
+    (``scene.pos`` becomes ``[N * rays, n_objects, 4]``)."""
+    base = scene.pos.expand(pos.shape[0], -1, -1)
+    rows = [pos[:, None] if i == index else base[:, i:i + 1]
+            for i in range(scene.n_objects)]
+    return scene._replace(pos=torch.cat(rows, dim=1).repeat_interleave(
+        rays, dim=0))
 
 
 def make_render_for_params(spec: SceneSpec, cfg: RenderConfig,
@@ -131,6 +149,33 @@ def make_loss_fn(spec: SceneSpec, target_rgb: torch.Tensor, cfg: RenderConfig,
 
     def loss(params: InverseParams) -> torch.Tensor:
         return torch.mean((render(params) - target_rgb) ** 2)
+
+    return loss
+
+
+def make_multistart_loss_fn(spec: SceneSpec, target_rgb: torch.Tensor,
+                            cfg: RenderConfig, sphere_index: int = 2,
+                            dtype=torch.float32, device=None):
+    """The pixel-MSE losses of several starts at once: ``params -> losses
+    [N]`` for ``params`` stacked along a leading start axis (``M [N]``,
+    ``a [N]``, ``sphere_pos [N, 4]``). The pixel batch is repeated N
+    times, start-major, and rendered in one call: one grouped K3 and K4
+    launch on the card, whatever N (the JAX package vmaps ``make_loss_fn``
+    over the starts). Start i's loss equals ``make_loss_fn``'s at its
+    parameters."""
+    _, scene0, _ = build(spec, dtype, device)
+    xg, ng = flat_pixel_grid(spec, dtype, scene0.pos.device)
+    B = xg.shape[0]
+    target = target_rgb.reshape(B, 3)
+
+    def loss(params: InverseParams) -> torch.Tensor:
+        N = params.M.shape[0]
+        metric = _metric(spec, params, cfg, B)
+        scene = _with_spheres(scene0, sphere_index, params.sphere_pos, B)
+        x, u = pixel_rays(metric, xg.repeat(N, 1), ng.repeat(N, 1))
+        rgb = render_fn(metric, scene, cfg, groups=N)(x, u)
+        return torch.mean(((rgb - target.repeat(N, 1)) ** 2).reshape(N, -1),
+                          dim=1)
 
     return loss
 

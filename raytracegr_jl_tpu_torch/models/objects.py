@@ -42,7 +42,10 @@ class Disk(NamedTuple):
 
 class Scene(NamedTuple):
     """Struct-of-arrays over N objects, in the user's object order (which
-    sets the shading dim factor and breaks distance ties)."""
+    sets the shading dim factor and breaks distance ties). In a grouped
+    batch (several parameter sets in one ray batch) a field may carry a
+    leading ray axis, one row per ray: ``pos [R, N, 4]``, ``radius [R, N]``;
+    the distances, events and shading broadcast over it."""
 
     kind: torch.Tensor  # [N] int32
     pos: torch.Tensor  # [N, 4]
@@ -230,7 +233,7 @@ def distances(scene: Scene, x: torch.Tensor) -> torch.Tensor:
 
     def get(field, comp=None):
         arr = getattr(scene, field)
-        return arr[:, comp] if comp is not None else arr
+        return arr[..., comp] if comp is not None else arr
 
     d = None
     for kid in sorted(KIND_DISTANCE):
@@ -250,7 +253,7 @@ def colors(scene: Scene, x: torch.Tensor, smooth: bool = False,
     the reference's hard checker (floored modulo as ``jnp.mod``), or with
     ``smooth`` the same-period wave ``(1 - cos(2 pi t)) / 2`` for inverse
     rendering. ``freq`` scales the sphere checker (reference 12)."""
-    rel = x[..., None, 1:] - scene.pos[:, 1:]
+    rel = x[..., None, 1:] - scene.pos[..., 1:]
     xx, yy, zz = rel[..., 0], rel[..., 1], rel[..., 2]
     r = torch.sqrt(xx * xx + yy * yy + zz * zz)
     safe_r = torch.where(r == 0, torch.ones_like(r), r)

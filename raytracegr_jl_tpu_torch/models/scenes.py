@@ -1,6 +1,6 @@
 """The reference's example scenes (counterpart of raytracegr_jl_tpu/models/scenes.py):
-example1 (flat space), example2 (Kerr-Schild black hole) and the accretion
-disk around a spinning hole, as data."""
+example1 (flat space), example2 (Kerr-Schild black hole), the accretion
+disk around a spinning hole and the inversion's lensing scene, as data."""
 
 from __future__ import annotations
 
@@ -90,6 +90,33 @@ def accretion_disk_spec(ni: int = 1024, nj: int = 1024, M: float = 1.0,
         cam_widthx=(0, 1.3, 0, 0),
         cam_widthy=(0, 0, 0.2549, 1.2748),
         cam_normal=(0, 0, 0.9806, -0.1961),
+        ni=ni,
+        nj=nj,
+    )
+
+
+def lensing_inverse_spec(ni: int = 32, nj: int = 32, M: float = 0.5,
+                         sphere_x: float = 5.0) -> SceneSpec:
+    """The inversion's scene (BASELINE config 5): one textured sphere seen
+    past a black hole at a moderate impact parameter, from which gradient
+    descent recovers M and the sphere's z to 1%. Rays to the sphere pass
+    the hole at b ~ 3-7 against b_crit ~ 2.6 M, a smooth deflection with
+    no photon-ring winding (whose sensitivities are useless for fitting);
+    the sphere is the only object (no silhouette flips of a sky in the
+    loss); the radius is the textbook one. Fit it with soft shading
+    (``soft_temp`` ~ 0.05, ``soft_freq`` ~ 2): the coarse smooth texture
+    widens M's basin."""
+    return SceneSpec(
+        metric_name="kerr_schild",
+        metric_params=KerrSchildParams(M=M, a=0.0),
+        r_formula="textbook",
+        objects=(
+            Sphere(pos=(0, sphere_x, 12.0, 0), vel=(1, 0, 0, 0), radius=2.0),
+        ),
+        cam_pos=(0, 0, -20, 0),
+        cam_widthx=(0, 0.9, 0, 0),
+        cam_widthy=(0, 0, 0, 0.9),
+        cam_normal=(0, 0, 1, 0),
         ni=ni,
         nj=nj,
     )

@@ -26,6 +26,13 @@ those of M and a alone, summed per ray (``[B, 2]``) and then over rays with
 one ``torch.sum``, so that the kernel and the plain version can be compared
 bitwise and the sum is deterministic.
 
+A grouped route runs several parameter sets in one batch (the starts of a
+vectorized multistart fit): G groups of ``B / G`` consecutive rays, each
+with its own M, a and object rows, one row per group of the table that
+``flatten_params`` builds (``[G, P]``). K3 and K4 read each ray's row from
+the table in one launch; the plain versions expand it per ray; the (M, a)
+cotangents stay per ray and are summed per group.
+
 The state is packed into ``[34, B]`` planes of the working type (layout
 below); the checkpoint buffer is ``[n_seg + 1, 34, B]``: the state at the
 start of each segment run, then the final state.
@@ -76,17 +83,33 @@ def unpack_state(P: torch.Tensor) -> StepState:
         ev_lam=P[P_EV_LAM], ev_lo=P[P_EV_LO], ev_hi=P[P_EV_HI])
 
 
-def flatten_params(metric: Metric, scene: Scene) -> torch.Tensor:
+def flatten_params(metric: Metric, scene: Scene,
+                   groups: int | None = None) -> torch.Tensor:
     """``pvec [P]``: M, a, then 8 fields per object in ``OBJ_FIELDS``
-    order, stacked so that gradients flow back to each."""
+    order, stacked so that gradients flow back to each. With ``groups`` G
+    the batch is grouped (M, a and the scene's fields per ray, ``[R]`` and
+    ``pos [R, N, 4]``, or shared): ``[G, P]``, each group's row from its
+    first ray, the table that K3 and K4 read (``Route.groups``)."""
     like = scene.pos
     as_t = lambda v: torch.as_tensor(v, dtype=like.dtype,  # noqa: E731
                                      device=like.device)
-    parts = [as_t(metric.params.M), as_t(metric.params.a)]
+    if groups is None:
+        parts = [as_t(metric.params.M), as_t(metric.params.a)]
+        for i in range(scene.n_objects):
+            parts += [scene.pos[i, 1], scene.pos[i, 2], scene.pos[i, 3]]
+            parts += [getattr(scene, f)[i] for f in OBJ_FIELDS[3:]]
+        return torch.stack(parts)
+
+    def per_group(v):
+        t = as_t(v)
+        return t.expand(groups) if t.dim() == 0 else \
+            t[::t.shape[0] // groups]
+
+    cols = [per_group(metric.params.M), per_group(metric.params.a)]
     for i in range(scene.n_objects):
-        parts += [scene.pos[i, 1], scene.pos[i, 2], scene.pos[i, 3]]
-        parts += [getattr(scene, f)[i] for f in OBJ_FIELDS[3:]]
-    return torch.stack(parts)
+        cols += [per_group(scene.pos[..., i, c]) for c in (1, 2, 3)]
+        cols += [per_group(getattr(scene, f)[..., i]) for f in OBJ_FIELDS[3:]]
+    return torch.stack(cols, dim=1)
 
 
 def segment_length(cfg: IntegratorConfig, seg_len: int | None) -> int:
@@ -542,7 +565,13 @@ def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k):
 # ---------------------------------------------------------------------------
 
 class Route(NamedTuple):
-    """Everything a segment run and its adjoint need besides the state."""
+    """Everything a segment run and its adjoint need besides the state.
+    A grouped route carries the group table ``groups`` (``[G, P]``, rows
+    of ``flatten_params``, detached, in the working type on the state's
+    device): the batch's B rays form G groups of ``B / G`` consecutive
+    rays, each with its row's M, a and object fields; ``metric`` and
+    ``scene`` are then group 0's, which set what all groups share (the
+    metric's kind and bounds, the object kinds, the configuration)."""
 
     metric: Metric  # parameters detached
     scene: Scene  # detached
@@ -550,13 +579,42 @@ class Route(NamedTuple):
     seg_len: int
     n_seg: int
     cuda: bool
+    groups: torch.Tensor | None = None
+
+
+def rays_per_group(route: Route, B: int) -> int:
+    """The rays of each group of a grouped route over ``B`` rays."""
+    G = route.groups.shape[0]
+    if G < 1 or B % G:
+        raise ValueError(f"{B} rays do not split into {G} groups")
+    return B // G
+
+
+def route_rows(route: Route, B: int):
+    """``(metric, scene)`` per ray over ``B`` rays: the route's own, or a
+    grouped route's table expanded to one row per ray (M and a ``[B]``, the
+    object fields ``[B, N]``, ``pos [B, N, 4]``), as the plain versions
+    read them."""
+    if route.groups is None:
+        return route.metric, route.scene
+    rpg = rays_per_group(route, B)
+    n = route.scene.n_objects
+    tab = route.groups.repeat_interleave(rpg, dim=0)  # [B, P]
+    rows = tab[:, 2:2 + 8 * n].reshape(B, n, 8)
+    metric = route.metric._replace(params=KerrSchildParams(M=tab[:, 0],
+                                                           a=tab[:, 1]))
+    pos = torch.cat([route.scene.pos[:, :1].expand(B, n, 1), rows[..., :3]],
+                    dim=-1)
+    fields = {f: rows[..., 3 + k] for k, f in enumerate(OBJ_FIELDS[3:])}
+    return metric, route.scene._replace(pos=pos, **fields)
 
 
 def forward_segment(route: Route, P: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: ``seg_len`` steps of the body on a packed state
-    ``[34, B]``."""
-    _, body = make_step_cm(route.metric, scene_event_cm(route.scene),
-                           route.cfg)
+    ``[34, B]`` (each ray with its group's parameters on a grouped
+    route)."""
+    metric, scene = route_rows(route, P.shape[1])
+    _, body = make_step_cm(metric, scene_event_cm(scene), route.cfg)
     st = unpack_state(P)
     for _ in range(route.seg_len):
         st, _ = body(st)
@@ -570,10 +628,10 @@ def backward_plain(route: Route, ck: torch.Tensor, n_used: int,
     [B, 2])``. Segments in reverse; each is replayed from its checkpoint
     and its accepted steps are walked back with ``step_vjp``. A ray's
     non-stepping iterations are the identity; where-masks keep them so."""
-    p = adj_params(route.metric, ck.dtype, ck.device)
+    metric, scene = route_rows(route, ck.shape[2])
+    p = adj_params(metric, ck.dtype, ck.device)
     tsit5 = route.cfg.method == "tsit5"
-    _, body = make_step_cm(route.metric, scene_event_cm(route.scene),
-                           route.cfg)
+    _, body = make_step_cm(metric, scene_event_cm(scene), route.cfg)
     ct_y = ct[P_Y:P_Y + 8]
     ct_k = ct[P_K1:P_K1 + 8]
     ct_ev = ct[P_EV_Y0:P_EV_Y0 + 8]
@@ -611,6 +669,13 @@ def _check_kernel_inputs(route: Route, t: torch.Tensor) -> None:
         raise ValueError(f"K3 and K4 need CUDA tensors, got {t.device}")
     if t.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {t.dtype}")
+    tab = route.groups
+    if tab is not None and (
+            tab.device != t.device or tab.dtype != t.dtype or tab.dim() != 2
+            or not tab.is_contiguous()
+            or tab.shape[1] < 2 + 8 * route.scene.n_objects):
+        raise ValueError("the group table must be a contiguous [G, P] "
+                         "tensor of the state's dtype and device")
 
 
 def launch_args(route: Route, like: torch.Tensor):
@@ -626,6 +691,15 @@ def _lib():
     return cuda_build.load("adjoint")
 
 
+def _group_args(route: Route, B: int):
+    """The C entry points' group arguments: (table, rays per group, row
+    stride), or none."""
+    if route.groups is None:
+        return ctypes.c_void_p(None), 0, 0
+    return (ctypes.c_void_p(route.groups.data_ptr()),
+            rays_per_group(route, B), route.groups.shape[1])
+
+
 def forward_segment_cuda(route: Route, ck: torch.Tensor,
                          args=None) -> torch.Tensor:
     """K3: the whole forward pass in one launch, on the card. ``ck`` is
@@ -639,7 +713,9 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     at the start of segment s, ``P_ACTIVE = 0`` of one inactive there, and
     every ray's whole final state in ``ck[n_used]``. ``args`` from
     ``launch_args`` (built here if not given). Adds one to
-    ``forward_segment_cuda.launches`` per pass."""
+    ``forward_segment_cuda.launches`` per pass. A grouped route launches
+    the grouped kernel (each ray's parameters from its group's row of
+    ``route.groups``) in the same one launch."""
     if ck.device.type != "cuda":
         raise ValueError(f"K3 needs CUDA tensors, got {ck.device}")
     if ck.dim() != 3 or ck.shape[0] != route.n_seg + 1 or (
@@ -653,7 +729,7 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(ck.device):
         rc = fn(ptr(ck), ptr(used), ptr(used[1:]), ptr(prm), B, *flags,
-                route.seg_len, route.n_seg,
+                route.seg_len, route.n_seg, *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
@@ -667,7 +743,8 @@ forward_segment_cuda.launches = 0
 def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
                   ct: torch.Tensor, args=None):
     """K4: the whole backward pass in one launch, one thread per ray; the
-    same contract as ``backward_plain``; ``args`` as for K3. Adds one to
+    same contract as ``backward_plain`` (a grouped route's rays with their
+    groups' parameters); ``args`` as for K3. Adds one to
     ``backward_cuda.launches`` per launch."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
@@ -684,6 +761,7 @@ def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
                 ctypes.c_void_p(ct0.data_ptr()),
                 ctypes.c_void_p(pbar.data_ptr()),
                 ctypes.c_void_p(prm.data_ptr()), B, *flags, route.seg_len,
+                *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
@@ -754,7 +832,8 @@ class _Checkpointed(torch.autograd.Function):
     the number of segments run in ``info["n_used"]``; gradients for the
     y, k1 and ev_y0 planes of P0 and for M, a (pvec[0:2]). The other
     planes' cotangents are dropped (see the module docstring), and the
-    object fields get none."""
+    object fields get none. On a grouped route ``pvec`` is the ``[G, P]``
+    table and each group's (M, a) cotangent the sum over its rays."""
 
     @staticmethod
     def forward(ctx, P0, pvec, route, info):
@@ -762,7 +841,7 @@ class _Checkpointed(torch.autograd.Function):
         info["n_used"] = n_used
         ctx.route, ctx.n_used = route, n_used
         ctx.save_for_backward(ck)
-        ctx.n_params = pvec.shape[0]
+        ctx.p_shape = pvec.shape
         return ck[n_used].clone()
 
     @staticmethod
@@ -770,8 +849,11 @@ class _Checkpointed(torch.autograd.Function):
         (ck,) = ctx.saved_tensors
         back = backward_cuda if ctx.route.cuda else backward_plain
         ct0, pbar = back(ctx.route, ck, ctx.n_used, ct)
-        g = torch.zeros(ctx.n_params, dtype=ct.dtype, device=ct.device)
-        g[:2] = torch.sum(pbar, dim=0)
+        g = torch.zeros(ctx.p_shape, dtype=ct.dtype, device=ct.device)
+        if ctx.route.groups is None:
+            g[:2] = torch.sum(pbar, dim=0)
+        else:
+            g[:, :2] = pbar.reshape(ctx.p_shape[0], -1, 2).sum(dim=1)
         return ct0, g, None, None
 
 
@@ -782,20 +864,32 @@ def _detached(scene: Scene) -> Scene:
                              for f in Scene._fields if f != "kind"})
 
 
+_FIELD_DIMS = {"pos": 2, "vel": 2}
+
+
+def _first_group(scene: Scene) -> Scene:
+    """Group 0's scene of a grouped batch: each field with a leading ray
+    axis at its first ray."""
+    return scene._replace(**{
+        f: getattr(scene, f)[0] for f in Scene._fields
+        if f != "kind" and getattr(scene, f).dim() > _FIELD_DIMS.get(f, 1)})
+
+
 def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
-               dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str
-               ) -> TraceResult:
+               dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str,
+               groups: int | None = None) -> TraceResult:
     _check_options(cfg)
     seg = segment_length(cfg, seg_len)
-    pvec = flatten_params(metric, scene)
-    detached = Metric(metric.name,
-                      KerrSchildParams(M=pvec[0].detach(),
-                                       a=pvec[1].detach()),
+    pvec = flatten_params(metric, scene, groups)
+    table = None if groups is None else pvec.detach().contiguous()
+    row = pvec.detach() if groups is None else table[0]
+    detached = Metric(metric.name, KerrSchildParams(M=row[0], a=row[1]),
                       metric.r_formula, metric.rho_min)
     route = Route(metric=detached,
-                  scene=_detached(scene), cfg=cfg,
-                  seg_len=seg, n_seg=cfg.max_steps // seg,
-                  cuda=mode == "cuda")
+                  scene=_detached(scene if groups is None
+                                  else _first_group(scene)),
+                  cfg=cfg, seg_len=seg, n_seg=cfg.max_steps // seg,
+                  cuda=mode == "cuda", groups=table)
     event_fn = scene_event_cm(scene)
     init, body = make_step_cm(metric, event_fn, cfg)
     st0 = init(y0.t(), dt0.detach())
@@ -837,18 +931,25 @@ def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
                         dt0: torch.Tensor, cfg: IntegratorConfig,
-                        seg_len: int | None = None) -> TraceResult:
+                        seg_len: int | None = None,
+                        groups: int | None = None) -> TraceResult:
     """Differentiable integration, plain version (the JAX
     ``integrate_rays_cm_ckpt``): checkpointed segments of the step body,
     the hand adjoint on backward. ``y0 [B, 8]``, ``dt0 [B]``; gradients
-    reach y0, M, a and (through the localization) the scene."""
-    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "plain")
+    reach y0, M, a and (through the localization) the scene. With
+    ``groups`` G the batch holds G parameter sets, one per group of
+    ``B / G`` consecutive rays: M and a per ray (``[B]``) and the scene's
+    fields with a leading ray axis where they differ (``pos [B, N, 4]``),
+    each constant within a group; gradients reach every group's."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "plain", groups)
 
 
 def integrate_rays_ckpt_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
                              dt0: torch.Tensor, cfg: IntegratorConfig,
-                             seg_len: int | None = None) -> TraceResult:
+                             seg_len: int | None = None,
+                             groups: int | None = None) -> TraceResult:
     """The same with K3 for each forward segment and one K4 launch on
-    backward (the JAX ``integrate_rays_cm_ckpt_pallas``). Raises for CPU
-    tensors and for what the kernels do not take."""
-    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "cuda")
+    backward (the JAX ``integrate_rays_cm_ckpt_pallas``), a grouped batch
+    in one launch of each. Raises for CPU tensors and for what the
+    kernels do not take."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "cuda", groups)

@@ -139,9 +139,12 @@ def geodesic_cm(metric: Metric, y: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _object_get(scene: Scene, i: int):
+    """Object i's field (and component): a 0-d tensor, or ``[R]`` where
+    the scene's fields carry a leading ray axis (a grouped batch's per-ray
+    rows, ``pos [R, N, 4]``)."""
     def get(field, comp=None):
         arr = getattr(scene, field)
-        return arr[i] if comp is None else arr[i, comp]
+        return arr[..., i] if comp is None else arr[..., i, comp]
     return get
 
 
@@ -636,12 +639,13 @@ PARAMS_BYTES = {dt: PARAM_VALUES * dt.itemsize + 4 * _MAX_OBJECTS
 # the f32 Kerr-Schild kernels of a library know at compile time, by the
 # main paths that run them (csrc FIXED_SCENES of each library); SC_ANY
 # takes kinds and counts at run time.
-SC_ANY, SC_SPS9, SC_SD9, SC_SPS4 = 0, 1, 2, 3
+SC_ANY, SC_SPS9, SC_SD9, SC_SPS4, SC_S4 = 0, 1, 2, 3, 4
 _SCENE_CODES = {((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 9): SC_SPS9,
                 ((KIND_SPHERE, KIND_DISK), 9): SC_SD9,
-                ((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 4): SC_SPS4}
+                ((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 4): SC_SPS4,
+                ((KIND_SPHERE,), 4): SC_S4}
 FIXED_SCENES = {"geodesic": (SC_SPS9, SC_SD9), "compaction": (SC_SD9,),
-                "adjoint": (SC_SPS4,)}
+                "adjoint": (SC_SPS4, SC_S4)}
 # Threads per block of every launch (csrc MAX_THREADS). Blocks of 32 and
 # 64 threads were measured no faster on the disk's packed tail (PERF.md).
 MAX_THREADS = 128

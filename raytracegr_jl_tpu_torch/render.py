@@ -100,13 +100,18 @@ def initial_dt(metric: Metric, y0: torch.Tensor,
 
 
 def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
-                cfg: RenderConfig, launch=None) -> TraceResult:
+                cfg: RenderConfig, launch=None,
+                groups: int | None = None) -> TraceResult:
     """Integrate a flat ray batch ``[B, 8]`` to termination. With
     ``differentiable`` the result carries gradients to y0, the metric's M
     and a, and the scene; the initial step does not (the body detaches
     every step size). ``launch``: K1's launch setup (``launch_config``) for
-    the CUDA backend, where the caller keeps one."""
+    the CUDA backend, where the caller keeps one. ``groups``: a grouped
+    batch of the differentiable path (``integrate_rays_ckpt``)."""
     _check(cfg)
+    if groups is not None and not cfg.differentiable:
+        raise NotImplementedError("a grouped batch needs the differentiable "
+                                  "path")
     if cfg.differentiable:
         with torch.no_grad():
             dt0 = initial_dt(metric, y0, cfg.integrator)
@@ -117,7 +122,7 @@ def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
         integrate = (integrate_rays_ckpt_cuda if mode == "ckpt_cuda"
                      else integrate_rays_ckpt)
         return integrate(metric, scene, y0, dt0, cfg.integrator,
-                         seg_len=cfg.integrator.grad_seg_len)
+                         seg_len=cfg.integrator.grad_seg_len, groups=groups)
     if resolve_backend(cfg, y0) == "cuda":
         # K1 takes each ray's initial step (initial_dt's, bit for bit) in
         # its prologue.
@@ -137,12 +142,14 @@ def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,
     return canvas._replace(rgb=rgb)
 
 
-def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
+def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig,
+              groups: int | None = None):
     """``(pos, normal) -> rgb`` closure over a fixed scene and config. On
     the CUDA backend K1's launch setup is built at the first call for each
     device and dtype and kept (no read from the card); where M or a is a
     tensor, whose value the caller may change between calls, it is built
-    anew for each call."""
+    anew for each call. ``groups``: the rays form that many groups, each
+    with its own parameters (``trace_batch``)."""
     _check(cfg)
     params = metric.params
     keep = not cfg.differentiable and not any(
@@ -158,7 +165,7 @@ def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig):
                 launches[key] = launch_config(metric, scene, cfg.integrator,
                                               flat, "geodesic")
             launch = launches[key]
-        res = trace_batch(metric, scene, flat, cfg, launch)
+        res = trace_batch(metric, scene, flat, cfg, launch, groups)
         return _shade(metric, scene, flat, res.y, cfg).reshape(
             pos.shape[:-1] + (3,))
 

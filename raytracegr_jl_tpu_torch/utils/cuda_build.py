@@ -42,18 +42,19 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
 # npts, bisect_iters, budget, init, threads (per block); stream). K3: (ck,
 # used, ends, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len, n_seg;
-# stream).
+# groups; rays_per_group, group_stride; stream).
 # K4: (ck; n_used; ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene, n_obj,
-# npts, seg_len; stream).
+# npts, seg_len; groups; rays_per_group, group_stride; stream). groups is
+# the group table of a grouped launch, or null.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
     "compaction": {name: [_P] * 7 + [_I] * 11 + [_P]
                    for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
-    "adjoint": {**{name: [_P] * 4 + [_I] * 9 + [_P]
+    "adjoint": {**{name: [_P] * 4 + [_I] * 9 + [_P, _I, _I, _P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
-                **{name: [_P, _I] + [_P] * 4 + [_I] * 8 + [_P]
+                **{name: [_P, _I] + [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")}},
 }
 

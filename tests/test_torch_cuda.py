@@ -466,3 +466,122 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
     syncs = [w for w in caught
              if "synchronizing cuda operation" in str(w.message).lower()]
     assert len(syncs) == 1
+
+
+def _lensing_grouped(dtype, method, starts, n=16):
+    """The lensing scene at n x n for each (M, z) start, RK4/120 or
+    Tsit5/400 (at f64's tolerance 120 Tsit5 steps do not reach the
+    sphere): per start (route, P0) on the card, and the grouped route over
+    all starts' rays with its initial state."""
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    dev = torch.device("cuda")
+    integ = T.default_inverse_cfg(
+        dtype, max_steps=120 if method == "rk4" else 400, method=method,
+        rk4_dt=0.5, stop_rho=0.5).integrator
+    integ = integ._replace(lam_max=60.0)
+    spec = T.lensing_inverse_spec(n, n)
+    _, scene, _ = T.build(spec, dtype, dev)
+    xg, ng = T.flat_pixel_grid(spec, dtype, dev)
+    seg = A.segment_length(integ, integ.grad_seg_len)
+    singles, rows = [], []
+    for M, z in starts:
+        metric = T.make_metric("kerr_schild", T.KerrSchildParams(
+            torch.tensor(M, dtype=dtype, device=dev),
+            torch.tensor(0.0, dtype=dtype, device=dev)),
+            r_formula="textbook", rho_min=0.25)
+        sc = scene._replace(pos=scene.pos.clone())
+        sc.pos[0, 3] = z
+        x, u = pixel_rays(metric, xg, ng)
+        y0 = torch.cat([x, u], -1)
+        init, _ = make_step_cm(metric, scene_event_cm(sc), integ)
+        P0 = A.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+        singles.append((A.Route(metric=metric, scene=sc, cfg=integ,
+                                seg_len=seg, n_seg=integ.max_steps // seg,
+                                cuda=True), P0))
+        rows.append(A.flatten_params(metric, sc))
+    grouped = singles[0][0]._replace(groups=torch.stack(rows).contiguous())
+    return A, singles, grouped, torch.cat([P for _, P in singles], dim=1)
+
+
+@pytest.mark.parametrize("dtype,method", [
+    (torch.float32, "rk4"), (torch.float32, "tsit5"),
+    (torch.float64, "rk4"), (torch.float64, "tsit5")])
+def test_grouped_k3_k4_match_grouped_plain_bitwise(dtype, method):
+    """The grouped K3 (with k3_close) and K4 over four starts of different
+    (M, z) against their grouped plain versions, and each start's rays
+    against its own ungrouped launch: bitwise."""
+    starts = [(0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1)]
+    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts)
+    before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
+    ck, n_used = A.run_segments(grouped, P0)
+    ck_p, n_p = A.run_segments(grouped._replace(cuda=False), P0)
+    torch.cuda.synchronize()
+    assert A.forward_segment_cuda.launches == before[0] + 1
+    assert _read_equal(A, grouped, ck, n_used, ck_p, n_p)
+    assert bool(ck[n_used, A.P_HIT].any())
+    gen = torch.Generator(device=P0.device).manual_seed(3)
+    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
+    c, p = A.backward_cuda(grouped, ck, n_used, ct)
+    c_p, p_p = A.backward_plain(grouped._replace(cuda=False), ck_p, n_p, ct)
+    torch.cuda.synchronize()
+    assert A.backward_cuda.launches == before[1] + 1
+    assert torch.equal(c, c_p) and torch.equal(p, p_p)
+    B = singles[0][1].shape[1]
+    for s, (route, P) in enumerate(singles):
+        rays = slice(s * B, (s + 1) * B)
+        ck_s, n_s = A.run_segments(route, P)
+        c_s, p_s = A.backward_cuda(route, ck_s, n_s, ct[:, rays].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(ck_s[n_s], ck[n_used][:, rays])
+        assert torch.equal(c_s, c[:, rays]) and torch.equal(p_s, p[rays])
+
+
+def test_config5_recovery_through_the_kernels():
+    """BASELINE config 5 on the card (tests/test_inverse.py:69-107): the
+    lensing scene at 32x32 f32, M and z fitted from 0.53 and 0.03 in 60
+    Adam steps of 5e-3 through K3 and K4, one launch each per step: M
+    within 1% of 0.5 and |z| < 0.01; and the vectorized multistart of two
+    starts picks the run the serial one picks, one K3 and K4 launch per
+    step, with loss histories within 1e-4 of the serial ones relative to
+    their largest loss (chip_smoke.py's VEC_SERIAL_RTOL: the camera, the
+    means and the cotangent sums reduce over other batch shapes)."""
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                      forward_segment_cuda)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    spec = T.lensing_inverse_spec(32, 32)
+    cfg = T.default_inverse_cfg(f32, max_steps=120, rk4_dt=0.5,
+                                soft_temp=0.05, stop_rho=0.5)._replace(
+        soft_freq=2.0)
+    cfg = cfg._replace(integrator=cfg.integrator._replace(lam_max=60.0))
+    truth = T.InverseParams(0.5, 0.0, [0.0, 5.0, 12.0, 0.0], f32, dev)
+    with torch.no_grad():
+        target = T.make_render_for_params(spec, cfg, 0, f32, dev)(truth)
+    kw = dict(sphere_index=0, learning_rate=5e-3, dtype=f32,
+              trainable=T.InverseParams(1.0, 0.0, [0.0, 0.0, 0.0, 1.0], f32,
+                                        dev))
+    init = T.InverseParams(0.53, 0.0, [0.0, 5.0, 12.0, 0.03], f32, dev)
+    before = (forward_segment_cuda.launches, backward_cuda.launches)
+    res = T.fit(spec, target, init, cfg, steps=60, **kw)
+    assert (forward_segment_cuda.launches - before[0],
+            backward_cuda.launches - before[1]) == (60, 60)
+    m = float(res.params.M.detach())
+    z = float(res.params.sphere_pos.detach()[3])
+    assert abs(m - 0.5) / 0.5 < 0.01, f"M recovered to {m}"
+    assert abs(z) < 0.01, f"z recovered to {z}"
+    assert float(res.params.a.detach()) == 0.0
+    inits = [init, T.InverseParams(0.47, 0.0, [0.0, 5.0, 12.0, -0.04], f32,
+                                   dev)]
+    before = (forward_segment_cuda.launches, backward_cuda.launches)
+    vec = T.fit_multistart(spec, target, inits, cfg, steps=4, **kw)
+    assert (forward_segment_cuda.launches - before[0],
+            backward_cuda.launches - before[1]) == (4, 4)
+    ser = T.fit_multistart(spec, target, inits, cfg, steps=4,
+                           vectorized=False, **kw)
+    assert torch.equal(vec.params_history["M"][0], ser.params_history["M"][0])
+    rel = (vec.loss_history - ser.loss_history).abs().max() / (
+        ser.loss_history.abs().max())
+    assert float(rel) <= 1e-4, float(rel)

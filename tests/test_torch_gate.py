@@ -222,7 +222,7 @@ def test_scene_codes_match_the_cuda_source():
     codes = dict(item.strip().split(" = ") for item in enum.split(","))
     assert {k: int(v) for k, v in codes.items()} == {
         "SC_ANY": G.SC_ANY, "SC_SPS9": G.SC_SPS9, "SC_SD9": G.SC_SD9,
-        "SC_SPS4": G.SC_SPS4}
+        "SC_SPS4": G.SC_SPS4, "SC_S4": G.SC_S4}
     for lib, fixed in G.FIXED_SCENES.items():
         with open(os.path.join(cuda_build.CSRC, f"{lib}.cu")) as f:
             mask = re.search(r"constexpr int FIXED_SCENES = ([^;]*);",

@@ -121,13 +121,13 @@ def test_ray_loss_value_and_gradients_match_jax():
     loss = tloss(params, txg, tng, tgt)
     loss.backward()
     loss = float(loss.detach())
-    np.testing.assert_allclose(loss, float(jl), rtol=1e-8)
+    np.testing.assert_allclose(loss, float(jl), rtol=1e-9)
     assert loss > 0
     scale = float(np.abs(np.asarray(jg.sphere_pos)).max())
     for name in ("M", "a", "sphere_pos"):
         np.testing.assert_allclose(
             getattr(params, name).grad.numpy(),
-            np.asarray(getattr(jg, name)), rtol=1e-8, atol=1e-10 * scale,
+            np.asarray(getattr(jg, name)), rtol=1e-9, atol=1e-10 * scale,
             err_msg=name)
     assert float(params.M.grad) != 0.0
 
@@ -176,8 +176,9 @@ def test_fit_adam_steps_match_jax():
 
 
 def test_fit_multistart_keeps_the_best_run():
-    """The serial multistart returns the run of least loss, the first on
-    ties (port only: each run is ``fit``, held to JAX above)."""
+    """The serial multistart (``vectorized=False``) returns the run of
+    least loss, the first on ties (port only: each run is ``fit``, held to
+    JAX above)."""
     spec = T.example2_spec(4, 4)
     _, tcfg = _cfgs(soft_temp=0.05)
     tcfg = tcfg._replace(integrator=tcfg.integrator._replace(max_steps=8))
@@ -186,7 +187,8 @@ def test_fit_multistart_keeps_the_best_run():
     inits = [_t_params(M, 0.0, TRUTH["sphere_pos"]) for M in (1.2, 1.02)]
     kw = dict(steps=2, dtype=torch.float64)
     runs = [T.fit(spec, target, ini, tcfg, **kw) for ini in inits]
-    best = T.fit_multistart(spec, target, inits, tcfg, **kw)
+    best = T.fit_multistart(spec, target, inits, tcfg, vectorized=False,
+                            **kw)
     want = min(runs, key=lambda r: float(r.loss))
     assert float(best.loss) == float(want.loss)
     assert torch.equal(best.params.M, want.params.M)
