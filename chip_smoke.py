@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
 raytracegr_jl_tpu_torch/csrc (K1; K3 and K4 of the training path; K2 of the
-compacted render; one build per library, in parallel) and prints each
+compacted render; K5, its fused shading; one build per library, in
+parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
 per-segment chain, the grouped K3 and K4 of the vectorized multistart
@@ -10,9 +11,12 @@ committed golden images, drives the forward render and the training path
 reference's example2, the inversion of BASELINE config 5 (the lensing
 scene at 32x32: M and z recovered in 60 Adam steps, the vectorized
 multistart against the serial one, a resumed fit against an uninterrupted
-one) and the 1024x1024 accretion-disk render (compacted, redshift shading)
-through the kernels, counting launches, eager initial steps and host syncs,
-times
+one) and the 1024x1024 accretion-disk render (compacted, K2 taking each
+ray's initial step, redshift shading eager and through K5 with
+fast_epilogue) through the kernels, counting launches, eager initial steps
+and host syncs, holds refine_minima (K1, K2, K3, K4, grouped K3/K4 on
+grazing rays), sort_rays on the differentiable path and grad_mode="scan"
+to their plain versions and counts and times their paths, times
 them, diagnoses K1 (its time four ways, the step census, scheduler
 cycles per warp-iteration), holds the detection gate (event_gate) bitwise to the
 ungated disk render, and diagnoses K2 on the disk's packed tail (SASS
@@ -59,7 +63,7 @@ GRAD_RTOL = {torch.float64: 1e-10, torch.float32: 2e-3}
 # kernels equal their plain versions bitwise and the rest is the same
 # PyTorch code, so they should agree exactly; the bar allows f32 rounding.
 MAIN_GRAD_RTOL = 1e-5
-LIBRARIES = ("geodesic", "adjoint", "compaction")
+LIBRARIES = ("geodesic", "adjoint", "compaction", "shading")
 # The accretion disk's step census at 1024x1024, a=0.8, f32, as the JAX
 # package recorded it (BASELINE.md:61): a property of the workload.
 JAX_DISK_CENSUS = "total 659.2M accepted ray-steps, p50 21, p99 15,451"
@@ -74,6 +78,10 @@ JAX_DISK_CENSUS = "total 659.2M accepted ray-steps, p50 21, p99 15,451"
 # grazing crossings of the thin disk and the shading by a few LSB.
 DISK_PNG_BAR_FRAC = 0.01
 ROADMAP_C_BAR_FRAC = 0.005
+# K5 against the eager shading on the same rays: the share of pixels that
+# may differ by more than 1e-6 (the checker's mod and atan2 boundaries; the
+# JAX package's fused epilogue moves ~2% of pixels, BASELINE.md).
+K5_FRAC_BAR = 0.02
 # The disk's main-path configuration (benchmarks/disk_render.py:41-58).
 DISK_N = 1024
 DISK_MAX_STEPS = 20_000
@@ -135,7 +143,9 @@ def events_ms(fn) -> float:
 # Floating-point arithmetic that the plain versions run, per output element.
 _FLOP_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "pow",
              "reciprocal", "abs", "maximum", "minimum", "clamp", "clamp_min",
-             "clamp_max", "cos", "exp", "sum"}
+             "clamp_max", "cos", "exp", "sum", "atan2", "acos", "remainder"}
+# Contractions (einsum's batched products): two operations per term.
+_FLOP_PRODUCTS = {"bmm", "mm", "mv", "dot"}
 
 
 def count_flops(fn) -> int:
@@ -150,9 +160,13 @@ def count_flops(fn) -> int:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func.overloadpacket.__name__.rstrip("_")
-            if (name in _FLOP_OPS and isinstance(out, torch.Tensor)
+            if not (isinstance(out, torch.Tensor)
                     and out.is_floating_point()):
+                return out
+            if name in _FLOP_OPS:
                 Counter.flops += out.numel()
+            elif name in _FLOP_PRODUCTS:
+                Counter.flops += 2 * out.numel() * args[0].shape[-1]
             return out
 
     with Counter():
@@ -469,6 +483,40 @@ def k3_forward_ms(route, P0, args):
             route, ck[s], ck[s + 1], args))
         s += 1
     return total, ck, s
+
+
+def k3_pass(route, P0, args=None):
+    """K3's one launch from ``P0``: (checkpoints, n_used, the rays' end
+    segments), the host's one read."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
+                     device=P0.device)
+    ck[0] = P0
+    used = adj.forward_segment_cuda(route, ck,
+                                    args or adj.launch_args(route, P0))
+    return ck, int(used[0]), used[1:]
+
+
+def require_k3_equal(label, route, P0):
+    """K3's one launch against the plain per-segment chain: bitwise on
+    n_used, the end segments and every checkpoint value a reader takes
+    (``adj.read_mask``). Returns (max |d|, kernel's checkpoints, n_used,
+    plain checkpoints)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    ck_k, n_k, ends_k = k3_pass(route, P0)
+    ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
+    torch.cuda.synchronize()
+    require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
+    ends_p = adj.end_segments(ck_p, n_p, route.n_seg)
+    require(torch.equal(ends_k, ends_p), f"{label}: K3's end segments "
+            f"differ on {int((ends_k != ends_p).sum())} rays")
+    mask = adj.read_mask(ends_p, n_p)
+    a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
+    err = float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    require(torch.equal(a.view(bits), b.view(bits)),
+            f"{label}: K3 not bitwise equal (max |d| {err:.3e})")
+    return err, ck_k, n_k, ck_p
 
 
 def k1_entry(metric, scene, integ, y0, dt0, max_steps=None):
@@ -870,10 +918,12 @@ INV_STARTS = ((0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1))
 VEC_SERIAL_RTOL = 1e-4
 
 
-def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N):
+def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N,
+                 refine: bool = False):
     """The lensing scene at n x n for each (M, z) start: per start its
     (route, P0) on the card, and the grouped route over all starts' rays
-    (start-major, one table row per start) with its initial state."""
+    (start-major, one table row per start) with its initial state; with
+    ``refine``, refine_minima on."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
@@ -882,7 +932,7 @@ def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N):
     from raytracegr_jl_tpu_torch.render import initial_dt
     integ = rt.default_inverse_cfg(dtype, max_steps=120, method=method,
                                    rk4_dt=0.5, stop_rho=0.5).integrator
-    integ = integ._replace(lam_max=60.0)
+    integ = integ._replace(lam_max=60.0, refine_minima=refine)
     spec = rt.lensing_inverse_spec(n, n)
     _, scene, _ = rt.build(spec, dtype, dev)
     xg, ng = rt.flat_pixel_grid(spec, dtype, dev)
@@ -918,13 +968,14 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
-def require_grouped_equal(label: str, dev, dtype, method: str):
+def require_grouped_equal(label: str, dev, dtype, method: str,
+                          refine: bool = False):
     """Grouped K3 (with k3_close) and K4 against their grouped plain
     versions on the same CUDA tensors, and against one ungrouped launch
     per start, ray by ray; all bitwise. Returns (max |d|, segments,
     hits)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    singles, grouped, P0 = inverse_case(dev, dtype, method)
+    singles, grouped, P0 = inverse_case(dev, dtype, method, refine=refine)
     B = singles[0][1].shape[1]
 
     def k3(route, P):
@@ -1236,18 +1287,23 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
                  bound_ms=k4_bound[0], bound_by=k4_bound[1], **entry)]
 
 
-def disk_slice(dev, card: str, reset_counts) -> dict:
-    """The accretion-disk slice: K2 against its plain version, the
-    compacted chain against K1 sorted and unsorted at 1024x1024, the main
-    path (make_compact_renderer) once, counted, its image against
-    scenes/disk_1024.png, times, a profile and K2's bound. Returns K2's
-    entry of the kernels line."""
+def disk_slice(dev, card: str, reset_counts) -> list:
+    """The accretion-disk slice: K2 against its plain version (also taking
+    its own initial step), the compacted chain against K1 sorted and
+    unsorted at 1024x1024, the main path (make_compact_renderer) once,
+    counted, its image against scenes/disk_1024.png, the same with
+    fast_epilogue (K5) against the eager shading, times (the render with
+    the eager initial step and with K2's own, the eager shading and K5), a
+    profile and K2's and K5's bounds. Returns K2's and K5's entries of the
+    kernels line."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.models.shading import (shade_redshift,
+                                                        shade_redshift_cuda)
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (
         impact_parameter_order, integrate_rays_cuda, localize_events_cm,
-        make_step_cm, scene_event_cm)
+        make_step_cm, pack_params, scene_event_cm)
     from raytracegr_jl_tpu_torch.render import _shade, initial_dt
 
     f32 = torch.float32
@@ -1358,6 +1414,13 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
 
     first = both(b1, y_cm=y_cm, dt0=dt_s)
     err_main = require_chunks_equal("main path chunk 1", *first)
+    # K2 taking each ray's initial step itself (dt0=None, the main path's
+    # first chunk since K2 has its own step) against initial_dt then the
+    # plain chunk, every ray and plane.
+    own_first = C.chunk_cuda(metric, scene, integ, b1, y_cm=y_cm, dt0=None,
+                             args=args)
+    err_main = max(err_main, require_chunks_equal(
+        "main path chunk 1, K2's own initial step", own_first, first[1]))
     P1 = first[0][0]
     active = P1[adj.P_ACTIVE] > 0
     keep = C.pack_slots(active, int(active.sum()),
@@ -1367,8 +1430,14 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
     second = both(b2, P=P1.index_select(1, keep))
     err_main = max(err_main, require_chunks_equal("main path chunk 2",
                                                   *second))
+    own_trace = C.trace_batch_compacted(metric, scene, y0, None, integ)
+    bad_own, err_own = mismatch(own_trace, comp)
+    require(bad_own == 0, f"the compacted trace with K2's own initial step "
+            f"differs on {bad_own} rays (max |d| {err_own:.3e})")
     phase("K2 vs plain disk 1024x1024 f32 main-path chunks 1 and 2", t0,
           k2_max_abs_err=err_main, rays=(y0.shape[0], len(keep)),
+          own_initial_step_first_chunk_bitwise=True,
+          own_initial_step_trace_rays_differ=bad_own,
           budgets=(b1, b2), active_after=(int(active.sum()),
                                           int((second[0][0][adj.P_ACTIVE]
                                                > 0).sum())),
@@ -1401,11 +1470,13 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
     #     tensors at 1024x1024 (benchmarks/disk_render.py's pallas_compact).
     t0 = time.perf_counter()
     render = C.make_compact_renderer(metric, scene, cfg)
-    reset_counts()
-    rgb = render(canvas).rgb
-    torch.cuda.synchronize()
-    k2_launches = C.chunk_cuda.launches
+    with counted_calls(C, "initial_dt") as eager_init:
+        reset_counts()
+        rgb = render(canvas).rgb
+        torch.cuda.synchronize()
+        k2_launches = C.chunk_cuda.launches
     require(k2_launches >= 1, "the disk main path did not launch K2")
+    require(not eager_init, "the disk main path ran the eager initial step")
     require(tuple(rgb.shape) == (n, n, 3) and bool(torch.isfinite(rgb).all())
             and float(rgb.min()) >= 0.0 and float(rgb.max()) <= 1.0,
             "bad disk main-path output")
@@ -1420,6 +1491,7 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
     hit_img = comp.hit.reshape(n, n).t().cpu().numpy()
     phase("main path disk 1024x1024 f32 compacted redshift", t0,
           k2_launches=k2_launches, k1_launches=integrate_rays_cuda.launches,
+          eager_initial_steps=len(eager_init),
           approaching_half_mean=f"{left:.6f}",
           receding_half_mean=f"{right:.6f}",
           pixels_beyond_2lsb_vs_disk_1024_png=int(bad.sum()), of=n * n,
@@ -1431,6 +1503,46 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
           rays_steps_over_64=int((steps_img > 64).sum()))
     require(left > 1.2 * right, "the approaching half is not brighter")
     require(bad.sum() <= DISK_PNG_BAR_FRAC * n * n, f"{int(bad.sum())} "
+            "pixels beyond 2 LSB of scenes/disk_1024.png")
+
+    # 12b. The main path with fast_epilogue, counted: K2, then K5 shading
+    #      the whole image in one launch. K5 against the eager shading of
+    #      the same traced rays (img_c): hit/miss flips (none allowed), the
+    #      largest channel difference, the share of pixels beyond 1e-6
+    #      (at most 2%, the JAX package's fused epilogue's ~2%); the image
+    #      against scenes/disk_1024.png at the 1% bar.
+    t0 = time.perf_counter()
+    fast = C.make_compact_renderer(metric, scene, cfg, fast_epilogue=True)
+    fast(canvas)  # the parameter block, once
+    torch.cuda.synchronize()
+    with counted_calls(C, "initial_dt") as eager_init:
+        reset_counts()
+        rgb_f = fast(canvas).rgb
+        torch.cuda.synchronize()
+        k5_launches = shade_redshift_cuda.launches
+        k2_fast = C.chunk_cuda.launches
+    require(k5_launches == 1 and k2_fast >= 1 and not eager_init,
+            f"the fast_epilogue main path launched K5 {k5_launches} and K2 "
+            f"{k2_fast} times, with {len(eager_init)} eager initial steps")
+    k5 = rgb_f.reshape(-1, 3)
+    flips = int(((k5.abs().sum(1) > 0) != (img_c.abs().sum(1) > 0)).sum())
+    d5 = (k5 - img_c).abs()
+    k5_err = float(d5.max())
+    k5_frac = float((d5.max(1).values > 1e-6).double().mean())
+    img_f = rt.canvas_to_image(rgb_f).astype(np.int32)
+    bad_f = int((np.abs(img_f - gold).max(-1) > 2).sum())
+    phase("main path disk 1024x1024 f32 fast_epilogue (K5)", t0,
+          k2_launches=k2_fast, k5_launches=k5_launches,
+          eager_initial_steps=len(eager_init), hit_miss_flips=flips,
+          max_channel_diff=f"{k5_err:.3e}",
+          frac_pixels_diff_over_1e_6=f"{k5_frac:.6f}",
+          pixels_beyond_2lsb_vs_disk_1024_png=bad_f,
+          bar=int(DISK_PNG_BAR_FRAC * n * n))
+    require(flips == 0, f"K5: {flips} hit/miss flips against the eager "
+            "shading")
+    require(k5_frac <= K5_FRAC_BAR, f"K5: {k5_frac:.4%} of pixels beyond "
+            "1e-6 of the eager shading")
+    require(bad_f <= DISK_PNG_BAR_FRAC * n * n, f"fast_epilogue: {bad_f} "
             "pixels beyond 2 LSB of scenes/disk_1024.png")
 
     # 13. Times, each the median of 5 after a warm-up: the compacted render,
@@ -1453,7 +1565,30 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
         "init_dt_ms": cuda_ms(lambda: initial_dt(metric, y0, integ)),
         "shading_ms": cuda_ms(lambda: _shade(metric, scene, y0, comp.y,
                                              cfg)),
+        "fast_epilogue_render_ms": cuda_ms(lambda: fast(canvas)),
     }
+    prm5 = pack_params(metric, scene, rt.IntegratorConfig(), f32, dev)
+    times["k5_ms"] = cuda_ms(lambda: shade_redshift_cuda(
+        metric, scene, y0, comp.y, cfg.hit_dmin, cfg.beaming, cfg.exposure,
+        prm5))
+
+    # The render before K2 took its own initial step (the eager
+    # initial_dt, then the chunks) and after, in turns after a warm-up.
+    def render_eager_step():
+        y = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+        res = C.trace_batch_compacted(metric, scene, y,
+                                      initial_dt(metric, y, integ), integ)
+        return _shade(metric, scene, y, res.y, cfg)
+
+    turns = {"eager": [], "own": []}
+    render_eager_step()
+    for rep in range(REPEATS):
+        for key in (("eager", "own") if rep % 2 else ("own", "eager")):
+            turns[key].append(events_ms(
+                render_eager_step if key == "eager"
+                else lambda: render(canvas)))
+    times["render_eager_initial_step_ms"] = statistics.median(turns["eager"])
+    times["render_own_initial_step_ms"] = statistics.median(turns["own"])
     k2_runs = []
     for _ in range(REPEATS + 1):
         with timed_calls(C, "chunk_cuda") as pairs:
@@ -1569,7 +1704,20 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
           flops_per_localization=loc_flops, bytes=nbytes,
           bound_ms=f"{k2_bound[0]:.6f}", bound_by=k2_bound[1],
           rays=B)
-    return {
+    # 15b. K5's bound on this image: y0 and y read, rgb written (f32), or
+    #      the plain shading's operations on one ray, times the rays.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        k5_ray_flops = count_flops(lambda: shade_redshift(
+            metric, scene, y0[:1], comp.y[:1], metric.params.M,
+            metric.params.a, cfg.hit_dmin, cfg.beaming, cfg.exposure))
+    k5_bound = bound(k5_ray_flops * B, B * (8 + 8 + 3) * 4)
+    phase("K5 bound disk 1024x1024 f32", t0, card=repr(card),
+          flops_per_ray=k5_ray_flops, bytes=B * (8 + 8 + 3) * 4,
+          bound_ms=f"{k5_bound[0]:.6f}", bound_by=k5_bound[1],
+          k5_ms=f"{times['k5_ms']:.4f}",
+          eager_shading_ms=f"{times['shading_ms']:.4f}")
+    return [{
         "name": "K2 chunk_cuda",
         "route": "cuda",
         "source": "raytracegr_jl_tpu_torch/csrc/compaction.cu",
@@ -1580,7 +1728,312 @@ def disk_slice(dev, card: str, reset_counts) -> dict:
         "plain_ms": times["plain_ms_64x64"],
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
-        "library_ms": None}
+        "library_ms": None}, {
+        "name": "K5 shade_redshift_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/shading.cu",
+        "replaces": "port-only: the JAX package's jitted shading epilogue, "
+                    "raytracegr_jl_tpu/compaction.py:353",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": times["k5_ms"],
+        "plain_ms": times["shading_ms"],
+        "bound_ms": k5_bound[0],
+        "bound_by": k5_bound[1],
+        "library_ms": None}]
+
+
+# The refine_minima phase's grazing rays: example1's camera aimed just
+# inside the radius-0.5 sphere's silhouette (tests/test_event_detection.py's
+# construction, the band where the reference's sampled detection misses true
+# hits), every one a hit by the closed-form oracle.
+GRAZE_N = 4096
+
+
+def grazing_rays(metric, dtype, dev, n: int = GRAZE_N, seed: int = 7):
+    """``[n, 8]`` launch states of rays that graze example1's small sphere
+    (closest approach uniform in (0.487, 0.4999) of its 0.5 radius)."""
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0.0, 2.0 * np.pi, n)
+    t = np.tan(np.arcsin(rng.uniform(0.487, 0.4999, n) / 2.0))
+    normal = np.stack([np.zeros(n), t * np.cos(ang), np.ones(n),
+                       t * np.sin(ang)], axis=1)
+    pos = np.tile([0.0, 0.0, -2.0, 0.0], (n, 1))
+    x, u = pixel_rays(metric, torch.tensor(pos, dtype=dtype, device=dev),
+                      torch.tensor(normal, dtype=dtype, device=dev))
+    return torch.cat([x, u], -1)
+
+
+def small_sphere_hits(res) -> int:
+    """Rays that end on example1's radius-0.5 sphere (not the sky)."""
+    return int((res.hit & (res.y[:, 1:4].norm(dim=1) < 1.0)).sum())
+
+
+def options_slice(dev, card: str, reset_counts) -> dict:
+    """The options ported last: refine_minima through K1, K2, K3 (and
+    k3_close), K4 and the grouped K3/K4, each bitwise against its plain
+    version on grazing rays, the hits it adds, its main path (example1's
+    golden render) counted, and the refine kernels' times beside the
+    default ones; sort_rays on the differentiable kernel route (gradients
+    bitwise, its main path counted, K3 and K4 sorted and unsorted) and
+    grad_mode="scan" against the kernel route's gradients. Returns the
+    times for the record."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.models.scenes import (build, example1_spec,
+                                                       example2_spec)
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (
+        impact_parameter_order, integrate_rays_cm, integrate_rays_cuda,
+        make_step_cm, scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+
+    # 17. refine_minima on grazing rays, f64 and f32: K1 (given dt0 and
+    #     taking its own), K2 (a first chunk and a resumed one), K3 with
+    #     k3_close and K4 (RK4 at a step of 2, Tsit5), each bitwise against
+    #     its plain version; the grouped K3 and K4 on the lensing scene.
+    for dtype in (f64, f32):
+        t0 = time.perf_counter()
+        metric, scene, _ = build(example1_spec(2, 2), dtype, dev)
+        y0 = grazing_rays(metric, dtype, dev)
+        tol = rt.default_tol(dtype)
+        integ = rt.IntegratorConfig(rtol=tol, atol=tol, max_steps=4000,
+                                    refine_minima=True)
+        dt0 = initial_dt(metric, y0, integ)
+        k = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+        own = integrate_rays_cuda(metric, scene, y0, None, integ)
+        p = integrate_rays_cm(metric, scene, y0, dt0, integ)
+        bad, err = mismatch(k, p)
+        bad_own, err_own = mismatch(own, p)
+        require(bad == 0 and bad_own == 0, f"refine K1 {dtype}: {bad} rays "
+                f"differ given dt0, {bad_own} taking its own (max |d| "
+                f"{max(err, err_own):.3e})")
+        base = integrate_rays_cuda(metric, scene, y0, dt0,
+                                   integ._replace(refine_minima=False))
+        y_cm = y0.t().contiguous()
+        first = (C.chunk_cuda(metric, scene, integ, 3, y_cm=y_cm, dt0=dt0),
+                 C.chunk_plain(metric, scene, integ, 3, y_cm=y_cm, dt0=dt0))
+        err = max(err, require_chunks_equal(f"refine K2 {dtype} chunk 1",
+                                            *first))
+        err = max(err, require_chunks_equal(
+            f"refine K2 {dtype} chunk 2",
+            C.chunk_cuda(metric, scene, integ, 64, P=first[0][0]),
+            C.chunk_plain(metric, scene, integ, 64, P=first[1][0])))
+        for method, steps in (("rk4", 8), ("tsit5", 32)):
+            ci = integ._replace(method=method, rk4_dt=2.0, max_steps=steps)
+            d0 = initial_dt(metric, y0, ci)
+            route = adj.Route(metric=metric, scene=scene, cfg=ci, seg_len=4,
+                              n_seg=steps // 4, cuda=True)
+            init, _ = make_step_cm(metric, scene_event_cm(scene), ci)
+            P0 = adj.pack_state(init(y_cm, d0))
+            e3, ck_k, n_k, ck_p = require_k3_equal(
+                f"refine K3 {dtype} {method}", route, P0)
+            gen = torch.Generator(device=dev).manual_seed(2)
+            ct = torch.randn(P0.shape, generator=gen, dtype=dtype,
+                             device=dev)
+            c_k, p_k = adj.backward_cuda(route, ck_k, n_k, ct)
+            c_p, p_p = adj.backward_plain(route, ck_p, n_k, ct)
+            torch.cuda.synchronize()
+            e4 = max(max_err(c_k, c_p), max_err(p_k, p_p))
+            require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
+                    f"refine K4 {dtype} {method}: not bitwise equal (max |d| "
+                    f"{e4:.3e})")
+            err = max(err, e3, e4)
+        g_err, g_seg, g_hits = require_grouped_equal(
+            f"refine grouped {dtype}", dev, dtype, "rk4", refine=True)
+        err = max(err, g_err)
+        out[f"refine_err_{str(dtype)[6:]}"] = err
+        phase(f"refine_minima grazing rays {str(dtype)[6:]}", t0,
+              rays=y0.shape[0], small_sphere_hits_refined=small_sphere_hits(k),
+              small_sphere_hits_default=small_sphere_hits(base),
+              k1_k2_k3_k4_bitwise=True, grouped_k3_k4_bitwise=True,
+              grouped_segments=g_seg, grouped_hits=g_hits, max_abs_err=err)
+
+    # 18. refine_minima's main path, counted: example1 at the golden's
+    #     200x200, f64, through render_fn on the card (one K1 launch), and
+    #     the rays that refinement turns into hits against scenes/sphere.png
+    #     (the reference's sampled detection misses true silhouette hits).
+    t0 = time.perf_counter()
+    tol64 = rt.default_tol(f64)
+    ref_integ = rt.IntegratorConfig(rtol=tol64, atol=tol64, max_steps=20_000)
+    metric, scene, canvas = build(example1_spec(200, 200), f64, dev)
+    fn = rt.render_fn(metric, scene, rt.RenderConfig(
+        integrator=ref_integ._replace(refine_minima=True)))
+    fn(canvas.pos, canvas.normal)
+    torch.cuda.synchronize()
+    reset_counts()
+    rgb = fn(canvas.pos, canvas.normal)
+    torch.cuda.synchronize()
+    k1_refine_launches = integrate_rays_cuda.launches
+    require(k1_refine_launches == 1, f"the refine main path launched K1 "
+            f"{k1_refine_launches} times")
+    rgb0 = rt.render_fn(metric, scene, rt.RenderConfig(integrator=ref_integ))(
+        canvas.pos, canvas.normal)
+    gold = np.round(rt.load_png("scenes/sphere.png") * 255).astype(np.int32)
+    n_bad = [int((np.abs(rt.canvas_to_image(c).astype(np.int32) - gold)
+                  .max(-1) > 2).sum()) for c in (rgb0, rgb)]
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    hits = [small_sphere_hits(integrate_rays_cuda(metric, scene, y0, None,
+                                                  ref_integ._replace(
+                                                      refine_minima=r)))
+            for r in (False, True)]
+    phase("main path refine_minima example1 200x200 f64", t0,
+          k1_launches=k1_refine_launches, small_sphere_hits_default=hits[0],
+          small_sphere_hits_refined=hits[1],
+          refinement_adds_hits=hits[1] - hits[0],
+          pixels_beyond_2lsb_vs_sphere_png_default=n_bad[0],
+          pixels_beyond_2lsb_vs_sphere_png_refined=n_bad[1])
+    require(hits[1] >= hits[0] and bool(torch.isfinite(rgb).all()),
+            "refinement lost hits or rendered non-finite colours")
+
+    # 19. The refine kernels' times beside the default ones (medians of 5,
+    #     in turns): K1 on example2 200x200 f32 (SC_REFINE against the
+    #     fixed SC_SPS9), K3 and K4 in the rk4/200 training step's shape,
+    #     K2 summed over the 1024x1024 disk's chunks.
+    t0 = time.perf_counter()
+    bench = rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
+                                max_steps=20_000)
+    metric, scene, canvas = build(example2_spec(200, 200), f32, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, bench)
+    k1_ms = {}
+    for r in (False, True):
+        c = bench._replace(refine_minima=r)
+        k1_ms[r] = cuda_ms(lambda: integrate_rays_cuda(metric, scene, y0,
+                                                       dt0, c))
+    tcfg = rt.default_inverse_cfg(f32, max_steps=200, method="rk4",
+                                  rk4_dt=0.5, stop_rho=0.5)
+    spec = example2_spec(200, 200)
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+    M = torch.tensor(1.05, dtype=f32, device=dev)
+    tmetric = rt.make_metric("kerr_schild", rt.KerrSchildParams(
+        M, torch.tensor(0.0, dtype=f32, device=dev)), rho_min=0.25)
+    _, tscene, _ = build(spec, f32, dev)
+    with torch.no_grad():
+        x, u = pixel_rays(tmetric, xg, ng)
+        ty0 = torch.cat([x, u], -1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def k3_k4_ms(integ, order=None):
+        """K3's pass and K4's launch (medians of 5) from the training
+        step's initial state, in ``order`` where given."""
+        seg = adj.segment_length(integ, integ.grad_seg_len)
+        route = adj.Route(metric=tmetric, scene=tscene, cfg=integ,
+                          seg_len=seg, n_seg=integ.max_steps // seg,
+                          cuda=True)
+        with torch.no_grad():
+            yy = ty0 if order is None else ty0[order]
+            init, _ = make_step_cm(tmetric, scene_event_cm(tscene), integ)
+            P0 = adj.pack_state(init(yy.t(), initial_dt(tmetric, yy, integ)))
+        args = adj.launch_args(route, P0)
+        runs = [k3_forward_ms(route, P0, args) for _ in range(REPEATS + 1)]
+        _, ck, n_used = runs[0]
+        ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
+        k4 = [events_ms(lambda: adj.backward_cuda(route, ck, n_used, ct,
+                                                  args))
+              for _ in range(REPEATS + 1)]
+        return (statistics.median(r[0] for r in runs[1:]),
+                statistics.median(k4[1:]), n_used)
+
+    k34 = {r: k3_k4_ms(tcfg.integrator._replace(refine_minima=r))
+           for r in (False, True)}
+    dcfg, dmetric, dscene, _, dy0, ddt0 = disk_setup(dev)
+    k2_ms = {False: [], True: []}
+    for rep in range(REPEATS + 1):
+        for r in ((False, True) if rep % 2 else (True, False)):
+            with timed_calls(C, "chunk_cuda") as pairs:
+                C.trace_batch_compacted(dmetric, dscene, dy0, ddt0,
+                                        dcfg.integrator._replace(
+                                            refine_minima=r))
+            k2_ms[r].append(summed_ms(pairs))
+    k2_med = {r: statistics.median(v[1:]) for r, v in k2_ms.items()}
+    out.update(k1_ms=k1_ms, k3_k4=k34, k2_ms=k2_med)
+    phase("time refine_minima kernels f32", t0, card=repr(card),
+          k1_200_default_ms=f"{k1_ms[False]:.4f}",
+          k1_200_refine_ms=f"{k1_ms[True]:.4f}",
+          k3_rk4_200_default_ms=f"{k34[False][0]:.4f}",
+          k3_rk4_200_refine_ms=f"{k34[True][0]:.4f}",
+          k4_rk4_200_default_ms=f"{k34[False][1]:.4f}",
+          k4_rk4_200_refine_ms=f"{k34[True][1]:.4f}",
+          segments=(k34[False][2], k34[True][2]),
+          k2_disk_1024_default_ms=f"{k2_med[False]:.4f}",
+          k2_disk_1024_refine_ms=f"{k2_med[True]:.4f}")
+
+    # 20. sort_rays on the differentiable kernel route at 200x200 rk4/200
+    #     f32: its main path counted (one pixel-loss step: one K3 and one
+    #     K4 launch), the loss and gradients bitwise those unsorted, and K3
+    #     and K4 timed on the sorted and the unsorted batch.
+    t0 = time.perf_counter()
+    truth = rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    with torch.no_grad():
+        target = rt.make_ray_render_for_params(spec, tcfg, 2, f32, dev)(
+            truth, xg, ng)
+
+    def loss_grads(cfg):
+        p = rt.InverseParams(1.05, 0.02, [0.0, 4.0, 0.1, 0.0], f32, dev)
+        loss = rt.make_ray_loss_fn(spec, cfg, 2, f32, dev)(p, xg, ng, target)
+        loss.backward()
+        return torch.cat([loss.detach()[None], p.M.grad[None],
+                          p.a.grad[None], p.sphere_pos.grad])
+
+    sorted_cfg = tcfg._replace(integrator=tcfg.integrator._replace(
+        sort_rays=True))
+    loss_grads(sorted_cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    g_sorted = loss_grads(sorted_cfg)
+    torch.cuda.synchronize()
+    sort_launches = (adj.forward_segment_cuda.launches,
+                     adj.backward_cuda.launches)
+    g_plain = loss_grads(tcfg)
+    require(sort_launches == (1, 1), f"the sorted training step launched K3 "
+            f"and K4 {sort_launches} times")
+    require(bits_equal(g_sorted, g_plain), "sort_rays: the loss or gradients "
+            f"differ (max |d| {max_err(g_sorted, g_plain):.3e})")
+    order, _ = impact_parameter_order(ty0)
+    k34_sorted = k3_k4_ms(tcfg.integrator, order)
+    out.update(k3_k4_sorted=k34_sorted)
+    phase("main path sort_rays train step rk4/200 200x200 f32", t0,
+          card=repr(card), k3_launches=sort_launches[0],
+          k4_launches=sort_launches[1], grads_bitwise=True,
+          k3_unsorted_ms=f"{k34[False][0]:.4f}",
+          k3_sorted_ms=f"{k34_sorted[0]:.4f}",
+          k4_unsorted_ms=f"{k34[False][1]:.4f}",
+          k4_sorted_ms=f"{k34_sorted[1]:.4f}")
+
+    # 21. grad_mode="scan" (autograd through every rematerialized step of
+    #     the plain body) against the kernel route's gradients, 16x16 f64
+    #     rk4/40.
+    t0 = time.perf_counter()
+    sspec = example2_spec(16, 16)
+    sxg, sng = rt.flat_pixel_grid(sspec, f64, dev)
+    scfg = rt.default_inverse_cfg(f64, max_steps=40, method="rk4",
+                                  rk4_dt=2.5, stop_rho=0.5, soft_temp=0.05)
+    with torch.no_grad():
+        starget = rt.make_ray_render_for_params(sspec, scfg, 2, f64, dev)(
+            rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f64, dev),
+            sxg, sng)
+    grads = {}
+    for mode in ("scan", "ckpt_cuda"):
+        c = scfg._replace(integrator=scfg.integrator._replace(grad_mode=mode))
+        p = rt.InverseParams(1.05, 0.02, [0.0, 4.0, 0.1, 0.0], f64, dev)
+        rt.make_ray_loss_fn(sspec, c, 2, f64, dev)(p, sxg, sng,
+                                                   starget).backward()
+        grads[mode] = torch.cat([p.M.grad[None], p.a.grad[None],
+                                 p.sphere_pos.grad])
+    rel = float((grads["scan"] - grads["ckpt_cuda"]).abs().max()
+                / grads["ckpt_cuda"].abs().max())
+    phase("grad_mode scan vs ckpt_cuda 16x16 f64 rk4/40", t0,
+          grads_scan=[f"{v:.12e}" for v in grads["scan"].tolist()],
+          grads_ckpt_cuda=[f"{v:.12e}" for v in grads["ckpt_cuda"].tolist()],
+          max_rel_diff=f"{rel:.3e}", rtol=GRAD_RTOL[f64])
+    require(rel <= GRAD_RTOL[f64], f"scan vs ckpt_cuda: {rel:.3e}")
+    return out
 
 
 def main() -> int:
@@ -1601,9 +2054,10 @@ def main() -> int:
     from raytracegr_jl_tpu_torch.utils import cuda_build
 
     from raytracegr_jl_tpu_torch import compaction
+    from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
 
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
-               adj.backward_cuda, compaction.chunk_cuda)
+               adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -1881,36 +2335,6 @@ def main() -> int:
             keep[lo:lo + 8] = 1
         return ct * keep
 
-    def k3_pass(route, P0, args=None):
-        """K3's one launch from ``P0``: (checkpoints, n_used, the rays' end
-        segments), the host's one read."""
-        ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape),
-                         dtype=P0.dtype, device=dev)
-        ck[0] = P0
-        used = adj.forward_segment_cuda(route, ck,
-                                        args or adj.launch_args(route, P0))
-        return ck, int(used[0]), used[1:]
-
-    def require_k3_equal(label, route, P0):
-        """K3's one launch against the plain per-segment chain: bitwise on
-        n_used, the end segments and every checkpoint value a reader takes
-        (``adj.read_mask``). Returns (max |d|, kernel's checkpoints,
-        n_used, plain checkpoints)."""
-        ck_k, n_k, ends_k = k3_pass(route, P0)
-        ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
-        torch.cuda.synchronize()
-        require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
-        ends_p = adj.end_segments(ck_p, n_p, route.n_seg)
-        require(torch.equal(ends_k, ends_p), f"{label}: K3's end segments "
-                f"differ on {int((ends_k != ends_p).sum())} rays")
-        mask = adj.read_mask(ends_p, n_p)
-        a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
-        err = float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.
-        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
-        require(torch.equal(a.view(bits), b.view(bits)),
-                f"{label}: K3 not bitwise equal (max |d| {err:.3e})")
-        return err, ck_k, n_k, ck_p
-
     def compare_adjoint(label, n, dtype, method, max_steps):
         t0 = time.perf_counter()
         integ = train_cfg(dtype, method, max_steps).integrator
@@ -2177,8 +2601,12 @@ def main() -> int:
     # 9b. The inversion slice (config 5; grouped K3 and K4).
     inverse_entries = inverse_slice(dev, card, reset_counts)
 
-    # 10-15. The accretion-disk slice (K2).
-    k2_entry = disk_slice(dev, card, reset_counts)
+    # 10-15. The accretion-disk slice (K2, K5).
+    disk_entries = disk_slice(dev, card, reset_counts)
+
+    # 17-21. The options ported last: refine_minima, sort_rays on the
+    #        differentiable path, grad_mode="scan".
+    options_slice(dev, card, reset_counts)
 
     # 16. K2 on the disk's packed tail: the SASS instruction mix of K2's and
     #     K4's f32 Kerr-Schild Tsit5 kernels, the tail's state replicated
@@ -2232,7 +2660,7 @@ def main() -> int:
         "plain_ms": main["k4_plain_ms"],
         "bound_ms": main["k4_bound"][0],
         "bound_by": main["k4_bound"][1],
-        "library_ms": None}, k2_entry] + inverse_entries}), flush=True)
+        "library_ms": None}] + disk_entries + inverse_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -62,6 +62,14 @@ from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, cuda_tool,
                         summed_ms, timed_calls)
 
 
+def libraries() -> list:
+    """The libraries of chip_smoke.py's list whose source the tree has (an
+    older tree lacks the later ones)."""
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    return [n for n in LIBRARIES
+            if os.path.exists(os.path.join(cb.CSRC, f"{n}.cu"))]
+
+
 def emit(out: list, kind: str, **fields) -> None:
     rec = dict(kind=kind, **fields)
     out.append(rec)
@@ -70,7 +78,7 @@ def emit(out: list, kind: str, **fields) -> None:
 
 def diagnose(out: list, dev, card: str) -> None:
     from raytracegr_jl_tpu_torch.utils import cuda_build as cb
-    for name in LIBRARIES:
+    for name in libraries():
         for kern, regs, stack, st, ld in ptxas_report(cb.build_log(name)):
             emit(out, "ptxas", library=name, kernel=kern, registers=regs,
                  stack_bytes=stack, spill_stores=st, spill_loads=ld)
@@ -85,7 +93,7 @@ def sass_digests(out: list, dev, card: str) -> None:
     digest of its instructions' text (addresses and encodings left out)."""
     from raytracegr_jl_tpu_torch.utils import cuda_build as cb
     tool = cuda_tool("cuobjdump")
-    for name in LIBRARIES:
+    for name in libraries():
         for kern, regs, stack, st, ld in ptxas_report(cb.build_log(name)):
             emit(out, "ptxas", library=name, kernel=kern, registers=regs,
                  stack_bytes=stack, spill_stores=st, spill_loads=ld)
@@ -272,7 +280,7 @@ def main() -> int:
             errors.append(f"{name}: {e}")
 
     threads = [threading.Thread(target=build_one, args=(n,))
-               for n in LIBRARIES]
+               for n in libraries()]
     for t in threads:
         t.start()
     for t in threads:

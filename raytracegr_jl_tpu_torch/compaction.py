@@ -21,9 +21,15 @@ batch keeps similar rays together, and put back in the caller's order at
 the end. Results equal the single launch's (``integrate_rays_cuda``, or
 ``integrate_rays_cm`` on the CPU) bitwise.
 
+On the card the first chunk takes each ray's initial step itself (K2's
+prologue, as K1's; bit for bit the plain ``initial_dt``), so the render
+runs no eager initial step. ``fast_epilogue`` shades through K5
+(csrc/shading.cu), the counterpart of the JAX package's jitted shading
+epilogue: within a few ulps of the eager shading, not bitwise.
+
 Not ported: the JAX launcher cache and ``interpret`` (nothing is compiled
-per shape here, and a CUDA kernel has no interpreter), the TPU row
-rounding, and ``fast_epilogue`` (it raises).
+per shape here, and a CUDA kernel has no interpreter) and the TPU row
+rounding.
 """
 
 from __future__ import annotations
@@ -34,11 +40,12 @@ import torch
 
 from .models.camera import Canvas
 from .models.objects import Scene
+from .models.shading import shade_redshift_cuda
 from .ops.adjoint import (N_PLANES, P_ACTIVE, P_HIT, P_STEPS, pack_state,
                           unpack_state)
 from .ops.geodesic_cm import (MAX_THREADS, _check_options,
                               impact_parameter_order, launch_config,
-                              localized, make_step_cm, run_body,
+                              localized, make_step_cm, pack_params, run_body,
                               scene_event_cm)
 from .ops.integrate import IntegratorConfig, TraceResult
 from .ops.metrics import Metric
@@ -52,8 +59,11 @@ PACK_UNIT = 1024
 MAX_BUDGET = 4096
 
 
-def _one_source(P, y_cm, dt0):
-    if (P is None) == (y_cm is None or dt0 is None):
+def _one_source(P, y_cm, dt0, own_step: bool = False):
+    """Exactly one of ``P`` and ``(y_cm, dt0)``; with ``own_step`` (K2,
+    which can take the initial step) ``dt0`` may be None beside ``y_cm``."""
+    if (P is None) == (y_cm is None) or (P is not None and dt0 is not None) \
+            or (y_cm is not None and dt0 is None and not own_step):
         raise ValueError("give either the packed state P or (y_cm, dt0)")
 
 
@@ -95,10 +105,12 @@ def chunk_cuda(metric: Metric, scene: Scene, cfg: IntegratorConfig,
                y_cm: torch.Tensor | None = None,
                dt0: torch.Tensor | None = None, args=None):
     """K2: the contract of ``chunk_plain``, one launch on the card; ``args``
-    from ``chunk_args`` (built here if not given). Raises for CPU tensors,
-    a failed build or launch, and what the kernel does not take. Adds one
-    to ``chunk_cuda.launches`` per launch."""
-    _one_source(P, y_cm, dt0)
+    from ``chunk_args`` (built here if not given). From ``y_cm`` with
+    ``dt0=None`` the kernel takes each ray's initial step itself, bit for
+    bit ``render.initial_dt``'s. Raises for CPU tensors, a failed build or
+    launch, and what the kernel does not take. Adds one to
+    ``chunk_cuda.launches`` per launch."""
+    _one_source(P, y_cm, dt0, own_step=True)
     src = P if P is not None else y_cm
     if src.device.type != "cuda" or (dt0 is not None
                                      and dt0.device != src.device):
@@ -139,12 +151,13 @@ def chunk_cuda(metric: Metric, scene: Scene, cfg: IntegratorConfig,
 chunk_cuda.launches = 0
 
 
-def sorted_batch(y0: torch.Tensor, dt0: torch.Tensor):
-    """The first chunk's input: ``(inv_order, y_cm [8, B], dt0 [B])``, the
-    rays sorted by impact parameter, and the permutation that puts results
-    back in the caller's order."""
+def sorted_batch(y0: torch.Tensor, dt0: torch.Tensor | None):
+    """The first chunk's input: ``(inv_order, y_cm [8, B], dt0 [B] or
+    None)``, the rays sorted by impact parameter, and the permutation that
+    puts results back in the caller's order."""
     order, inv_order = impact_parameter_order(y0)
-    return inv_order, y0[order].t().contiguous(), dt0[order].contiguous()
+    return (inv_order, y0[order].t().contiguous(),
+            None if dt0 is None else dt0[order].contiguous())
 
 
 def pack_slots(active: torch.Tensor, n_act: int, size: int):
@@ -160,13 +173,16 @@ def pack_slots(active: torch.Tensor, n_act: int, size: int):
 
 
 def trace_batch_compacted(metric: Metric, scene: Scene, y0: torch.Tensor,
-                          dt0: torch.Tensor, cfg: IntegratorConfig, *,
+                          dt0: torch.Tensor | None, cfg: IntegratorConfig, *,
                           first_chunk: int = 64, backend: str | None = None,
                           chunks: list | None = None) -> TraceResult:
     """Forward integration with mid-flight compaction (see the module
     docstring). ``y0 [B, 8]``, ``dt0 [B]``: the contract of
     ``integrate_rays_cuda``, whose results this equals bitwise;
-    ``n_iters`` is the number of iterations run over all chunks.
+    ``n_iters`` is the number of iterations run over all chunks. With
+    ``dt0=None`` K2's first chunk takes each ray's initial step (the
+    torch backend runs ``initial_dt`` over ``y0`` first); the result is
+    bitwise that of ``dt0=initial_dt(metric, y0, cfg)``.
 
     ``backend``: ``"cuda"`` (K2), ``"torch"`` (``chunk_plain``) or None,
     which picks by ``y0``'s device. Where ``chunks`` is a list, one record
@@ -179,6 +195,8 @@ def trace_batch_compacted(metric: Metric, scene: Scene, y0: torch.Tensor,
     if first_chunk < 1:
         raise ValueError(f"first_chunk must be >= 1, got {first_chunk}")
     _check_options(cfg)
+    if dt0 is None and backend == "torch":
+        dt0 = initial_dt(metric, y0, cfg)
     B = y0.shape[0]
     inv_order, y_cm, dt_s = sorted_batch(y0, dt0)
     if backend == "cuda":
@@ -236,24 +254,46 @@ def trace_batch_compacted(metric: Metric, scene: Scene, y0: torch.Tensor,
 def make_compact_renderer(metric: Metric, scene: Scene, cfg: RenderConfig, *,
                           first_chunk: int = 64, fast_epilogue: bool = False):
     """A reusable ``canvas -> canvas with rgb`` compacted render: the initial
-    step (``initial_dt``), ``trace_batch_compacted`` and the shading of
-    ``cfg``, the first and last eager as in ``render_fn``, so the image
+    step, ``trace_batch_compacted`` and the shading of ``cfg``, so the image
     equals ``render_fn``'s bitwise. K2 runs where ``cfg.backend`` resolves
-    to ``"cuda"`` (CUDA tensors unless ``backend="torch"``), the plain
-    version elsewhere. ``fast_epilogue=True`` (the JAX option that fuses
-    the epilogue) is not ported and raises."""
-    if fast_epilogue:
-        raise NotImplementedError("fast_epilogue is not ported")
+    to ``"cuda"`` (CUDA tensors unless ``backend="torch"``), and its first
+    chunk takes the initial step; the plain version elsewhere, after an
+    eager ``initial_dt``. The shading is eager by default.
+
+    ``fast_epilogue=True`` (the JAX option that fuses the epilogue): on the
+    CUDA backend the redshift shading runs as one K5 launch
+    (``shade_redshift_cuda``), within a few ulps of the eager shading but
+    not bitwise (a checker boundary may fall between the two). The
+    reference shading, and any shading on the torch backend, stay eager,
+    so there the option changes nothing."""
     _check(cfg)
     integ = cfg.integrator
+    params = metric.params
+    keep = not any(isinstance(v, torch.Tensor) for v in (params.M, params.a))
+    blocks = {}
+
+    def shade(y0, y, backend):
+        if not (fast_epilogue and backend == "cuda"
+                and cfg.shading == "redshift"):
+            return _shade(metric, scene, y0, y, cfg)
+        key = (y.device, y.dtype)
+        prm = blocks.get(key)
+        if prm is None:
+            prm = pack_params(metric, scene, IntegratorConfig(), y.dtype,
+                              y.device)
+            if keep:
+                blocks[key] = prm
+        return shade_redshift_cuda(metric, scene, y0, y, cfg.hit_dmin,
+                                   cfg.beaming, cfg.exposure, prm)
 
     def render(canvas: Canvas) -> Canvas:
         ni, nj = canvas.shape
         y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
-        res = trace_batch_compacted(
-            metric, scene, y0, initial_dt(metric, y0, integ), integ,
-            first_chunk=first_chunk, backend=resolve_backend(cfg, y0))
-        rgb = _shade(metric, scene, y0, res.y, cfg)
+        backend = resolve_backend(cfg, y0)
+        dt0 = None if backend == "cuda" else initial_dt(metric, y0, integ)
+        res = trace_batch_compacted(metric, scene, y0, dt0, integ,
+                                    first_chunk=first_chunk, backend=backend)
+        rgb = shade(y0, res.y, backend)
         return canvas._replace(rgb=rgb.reshape(ni, nj, 3))
 
     return render

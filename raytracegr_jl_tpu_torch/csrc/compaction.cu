@@ -8,7 +8,10 @@
 // (geodesic_common.cuh, enum Plane), so that a ray's evolution is bit for bit
 // the same whether it runs in one launch or across many. With INIT the
 // kernel reads y0 [8, n] and dt0 [n] and builds the state itself (k1 =
-// rhs(y0)), as K1 and the plain make_step_cm init do. After the loop every
+// rhs(y0)), as K1 and the plain make_step_cm init do; with dt0 null it also
+// takes each ray's initial step (initial_step, as K1's prologue does: equal
+// bit for bit to the plain initial_dt, which the render would otherwise run
+// as ~500 eager launches before the first chunk). After the loop every
 // hit ray is localized from its event record (localize_record), every other
 // ray returns its current y and lam; localization is a pure function of the
 // record, so re-running it for rays that hit in an earlier chunk rewrites
@@ -53,8 +56,13 @@ k2_kernel(const T* __restrict__ P_in, const T* __restrict__ y0,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   RayState<T> r;
-  if constexpr (INIT) init_state<T, KERR>(p, r_mode, y0, dt0, n, i, r);
-  else load_state(P_in, n, i, r);
+  if constexpr (INIT) {
+    init_state<T, KERR>(p, r_mode, y0, dt0, n, i, r);
+    if (dt0 == nullptr)
+      r.dt = initial_step<T, KERR, TSIT5>(p, r_mode, r.y, r.k1);
+  } else {
+    load_state(P_in, n, i, r);
+  }
   for (int it = 0; it < budget && r.active > T(0); ++it) {
     T dt_try;
     bool hit_now;

@@ -35,6 +35,10 @@
 //   runs only the pows of the branch it takes.
 // * Optionally (P_GATE, cfg.event_gate) the sweep is skipped for a ray
 //   whose dense output provably stays clear of every object this step.
+// * Optionally (cfg.refine_minima) the sweep's argmin bracket is trisected
+//   to rescue grazing hits that fall between two samples. Only the kernels
+//   of scene code SC_REFINE (SC_ANY with the trisection) compile it in, so
+//   the other kernels stay as they were; the gate is off there.
 // * Blocks of MAX_THREADS (128) threads. Blocks of 32 and 64 were measured
 //   no faster on the disk's packed tail (PERF.md); K2 alone takes the block
 //   size as an argument, for that measurement.
@@ -80,7 +84,14 @@ enum { R_AS_WRITTEN = 0, R_TEXTBOOK = 1, R_TEXTBOOK_NOFLOOR = 2 };
 // sphere, 9 samples (example2's render); SC_SD9: sphere, disk, 9 samples
 // (the accretion disk); SC_SPS4: example2 with the training path's 4;
 // SC_S4: one sphere, 4 samples (the lensing scene of the inversion).
-enum { SC_ANY = 0, SC_SPS9 = 1, SC_SD9 = 2, SC_SPS4 = 3, SC_S4 = 4 };
+// SC_REFINE: SC_ANY with refine_minima's trisection, for every library,
+// type and metric.
+enum { SC_ANY = 0, SC_SPS9 = 1, SC_SD9 = 2, SC_SPS4 = 3, SC_S4 = 4,
+       SC_REFINE = 5 };
+// Whether a scene code takes kinds and counts at run time.
+__host__ __device__ constexpr bool sc_runtime(int sc) {
+  return sc == SC_ANY || sc == SC_REFINE;
+}
 __host__ __device__ constexpr int sc_nobj(int sc) {
   return sc == SC_S4 ? 1 : (sc == SC_SD9 ? 2 : 3);
 }
@@ -113,6 +124,9 @@ __host__ __device__ constexpr int sc_npts(int sc) {
   if ((scene) == SC_ANY) {                                                   \
     constexpr int SC_ = SC_ANY;                                              \
     RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))            \
+  } else if ((scene) == SC_REFINE) {                                         \
+    constexpr int SC_ = SC_REFINE;                                           \
+    RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))            \
   } else if constexpr (std::is_same<T, float>::value) {                      \
     constexpr bool KERR_ = true;                                             \
     if (!(kerr)) {                                                           \
@@ -138,7 +152,7 @@ inline bool launch_ok(int fixed_scenes, int scene, int n, int n_obj, int npts,
                       int threads) {
   if (n < 1 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0)
     return false;
-  if (scene == SC_ANY)
+  if (sc_runtime(scene))
     return n_obj >= 1 && n_obj <= MAX_OBJ && npts >= 1 && npts <= MAX_SMP;
   return scene > 0 && scene < 31 && ((fixed_scenes >> scene) & 1) &&
          npts == sc_npts(scene) && n_obj == sc_nobj(scene);
@@ -150,6 +164,8 @@ struct Params {
   T obj[MAX_OBJ * OBJ_STRIDE];
   T smp[MAX_SMP * SMP_STRIDE];
   int kind[MAX_OBJ];
+  int refine_iters;  // refine_minima's trisection steps (SC_REFINE)
+  int pad;           // the size a multiple of 8 bytes in both types
 };
 
 __constant__ Params<float> c_params_f32;
@@ -274,15 +290,15 @@ cudaError_t launch_with_params(const void* prm, cudaStream_t st,
 // fixed scenes, the run-time values for SC_ANY.
 template <int SC>
 __device__ __forceinline__ int scene_nobj(int n_obj) {
-  return SC == SC_ANY ? n_obj : sc_nobj(SC);
+  return sc_runtime(SC) ? n_obj : sc_nobj(SC);
 }
 template <int SC>
 __device__ __forceinline__ int scene_npts(int npts) {
-  return SC == SC_ANY ? npts : sc_npts(SC);
+  return sc_runtime(SC) ? npts : sc_npts(SC);
 }
 template <typename T, int SC, typename PP>
 __device__ __forceinline__ int scene_kind(const PP& p, int i) {
-  if constexpr (SC == SC_ANY) return p.kind[i];
+  if constexpr (sc_runtime(SC)) return p.kind[i];
   else if constexpr (SC == SC_SD9) return i == 0 ? KIND_SPHERE : KIND_DISK;
   else if constexpr (SC == SC_S4) return KIND_SPHERE;
   else return i == 1 ? KIND_PLANE : KIND_SPHERE;
@@ -705,16 +721,26 @@ __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
 // sample is evaluated (no early exit, so the samples' chains interleave) and
 // the first one at or below zero gives the bracket, as the plain version's
 // masked scan does.
+// SC_REFINE (refine_minima, the plain _detect_scan's rescue): the samples'
+// argmin, with d_prev at theta 0 as the first candidate, and its bracket
+// [a0, b0] of the neighbouring sample thetas (b0 clipped at 1) are kept
+// during the sweep; then refine_iters trisection steps on the dense output
+// at run-time thetas (interp, as localize evaluates it; (b - a) / 3 a true
+// division), and the event at the final bracket's midpoint decides: at or
+// below zero, the ray crosses there unless a sample crossing at or before
+// a0 stands.
 template <typename T, bool TSIT5, int SC, typename PP>
 __device__ __forceinline__ bool detect(const PP& p, int n_obj, int npts,
                                        const StepData<T, TSIT5>& s, T& th_lo,
                                        T& th_hi) {
+  constexpr bool REFINE = SC == SC_REFINE;
   const T d_prev = event<T, SC>(p, n_obj, s.y0);
   const int np = scene_npts<SC>(npts);
   T prev = T(0);
   bool found = false;
   th_lo = T(0);
   th_hi = T(0);
+  T d_best = d_prev, a0 = T(0), b0 = REFINE ? p.smp[7] : T(0);
 #pragma unroll
   for (int j = 0; j < np; ++j) {
     const T* w = &p.smp[j * SMP_STRIDE];
@@ -734,11 +760,44 @@ __device__ __forceinline__ bool detect(const PP& p, int n_obj, int npts,
                          + th * s.dt * s.k[6][c]);
       }
     }
-    const bool now = !found && event<T, SC>(p, n_obj, x) <= T(0);
+    bool now;
+    if constexpr (REFINE) {
+      const T d = event<T, SC>(p, n_obj, x);
+      now = !found && d <= T(0);
+      const bool better = d < d_best;
+      d_best = better ? d : d_best;
+      a0 = better ? prev : a0;
+      b0 = better ? (j + 1 < np ? p.smp[(j + 1) * SMP_STRIDE + 7] : T(1))
+                  : b0;
+    } else {
+      now = !found && event<T, SC>(p, n_obj, x) <= T(0);
+    }
     th_lo = now ? prev : th_lo;
     th_hi = now ? th : th_hi;
     found = found || now;
     prev = th;
+  }
+  if constexpr (REFINE) {
+    const int iters = cparams<T>().refine_iters;
+    T a = a0, b = b0;
+    for (int t = 0; t < iters; ++t) {
+      const T third = (b - a) / T(3);
+      const T m1 = a + third, m2 = b - third;
+      T x1[4], x2[4];
+      interp<T, TSIT5, 4>(s, m1, x1);
+      interp<T, TSIT5, 4>(s, m2, x2);
+      const bool take = event<T, SC>(p, n_obj, x1) < event<T, SC>(p, n_obj, x2);
+      a = take ? a : m1;
+      b = take ? m2 : b;
+    }
+    const T th_min = T(0.5) * (a + b);
+    T xm[4];
+    interp<T, TSIT5, 4>(s, th_min, xm);
+    const bool min_neg = event<T, SC>(p, n_obj, xm) <= T(0);
+    const bool use_min = min_neg && (!found || a0 < th_lo);
+    th_lo = use_min ? a0 : th_lo;
+    th_hi = use_min ? th_min : th_hi;
+    found = found || min_neg;
   }
   return found && d_prev > T(0);
 }
@@ -1093,7 +1152,9 @@ __device__ __forceinline__ bool body_step(const PP& p, int r_mode,
     // The gate is one flag for the whole launch; where it is on, each ray
     // decides for itself (a warp runs the sweep if any of its rays may
     // cross).
-    hit_now = (p.cfg[P_GATE] == T(0) || may_cross<T, TSIT5, SC>(p, n_obj, s))
+    // SC_REFINE compiles the gate out: refine_minima turns it off.
+    hit_now = (SC == SC_REFINE || p.cfg[P_GATE] == T(0)
+               || may_cross<T, TSIT5, SC>(p, n_obj, s))
               && detect<T, TSIT5, SC>(p, n_obj, npts, s, th_lo, th_hi);
     if (hit_now) {
 #pragma unroll

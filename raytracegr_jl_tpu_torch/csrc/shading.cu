@@ -1,0 +1,253 @@
+// K5: gravitational-redshift shading of a traced ray batch on NVIDIA Hopper
+// (sm_90a), one thread per ray.
+//
+// Replaces no TPU kernel: it is the port's counterpart of the XLA fusion
+// that the JAX package's fast_epilogue makes of shade_redshift
+// (raytracegr_jl_tpu/compaction.py, make_compact_renderer, jax.jit of the
+// shading). The plain PyTorch version is models/shading.py shade_redshift,
+// ~100 elementwise launches over [B, N, 4, 4] intermediates; this kernel
+// reads each ray's launch state y0 and end state y (16 values) and writes
+// its colour (3), so it is bound by those bytes, not by its arithmetic.
+//
+// Per ray: the objects' signed distances (object_distance of
+// geodesic_common.cuh, the kernels' scene event), the nearest object (the
+// earliest index on ties) and whether it lies within hit_dmin; that
+// object's base colour (sphere: the 12x12 latitude/longitude checker; plane:
+// green; disk: radial and azimuthal checker), the metric at the hit and at
+// the launch point (Kerr-Schild g = eta + f k k as ops/metrics.py
+// kerr_schild writes it, or Minkowski), the camera observer's frequency
+// (the normalised raised time covector, from the closed-form inverse's
+// first column, ops/geometry.py inv4), the emitter's 4-velocity (Keplerian
+// for a disk, the stored vel otherwise, normalised with the local metric),
+// the g-factor, and the colour scaled by clip(exposure g^beaming, 0, 1);
+// black on a miss. Only the nearest object's colour and g-factor are
+// computed: the plain version computes every object's and gathers one.
+//
+// Rounding: each operation is written as the plain version evaluates it on
+// the card (a python-scalar divisor is a multiplication by its reciprocal,
+// torch.remainder is fmod plus a sign fix), built with --fmad=false. The
+// contractions (einsum) add in an order of their own, so the result agrees
+// with the plain version to a few ulps, not bitwise; where a checker
+// boundary falls between the two, a channel moves by up to a whole
+// checker step (the JAX package's fused epilogue moves ~2% of its pixels
+// the same way).
+
+#include "geodesic_common.cuh"
+
+namespace {
+
+// Kerr-Schild's metric at x as ops/metrics.py kerr_schild computes it.
+template <typename T, bool KERR>
+__device__ __forceinline__ void metric_at(const Params<T>& p, int r_mode,
+                                          const T* x, T g[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) g[a][b] = a != b ? T(0) : (a == 0 ? T(-1) : T(1));
+  if constexpr (!KERR) return;
+  const T M = p.cfg[P_M], a = p.cfg[P_A], eps2 = p.cfg[P_EPS2];
+  const T xs = x[1], ys = x[2], zs = x[3];
+  const T rho2_raw = xs * xs + ys * ys + zs * zs;
+  const T rho2 = r_mode == R_AS_WRITTEN ? nmax(rho2_raw, a * a + eps2)
+                                        : nmax(rho2_raw, eps2);
+  const T half = (rho2 - a * a) * T(0.5);
+  T inner = sqrt(a * a * zs * zs + half * half);
+  T r;
+  if (r_mode == R_AS_WRITTEN) {
+    r = sqrt(rho2 - a * a) * T(0.5) + inner;
+  } else if (r_mode == R_TEXTBOOK) {
+    inner = nmax(inner, p.cfg[P_EPS2_HALF]);
+    r = sqrt(nmax(half + inner, eps2));
+  } else {
+    r = sqrt(half + inner);
+  }
+  const T r2 = r * r;
+  const T f = T(2) * M * (r * r2) / (r2 * r2 + a * a * zs * zs);
+  const T denom = r2 + a * a;
+  const T k[4] = {T(1), (r * xs + a * ys) / denom, (r * ys - a * xs) / denom,
+                  zs / r};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g[i][j] = g[i][j] + f * k[i] * k[j];
+}
+
+// u^a g_ab v^b, the inner sums over b.
+template <typename T>
+__device__ __forceinline__ T quad(const T* u, const T g[4][4], const T* v) {
+  T acc = T(0);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const T gv = g[a][0] * v[0] + g[a][1] * v[1] + g[a][2] * v[2]
+                 + g[a][3] * v[3];
+    acc = a == 0 ? u[a] * gv : acc + u[a] * gv;
+  }
+  return acc;
+}
+
+// v / sqrt(max(-g(v, v), 1e-6)): a unit timelike vector (models/shading.py
+// normalize_timelike).
+template <typename T>
+__device__ __forceinline__ void normalize_timelike(const T g[4][4], T* v) {
+  const T n2 = -quad(v, g, v);
+  const T s = sqrt(nmax(n2, T(1e-6)));
+#pragma unroll
+  for (int a = 0; a < 4; ++a) v[a] = v[a] / s;
+}
+
+// The determinant of the 3x3 minor of m without row r and column c.
+template <typename T>
+__device__ __forceinline__ T det3(const T m[4][4], int r, int c) {
+  int rs[3], cs[3];
+  for (int i = 0, n = 0; i < 4; ++i)
+    if (i != r) rs[n++] = i;
+  for (int j = 0, n = 0; j < 4; ++j)
+    if (j != c) cs[n++] = j;
+  const T a = m[rs[0]][cs[0]], b = m[rs[0]][cs[1]], c0 = m[rs[0]][cs[2]];
+  const T d = m[rs[1]][cs[0]], e = m[rs[1]][cs[1]], f = m[rs[1]][cs[2]];
+  const T g = m[rs[2]][cs[0]], h = m[rs[2]][cs[1]], i = m[rs[2]][cs[2]];
+  return a * (e * i - f * h) - b * (d * i - f * g) + c0 * (d * h - e * g);
+}
+
+// torch.remainder(v, 1): fmod, moved into [0, 1).
+template <typename T>
+__device__ __forceinline__ T wave(T v) {
+  T m = fmod(v, T(1));
+  if (m != T(0) && m < T(0)) m = m + T(1);
+  return m;
+}
+
+template <typename T, bool KERR>
+__global__ void __launch_bounds__(MAX_THREADS)
+k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
+          const T* __restrict__ vel, T* __restrict__ rgb, int n, int r_mode,
+          int n_obj, T hit_dmin, T beaming, T exposure) {
+  const Params<T>& p = cparams<T>();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T x[4], k[4], x0[4], k0[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    x[c] = y[8 * i + c];
+    k[c] = y[8 * i + 4 + c];
+    x0[c] = y0[8 * i + c];
+    k0[c] = y0[8 * i + 4 + c];
+  }
+  // The nearest object (torch.argmin: the earliest index, NaN first).
+  T dmin = object_distance(p, 0, p.kind[0], x);
+  int o = 0;
+  for (int j = 1; j < n_obj; ++j) {
+    const T d = object_distance(p, j, p.kind[j], x);
+    if (dmin == dmin && (d < dmin || d != d)) {
+      dmin = d;
+      o = j;
+    }
+  }
+  T out[3] = {T(0), T(0), T(0)};
+  if (dmin < hit_dmin) {
+    const T* ob = &p.obj[o * OBJ_STRIDE];
+    const int kind = p.kind[o];
+    // Base colour (models/objects.py colors).
+    const T xx = x[1] - ob[0], yy = x[2] - ob[1], zz = x[3] - ob[2];
+    const T inv_pi = T(1) / T(3.14159265358979323846);
+    const T phi = atan2(yy, xx);
+    T base[3];
+    if (kind == KIND_SPHERE) {
+      const T r = sqrt(xx * xx + yy * yy + zz * zz);
+      const T safe_r = r == T(0) ? T(1) : r;
+      const T theta = acos(clip(zz / safe_r, T(-1), T(1)));
+      base[0] = wave(T(12) * theta * inv_pi);
+      base[1] = wave(T(12) * phi * inv_pi);
+      base[2] = T(1);
+    } else if (kind == KIND_PLANE) {
+      base[0] = T(0);
+      base[1] = T(0.5);
+      base[2] = T(0);
+    } else {
+      base[0] = wave(sqrt(xx * xx + yy * yy));
+      base[1] = wave(T(6) * phi * inv_pi);
+      base[2] = T(0.9);
+    }
+    // The emitter's 4-velocity in the metric at the hit.
+    T g[4][4], u[4];
+    metric_at<T, KERR>(p, r_mode, x, g);
+    if (kind == KIND_DISK) {
+      const T rho = sqrt(nmax(xx * xx + yy * yy, T(1e-6)));
+      const T sqrtM = sqrt(nmax(p.cfg[P_M], T(0)));
+      const T omega = sqrtM / (rho * sqrt(rho) + p.cfg[P_A] * sqrtM);
+      u[0] = T(1);
+      u[1] = -omega * yy;
+      u[2] = omega * xx;
+      u[3] = T(0);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) u[c] = vel[4 * o + c];
+    }
+    normalize_timelike(g, u);
+    const T w_emit = nmax(quad(u, g, k), T(1e-3));
+    // The camera observer's frequency at the launch point.
+    T g0[4][4], t[4];
+    metric_at<T, KERR>(p, r_mode, x0, g0);
+    T det = T(0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      t[c] = (c % 2 ? T(-1) : T(1)) * det3(g0, 0, c);
+      det = det + g0[0][c] * t[c];
+    }
+    const T dmn = p.cfg[P_DET_MIN];
+    det = det < T(0) ? nmin(det, -dmn) : nmax(det, dmn);
+    const T inv_det = T(1) / det;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) t[c] = t[c] * inv_det;
+    normalize_timelike(g0, t);
+    const T w_obs = -quad(t, g0, k0);
+    const T gf = w_obs / w_emit;
+    const T s = clip(exposure * tpow(gf, beaming), T(0), T(1));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[c] = base[c] * s;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[3 * i + c] = out[c];
+}
+
+template <typename T>
+int launch_k5(const void* y0, const void* y, const void* vel, void* rgb,
+              const void* prm, int n, int kerr, int r_mode, int n_obj,
+              double hit_dmin, double beaming, double exposure,
+              void* stream) {
+  if (n < 1 || n_obj < 1 || n_obj > MAX_OBJ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
+  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+    RTGR_BOOL(kerr, KERR_,
+              k5_kernel<T, KERR_><<<blocks, MAX_THREADS, 0, st>>>(
+                  static_cast<const T*>(y0), static_cast<const T*>(y),
+                  static_cast<const T*>(vel), static_cast<T*>(rgb), n, r_mode,
+                  n_obj, static_cast<T>(hit_dmin), static_cast<T>(beaming),
+                  static_cast<T>(exposure)))
+    return cudaGetLastError();
+  }));
+}
+
+}  // namespace
+
+#if RTGR_F32
+extern "C" int rtgr_k5_f32(const void* y0, const void* y, const void* vel,
+                           void* rgb, const void* prm, int n, int kerr,
+                           int r_mode, int n_obj, double hit_dmin,
+                           double beaming, double exposure, void* stream) {
+  return launch_k5<float>(y0, y, vel, rgb, prm, n, kerr, r_mode, n_obj,
+                          hit_dmin, beaming, exposure, stream);
+}
+#endif
+
+#if RTGR_F64
+extern "C" int rtgr_k5_f64(const void* y0, const void* y, const void* vel,
+                           void* rgb, const void* prm, int n, int kerr,
+                           int r_mode, int n_obj, double hit_dmin,
+                           double beaming, double exposure, void* stream) {
+  return launch_k5<double>(y0, y, vel, rgb, prm, n, kerr, r_mode, n_obj,
+                           hit_dmin, beaming, exposure, stream);
+}
+#endif

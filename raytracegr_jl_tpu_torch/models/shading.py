@@ -11,14 +11,21 @@ colour is scaled by ``g ** beaming`` (I_obs = g^4 I_emit for bolometric
 intensity), a miss is black.
 
 Plain PyTorch with ``einsum`` over the trailing object and coordinate axes,
-batched over rays and differentiable by autograd.
+batched over rays and differentiable by autograd (``shade_redshift``), and
+K5 (csrc/shading.cu), the same shading as one CUDA kernel, one thread per
+ray, for the forward render's ``fast_epilogue`` (``shade_redshift_cuda``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..ops.geodesic_cm import (PARAMS_BYTES, check_kernel_config,
+                               kernel_r_mode, pack_params)
 from ..ops.geometry import inv4
+from ..ops.integrate import IntegratorConfig
 from ..ops.metrics import Metric, _scalar
 from .objects import KIND_DISK, Scene, colors, distances
 
@@ -107,3 +114,56 @@ def shade_redshift(metric: Metric, scene: Scene, y0: torch.Tensor,
     col = torch.gather(lit, -2, omin[..., None, None].expand(
         omin.shape + (1, 3))).squeeze(-2)
     return torch.where(hit_any[..., None], col, torch.zeros_like(col))
+
+
+def shade_redshift_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
+                        y: torch.Tensor, hit_dmin: float = 0.01,
+                        beaming: float = 4.0, exposure: float = 1.0,
+                        prm: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: ``shade_redshift`` of ``[B, 8]`` launch and end states on the
+    card, one launch, with the metric's M and a (tensors or floats). Not
+    differentiable. Agrees with the plain version to a few ulps, not
+    bitwise: its contractions add in their own order, and a checker
+    boundary may fall between the two. ``prm``: the packed parameter block
+    (``ops.geodesic_cm.pack_params`` of ``metric`` and ``scene`` on the
+    states' device and dtype), built here if not given. Raises for CPU
+    tensors, a failed build or launch, and scenes the kernels do not take.
+    Reads nothing from the card. Adds one to
+    ``shade_redshift_cuda.launches`` per launch."""
+    from ..utils import cuda_build
+    if y.device.type != "cuda" or y0.device != y.device:
+        raise ValueError("shade_redshift_cuda needs CUDA tensors on one "
+                         f"device, got {y0.device} and {y.device}")
+    if y.dtype not in (torch.float32, torch.float64) or y0.dtype != y.dtype:
+        raise TypeError(f"unsupported dtypes {y0.dtype}, {y.dtype}")
+    if y.dim() != 2 or y.shape[1] != 8 or y0.shape != y.shape:
+        raise ValueError(f"bad shapes y0 {tuple(y0.shape)}, y "
+                         f"{tuple(y.shape)}")
+    cfg = IntegratorConfig()
+    kinds = check_kernel_config(metric, scene, cfg)
+    if prm is None:
+        prm = pack_params(metric, scene, cfg, y.dtype, y.device)
+    if prm.device != y.device or prm.numel() != PARAMS_BYTES[y.dtype]:
+        raise ValueError("the parameter block is for another device or dtype")
+    B = y.shape[0]
+    rgb = torch.empty((B, 3), dtype=y.dtype, device=y.device)
+    if B == 0:
+        return rgb
+    y0, y = y0.detach().contiguous(), y.detach().contiguous()
+    vel = scene.vel.detach().to(y.dtype).contiguous()
+    lib = cuda_build.load("shading")
+    fn = lib.rtgr_k5_f32 if y.dtype == torch.float32 else lib.rtgr_k5_f64
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(y.device):
+        rc = fn(ptr(y0), ptr(y), ptr(vel), ptr(rgb), ptr(prm), B,
+                int(metric.name == "kerr_schild"), kernel_r_mode(metric),
+                len(kinds), float(hit_dmin), float(beaming), float(exposure),
+                ctypes.c_void_p(torch.cuda.current_stream(y.device)
+                                .cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K5 launch failed: CUDA error {rc}")
+    shade_redshift_cuda.launches += 1
+    return rgb
+
+
+shade_redshift_cuda.launches = 0

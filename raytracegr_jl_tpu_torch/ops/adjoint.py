@@ -33,6 +33,14 @@ with its own M, a and object rows, one row per group of the table that
 the table in one launch; the plain versions expand it per ray; the (M, a)
 cotangents stay per ray and are summed per group.
 
+A batch may also run as sorted parts (``SortedParts``: the render's
+``sort_rays`` on the kernel route, ``grad_groups`` on the plain route):
+the rays in impact-parameter order, cut into parts that each take their
+own forward and backward pass, with the per-ray (M, a) cotangents summed
+in the caller's order, so that values and gradients are bitwise those of
+one pass. ``integrate_rays_autograd`` tapes every step instead (the
+render's ``grad_mode="scan"``, optionally rematerialized).
+
 The state is packed into ``[34, B]`` planes of the working type (layout
 below); the checkpoint buffer is ``[n_seg + 1, 34, B]``: the state at the
 start of each segment run, then the final state.
@@ -44,10 +52,12 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.objects import Scene
 from .geodesic_cm import (OBJ_FIELDS, StepState, _check_options,
-                          check_kernel_config, geodesic_cm, kernel_r_mode,
+                          check_kernel_config, geodesic_cm,
+                          impact_parameter_order, kernel_r_mode,
                           launch_config, localize_events_cm, make_step_cm,
                           scene_event_cm)
 from .geometry import det_min, sanitize_bounds
@@ -827,34 +837,75 @@ def used_segments(ends: torch.Tensor, n_seg: int) -> int:
     return min(n_seg, int(ends.max())) if ends.numel() else 0
 
 
+class SortedParts(NamedTuple):
+    """A batch run as sorted parts: its rays in ``order`` (by impact
+    parameter), cut at ``bounds`` into contiguous parts, each its own
+    forward pass (its own checkpoints, stopping with its own slowest ray)
+    and backward pass; ``inverse`` puts them back in the caller's order.
+    Every ray steps as it would in one pass (rays are independent), and the
+    per-ray (M, a) cotangents are summed in the caller's order, so values
+    and gradients are bitwise those of one pass. One part is the kernel
+    route's ``sort_rays``, several the plain route's ``grad_groups``."""
+
+    order: torch.Tensor
+    inverse: torch.Tensor
+    bounds: tuple
+
+
+def sorted_parts(y0: torch.Tensor, n_parts: int) -> SortedParts:
+    """``n_parts`` parts of ``y0 [B, 8]`` in impact-parameter order, at the
+    JAX package's bounds ``round(p * B / n_parts)``."""
+    order, inverse = impact_parameter_order(y0.detach())
+    B = y0.shape[0]
+    return SortedParts(order, inverse, tuple(round(p * B / n_parts)
+                                             for p in range(n_parts + 1)))
+
+
 class _Checkpointed(torch.autograd.Function):
-    """``(P0 [34, B], pvec [P], route, info) -> final state [34, B]``, with
-    the number of segments run in ``info["n_used"]``; gradients for the
-    y, k1 and ev_y0 planes of P0 and for M, a (pvec[0:2]). The other
-    planes' cotangents are dropped (see the module docstring), and the
-    object fields get none. On a grouped route ``pvec`` is the ``[G, P]``
-    table and each group's (M, a) cotangent the sum over its rays."""
+    """``(P0 [34, B], pvec [P], route, info, parts) -> final state [34,
+    B]``, with the number of segments run in ``info["n_used"]`` (the most
+    of any part); gradients for the y, k1 and ev_y0 planes of P0 and for
+    M, a (pvec[0:2]). The other planes' cotangents are dropped (see the
+    module docstring), and the object fields get none. On a grouped route
+    ``pvec`` is the ``[G, P]`` table and each group's (M, a) cotangent the
+    sum over its rays. ``parts``: None (one pass over the batch as given)
+    or the ``SortedParts`` to run it as."""
 
     @staticmethod
-    def forward(ctx, P0, pvec, route, info):
-        ck, n_used = run_segments(route, P0.detach())
-        info["n_used"] = n_used
-        ctx.route, ctx.n_used = route, n_used
-        ctx.save_for_backward(ck)
+    def forward(ctx, P0, pvec, route, info, parts):
+        P0 = P0.detach()
+        if parts is not None:
+            P0 = P0[:, parts.order]
+        bounds = (0, P0.shape[1]) if parts is None else parts.bounds
+        runs = [run_segments(route, P0[:, lo:hi].contiguous())
+                for lo, hi in zip(bounds, bounds[1:])]
+        info["n_used"] = max(n for _, n in runs)
+        ctx.route, ctx.parts, ctx.bounds = route, parts, bounds
+        ctx.n_used = [n for _, n in runs]
+        ctx.save_for_backward(*(ck for ck, _ in runs))
         ctx.p_shape = pvec.shape
-        return ck[n_used].clone()
+        out = torch.cat([ck[n] for ck, n in runs], dim=1)
+        return out if parts is None else out[:, parts.inverse]
 
     @staticmethod
     def backward(ctx, ct):
-        (ck,) = ctx.saved_tensors
         back = backward_cuda if ctx.route.cuda else backward_plain
-        ct0, pbar = back(ctx.route, ck, ctx.n_used, ct)
+        parts, bounds = ctx.parts, ctx.bounds
+        if parts is not None:
+            ct = ct[:, parts.order]
+        res = [back(ctx.route, ck, n, ct[:, lo:hi].contiguous())
+               for ck, n, lo, hi in zip(ctx.saved_tensors, ctx.n_used,
+                                        bounds, bounds[1:])]
+        ct0 = torch.cat([c for c, _ in res], dim=1)
+        pbar = torch.cat([p for _, p in res], dim=0)
+        if parts is not None:  # (M, a) summed in the caller's order
+            ct0, pbar = ct0[:, parts.inverse], pbar[parts.inverse]
         g = torch.zeros(ctx.p_shape, dtype=ct.dtype, device=ct.device)
         if ctx.route.groups is None:
             g[:2] = torch.sum(pbar, dim=0)
         else:
             g[:, :2] = pbar.reshape(ctx.p_shape[0], -1, 2).sum(dim=1)
-        return ct0, g, None, None
+        return ct0, g, None, None, None
 
 
 def _detached(scene: Scene) -> Scene:
@@ -877,8 +928,12 @@ def _first_group(scene: Scene) -> Scene:
 
 def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str,
-               groups: int | None = None) -> TraceResult:
+               groups: int | None = None, sort_parts: int | None = None,
+               remat: bool = False) -> TraceResult:
     _check_options(cfg)
+    if sort_parts is not None and (groups is not None or sort_parts < 1):
+        raise ValueError("sort_parts takes an ungrouped batch and at least "
+                         f"one part, got {sort_parts} with groups={groups}")
     seg = segment_length(cfg, seg_len)
     pvec = flatten_params(metric, scene, groups)
     table = None if groups is None else pvec.detach().contiguous()
@@ -894,15 +949,21 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
     init, body = make_step_cm(metric, event_fn, cfg)
     st0 = init(y0.t(), dt0.detach())
     if mode == "autograd":
+        def step(s):
+            return body(s)[0]
+
         st, n_used = st0, 0
         while n_used < route.n_seg and bool(st.active.any()):
             for _ in range(seg):
-                st, _ = body(st)
+                st = (checkpoint(step, st, use_reentrant=False) if remat
+                      else step(st))
             n_used += 1
     else:
         info = {}
+        parts = (None if sort_parts is None
+                 else sorted_parts(y0, sort_parts))
         st = unpack_state(_Checkpointed.apply(pack_state(st0), pvec, route,
-                                              info))
+                                              info, parts))
         n_used = info["n_used"]
     # Dead-ray cotangent cutoff: rays killed mid-flight (captured inside
     # stop_rho or failed at dt_min) froze after a capture spiral whose
@@ -922,17 +983,25 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
                             dt0: torch.Tensor, cfg: IntegratorConfig,
-                            seg_len: int | None = None) -> TraceResult:
-    """The oracle the hand adjoint is held against: the same forward, with
-    ``torch.autograd`` taping every step of the plain body (memory grows
-    with the steps; for tests at small sizes, on no path of the package)."""
-    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "autograd")
+                            seg_len: int | None = None,
+                            groups: int | None = None,
+                            remat: bool = False) -> TraceResult:
+    """The same forward, with ``torch.autograd`` taping every step of the
+    plain body: the differentiable path's ``grad_mode="scan"`` (the JAX
+    ``integrate_rays_cm_scan``), and the oracle the hand adjoint is held
+    against. With ``remat`` each step is rematerialized on backward
+    (``torch.utils.checkpoint``, JAX's ``remat=True``), so the tape holds
+    one state per step instead of every intermediate; the values and
+    gradients are the same. Step sizes stay detached either way."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "autograd",
+                      groups, remat=remat)
 
 
 def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
                         dt0: torch.Tensor, cfg: IntegratorConfig,
                         seg_len: int | None = None,
-                        groups: int | None = None) -> TraceResult:
+                        groups: int | None = None,
+                        sort_parts: int | None = None) -> TraceResult:
     """Differentiable integration, plain version (the JAX
     ``integrate_rays_cm_ckpt``): checkpointed segments of the step body,
     the hand adjoint on backward. ``y0 [B, 8]``, ``dt0 [B]``; gradients
@@ -940,16 +1009,25 @@ def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
     ``groups`` G the batch holds G parameter sets, one per group of
     ``B / G`` consecutive rays: M and a per ray (``[B]``) and the scene's
     fields with a leading ray axis where they differ (``pos [B, N, 4]``),
-    each constant within a group; gradients reach every group's."""
-    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "plain", groups)
+    each constant within a group; gradients reach every group's. With
+    ``sort_parts`` P (an ungrouped batch) the rays are sorted by impact
+    parameter and run as P parts, each with its own forward and backward
+    pass (``SortedParts``; JAX's ``grad_groups``): the values and gradients
+    are bitwise those of one pass."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "plain", groups,
+                      sort_parts)
 
 
 def integrate_rays_ckpt_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
                              dt0: torch.Tensor, cfg: IntegratorConfig,
                              seg_len: int | None = None,
-                             groups: int | None = None) -> TraceResult:
+                             groups: int | None = None,
+                             sort_parts: int | None = None) -> TraceResult:
     """The same with K3 for each forward segment and one K4 launch on
     backward (the JAX ``integrate_rays_cm_ckpt_pallas``), a grouped batch
-    in one launch of each. Raises for CPU tensors and for what the
-    kernels do not take."""
-    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "cuda", groups)
+    in one launch of each. ``sort_parts=1`` launches the batch in
+    impact-parameter order (the JAX route's ``sort_rays``), with results
+    and gradients bitwise those unsorted. Raises for CPU tensors and for
+    what the kernels do not take."""
+    return _integrate(metric, scene, y0, dt0, cfg, seg_len, "cuda", groups,
+                      sort_parts)

@@ -304,12 +304,24 @@ def _detect_scan(event_fn, interp, y0, cfg: IntegratorConfig):
     """Sample the event on the step's dense output at theta = i/npts and
     bracket the first crossing: ``(crossed [B], th_lo, th_hi)``. The sample
     thetas are python floats, so the dense-output weights are computed in
-    double and rounded to the working dtype, as in JAX."""
+    double and rounded to the working dtype, as in JAX.
+
+    With ``cfg.refine_minima`` a grazing crossing that falls between two
+    samples is rescued, as in the JAX package: the samples' argmin bracket
+    is trisected ``min_refine_iters`` times on the dense output at
+    run-time thetas, and where the event at the final bracket's midpoint
+    is at or below zero the ray crosses there (unless an earlier sample
+    crossing stands)."""
     d_prev = event_fn(y0)
     npts = cfg.interp_points
     th_lo = torch.zeros_like(d_prev)
     th_hi = torch.zeros_like(d_prev)
     found = torch.zeros_like(d_prev, dtype=torch.bool)
+    refine = cfg.refine_minima
+    if refine:  # the samples' argmin and its bracket of two sample spacings
+        d_best = d_prev
+        a0 = torch.zeros_like(d_prev)
+        b0 = torch.full_like(d_prev, 1.0 / npts)
     prev_th = 0.0
     for i in range(1, npts + 1):
         th = i / npts
@@ -318,7 +330,26 @@ def _detect_scan(event_fn, interp, y0, cfg: IntegratorConfig):
         th_lo = torch.where(new, prev_th, th_lo)
         th_hi = torch.where(new, th, th_hi)
         found = found | new
+        if refine:
+            better = d < d_best
+            d_best = torch.where(better, d, d_best)
+            a0 = torch.where(better, prev_th, a0)
+            b0 = torch.where(better, min((i + 1) / npts, 1.0), b0)
         prev_th = th
+    if refine:
+        three = d_prev.new_tensor(3.0)  # a true division on CUDA too
+        a, b = a0, b0
+        for _ in range(cfg.min_refine_iters):
+            third = (b - a) / three
+            m1, m2 = a + third, b - third
+            take = event_fn(interp(m1)) < event_fn(interp(m2))
+            a, b = torch.where(take, a, m1), torch.where(take, m2, b)
+        th_min = 0.5 * (a + b)
+        min_neg = event_fn(interp(th_min)) <= 0.0
+        use_min = min_neg & (~found | (a0 < th_lo))
+        th_lo = torch.where(use_min, a0, th_lo)
+        th_hi = torch.where(use_min, th_min, th_hi)
+        found = found | min_neg
     return found & (d_prev > 0.0), th_lo, th_hi
 
 
@@ -384,8 +415,9 @@ def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
 def _check_options(cfg: IntegratorConfig) -> None:
     if cfg.method not in ("tsit5", "rk4"):
         raise ValueError(f"unknown method: {cfg.method!r}")
-    if cfg.refine_minima:
-        raise NotImplementedError("refine_minima is not ported yet")
+    if cfg.refine_minima and cfg.min_refine_iters < 0:
+        raise ValueError("min_refine_iters must be >= 0, got "
+                         f"{cfg.min_refine_iters}")
 
 
 def _sum_sq_rows(r: torch.Tensor) -> torch.Tensor:
@@ -443,13 +475,16 @@ def make_step_cm(metric: Metric, event_fn: EventFn, cfg: IntegratorConfig):
     With ``cfg.event_gate`` (and an event that carries a ``bound``, as
     ``scene_event_cm``'s does) the detection sweep is skipped for the rays
     that ``may_cross`` clears, and for the whole batch when it clears them
-    all; results are bitwise those without the gate."""
+    all; results are bitwise those without the gate. ``cfg.refine_minima``
+    adds the trisection of ``_detect_scan`` and turns the gate off."""
     _check_options(cfg)
     rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
     adaptive = cfg.method == "tsit5"
     step = _tsit5_step_cm if adaptive else _rk4_step_cm
     bound = getattr(event_fn, "bound", None)
-    gate = cfg.event_gate and bound is not None
+    # refine_minima turns the gate off (its rescue must always run), as in
+    # the JAX package.
+    gate = cfg.event_gate and bound is not None and not cfg.refine_minima
 
     def init(y: torch.Tensor, dt0: torch.Tensor) -> StepState:
         B = y.shape[1]
@@ -630,16 +665,19 @@ _R_MODE = {R_AS_WRITTEN: 0, R_TEXTBOOK: 1}
 # one TPU tile (TILE_S * LANES rays).
 SORT_MIN_RAYS = 1024
 # csrc Params<T>: N_CFG + 8 slots per object and per sample of the working
-# type at their maximum counts, then MAX_OBJ int32 kinds. Its bytes are what
+# type at their maximum counts, then MAX_OBJ int32 kinds, then two int32:
+# refine_minima's trisection steps and a pad. Its bytes are what
 # launch_with_params copies into the kernels' constant memory.
 PARAM_VALUES = N_CFG + 8 * _MAX_OBJECTS + 8 * _MAX_SAMPLES
-PARAMS_BYTES = {dt: PARAM_VALUES * dt.itemsize + 4 * _MAX_OBJECTS
+PARAM_INTS = _MAX_OBJECTS + 2
+PARAMS_BYTES = {dt: PARAM_VALUES * dt.itemsize + 4 * PARAM_INTS
                 for dt in (torch.float32, torch.float64)}
 # Scene codes (csrc SC_*): scenes whose object kinds and detection samples
 # the f32 Kerr-Schild kernels of a library know at compile time, by the
 # main paths that run them (csrc FIXED_SCENES of each library); SC_ANY
-# takes kinds and counts at run time.
-SC_ANY, SC_SPS9, SC_SD9, SC_SPS4, SC_S4 = 0, 1, 2, 3, 4
+# takes kinds and counts at run time, and SC_REFINE is SC_ANY with
+# refine_minima's trisection (the only kernels that compile it in).
+SC_ANY, SC_SPS9, SC_SD9, SC_SPS4, SC_S4, SC_REFINE = 0, 1, 2, 3, 4, 5
 _SCENE_CODES = {((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 9): SC_SPS9,
                 ((KIND_SPHERE, KIND_DISK), 9): SC_SD9,
                 ((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 4): SC_SPS4,
@@ -665,7 +703,8 @@ def _config_slots(metric: Metric, cfg: IntegratorConfig,
         DT_MIN=cfg.dt_min, DT_DEAD=2 * cfg.dt_min, RK4_DT=cfg.rk4_dt,
         SAFETY=cfg.safety, QMIN=cfg.qmin, QMAX=cfg.qmax,
         NEG_BETA1=-cfg.beta1, BETA2=cfg.beta2, QOLD_INIT=cfg.qold_init,
-        STOP_RHO2=cfg.stop_rho ** 2, GATE=float(bool(cfg.event_gate)),
+        STOP_RHO2=cfg.stop_rho ** 2,
+        GATE=float(bool(cfg.event_gate) and not cfg.refine_minima),
         **{f"BMAX{j}": b for j, b in enumerate(BMAX_TSIT5)},
         **{f"HERM{j + 1}": c for j, c in enumerate(HERMITE_ENV)})
     return [slots[k] for k in CFG_SLOTS]
@@ -712,7 +751,8 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     ``PARAMS_BYTES[dtype]``): the configuration, then the objects' rows
     from slot ``N_CFG``, the samples' from ``N_CFG + 8 * 16``, zeros
     between (the values of ``kernel_params``), then the 16 int32 object
-    kinds. Every launch copies it into the kernels' constant memory on its
+    kinds, the trisection steps of ``refine_minima`` (0 without it) and a
+    zero pad. Every launch copies it into the kernels' constant memory on its
     stream (csrc launch_with_params).
 
     Nothing is read back from the card: the configuration, samples and
@@ -734,10 +774,11 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     smp = N_CFG + 8 * _MAX_OBJECTS
     samples = _sample_slots(cfg)
     vals[smp:smp + len(samples)] = samples
-    kind_t = torch.tensor(list(kinds) + [0] * (_MAX_OBJECTS - n_obj),
-                          dtype=torch.int32)
+    refine = int(cfg.min_refine_iters) if cfg.refine_minima else 0
+    ints = torch.tensor(list(kinds) + [0] * (_MAX_OBJECTS - n_obj)
+                        + [refine, 0], dtype=torch.int32)
     host = torch.cat([torch.tensor(vals, dtype=dtype).view(torch.uint8),
-                      kind_t.view(torch.uint8)])
+                      ints.view(torch.uint8)])
     device = torch.device(device)
     if device.type == "cuda":
         out = host.pin_memory().to(device, non_blocking=True)
@@ -751,12 +792,14 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
 
 
 def scene_code(kinds, npts: int, dtype: torch.dtype, kerr: bool,
-               library: str) -> int:
+               library: str, refine: bool = False) -> int:
     """The kernel of ``library`` (csrc/<library>.cu) that a launch takes, as
-    a scene code: a fixed scene for an f32 Kerr-Schild launch whose object
-    kinds and sample count are one of the library's ``FIXED_SCENES``,
-    ``SC_ANY`` otherwise. The dispatch is exact: each code is its own
-    kernel."""
+    a scene code: ``SC_REFINE`` with ``refine`` (``refine_minima``), else a
+    fixed scene for an f32 Kerr-Schild launch whose object kinds and sample
+    count are one of the library's ``FIXED_SCENES``, ``SC_ANY`` otherwise.
+    The dispatch is exact: each code is its own kernel."""
+    if refine:
+        return SC_REFINE
     code = _SCENE_CODES.get((tuple(int(k) for k in kinds), int(npts)))
     if (code not in FIXED_SCENES[library] or dtype != torch.float32
             or not kerr):
@@ -778,7 +821,7 @@ def launch_config(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     return prm, (int(kerr), int(cfg.method == "tsit5"),
                  kernel_r_mode(metric),
                  scene_code(kinds, cfg.interp_points, like.dtype, kerr,
-                            library),
+                            library, cfg.refine_minima),
                  len(kinds), int(cfg.interp_points))
 
 
@@ -829,9 +872,9 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     With ``cfg.sort_rays`` a batch of more than ``SORT_MIN_RAYS`` rays is
     launched in ``impact_parameter_order``, so that a warp's rays need
     similar step counts, and the results are put back in the caller's
-    order. Raises for CPU tensors, a failed build, and the options the
-    kernel does not take (``refine_minima``, object kinds it does not
-    know). Reads nothing from the card. Adds one to
+    order. Raises for CPU tensors, a failed build, and what the kernel
+    does not take (object kinds it does not know). Reads nothing from the
+    card. Adds one to
     ``integrate_rays_cuda.launches`` per launch."""
     if launch is None:
         _check_options(cfg)

@@ -46,11 +46,12 @@ class IntegratorConfig(NamedTuple):
 
     The port's integrators run ``method``, the tolerances, the span and
     step bounds, the controller gains, ``interp_points``, ``bisect_iters``,
-    ``stop_rho`` and ``event_gate`` (the detection sweep skipped per ray
-    where it provably sees no crossing; bitwise-neutral, off by default).
-    ``refine_minima`` is not ported yet and raises. ``sort_rays`` orders
-    K1's batch by impact parameter (the plain integrator ignores it; the
-    differentiable path raises). The gradient fields belong to the
+    ``stop_rho``, ``event_gate`` (the detection sweep skipped per ray
+    where it provably sees no crossing; bitwise-neutral, off by default)
+    and ``refine_minima`` (the trisection of the samples' argmin bracket,
+    ``min_refine_iters`` steps, that rescues grazing hits; it turns the
+    gate off). ``sort_rays`` orders the kernels' batch by impact parameter
+    (the plain integrator ignores it). The gradient fields belong to the
     differentiable path (render.py, ops/adjoint.py)."""
 
     method: str = "tsit5"  # "tsit5" | "rk4"

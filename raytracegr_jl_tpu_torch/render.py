@@ -5,7 +5,8 @@ integrate it and shade the end points.
 The forward render integrates with K1 (the CUDA kernel, or its plain
 PyTorch version). The differentiable render (``differentiable=True``)
 integrates with the checkpointed adjoint of ops/adjoint.py: K3 and K4 on
-CUDA tensors, their plain versions on CPU tensors. Shading is the
+CUDA tensors, their plain versions on CPU tensors, or autograd through
+every step with ``grad_mode="scan"``. Shading is the
 reference's hard shading, ``shade_soft`` when ``soft_temp`` is set, or the
 gravitational-redshift shading of models/shading.py with
 ``shading="redshift"``. The compacted forward render is in compaction.py."""
@@ -19,7 +20,8 @@ import torch
 from .models.camera import Canvas
 from .models.objects import Scene, shade, shade_soft
 from .models.shading import shade_redshift
-from .ops.adjoint import integrate_rays_ckpt, integrate_rays_ckpt_cuda
+from .ops.adjoint import (integrate_rays_autograd, integrate_rays_ckpt,
+                          integrate_rays_ckpt_cuda)
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
                               integrate_rays_cuda, launch_config)
 from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
@@ -56,9 +58,14 @@ def default_tol(dtype: torch.dtype) -> float:
 
 # The differentiable path's modes, with JAX's names: "ckpt" is the
 # checkpointed adjoint's plain version, "ckpt_cuda" the same with K3 and K4
-# (JAX's "ckpt_pallas"), and "auto" picks "ckpt_cuda" where ``backend``
-# resolves to "cuda" and "ckpt" elsewhere.
-GRAD_MODES = ("auto", "ckpt", "ckpt_cuda")
+# (JAX's "ckpt_pallas"), "scan" autograd through every step of the plain
+# body, each rematerialized (JAX's integrate_rays_cm_scan), and "auto"
+# picks "ckpt_cuda" where ``backend`` resolves to "cuda" and "ckpt"
+# elsewhere.
+GRAD_MODES = ("auto", "ckpt", "ckpt_cuda", "scan")
+# grad_groups splits only batches of at least this many rays per part
+# (JAX: B < 2 G 128 runs ungrouped).
+MIN_RAYS_PER_GRAD_GROUP = 2 * 128
 
 
 def _check(cfg: RenderConfig) -> None:
@@ -68,16 +75,8 @@ def _check(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown backend: {cfg.backend!r}")
     if not cfg.differentiable:
         return
-    integ = cfg.integrator
-    if integ.grad_mode == "scan":
-        raise NotImplementedError("grad_mode='scan' is not ported")
-    if integ.grad_mode not in GRAD_MODES:
-        raise ValueError(f"unknown grad_mode: {integ.grad_mode!r}")
-    if integ.grad_groups > 1:
-        raise NotImplementedError("grad_groups > 1 is not ported")
-    if integ.sort_rays:
-        raise NotImplementedError("sort_rays is not ported to the "
-                                  "differentiable path")
+    if cfg.integrator.grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode: {cfg.integrator.grad_mode!r}")
 
 
 def resolve_backend(cfg: RenderConfig, x: torch.Tensor) -> str:
@@ -113,16 +112,7 @@ def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
         raise NotImplementedError("a grouped batch needs the differentiable "
                                   "path")
     if cfg.differentiable:
-        with torch.no_grad():
-            dt0 = initial_dt(metric, y0, cfg.integrator)
-        mode = cfg.integrator.grad_mode
-        if mode == "auto":
-            mode = ("ckpt_cuda" if resolve_backend(cfg, y0) == "cuda"
-                    else "ckpt")
-        integrate = (integrate_rays_ckpt_cuda if mode == "ckpt_cuda"
-                     else integrate_rays_ckpt)
-        return integrate(metric, scene, y0, dt0, cfg.integrator,
-                         seg_len=cfg.integrator.grad_seg_len, groups=groups)
+        return _trace_differentiable(metric, scene, y0, cfg, groups)
     if resolve_backend(cfg, y0) == "cuda":
         # K1 takes each ray's initial step (initial_dt's, bit for bit) in
         # its prologue.
@@ -130,6 +120,44 @@ def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
                                    launch)
     dt0 = initial_dt(metric, y0, cfg.integrator)
     return integrate_rays_cm(metric, scene, y0, dt0, cfg.integrator)
+
+
+def _trace_differentiable(metric: Metric, scene: Scene, y0: torch.Tensor,
+                          cfg: RenderConfig,
+                          groups: int | None) -> TraceResult:
+    """The differentiable path, routed as the JAX package's
+    ``_trace_differentiable_cm``: ``"scan"`` tapes every step
+    (rematerialized) and ignores ``sort_rays`` and ``grad_groups``; the
+    kernel route (``"ckpt_cuda"``) launches the batch in impact-parameter
+    order with ``sort_rays`` and ignores ``grad_groups``; the plain route
+    (``"ckpt"``) runs ``grad_groups`` sorted parts, each its own forward
+    and backward pass, where the batch holds at least
+    ``MIN_RAYS_PER_GRAD_GROUP`` rays per part, and ignores ``sort_rays``.
+    Both leave values and gradients bitwise as they are without them
+    (``ops.adjoint.SortedParts``). A multistart batch (``groups``) runs
+    as given."""
+    integ = cfg.integrator
+    with torch.no_grad():
+        dt0 = initial_dt(metric, y0, integ)
+    mode = integ.grad_mode
+    if mode == "auto":
+        mode = "ckpt_cuda" if resolve_backend(cfg, y0) == "cuda" else "ckpt"
+    seg = integ.grad_seg_len
+    if mode == "scan":
+        return integrate_rays_autograd(metric, scene, y0, dt0, integ, seg,
+                                       groups, remat=True)
+    parts = None
+    if mode == "ckpt_cuda":
+        if integ.sort_rays and groups is None:
+            parts = 1
+        return integrate_rays_ckpt_cuda(metric, scene, y0, dt0, integ, seg,
+                                        groups, parts)
+    n = integ.grad_groups
+    if (n > 1 and groups is None
+            and y0.shape[0] >= n * MIN_RAYS_PER_GRAD_GROUP):
+        parts = n
+    return integrate_rays_ckpt(metric, scene, y0, dt0, integ, seg, groups,
+                               parts)
 
 
 def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,

@@ -45,8 +45,9 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # groups; rays_per_group, group_stride; stream).
 # K4: (ck; n_used; ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene, n_obj,
 # npts, seg_len; groups; rays_per_group, group_stride; stream). groups is
-# the group table of a grouped launch, or null.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# the group table of a grouped launch, or null. K5: (y0, y, vel, rgb, prm;
+# n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
@@ -56,6 +57,8 @@ _SIGNATURES = {
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
                 **{name: [_P, _I] + [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")}},
+    "shading": {name: [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P]
+                for name in ("rtgr_k5_f32", "rtgr_k5_f64")},
 }
 
 _lock = threading.Lock()

@@ -66,13 +66,13 @@ def test_cuda_backend_render_matches_torch_backend():
     assert torch.equal(rgb, rgb_plain)
 
 
-def _ckpt_case(n, dtype, method, max_steps):
+def _ckpt_case(n, dtype, method, max_steps, refine=False):
     from raytracegr_jl_tpu_torch.ops import adjoint as A
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
                                                          scene_event_cm)
     cfg = T.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
                                 rk4_dt=100.0 / max_steps, stop_rho=0.5)
-    integ = cfg.integrator
+    integ = cfg.integrator._replace(refine_minima=refine)
     _, scene, canvas = T.build(T.example2_spec(n, n), dtype,
                                torch.device("cuda"))
     metric = T.make_metric("kerr_schild", T.KerrSchildParams(M=1.05),
@@ -468,7 +468,7 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
     assert len(syncs) == 1
 
 
-def _lensing_grouped(dtype, method, starts, n=16):
+def _lensing_grouped(dtype, method, starts, n=16, refine=False):
     """The lensing scene at n x n for each (M, z) start, RK4/120 or
     Tsit5/400 (at f64's tolerance 120 Tsit5 steps do not reach the
     sphere): per start (route, P0) on the card, and the grouped route over
@@ -481,7 +481,7 @@ def _lensing_grouped(dtype, method, starts, n=16):
     integ = T.default_inverse_cfg(
         dtype, max_steps=120 if method == "rk4" else 400, method=method,
         rk4_dt=0.5, stop_rho=0.5).integrator
-    integ = integ._replace(lam_max=60.0)
+    integ = integ._replace(lam_max=60.0, refine_minima=refine)
     spec = T.lensing_inverse_spec(n, n)
     _, scene, _ = T.build(spec, dtype, dev)
     xg, ng = T.flat_pixel_grid(spec, dtype, dev)
@@ -513,8 +513,13 @@ def test_grouped_k3_k4_match_grouped_plain_bitwise(dtype, method):
     """The grouped K3 (with k3_close) and K4 over four starts of different
     (M, z) against their grouped plain versions, and each start's rays
     against its own ungrouped launch: bitwise."""
+    _check_grouped_k3_k4(dtype, method, refine=False)
+
+
+def _check_grouped_k3_k4(dtype, method, refine):
     starts = [(0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1)]
-    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts)
+    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts,
+                                               refine=refine)
     before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
     ck, n_used = A.run_segments(grouped, P0)
     ck_p, n_p = A.run_segments(grouped._replace(cuda=False), P0)
@@ -585,3 +590,168 @@ def test_config5_recovery_through_the_kernels():
     rel = (vec.loss_history - ser.loss_history).abs().max() / (
         ser.loss_history.abs().max())
     assert float(rel) <= 1e-4, float(rel)
+
+
+# ---------------------------------------------------------------------------
+# refine_minima (SC_REFINE), K2's own initial step, K5, the sorted route
+# ---------------------------------------------------------------------------
+
+DTYPES = [torch.float32, torch.float64]
+
+
+def _tol(dtype):
+    return TOL32 if dtype == torch.float32 else 1e-10
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", [T.example1_spec(32, 32),
+                                  T.example2_spec(32, 32)],
+                         ids=["example1", "example2"])
+def test_k1_refine_matches_plain_bitwise(spec, dtype):
+    """K1 with refine_minima (the SC_REFINE kernel) against the plain
+    version, bitwise; example1's silhouette band holds grazing rays."""
+    integ = T.IntegratorConfig(rtol=_tol(dtype), atol=_tol(dtype),
+                               max_steps=4000, refine_minima=True)
+    metric, scene, canvas = T.build(spec, dtype, torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    k = integrate_rays_cuda(metric, scene, y0, dt0, integ)
+    own = integrate_rays_cuda(metric, scene, y0, None, integ)
+    p = integrate_rays_cm(metric, scene, y0, dt0, integ)
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+        assert torch.equal(getattr(own, f), getattr(p, f)), f
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k2_refine_matches_plain_bitwise(dtype):
+    """K2 with refine_minima: the first chunk and a resumed one against
+    chunk_plain, every plane."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    tol = TOL32 if dtype == torch.float32 else 1e-8
+    integ = T.IntegratorConfig(rtol=tol, atol=tol, max_steps=400,
+                               stop_rho=1.0, refine_minima=True)
+    metric, scene, canvas = T.build(T.accretion_disk_spec(32, 32), dtype,
+                                    torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    y_cm = y0.t().contiguous()
+    k = C.chunk_cuda(metric, scene, integ, 16, y_cm=y_cm, dt0=dt0)
+    p = C.chunk_plain(metric, scene, integ, 16, y_cm=y_cm, dt0=dt0)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    k2 = C.chunk_cuda(metric, scene, integ, 32, P=k[0])
+    p2 = C.chunk_plain(metric, scene, integ, 32, P=p[0])
+    for a, b in zip(k2, p2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("method,max_steps", [("rk4", 40), ("tsit5", 16)])
+def test_k3_k4_refine_match_plain_bitwise(method, max_steps, dtype):
+    """K3 (one launch, k3_close) and K4 with refine_minima: K4's replay
+    makes K3's refined decisions."""
+    A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps, refine=True)
+    ck, n_used = A.run_segments(route, P0)
+    ck_p, n_p = A.run_segments(route._replace(cuda=False), P0)
+    assert _read_equal(A, route, ck, n_used, ck_p, n_p)
+    ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
+    c, p = A.backward_cuda(route, ck, n_used, ct)
+    c_p, p_p = A.backward_plain(route, ck_p, n_p, ct)
+    assert torch.equal(c, c_p) and torch.equal(p, p_p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_k3_k4_refine_match_plain_bitwise(dtype):
+    """The grouped K3 and K4 with refine_minima (GroupParams through the
+    SC_REFINE kernels)."""
+    _check_grouped_k3_k4(dtype, "rk4", refine=True)
+
+
+@pytest.mark.parametrize("dtype,method", [(torch.float32, "tsit5"),
+                                          (torch.float64, "tsit5"),
+                                          (torch.float32, "rk4")])
+def test_k2_own_initial_step_matches_plain_bitwise(dtype, method):
+    """K2's first chunk with dt0=None against initial_dt then chunk_plain,
+    and the compacted trace with dt0=None against it given."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    tol = TOL32 if dtype == torch.float32 else 1e-8
+    integ = T.IntegratorConfig(method=method, rtol=tol, atol=tol,
+                               max_steps=400, stop_rho=1.0, rk4_dt=0.25)
+    metric, scene, canvas = T.build(T.accretion_disk_spec(32, 32), dtype,
+                                    torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    dt0 = initial_dt(metric, y0, integ)
+    y_cm = y0.t().contiguous()
+    k = C.chunk_cuda(metric, scene, integ, 16, y_cm=y_cm, dt0=None)
+    p = C.chunk_plain(metric, scene, integ, 16, y_cm=y_cm, dt0=dt0)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    own = T.trace_batch_compacted(metric, scene, y0, None, integ,
+                                  first_chunk=16)
+    given = T.trace_batch_compacted(metric, scene, y0, dt0, integ,
+                                    first_chunk=16)
+    for f in ("y", "lam", "hit", "steps"):
+        assert torch.equal(getattr(own, f), getattr(given, f)), f
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_within_its_envelope(dtype):
+    """K5 against shade_redshift on a traced 32x32 disk: no hit/miss flip,
+    at most 2% of pixels beyond 1e-6; make_compact_renderer with
+    fast_epilogue launches it once and renders the same image."""
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.models.shading import (shade_redshift,
+                                                        shade_redshift_cuda)
+    tol = TOL32 if dtype == torch.float32 else 1e-8
+    cfg = T.RenderConfig(integrator=T.IntegratorConfig(
+        rtol=tol, atol=tol, max_steps=2000, stop_rho=1.0, sort_rays=True),
+        shading="redshift")
+    metric, scene, canvas = T.build(T.accretion_disk_spec(32, 32), dtype,
+                                    torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    res = T.trace_batch_compacted(metric, scene, y0, None, cfg.integrator)
+    before = shade_redshift_cuda.launches
+    k = shade_redshift_cuda(metric, scene, y0, res.y)
+    assert shade_redshift_cuda.launches == before + 1
+    p = shade_redshift(metric, scene, y0, res.y, metric.params.M,
+                       metric.params.a)
+    hit_k, hit_p = k.abs().sum(1) > 0, p.abs().sum(1) > 0
+    assert int((hit_k != hit_p).sum()) == 0
+    assert float(((k - p).abs().max(1).values > 1e-6).double().mean()) \
+        <= 0.02
+    img = C.make_compact_renderer(metric, scene, cfg,
+                                  fast_epilogue=True)(canvas).rgb
+    assert shade_redshift_cuda.launches == before + 2
+    assert torch.equal(img.reshape(-1, 3), k)
+
+
+@pytest.mark.parametrize("method,max_steps", [("rk4", 40), ("tsit5", 16)])
+def test_sorted_gradients_through_k3_k4_bitwise(method, max_steps):
+    """sort_rays on the kernel route: the pixel loss and its gradients
+    bitwise those unsorted, one K3 and one K4 launch each."""
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                     forward_segment_cuda)
+    dev = torch.device("cuda")
+    spec = T.example2_spec(32, 32)
+    cfg = T.default_inverse_cfg(torch.float32, max_steps=max_steps,
+                                method=method, rk4_dt=100.0 / max_steps,
+                                stop_rho=0.5, soft_temp=0.05)
+    xg, ng = T.flat_pixel_grid(spec, torch.float32, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, 2, device=dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0],
+                            torch.float32, dev), xg, ng)
+    out = []
+    for sort in (False, True):
+        c = cfg._replace(integrator=cfg.integrator._replace(sort_rays=sort))
+        p = T.InverseParams(1.05, 0.02, [0.0, 4.0, 0.1, 0.0], torch.float32,
+                            dev)
+        before = (forward_segment_cuda.launches, backward_cuda.launches)
+        loss = T.make_ray_loss_fn(spec, c, 2, device=dev)(p, xg, ng, target)
+        loss.backward()
+        assert (forward_segment_cuda.launches - before[0],
+                backward_cuda.launches - before[1]) == (1, 1)
+        out.append(torch.cat([loss.detach()[None], p.M.grad[None],
+                              p.a.grad[None], p.sphere_pos.grad]))
+    assert torch.equal(out[0], out[1])

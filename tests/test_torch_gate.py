@@ -152,7 +152,8 @@ def test_may_cross_clears_far_steps_only():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pack_params_layout(dtype):
     """csrc Params<T>: N_CFG configuration slots, 16 object rows of 8, 32
-    sample rows of 8, then 16 int32 kinds; M and a given as tensors are
+    sample rows of 8, then 16 int32 kinds, refine_minima's trisection
+    steps (0 when it is off) and a zero pad; M and a given as tensors are
     written on the tensor's device."""
     metric, scene, _ = T.build(T.example2_spec(2, 2), dtype, "cpu")
     cfg = T.IntegratorConfig(interp_points=5, event_gate=True)
@@ -160,9 +161,15 @@ def test_pack_params_layout(dtype):
     out = G.pack_params(metric, scene, cfg, dtype, "cpu")
     assert out.dtype == torch.uint8
     assert out.numel() == G.PARAMS_BYTES[dtype] == (
-        (G.N_CFG + 8 * 16 + 8 * 32) * dtype.itemsize + 16 * 4)
+        (G.N_CFG + 8 * 16 + 8 * 32) * dtype.itemsize + (16 + 2) * 4)
     vals = out[:G.PARAM_VALUES * dtype.itemsize].view(dtype)
-    kinds = out[G.PARAM_VALUES * dtype.itemsize:].view(torch.int32)
+    ints = out[G.PARAM_VALUES * dtype.itemsize:].view(torch.int32)
+    kinds = ints[:16]
+    assert ints[16:].tolist() == [0, 0]
+    refine = G.pack_params(metric, scene, cfg._replace(refine_minima=True),
+                           dtype, "cpu")
+    assert refine[G.PARAM_VALUES * dtype.itemsize:].view(
+        torch.int32)[16:].tolist() == [cfg.min_refine_iters, 0]
     want = torch.tensor(blk, dtype=dtype)
     n_obj, npts = scene.n_objects, cfg.interp_points
     assert torch.equal(vals[:G.N_CFG], want[:G.N_CFG])
@@ -212,6 +219,11 @@ def test_scene_codes():
                  (ex2, 9, f32, True, "adjoint"),
                  ((0, 1), 9, f32, True, "geodesic")):
         assert G.scene_code(*args) == G.SC_ANY, args
+    # refine_minima takes SC_REFINE in every library, type and scene.
+    for args in ((ex2, 9, f32, True, "geodesic"), (disk, 9, f64, True,
+                                                    "compaction"),
+                 (ex2, 4, f32, False, "adjoint")):
+        assert G.scene_code(*args, refine=True) == G.SC_REFINE, args
 
 
 def test_scene_codes_match_the_cuda_source():
@@ -222,7 +234,7 @@ def test_scene_codes_match_the_cuda_source():
     codes = dict(item.strip().split(" = ") for item in enum.split(","))
     assert {k: int(v) for k, v in codes.items()} == {
         "SC_ANY": G.SC_ANY, "SC_SPS9": G.SC_SPS9, "SC_SD9": G.SC_SD9,
-        "SC_SPS4": G.SC_SPS4, "SC_S4": G.SC_S4}
+        "SC_SPS4": G.SC_SPS4, "SC_S4": G.SC_S4, "SC_REFINE": G.SC_REFINE}
     for lib, fixed in G.FIXED_SCENES.items():
         with open(os.path.join(cuda_build.CSRC, f"{lib}.cu")) as f:
             mask = re.search(r"constexpr int FIXED_SCENES = ([^;]*);",

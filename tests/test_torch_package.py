@@ -75,26 +75,33 @@ def test_cuda_backend_does_not_fall_back():
     assert resolve_backend(cfg, canvas.pos) == "cuda"
 
 
-def test_unsupported_options_raise():
+def test_ported_options_run():
+    """refine_minima, grad_mode="scan", grad_groups, sort_rays on the
+    differentiable path and fast_epilogue, which raised before they were
+    ported, run; a bad shading or grad_mode raises."""
     metric, scene, y0, dt0 = _small()
-    with pytest.raises(NotImplementedError, match="refine_minima"):
-        integrate_rays_cm(metric, scene, y0, dt0,
-                          T.IntegratorConfig(refine_minima=True))
+    res = integrate_rays_cm(metric, scene, y0, dt0,
+                            T.IntegratorConfig(refine_minima=True,
+                                               max_steps=50))
+    assert bool(torch.isfinite(res.y).all())
     canvas = T.build(T.example2_spec(2, 2), torch.float64, "cpu")[2]
-    grad = T.IntegratorConfig()
+    grad = T.IntegratorConfig(method="rk4", rk4_dt=0.5, max_steps=20)
     for cfg in (T.RenderConfig(differentiable=True,
                                integrator=grad._replace(grad_mode="scan")),
                 T.RenderConfig(differentiable=True,
                                integrator=grad._replace(grad_groups=2)),
                 T.RenderConfig(differentiable=True,
                                integrator=grad._replace(sort_rays=True))):
-        with pytest.raises(NotImplementedError):
-            T.trace_rays(metric, scene, canvas, cfg)
-    with pytest.raises(NotImplementedError, match="fast_epilogue"):
-        T.make_compact_renderer(metric, scene, T.RenderConfig(),
-                                fast_epilogue=True)
+        rgb = T.trace_rays(metric, scene, canvas, cfg).rgb
+        assert rgb.shape == (2, 2, 3) and bool(torch.isfinite(rgb).all())
+    rgb = T.make_compact_renderer(metric, scene, T.RenderConfig(
+        integrator=grad, shading="redshift"), fast_epilogue=True)(canvas).rgb
+    assert rgb.shape == (2, 2, 3) and bool(torch.isfinite(rgb).all())
     with pytest.raises(ValueError, match="shading"):
         T.trace_rays(metric, scene, canvas, T.RenderConfig(shading="gold"))
+    with pytest.raises(ValueError, match="grad_mode"):
+        T.trace_rays(metric, scene, canvas, T.RenderConfig(
+            differentiable=True, integrator=grad._replace(grad_mode="tape")))
 
 
 @pytest.mark.parametrize("cfg", [
