@@ -19,10 +19,18 @@ grazing rays), sort_rays on the differentiable path and grad_mode="scan"
 to their plain versions and counts and times their paths, times
 them, diagnoses K1 (its time four ways, the step census, scheduler
 cycles per warp-iteration), holds the detection gate (event_gate) bitwise to the
-ungated disk render, and diagnoses K2 on the disk's packed tail (SASS
-instruction mix, the tail's work replicated and cut, block sizes).
+ungated disk render, drives data parallelism (parallel/sharding.py: the
+training step and the 1024x1024 render over NCCL at world size 1, bitwise
+to the unsharded ones, and two gloo ranks on the one card, each a
+subprocess of this script, K1, K3 and K4 on half the rays each), holds
+the generic-metric row-major route to K1 at f64 and times it, and
+diagnoses K2 on the disk's packed tail (SASS instruction mix, the tail's
+work replicated and cut, block sizes).
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --sharding-rank RANK WORLD PORT`` is one rank of
+the two-rank phase, started by the script itself.)
 
 Prints one line per phase with its result and seconds, then a JSON line
 with each kernel's launches, error, times and bound, and as its last line
@@ -2036,6 +2044,351 @@ def options_slice(dev, card: str, reset_counts) -> dict:
     return out
 
 
+SHARD_W = 2
+SHARD_TIMEOUT = 300
+# The sharded training step against the unsharded one at W = 2 (JAX's f32
+# bar, tests/test_sharding.py:86-101): the sums run in another order.
+SHARD_LOSS_RTOL = 1e-5
+SHARD_M_RTOL = 1e-3
+# The row-major route against K1 at f64 (tests/test_pallas.py's bar
+# between the JAX package's two routes), and the share of pixels that may
+# exceed it (ROADMAP C's pixel bar); hit flips only on horizon rays
+# (final Kerr-Schild radius below 1.04 r+, tests/test_torch_integrate.py).
+ROWMAJOR_ATOL = 1e-9
+ROWMAJOR_PIXEL_FRAC = 0.005
+HORIZON_BAND = 1.04
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_setup(dev, n: int = 200):
+    """The training main path's inputs at n x n f32: (spec, cfg, xg, ng,
+    target, params factory, loss function)."""
+    import raytracegr_jl_tpu_torch as rt
+    f32 = torch.float32
+    spec = rt.example2_spec(n, n)
+    cfg = rt.default_inverse_cfg(f32, max_steps=200, method="rk4",
+                                 rk4_dt=0.5, stop_rho=0.5)
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+    with torch.no_grad():
+        target = rt.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+            rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev),
+            xg, ng)
+
+    def params():
+        return rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+    return xg, ng, target, params, rt.make_ray_loss_fn(spec, cfg, 2, f32,
+                                                       dev)
+
+
+def flat_grads(loss, M, a, sphere_pos) -> torch.Tensor:
+    """A training step's loss and (M, a, sphere_pos) gradients, flat."""
+    return torch.cat([loss.detach().reshape(1), M.reshape(1), a.reshape(1),
+                      sphere_pos.reshape(-1)])
+
+
+def flagship_render(dev, n: int = 1024):
+    """render_fn of example2 n x n f32 in the bench configuration, and its
+    canvas."""
+    import raytracegr_jl_tpu_torch as rt
+    metric, scene, canvas = rt.build(rt.example2_spec(n, n), torch.float32,
+                                     dev)
+    fn = rt.render_fn(metric, scene, rt.RenderConfig(
+        integrator=rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32,
+                                       atol=RTOL_F32, max_steps=20_000)))
+    return fn, canvas
+
+
+def kernel_counts():
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    return {name: (fn.launches, fn.rays) for name, fn in (
+        ("k1", integrate_rays_cuda), ("k3", adj.forward_segment_cuda),
+        ("k4", adj.backward_cuda))}
+
+
+def reset_rays(launches: bool = False):
+    """Sets the ray counts of K1, K3 and K4 to 0, and with ``launches``
+    their launch counts too."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    for fn in (integrate_rays_cuda, adj.forward_segment_cuda,
+               adj.backward_cuda):
+        fn.rays = 0
+        if launches:
+            fn.launches = 0
+
+
+def sharding_rank(rank: int, world: int, port: int) -> int:
+    """One rank of phase 23 (a subprocess): a gloo group whose ranks share
+    card 0. Renders its rows of the 1024x1024 flagship through K1, runs the
+    sharded 200x200 training step through K3 and K4 with the counts set to
+    0 just before, the unsharded step for the gap, and times the sharded
+    step; prints ``RESULT {json}``."""
+    from raytracegr_jl_tpu_torch.parallel import sharding as S
+    dev = torch.device("cuda", 0)
+    require(S.init_distributed(f"localhost:{port}", world, rank,
+                               local_rank=0, backend="gloo"),
+            "init_distributed: not a multi-process run")
+    mesh = S.make_mesh()
+    require(S.mesh_device(mesh) == dev, f"rank {rank} on {S.mesh_device(mesh)}")
+    out = {"rank": rank}
+    try:
+        fn, canvas = flagship_render(dev)
+        single = fn(canvas.pos, canvas.normal)
+        pos, normal = S.shard_pixels(mesh, canvas.pos, canvas.normal)
+        shard = S.sharded_render(fn, mesh)
+        shard(pos, normal)  # the launch setup, once
+        torch.cuda.synchronize()
+        reset_rays(launches=True)
+        rgb = shard(pos, normal)
+        torch.cuda.synchronize()
+        out["render"] = kernel_counts()["k1"]
+        mine = S.shard_rows(single, rank, world)
+        full = S.crop_rows(canvas.pos.shape[0], S.gather_rows(mesh, rgb))[0]
+        out["render_rows_bitwise"] = bool(torch.equal(rgb, mine))
+        out["render_gathered_bitwise"] = bool(torch.equal(full, single))
+
+        xg, ng, target, params, loss_fn = train_setup(dev)
+        step = S.sharded_value_and_grad(loss_fn, mesh)
+        batch = S.shard_pixels(mesh, xg, ng, target)
+        step(params(), *batch)
+        torch.cuda.synchronize()
+        reset_rays(launches=True)
+        loss, g = step(params(), *batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        out["train"] = [counts["k3"], counts["k4"]]
+        out["rows"] = batch[0].shape[0]
+        vec = flat_grads(loss, g.M, g.a, g.sphere_pos)
+        out["loss_grads"] = [float(v).hex() for v in vec.tolist()]
+        p = params()
+        ref_loss = loss_fn(p, xg, ng, target)
+        ref_loss.backward()
+        ref = flat_grads(ref_loss, p.M.grad, p.a.grad, p.sphere_pos.grad)
+        out["unsharded"] = [float(v) for v in ref.tolist()]
+        times = []
+        for _ in range(REPEATS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params(), *batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = statistics.median(times[1:])
+    finally:
+        torch.distributed.destroy_process_group()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def sharding_slice(dev, card: str, reset_counts) -> dict:
+    """Data parallelism (parallel/sharding.py). 22: NCCL at world size 1 in
+    this process: the training main path (200x200 f32, rk4/200) through
+    sharded_value_and_grad bitwise equal to the unsharded loss and
+    gradients, and the 1024x1024 flagship through sharded_render and
+    gather_rows bitwise equal to render_fn's. 23: two gloo ranks on this
+    card (NCCL takes one rank per card), each a subprocess: each renders
+    its half of the rows through K1, bitwise, and runs K3 and K4 on its
+    20,000 rays of the step; both ranks' loss and gradients bitwise equal,
+    within the f32 bar of the unsharded step. Returns the times."""
+    from raytracegr_jl_tpu_torch.parallel import sharding as S
+
+    # 22. NCCL, world size 1.
+    t0 = time.perf_counter()
+    port = free_port()
+    require(not S.init_distributed(f"localhost:{port}", 1, 0, local_rank=0),
+            "init_distributed reported several processes")
+    require(torch.distributed.get_backend() == "nccl", "not NCCL")
+    try:
+        mesh = S.make_mesh()
+        xg, ng, target, params, loss_fn = train_setup(dev)
+        p = params()
+        ref_loss = loss_fn(p, xg, ng, target)
+        ref_loss.backward()
+        ref = flat_grads(ref_loss, p.M.grad, p.a.grad, p.sphere_pos.grad)
+        step = S.sharded_value_and_grad(loss_fn, mesh)
+        batch = S.shard_pixels(mesh, xg, ng, target)
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_rays()
+        loss, g = step(params(), *batch)
+        torch.cuda.synchronize()
+        train_counts = kernel_counts()
+        got = flat_grads(loss, g.M, g.a, g.sphere_pos)
+        require(train_counts["k3"] == (1, 40_000)
+                and train_counts["k4"] == (1, 40_000),
+                f"the sharded step at W = 1 ran K3/K4 {train_counts}")
+        require(torch.equal(got, ref), "sharded step at W = 1 differs from "
+                f"the unsharded one (max |d| {max_err(got, ref):.3e})")
+        step_ms = []
+        for _ in range(REPEATS + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(params(), *batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        one_rank_ms = statistics.median(step_ms[1:])
+        fn, canvas = flagship_render(dev)
+        single = fn(canvas.pos, canvas.normal)
+        pos, normal = S.shard_pixels(mesh, canvas.pos, canvas.normal)
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_rays()
+        rgb = S.crop_rows(canvas.pos.shape[0], S.gather_rows(
+            mesh, S.sharded_render(fn, mesh)(pos, normal)))[0]
+        torch.cuda.synchronize()
+        render_counts = kernel_counts()["k1"]
+        require(render_counts == (1, 1024 * 1024),
+                f"the sharded render at W = 1 ran K1 {render_counts}")
+        require(torch.equal(rgb, single), "sharded render at W = 1 differs")
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("main path sharded NCCL world size 1", t0, card=repr(card),
+          k3_launches_rays=train_counts["k3"],
+          k4_launches_rays=train_counts["k4"],
+          k1_launches_rays=render_counts, step_bitwise=True,
+          render_1024_bitwise=True, step_ms=f"{one_rank_ms:.4f}",
+          loss=f"{float(loss):.9e}")
+
+    # 23. Two gloo ranks on one card.
+    t0 = time.perf_counter()
+    port = free_port()
+    env = dict(os.environ)
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharding-rank",
+         str(r), str(SHARD_W), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(SHARD_W)]
+    results, errs = [], []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=SHARD_TIMEOUT)
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT")]
+            if p.returncode != 0 or not lines:
+                errs.append(f"rank exit {p.returncode}: {err[-3000:]}")
+            else:
+                results.append(json.loads(lines[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(not errs, "sharding ranks failed: " + " | ".join(errs))
+    half = 1024 * 1024 // SHARD_W
+    rows = 200 * 200 // SHARD_W
+    for r in results:
+        require(r["render"] == [1, half], f"rank {r['rank']} ran K1 "
+                f"{r['render']}, not once on {half} rays")
+        require(r["train"] == [[1, rows], [1, rows]], f"rank {r['rank']} ran "
+                f"K3/K4 {r['train']}, not once each on {rows} rays")
+        require(r["render_rows_bitwise"] and r["render_gathered_bitwise"],
+                f"rank {r['rank']}: its rows of the render differ")
+    a, b = results
+    require(a["loss_grads"] == b["loss_grads"],
+            "the two ranks' loss and gradients differ")
+    got = [float.fromhex(v) for v in a["loss_grads"]]
+    ref = a["unsharded"]
+    loss_gap = abs(got[0] - ref[0]) / abs(ref[0])
+    m_gap = abs(got[1] - ref[1]) / abs(ref[1])
+    grad_gap = max(abs(x - y) for x, y in zip(got[1:], ref[1:])) / max(
+        abs(y) for y in ref[1:])
+    phase("main path sharded gloo 2 ranks on one card", t0, card=repr(card),
+          k1_launches_rays_per_rank=[r["render"] for r in results],
+          k3_k4_launches_rays_per_rank=[r["train"] for r in results],
+          ranks_bitwise=True, render_rows_bitwise=True,
+          loss=f"{got[0]:.9e}", loss_unsharded=f"{ref[0]:.9e}",
+          loss_rel_gap=f"{loss_gap:.3e}", grad_M_rel_gap=f"{m_gap:.3e}",
+          grads_max_rel_gap=f"{grad_gap:.3e}",
+          step_ms_1_rank_nccl=f"{one_rank_ms:.4f}",
+          step_ms_2_ranks_gloo=[f"{r['step_ms']:.4f}" for r in results])
+    require(loss_gap <= SHARD_LOSS_RTOL and m_gap <= SHARD_M_RTOL,
+            f"the sharded step at W = 2 is {loss_gap:.3e} / {m_gap:.3e} from "
+            "the unsharded one")
+    return {"one_rank_ms": one_rank_ms,
+            "two_rank_ms": [r["step_ms"] for r in results]}
+
+
+def rowmajor_slice(dev, card: str) -> dict:
+    """24. The generic-metric row-major route (backend="rowmajor") on the
+    card: example2 64x64 f64 at rtol = atol = 1e-9 against K1 on the same
+    rays (rgb within ROWMAJOR_ATOL but on at most ROWMAJOR_PIXEL_FRAC of
+    the pixels, hit flips on horizon rays only), and the route's times
+    and host reads per render at 64x64 f64 and 200x200 f32."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops import integrate
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    from raytracegr_jl_tpu_torch.ops.metrics import kerr_schild_radius
+    from raytracegr_jl_tpu_torch.render import _shade, trace_batch
+
+    def reads():
+        return (integrate.integrate_rays.host_reads
+                + integrate._locate_event.host_reads)
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    spec = rt.example2_spec(64, 64)
+    metric, scene, canvas = rt.build(spec, f64, dev)
+    integ = rt.IntegratorConfig(rtol=1e-9, atol=1e-9, max_steps=20_000)
+    cfg = rt.RenderConfig(integrator=integ, backend="rowmajor")
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    r0 = reads()
+    res, ms64 = events_call(lambda: trace_batch(metric, scene, y0, cfg))
+    reads64 = reads() - r0
+    rgb = _shade(metric, scene, y0, res.y, cfg)
+    k1 = integrate_rays_cuda(metric, scene, y0, None, integ)
+    rgb_k1 = _shade(metric, scene, y0, k1.y, cfg)
+    diff = (rgb - rgb_k1).abs().amax(-1)
+    beyond = int((diff > ROWMAJOR_ATOL).sum())
+    M, a = spec.metric_params.M, spec.metric_params.a
+    r_plus = M + (M * M - a * a) ** 0.5
+
+    def radius(y):
+        x = y[:, 1:4]
+        return kerr_schild_radius((x * x).sum(1), x[:, 2], a,
+                                  r_formula=spec.r_formula)
+
+    horizon = ((radius(res.y) < HORIZON_BAND * r_plus)
+               | (radius(k1.y) < HORIZON_BAND * r_plus))
+    flips = res.hit != k1.hit
+    flips_off = int((flips & ~horizon).sum())
+    phase("rowmajor vs K1 example2 64x64 f64", t0, card=repr(card),
+          rays=y0.shape[0], iterations=res.n_iters,
+          hit_flips=int(flips.sum()), hit_flips_off_horizon=flips_off,
+          pixels_beyond_1e_9=beyond, max_abs_diff=f"{float(diff.max()):.3e}",
+          steps_equal_share=f"{float((res.steps == k1.steps).double().mean()):.6f}",
+          render_ms=f"{ms64:.1f}", host_reads=reads64)
+    require(bool(torch.isfinite(rgb).all()), "row-major: non-finite colours")
+    require(flips_off == 0, f"row-major: {flips_off} hit flips off the "
+            "horizon against K1")
+    require(beyond <= ROWMAJOR_PIXEL_FRAC * y0.shape[0],
+            f"row-major: {beyond} pixels beyond {ROWMAJOR_ATOL} of K1's")
+
+    t0 = time.perf_counter()
+    metric, scene, canvas = rt.build(rt.example2_spec(200, 200),
+                                     torch.float32, dev)
+    fn = rt.render_fn(metric, scene, rt.RenderConfig(
+        integrator=rt.IntegratorConfig(rtol=RTOL_F32, atol=RTOL_F32,
+                                       max_steps=20_000),
+        backend="rowmajor"))
+    r0 = reads()
+    fn(canvas.pos, canvas.normal)
+    reads200 = reads() - r0
+    ms200 = statistics.median(events_ms(lambda: fn(canvas.pos,
+                                                   canvas.normal))
+                              for _ in range(3))
+    phase("time rowmajor render 200x200 f32", t0, card=repr(card),
+          render_ms=f"{ms200:.1f}", host_reads=reads200,
+          render_ms_64x64_f64=f"{ms64:.1f}")
+    return {"ms64": ms64, "ms200": ms200}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2608,6 +2961,11 @@ def main() -> int:
     #        differentiable path, grad_mode="scan".
     options_slice(dev, card, reset_counts)
 
+    # 22-23. Data parallelism: NCCL at world size 1, two gloo ranks on one
+    #        card. 24. The row-major route.
+    sharding_slice(dev, card, reset_counts)
+    rowmajor_slice(dev, card)
+
     # 16. K2 on the disk's packed tail: the SASS instruction mix of K2's and
     #     K4's f32 Kerr-Schild Tsit5 kernels, the tail's state replicated
     #     1x, 2x, 4x and cut to a half and a quarter, and each block size
@@ -2668,4 +3026,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharding-rank"]:
+        sys.exit(sharding_rank(*(int(v) for v in sys.argv[2:5])))
     sys.exit(main())

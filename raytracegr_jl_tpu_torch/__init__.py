@@ -14,7 +14,12 @@ with learning-rate schedules (``cosine_decay_schedule``) that resume from
 a checkpoint (``fit(..., opt_state=)``, utils/checkpoint.py), scene files
 (models/serialize.py) and the vectorized multistart
 (``fit_multistart``), whose starts share one grouped K3 and K4 launch per
-Adam step. Each kernel has its plain PyTorch version beside it. The
+Adam step; data parallelism over cards with torch.distributed
+(parallel/sharding.py: the pixel batch split over ranks, the loss and
+gradients all-reduced), and the generic-metric row-major route
+(``backend="rowmajor"``: ``dmetric``, ``christoffel``, ``geodesic``,
+``integrate_rays``) for any metric written as a function of torch ops.
+Each kernel has its plain PyTorch version beside it. The
 factories and the fits build on the CUDA card unless the caller names
 another device (``device="cpu"``). Importing the package imports torch
 and never jax; the CUDA kernels are built with nvcc at their first
@@ -23,7 +28,8 @@ launch.
 
 from .ops.metrics import (D, KerrSchildParams, Metric, kerr_schild,
                           make_metric, minkowski)
-from .ops.integrate import IntegratorConfig, TraceResult
+from .ops.geometry import Ray, christoffel, dmetric, geodesic, r2s, s2r
+from .ops.integrate import IntegratorConfig, TraceResult, integrate_rays
 from .ops.geodesic_cm import (impact_parameter_order, integrate_rays_cm,
                               integrate_rays_cuda)
 from .models.objects import (Disk, Plane, Scene, Sphere, distances,

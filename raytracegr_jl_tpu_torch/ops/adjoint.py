@@ -723,7 +723,8 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     at the start of segment s, ``P_ACTIVE = 0`` of one inactive there, and
     every ray's whole final state in ``ck[n_used]``. ``args`` from
     ``launch_args`` (built here if not given). Adds one to
-    ``forward_segment_cuda.launches`` per pass. A grouped route launches
+    ``forward_segment_cuda.launches`` per pass and its rays to
+    ``forward_segment_cuda.rays``. A grouped route launches
     the grouped kernel (each ray's parameters from its group's row of
     ``route.groups``) in the same one launch."""
     if ck.device.type != "cuda":
@@ -744,10 +745,12 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
     forward_segment_cuda.launches += 1
+    forward_segment_cuda.rays += B
     return used
 
 
 forward_segment_cuda.launches = 0
+forward_segment_cuda.rays = 0
 
 
 def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
@@ -755,7 +758,8 @@ def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
     """K4: the whole backward pass in one launch, one thread per ray; the
     same contract as ``backward_plain`` (a grouped route's rays with their
     groups' parameters); ``args`` as for K3. Adds one to
-    ``backward_cuda.launches`` per launch."""
+    ``backward_cuda.launches`` per launch and its rays to
+    ``backward_cuda.rays``."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
     prm, flags = args if args is not None else launch_args(route, ck)
@@ -776,10 +780,12 @@ def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     backward_cuda.launches += 1
+    backward_cuda.rays += B
     return ct0, pbar
 
 
 backward_cuda.launches = 0
+backward_cuda.rays = 0
 
 
 def run_segments(route: Route, P0: torch.Tensor):

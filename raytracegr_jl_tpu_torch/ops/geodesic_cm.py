@@ -875,7 +875,8 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     order. Raises for CPU tensors, a failed build, and what the kernel
     does not take (object kinds it does not know). Reads nothing from the
     card. Adds one to
-    ``integrate_rays_cuda.launches`` per launch."""
+    ``integrate_rays_cuda.launches`` per launch, and its rays to
+    ``integrate_rays_cuda.rays``."""
     if launch is None:
         _check_options(cfg)
         check_kernel_config(metric, scene, cfg)
@@ -925,6 +926,7 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
         if rc != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
         integrate_rays_cuda.launches += 1
+        integrate_rays_cuda.rays += B
     y_out, hit = y_out.t(), hit > 0
     if inv_order is not None:
         y_out, lam = y_out[inv_order], lam[inv_order]
@@ -933,3 +935,4 @@ def integrate_rays_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 
 integrate_rays_cuda.launches = 0
+integrate_rays_cuda.rays = 0

@@ -1,12 +1,25 @@
-"""Geometry helpers in PyTorch (counterpart of raytracegr_jl_tpu/ops/geometry.py):
-the dtype-aware sanitization bounds of every right-hand-side evaluation and
-the closed-form 4x4 inverse the camera uses."""
+"""Geometry in PyTorch (counterpart of raytracegr_jl_tpu/ops/geometry.py):
+the dtype-aware sanitization bounds of every right-hand-side evaluation,
+the closed-form 4x4 inverse, and the generic-metric route of the
+row-major integrator: the metric's coordinate derivative (``dmetric``,
+by automatic differentiation in one evaluation of the metric), the
+Christoffel symbols and the geodesic right-hand side for any metric
+written as a function of torch ops.
+
+The JAX functions take one event ``x [4]`` and are batched with
+``jax.vmap``; these take ``[..., 4]`` (or ``[..., 8]``) directly. A metric
+must then be pointwise over the leading axes (each ``g[i]`` a function of
+``x[i]`` alone), as every metric of the package is."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from .metrics import D
+
+MetricFn = Callable[[torch.Tensor], torch.Tensor]
 
 # State and RHS magnitude bounds (derivation in the JAX package's
 # ops/geometry.py): they only bite for garbage states of dying rays and keep
@@ -61,3 +74,69 @@ def inv4(g: torch.Tensor) -> torch.Tensor:
     rows = [torch.stack([cof[b][a] * inv_det for b in range(4)], dim=-1)
             for a in range(4)]
     return torch.stack(rows, dim=-2)
+
+
+def dmetric(metric: MetricFn, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Metric and its coordinate derivative: ``g [..., 4, 4]`` and
+    ``dg [..., 4, 4, 4]`` with ``dg[..., a, b, c] = d_c g_ab``, from one
+    evaluation of the metric on four stacked copies of ``x``, copy c
+    differentiated along e_c (the JAX package's ``_value_and_jacfwd``, a
+    jvp per basis vector sharing one pass). The jvps come from two
+    vector-Jacobian products (``torch.func.vjp``): ``u(w) = J^T w`` is
+    linear in ``w``, so its vjp with e_c is ``J e_c``. Forward mode
+    (``torch.func.jvp``) gives the same numbers, but PyTorch gives the
+    tangent of every constant operand as a ZeroTensor, whose operations
+    run through Python meta functions: twice as slow for Kerr-Schild.
+    ``torch.func`` works on its own level of the graph, so the cost does
+    not grow with the history of ``x``, and reverse mode runs through the
+    result where gradients are enabled."""
+    stacked = (x.shape[-1],) + x.shape
+    g, pull = torch.func.vjp(metric, x.expand(stacked))
+    _, pull_w = torch.func.vjp(lambda w: pull(w)[0], torch.zeros_like(g))
+    basis = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    (dg,) = pull_w(basis.reshape(stacked[:1] + (1,) * (x.dim() - 1)
+                                 + stacked[-1:]).expand(stacked))
+    return g[0], dg.movedim(0, -1)
+
+
+def christoffel(metric: MetricFn, x: torch.Tensor) -> torch.Tensor:
+    """Christoffel symbols of the second kind, ``Gamma^a_bc`` ``[..., 4, 4,
+    4]``: ``(dg[a,b,c] + dg[a,c,b] - dg[b,c,a]) / 2`` raised with ``inv4``."""
+    g, dg = dmetric(metric, x)
+    gu = inv4(g)
+    gamma_l = (dg + dg.transpose(-1, -2) - dg.movedim(-1, -3)) / 2
+    return torch.einsum("...ad,...dbc->...abc", gu, gamma_l)
+
+
+class Ray(NamedTuple):
+    """Ray state: position x^a and 4-velocity u^a."""
+
+    x: torch.Tensor  # [..., 4]
+    u: torch.Tensor  # [..., 4]
+
+
+def r2s(r: Ray) -> torch.Tensor:
+    """Pack a Ray into a flat state ``[..., 8]``."""
+    return torch.cat([r.x, r.u], dim=-1)
+
+
+def s2r(s: torch.Tensor) -> Ray:
+    """Unpack a flat state ``[..., 8]`` into a Ray."""
+    return Ray(x=s[..., :D], u=s[..., D:])
+
+
+def geodesic(s: torch.Tensor, metric: MetricFn) -> torch.Tensor:
+    """Geodesic right-hand side on flat states ``[..., 8]``: dx/dl = u,
+    du/dl = -Gamma u u."""
+    x, u = s[..., :D], s[..., D:]
+    gamma = christoffel(metric, x)
+    udot = -torch.einsum("...abc,...b,...c->...a", gamma, u, u)
+    return torch.cat([u, udot], dim=-1)
+
+
+def geodesic_batched(metric: MetricFn) -> Callable[[torch.Tensor],
+                                                   torch.Tensor]:
+    """The right-hand side over a ray batch, ``[B, 8] -> [B, 8]``
+    (``geodesic`` is batched already; the JAX package vmaps its own)."""
+    return lambda s: geodesic(s, metric)

@@ -1,8 +1,13 @@
 """Integrator configuration, Tsit5 tableau, dense output and the initial step
-(counterpart of raytracegr_jl_tpu/ops/integrate.py).
+(counterpart of raytracegr_jl_tpu/ops/integrate.py), and the row-major
+integrator over an arbitrary right-hand side.
 
-The batched step loop itself lives in ops/geodesic_cm.py (plain version)
-and csrc/geodesic.cu (the kernel); this module holds what both share.
+The component-major step loop of the closed-form metrics lives in
+ops/geodesic_cm.py (plain version) and csrc/geodesic.cu (the kernel). The
+row-major route here (``integrate_rays``, ``integrate_rays_scan``) steps
+a ray batch ``[B, 8]`` through any ``rhs`` and ``event_fn`` written in
+torch ops: the generic-metric route of render.py's ``"rowmajor"``
+backend (the JAX package's ``"xla"``), plain torch on every device.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 # Tsitouras 5(4) tableau (FSAL), the published coefficients.
 TS_C = (0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0)
@@ -37,7 +43,10 @@ TS_BTILDE = (
 # while keeping every downstream power and sqrt finite in f32.
 ERR_BIG = 1e30
 
-RHS = Callable[[torch.Tensor], torch.Tensor]
+RHS = Callable[[torch.Tensor], torch.Tensor]  # [B, 8] -> [B, 8]
+# [..., 8] -> [...], pointwise over the leading axes (the detection
+# sweep evaluates it on [interp_points, B, 8] at once).
+EventFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 class IntegratorConfig(NamedTuple):
@@ -205,3 +214,318 @@ def hairer_init_dt(f: RHS, y0: torch.Tensor, rtol, atol, order: int = 5,
 
 
 BMAX_TSIT5, HERMITE_ENV = dense_output_envelopes()
+
+
+# ---------------------------------------------------------------------------
+# The row-major route: steppers, event localization and the two drivers,
+# as the JAX package's (same names, same operation order).
+# ---------------------------------------------------------------------------
+
+def tsit5_step(f: RHS, y: torch.Tensor, dt: torch.Tensor, k1: torch.Tensor):
+    """One Tsit5 stage sweep over ``y [B, 8]`` with per-ray ``dt [B]`` and
+    ``k1 = f(y)`` (FSAL): ``(y5, err, k7, (k1..k7))``."""
+    d = dt[..., None]
+    A = TS_A
+    k2 = f(y + d * (A[0][0] * k1))
+    k3 = f(y + d * (A[1][0] * k1 + A[1][1] * k2))
+    k4 = f(y + d * (A[2][0] * k1 + A[2][1] * k2 + A[2][2] * k3))
+    k5 = f(y + d * (A[3][0] * k1 + A[3][1] * k2 + A[3][2] * k3
+                    + A[3][3] * k4))
+    k6 = f(y + d * (A[4][0] * k1 + A[4][1] * k2 + A[4][2] * k3
+                    + A[4][3] * k4 + A[4][4] * k5))
+    y5 = y + d * (A[5][0] * k1 + A[5][1] * k2 + A[5][2] * k3
+                  + A[5][3] * k4 + A[5][4] * k5 + A[5][5] * k6)
+    k7 = f(y5)
+    Bt = TS_BTILDE
+    err = d * (Bt[0] * k1 + Bt[1] * k2 + Bt[2] * k3 + Bt[3] * k4
+               + Bt[4] * k5 + Bt[5] * k6 + Bt[6] * k7)
+    return y5, err, k7, (k1, k2, k3, k4, k5, k6, k7)
+
+
+def rk4_step(f: RHS, y: torch.Tensor, dt: torch.Tensor, k1: torch.Tensor):
+    """Classic RK4: ``(y1, zero error, f(y1), None)`` (the event sweep uses
+    cubic Hermite dense output)."""
+    d = dt[..., None]
+    k2 = f(y + 0.5 * d * k1)
+    k3 = f(y + 0.5 * d * k2)
+    k4 = f(y + d * k3)
+    y1 = y + (d / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y1, torch.zeros_like(y1), f(y1), None
+
+
+def error_norm(err, y0, y1, rtol, atol):
+    """Hairer's scaled RMS error norm over the 8 components, per ray; the
+    ratio clamped before squaring and the mean floored inside the sqrt
+    (both keep f32 and the sqrt's derivative finite; see the JAX
+    package)."""
+    sc = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
+    ratio = torch.clamp(err / sc, -1e15, 1e15)
+    return torch.sqrt(torch.clamp_min(torch.mean(ratio ** 2, dim=-1), 1e-30))
+
+
+def tsit5_interp(y0, ks, dt, theta):
+    """Tsit5's 4th-order dense output, row-major: ``y0``, ``ks`` ``[B, 8]``,
+    ``dt [B]``, ``theta`` broadcastable against ``[B]``."""
+    bs = tsit5_bi(theta[..., None])
+    acc = bs[0] * ks[0]
+    for b, k in zip(bs[1:], ks[1:]):
+        acc = acc + b * k
+    return y0 + dt[..., None] * acc
+
+
+def _locate_event(event_fn: EventFn, y0, y1, f0, f1, dt,
+                  cfg: IntegratorConfig, ks=None):
+    """The first zero crossing of the event function within a step:
+    ``(crossed [B], theta* [B], y* [B, 8])``. The sweep samples the dense
+    output (Tsit5's with ``ks``, cubic Hermite without) at
+    ``interp_points`` interior thetas on detached copies; with
+    ``refine_minima`` it trisects the samples' argmin bracket; bisection
+    runs only where some ray crossed (a host read: JAX's ``lax.cond``);
+    one Newton step through the event function from the detached root
+    carries the root's gradient."""
+    B = y0.shape[0]
+    npts = cfg.interp_points
+    dtype, dev = y0.dtype, y0.device
+    thetas = torch.arange(1, npts + 1, dtype=dtype, device=dev) / npts
+    y0s, y1s, f0s, f1s, dts = (t.detach() for t in (y0, y1, f0, f1, dt))
+    if ks is not None:
+        kss = tuple(k.detach() for k in ks)
+
+        def interp_s(th):
+            return tsit5_interp(y0s, kss, dts, th)
+
+        def interp_g(th):
+            return tsit5_interp(y0, ks, dt, th)
+    else:
+        def interp_s(th):
+            return hermite_interp(y0s, y1s, f0s, f1s, dts[..., None],
+                                  th[..., None])
+
+        def interp_g(th):
+            return hermite_interp(y0, y1, f0, f1, dt[..., None],
+                                  th[..., None])
+    d_prev = event_fn(y0s)
+
+    def sample(theta):
+        return event_fn(interp_s(theta))
+
+    d_samples = sample(thetas[:, None].expand(npts, B))  # [npts, B]
+    neg = d_samples <= 0.0
+    any_neg = neg.any(dim=0)
+    first = torch.argmax(neg.to(torch.uint8), dim=0)
+    th_hi = thetas[first]
+    th_lo = torch.where(first == 0, torch.zeros_like(th_hi),
+                        thetas[first - 1])
+
+    if cfg.refine_minima:
+        th_all = torch.cat([torch.zeros((1,), dtype=dtype, device=dev),
+                            thetas])
+        d_all = torch.cat([d_prev[None], d_samples], dim=0)
+        mi = torch.argmin(d_all, dim=0)
+        lo_i = torch.clamp_min(mi - 1, 0)
+        a, b = th_all[lo_i], th_all[torch.clamp_max(mi + 1, npts)]
+        for _ in range(cfg.min_refine_iters):
+            m1 = a + (b - a) / 3.0
+            m2 = b - (b - a) / 3.0
+            take = sample(m1) < sample(m2)
+            a, b = torch.where(take, a, m1), torch.where(take, m2, b)
+        th_min = 0.5 * (a + b)
+        min_neg = sample(th_min) <= 0.0
+        use_min = min_neg & (~any_neg | (th_all[lo_i] < th_lo))
+        th_lo = torch.where(use_min, th_all[lo_i], th_lo)
+        th_hi = torch.where(use_min, th_min, th_hi)
+        any_neg = any_neg | min_neg
+
+    crossed = any_neg & (d_prev > 0.0)
+    lo, hi = th_lo, th_hi
+    _locate_event.host_reads += 1
+    if bool(crossed.any()):
+        for _ in range(cfg.bisect_iters):
+            mid = 0.5 * (lo + hi)
+            above = sample(mid) > 0.0
+            lo, hi = torch.where(above, mid, lo), torch.where(above, hi, mid)
+    # The residual's theta-derivative as a vjp with ones: each ray's
+    # residual depends on its own theta alone (torch.func.jvp gives the
+    # same numbers, slower; see geometry.dmetric).
+    th0 = hi.detach()
+    val, pull = torch.func.vjp(lambda th: event_fn(interp_g(th)), th0)
+    (dval,) = pull(torch.ones_like(val))
+    # A relative slope threshold keeps val/dval and its derivatives bounded
+    # for garbage rays; near-tangential hits keep the bisection's root.
+    ok = torch.abs(dval) > 1e-3 * (1.0 + torch.abs(val))
+    delta = (torch.where(ok, val, torch.zeros_like(val))
+             / torch.where(ok, dval, torch.ones_like(dval)))
+    th_star = torch.clamp(th0 - torch.clamp(delta, -1.0, 1.0), 0.0, 1.0)
+    return crossed, th_star, interp_g(th_star)
+
+
+_locate_event.host_reads = 0
+
+
+class _LoopState(NamedTuple):
+    y: torch.Tensor
+    lam: torch.Tensor
+    dt: torch.Tensor
+    k1: torch.Tensor
+    active: torch.Tensor
+    hit: torch.Tensor
+    steps: torch.Tensor
+    err_old: torch.Tensor
+    it: int
+
+
+def _make_step_body(rhs: RHS, event_fn: EventFn, cfg: IntegratorConfig):
+    """The step body shared by ``integrate_rays`` and
+    ``integrate_rays_scan``: one masked step of every ray."""
+    if cfg.state_cap > 0.0:
+        raw_rhs = rhs
+
+        def rhs(y, _cap=cfg.state_cap):  # noqa: F811 (the capped rhs)
+            return raw_rhs(torch.clamp(y, -_cap, _cap))
+
+    stepper = tsit5_step if cfg.method == "tsit5" else rk4_step
+    adaptive = cfg.method == "tsit5"
+
+    def body(st: _LoopState) -> _LoopState:
+        lam_left = cfg.lam_max - st.lam
+        dt_try = torch.clamp_min(torch.minimum(st.dt, lam_left), cfg.dt_min)
+        dt_try = torch.where(torch.isfinite(dt_try), dt_try,
+                             torch.full_like(dt_try, cfg.dt_min))
+        # Step sizes are solver state, not physics: no gradient through
+        # them (physical gradients flow via the stages and the event).
+        dt_try = dt_try.detach()
+
+        y_new, err, k_last, ks = stepper(rhs, st.y, dt_try, st.k1)
+        fin = torch.isfinite(y_new).all(dim=-1)
+
+        if adaptive:
+            en = error_norm(err, st.y, y_new, cfg.rtol, cfg.atol)
+            bad = ~torch.isfinite(en) | ~fin
+            en = torch.where(bad, torch.full_like(en, ERR_BIG), en)
+            accept = en <= 1.0
+            en_c = torch.clamp_min(en, 1e-10)
+            q_pi = (cfg.safety * en_c ** (-cfg.beta1)
+                    * torch.clamp_min(st.err_old, cfg.qold_init)
+                    ** cfg.beta2)
+            q_rej = cfg.safety * en_c ** (-0.2)
+            q = torch.where(accept, q_pi, torch.clamp_max(q_rej, 1.0))
+            q = torch.clamp(q, cfg.qmin, cfg.qmax)
+            dt_next = torch.clamp(dt_try * q, cfg.dt_min, cfg.lam_max)
+            dead = (bad | ~accept) & (dt_try <= 2 * cfg.dt_min)
+        else:
+            en = torch.ones_like(st.lam)
+            bad = ~fin
+            accept = ~bad
+            dt_next = torch.full_like(st.dt, cfg.rk4_dt)
+            dead = bad
+
+        if cfg.stop_rho > 0.0:
+            rho2 = torch.sum(y_new[..., 1:4] ** 2, dim=-1)
+            dead = dead | (rho2 < cfg.stop_rho ** 2)
+
+        do = st.active & accept
+        # Localization never sees a non-finite trial state (NaN primals
+        # poison reverse-mode cotangents of the whole batch).
+        fin_c = fin[..., None]
+        y_evt = torch.where(fin_c, y_new, st.y)
+        k_evt = torch.where(fin_c, k_last, st.k1)
+        ks_evt = (None if ks is None else
+                  tuple(torch.where(fin_c, k, torch.zeros_like(k))
+                        for k in ks))
+        crossed, th_star, y_star = _locate_event(
+            event_fn, st.y, y_evt, st.k1, k_evt, dt_try, cfg, ks=ks_evt)
+        hit_now = do & crossed
+
+        y_acc = torch.where(hit_now[..., None], y_star, y_new)
+        lam_acc = st.lam + torch.where(hit_now, th_star * dt_try, dt_try)
+        done_span = lam_acc >= cfg.lam_max - 1e-12
+
+        return _LoopState(
+            y=torch.where(do[..., None], y_acc, st.y),
+            lam=torch.where(do, lam_acc, st.lam),
+            dt=torch.where(st.active, dt_next, st.dt),
+            k1=torch.where(do[..., None], k_last, st.k1),
+            active=st.active & ~hit_now & ~(do & done_span) & ~dead,
+            hit=st.hit | hit_now,
+            steps=st.steps + do.to(st.steps.dtype),
+            err_old=torch.where(do, torch.clamp_min(en, cfg.qold_init),
+                                st.err_old),
+            it=st.it + 1)
+
+    return body
+
+
+def _init_state(rhs: RHS, y0: torch.Tensor,
+                cfg: IntegratorConfig) -> _LoopState:
+    B, dtype, dev = y0.shape[0], y0.dtype, y0.device
+    if cfg.method == "tsit5":
+        dt0 = hairer_init_dt(rhs, y0, cfg.rtol, cfg.atol, 5, cfg.lam_max)
+    else:
+        dt0 = torch.full((B,), cfg.rk4_dt, dtype=dtype, device=dev)
+    return _LoopState(
+        y=y0, lam=torch.zeros((B,), dtype=dtype, device=dev), dt=dt0,
+        k1=rhs(y0), active=torch.ones((B,), dtype=torch.bool, device=dev),
+        hit=torch.zeros((B,), dtype=torch.bool, device=dev),
+        steps=torch.zeros((B,), dtype=torch.int32, device=dev),
+        err_old=torch.full((B,), cfg.qold_init, dtype=dtype, device=dev),
+        it=0)
+
+
+def _result(st: _LoopState) -> TraceResult:
+    return TraceResult(y=st.y, lam=st.lam, hit=st.hit, steps=st.steps,
+                       n_iters=st.it)
+
+
+def integrate_rays(rhs: RHS, event_fn: EventFn, y0: torch.Tensor,
+                   cfg: IntegratorConfig) -> TraceResult:
+    """The forward route: masked batched steps of ``y0 [B, 8]`` until every
+    ray has hit a surface, spent the span or died, or ``max_steps``
+    iterations have run (JAX's ``lax.while_loop``), without gradients.
+    Each iteration reads ``active.any()`` on the host, and the event
+    sweep reads whether any ray crossed (``integrate_rays.host_reads`` and
+    ``_locate_event.host_reads`` count them)."""
+    with torch.no_grad():
+        body = _make_step_body(rhs, event_fn, cfg)
+        st = _init_state(rhs, y0, cfg)
+        while st.it < cfg.max_steps:
+            integrate_rays.host_reads += 1
+            if not bool(st.active.any()):
+                break
+            st = body(st)
+    return _result(st)
+
+
+integrate_rays.host_reads = 0
+
+
+def integrate_rays_scan(rhs: RHS, event_fn: EventFn, y0: torch.Tensor,
+                        cfg: IntegratorConfig,
+                        remat: bool = True) -> TraceResult:
+    """The differentiable route: the same body for exactly ``max_steps``
+    iterations (JAX's bounded ``lax.scan``), taped by autograd. With
+    ``remat`` each step is checkpointed: the backward pass recomputes a
+    step's stages from its input state, so the tape holds one state per
+    step. The checkpoint is torch's reentrant one (``use_reentrant=True``;
+    the non-reentrant one's saved-tensor hooks exclude the ``torch.func``
+    derivatives of ops/geometry.py), whose backward accumulates into the
+    leaves that ``rhs`` and ``event_fn`` close over: differentiate the
+    result with ``.backward()``, not ``torch.autograd.grad``."""
+    body = _make_step_body(rhs, event_fn, cfg)
+    st = _init_state(rhs, y0, cfg)
+    if not remat:
+        for _ in range(cfg.max_steps):
+            st = body(st)
+        return _result(st)
+    # The reentrant checkpoint tracks tensors passed directly, and its
+    # outputs require grad only where an input does: a leaf that requires
+    # grad stands in for the parameters the closures hold.
+    anchor = torch.empty(0, dtype=y0.dtype, device=y0.device,
+                         requires_grad=True)
+
+    def flat_body(it, _anchor, *tensors):
+        return tuple(body(_LoopState(*tensors, it=it))[:-1])
+
+    for _ in range(cfg.max_steps):
+        st = _LoopState(*checkpoint(flat_body, st.it, anchor, *st[:-1],
+                                    use_reentrant=True), it=st.it + 1)
+    return _result(st)

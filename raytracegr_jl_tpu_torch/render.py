@@ -6,7 +6,12 @@ The forward render integrates with K1 (the CUDA kernel, or its plain
 PyTorch version). The differentiable render (``differentiable=True``)
 integrates with the checkpointed adjoint of ops/adjoint.py: K3 and K4 on
 CUDA tensors, their plain versions on CPU tensors, or autograd through
-every step with ``grad_mode="scan"``. Shading is the
+every step with ``grad_mode="scan"``. The ``"rowmajor"`` backend (the
+JAX package's ``"xla"``) takes any metric function: the geodesic
+right-hand side by automatic differentiation of the metric
+(ops/geometry.py) and
+the row-major integrator of ops/integrate.py, plain torch on every
+device. Shading is the
 reference's hard shading, ``shade_soft`` when ``soft_temp`` is set, or the
 gravitational-redshift shading of models/shading.py with
 ``shading="redshift"``. The compacted forward render is in compaction.py."""
@@ -24,10 +29,16 @@ from .ops.adjoint import (integrate_rays_autograd, integrate_rays_ckpt,
                           integrate_rays_ckpt_cuda)
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
                               integrate_rays_cuda, launch_config)
-from .ops.integrate import IntegratorConfig, TraceResult, hairer_init_dt
-from .ops.metrics import Metric
+from .models.objects import min_distance
+from .ops.geometry import MetricFn, geodesic, sanitize_bounds
+from .ops.integrate import (IntegratorConfig, TraceResult, hairer_init_dt,
+                            integrate_rays, integrate_rays_scan)
+from .ops.metrics import KerrSchildParams, Metric
 
+# The component-major backends, which take a ``Metric`` (and the
+# compacted render); "rowmajor" takes any metric function.
 BACKENDS = ("torch", "cuda")
+ROWMAJOR = "rowmajor"
 SHADINGS = ("reference", "redshift")
 
 
@@ -36,8 +47,10 @@ class RenderConfig(NamedTuple):
     without ``pallas_interpret`` (a CUDA kernel has no interpreter).
 
     ``backend``: ``"cuda"`` (the kernels), ``"torch"`` (their plain
-    versions) or None, which picks ``"cuda"`` for CUDA tensors and
-    ``"torch"`` for CPU tensors. ``shading``: ``"reference"`` (hard, or
+    versions), None, which picks ``"cuda"`` for CUDA tensors and
+    ``"torch"`` for CPU tensors, or ``"rowmajor"`` (any metric function;
+    the differentiable path tapes every step, the grad_mode fields do not
+    apply). ``shading``: ``"reference"`` (hard, or
     soft with ``soft_temp``) or ``"redshift"`` (g-factor beaming)."""
 
     integrator: IntegratorConfig = IntegratorConfig()
@@ -68,11 +81,16 @@ GRAD_MODES = ("auto", "ckpt", "ckpt_cuda", "scan")
 MIN_RAYS_PER_GRAD_GROUP = 2 * 128
 
 
-def _check(cfg: RenderConfig) -> None:
+def _check(cfg: RenderConfig, metric=None) -> None:
     if cfg.shading not in SHADINGS:
         raise ValueError(f"unknown shading: {cfg.shading!r}")
-    if cfg.backend not in BACKENDS + (None,):
+    if cfg.backend not in BACKENDS + (ROWMAJOR, None):
         raise ValueError(f"unknown backend: {cfg.backend!r}")
+    if (metric is not None and not isinstance(metric, Metric)
+            and cfg.backend != ROWMAJOR):
+        raise ValueError(f"a metric function ({metric!r}) renders only with "
+                         f"backend={ROWMAJOR!r}; the backend "
+                         f"{cfg.backend!r} takes a Metric")
     if not cfg.differentiable:
         return
     if cfg.integrator.grad_mode not in GRAD_MODES:
@@ -98,7 +116,18 @@ def initial_dt(metric: Metric, y0: torch.Tensor,
                           integ.rtol, integ.atol, 5, integ.lam_max)
 
 
-def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
+def _sanitized_rhs(metric: MetricFn):
+    """The row-major right-hand side ``[B, 8] -> [B, 8]`` of any metric
+    function, its input and output clamped by the dtype's bounds
+    (``sanitize_bounds``)."""
+    def rhs(y):
+        state_clamp, rhs_clamp = sanitize_bounds(y.dtype)
+        k = geodesic(torch.clamp(y, -state_clamp, state_clamp), metric)
+        return torch.clamp(k, -rhs_clamp, rhs_clamp)
+    return rhs
+
+
+def trace_batch(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
                 cfg: RenderConfig, launch=None,
                 groups: int | None = None) -> TraceResult:
     """Integrate a flat ray batch ``[B, 8]`` to termination. With
@@ -106,11 +135,18 @@ def trace_batch(metric: Metric, scene: Scene, y0: torch.Tensor,
     and a, and the scene; the initial step does not (the body detaches
     every step size). ``launch``: K1's launch setup (``launch_config``) for
     the CUDA backend, where the caller keeps one. ``groups``: a grouped
-    batch of the differentiable path (``integrate_rays_ckpt``)."""
-    _check(cfg)
-    if groups is not None and not cfg.differentiable:
+    batch of the differentiable path (``integrate_rays_ckpt``). The
+    ``"rowmajor"`` backend takes any metric function: the row-major
+    ``integrate_rays``, or ``integrate_rays_scan`` when differentiable."""
+    _check(cfg, metric)
+    if groups is not None and (not cfg.differentiable
+                               or cfg.backend == ROWMAJOR):
         raise NotImplementedError("a grouped batch needs the differentiable "
-                                  "path")
+                                  "path of a component-major backend")
+    if cfg.backend == ROWMAJOR:
+        run = integrate_rays_scan if cfg.differentiable else integrate_rays
+        return run(_sanitized_rhs(metric), lambda y: min_distance(scene, y),
+                   y0, cfg.integrator)
     if cfg.differentiable:
         return _trace_differentiable(metric, scene, y0, cfg, groups)
     if resolve_backend(cfg, y0) == "cuda":
@@ -160,7 +196,7 @@ def _trace_differentiable(metric: Metric, scene: Scene, y0: torch.Tensor,
                                parts)
 
 
-def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,
+def trace_rays(metric: Metric | MetricFn, scene: Scene, canvas: Canvas,
                cfg: RenderConfig | None = None) -> Canvas:
     """Render: returns the canvas with ``rgb`` filled."""
     if cfg is None:
@@ -170,7 +206,7 @@ def trace_rays(metric: Metric, scene: Scene, canvas: Canvas,
     return canvas._replace(rgb=rgb)
 
 
-def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig,
+def render_fn(metric: Metric | MetricFn, scene: Scene, cfg: RenderConfig,
               groups: int | None = None):
     """``(pos, normal) -> rgb`` closure over a fixed scene and config. On
     the CUDA backend K1's launch setup is built at the first call for each
@@ -178,10 +214,9 @@ def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig,
     tensor, whose value the caller may change between calls, it is built
     anew for each call. ``groups``: the rays form that many groups, each
     with its own parameters (``trace_batch``)."""
-    _check(cfg)
-    params = metric.params
-    keep = not cfg.differentiable and not any(
-        isinstance(v, torch.Tensor) for v in (params.M, params.a))
+    _check(cfg, metric)
+    keep = cfg.backend != ROWMAJOR and not cfg.differentiable and not any(
+        isinstance(v, torch.Tensor) for v in metric.params)
     launches = {}
 
     def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
@@ -200,12 +235,13 @@ def render_fn(metric: Metric, scene: Scene, cfg: RenderConfig,
     return fn
 
 
-def _shade(metric: Metric, scene: Scene, y0: torch.Tensor, y: torch.Tensor,
-           cfg: RenderConfig) -> torch.Tensor:
+def _shade(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
+           y: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """The end states' colours ``[B, 3]``; ``y0`` the launch states (the
-    redshift shading's camera frequency)."""
+    redshift shading's camera frequency; M = a = 0 for a metric function
+    without ``params``)."""
     if cfg.shading == "redshift":
-        p = metric.params
+        p = getattr(metric, "params", KerrSchildParams(M=0.0, a=0.0))
         return shade_redshift(metric, scene, y0, y, p.M, p.a, cfg.hit_dmin,
                               cfg.beaming, cfg.exposure)
     if cfg.soft_temp is not None:

@@ -755,3 +755,88 @@ def test_sorted_gradients_through_k3_k4_bitwise(method, max_steps):
         out.append(torch.cat([loss.detach()[None], p.M.grad[None],
                               p.a.grad[None], p.sphere_pos.grad]))
     assert torch.equal(out[0], out[1])
+
+
+def test_sharded_nccl_world_size_1_bitwise():
+    """parallel/sharding.py over NCCL at world size 1: the sharded
+    training step equals the unsharded loss and gradients bitwise (one K3
+    and one K4 launch on every ray), and the sharded render gathered
+    equals render_fn's."""
+    import socket
+
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                     forward_segment_cuda)
+    from raytracegr_jl_tpu_torch.parallel import sharding as S
+    dev, f32 = torch.device("cuda"), torch.float32
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert not S.init_distributed(f"localhost:{port}", 1, 0, local_rank=0)
+    try:
+        mesh = S.make_mesh()
+        spec = T.example2_spec(32, 32)
+        cfg = T.default_inverse_cfg(f32, max_steps=40, rk4_dt=2.5,
+                                    stop_rho=0.5)
+        xg, ng = T.flat_pixel_grid(spec, f32, dev)
+        with torch.no_grad():
+            target = T.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+                T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev),
+                xg, ng)
+        loss_fn = T.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+
+        def params():
+            return T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+        p = params()
+        ref = loss_fn(p, xg, ng, target)
+        ref.backward()
+        before = (forward_segment_cuda.rays, backward_cuda.rays)
+        loss, g = S.sharded_value_and_grad(loss_fn, mesh)(
+            params(), *S.shard_pixels(mesh, xg, ng, target))
+        assert (forward_segment_cuda.rays - before[0],
+                backward_cuda.rays - before[1]) == (1024, 1024)
+        assert torch.equal(loss, ref.detach())
+        for name in ("M", "a", "sphere_pos"):
+            assert torch.equal(getattr(g, name), getattr(p, name).grad)
+        metric, scene, canvas = T.build(spec, f32, dev)
+        fn = T.render_fn(metric, scene, T.RenderConfig(
+            integrator=T.IntegratorConfig(rtol=TOL32, atol=TOL32,
+                                          max_steps=20_000)))
+        rgb = S.gather_rows(mesh, S.sharded_render(fn, mesh)(
+            *S.shard_pixels(mesh, canvas.pos, canvas.normal)))
+        assert torch.equal(rgb, fn(canvas.pos, canvas.normal))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_rowmajor_route_on_the_card():
+    """backend="rowmajor" on CUDA tensors at 8x8 f64: the render within
+    1e-9 of K1's with equal hits, and the scan's (M, a, sphere_pos)
+    gradients within rtol 1e-9 of the kernel route's (K3/K4)."""
+    from raytracegr_jl_tpu_torch.render import _shade, trace_batch
+    dev, f64 = torch.device("cuda"), torch.float64
+    spec = T.example2_spec(8, 8)
+    metric, scene, canvas = T.build(spec, f64, dev)
+    integ = T.IntegratorConfig(rtol=1e-9, atol=1e-9, max_steps=1000)
+    cfg = T.RenderConfig(integrator=integ, backend="rowmajor")
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    res = trace_batch(metric, scene, y0, cfg)
+    k1 = integrate_rays_cuda(metric, scene, y0, None, integ)
+    assert torch.equal(res.hit, k1.hit)
+    torch.testing.assert_close(_shade(metric, scene, y0, res.y, cfg),
+                               _shade(metric, scene, y0, k1.y, cfg),
+                               rtol=0, atol=1e-9)
+    xg, ng = T.flat_pixel_grid(spec, f64, dev)
+    gcfg = T.default_inverse_cfg(f64, max_steps=20, rk4_dt=0.5, stop_rho=0.5)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, gcfg, 2, f64, dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f64, dev), xg, ng)
+    grads = []
+    for c in (gcfg._replace(backend="rowmajor"), gcfg):
+        p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f64, dev)
+        T.make_ray_loss_fn(spec, c, 2, f64, dev)(p, xg, ng, target).backward()
+        grads.append(torch.cat([p.M.grad[None], p.a.grad[None],
+                                p.sphere_pos.grad]))
+    scale = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-9,
+                               atol=1e-10 * scale)

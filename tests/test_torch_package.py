@@ -31,7 +31,18 @@ MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.inverse",
            "raytracegr_jl_tpu_torch.utils.convert",
            "raytracegr_jl_tpu_torch.utils.cuda_build",
-           "raytracegr_jl_tpu_torch.utils.image"]
+           "raytracegr_jl_tpu_torch.utils.image",
+           "raytracegr_jl_tpu_torch.parallel.sharding",
+           "raytracegr_jl_tpu_torch.ops.geometry",
+           "raytracegr_jl_tpu_torch.ops.integrate"]
+# The generic-metric API the JAX package exports, and the sharding entry
+# points.
+NAMES = {"raytracegr_jl_tpu_torch": ["dmetric", "christoffel", "geodesic",
+                                     "Ray", "r2s", "s2r", "integrate_rays"],
+         "raytracegr_jl_tpu_torch.parallel.sharding": [
+             "init_distributed", "make_mesh", "pad_rows", "shard_pixels",
+             "global_pixels", "crop_rows", "gather_rows", "sharded_render",
+             "sharded_value_and_grad"]}
 
 
 def _small(dtype=torch.float64):
@@ -42,6 +53,8 @@ def _small(dtype=torch.float64):
 
 def test_import_never_loads_jax():
     code = ("import sys\n" + "".join(f"import {m}\n" for m in MODULES)
+            + "".join(f"from {m} import {', '.join(names)}\n"
+                      for m, names in NAMES.items())
             + "assert 'jax' not in sys.modules, sorted(m for m in "
             "sys.modules if m.startswith('jax'))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
