@@ -23,8 +23,10 @@ ungated disk render, drives data parallelism (parallel/sharding.py: the
 training step and the 1024x1024 render over NCCL at world size 1, bitwise
 to the unsharded ones, and two gloo ranks on the one card, each a
 subprocess of this script, K1, K3 and K4 on half the rays each), holds
-the generic-metric row-major route to K1 at f64 and times it, and
-diagnoses K2 on the disk's packed tail (SASS instruction mix, the tail's
+the generic-metric row-major route to K1 at f64 and times it, holds the
+training path's f64 gradients through K3 and K4 (and the row-major
+route's) to the Dual oracle (ops/dual_oracle.py, forward mode by hand),
+and diagnoses K2 on the disk's packed tail (SASS instruction mix, the tail's
 work replicated and cut, block sizes).
 
     python3 chip_smoke.py
@@ -2389,6 +2391,140 @@ def rowmajor_slice(dev, card: str) -> dict:
     return {"ms64": ms64, "ms200": ms200}
 
 
+# The Dual oracle's configuration (the JAX package's
+# tests/test_dual_oracle.py): example2, f64, RK4 with 20 steps of 0.25,
+# M0 = 1.05, a = 0, sphere 2. Its bars: the primal on every pixel within
+# ORACLE_PRIMAL_ATOL, the loss gradients and projections within a relative
+# ORACLE_GRAD_RTOL (ROADMAP C's bar for gradients); at least 3 sphere hits
+# and real signal in both tangents, as in the JAX tests.
+ORACLE_N_STEPS = 20
+ORACLE_RK4_DT = 0.25
+ORACLE_M0 = 1.05
+ORACLE_SPHERE = 2
+ORACLE_PRIMAL_ATOL = 1e-12
+ORACLE_GRAD_RTOL = 1e-9
+ORACLE_SEED = 9
+# Host syncs per oracle render: the scene's four fields, read once.
+ORACLE_SCENE_READS = 4
+
+
+def dual_oracle_case(dev, card: str, reset_counts, n: int,
+                     backend: str | None) -> dict:
+    """The Dual oracle (ops/dual_oracle.py: forward mode by hand, sharing
+    no derivative code with the port) against one differentiable route of
+    the training path at example2 n x n f64: the route's primal, the loss
+    gradients for M (target at M = 1) and for the sphere's z (target 0.9
+    times the render) through make_ray_loss_fn, and both gradients of a
+    seeded projection sum(w * rgb), against the oracle's mean(2 (rgb -
+    target) drgb) and sum(w * drgb). The route is driven with the launch
+    counts set to 0 just before and read just after."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.dual_oracle import \
+        render_dual_sensitivity
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    label = backend or "K3/K4"
+    spec = rt.example2_spec(n, n)
+    cfg = rt.default_inverse_cfg(f64, max_steps=ORACLE_N_STEPS, method="rk4",
+                                 rk4_dt=ORACLE_RK4_DT)
+    if backend is not None:
+        cfg = cfg._replace(backend=backend)
+    _, scene0, _ = rt.build(spec, f64, dev)
+    xg, ng = rt.flat_pixel_grid(spec, f64, dev)
+    kw = dict(r_formula=spec.r_formula, rho_min=1e-3,
+              rk4_dt=ORACLE_RK4_DT, n_steps=ORACLE_N_STEPS,
+              interp_points=cfg.integrator.interp_points,
+              bisect_iters=cfg.integrator.bisect_iters)
+    oracle_ms = {}
+    tangents = {}
+    with sync_count() as syncs:
+        for name, wrt in (("M", "M"), ("z", ("pos", ORACLE_SPHERE, 3))):
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            rgb_o, tangents[name] = render_dual_sensitivity(
+                scene0, xg, ng, ORACLE_M0, 0.0, wrt=wrt, **kw)
+            torch.cuda.synchronize()
+            oracle_ms[name] = 1e3 * (time.perf_counter() - ta)
+    require(rgb_o.device == dev, "the oracle left the card")
+
+    render = rt.make_ray_render_for_params(spec, cfg, ORACLE_SPHERE, f64, dev)
+    loss = rt.make_ray_loss_fn(spec, cfg, ORACLE_SPHERE, f64, dev)
+
+    def params(M):
+        return rt.InverseParams(M, 0.0, scene0.pos[ORACLE_SPHERE], f64, dev)
+
+    with torch.no_grad():
+        target_M = render(params(1.0), xg, ng)
+    w = torch.from_numpy(np.random.default_rng(ORACLE_SEED).uniform(
+        -1.0, 1.0, (xg.shape[0], 3))).to(dev)
+    route_ms = []
+    reset_counts()
+    ta = time.perf_counter()
+    p = params(ORACLE_M0)
+    rgb = render(p, xg, ng)
+    (rgb * w).sum().backward()
+    torch.cuda.synchronize()
+    route_ms.append(1e3 * (time.perf_counter() - ta))
+    rgb = rgb.detach()
+    targets = {"M": target_M, "z": 0.9 * rgb}
+    got = {"proj_M": float(p.M.grad), "proj_z": float(p.sphere_pos.grad[3])}
+    for name in ("M", "z"):
+        ta = time.perf_counter()
+        p = params(ORACLE_M0)
+        loss(p, xg, ng, targets[name]).backward()
+        torch.cuda.synchronize()
+        route_ms.append(1e3 * (time.perf_counter() - ta))
+        got[f"loss_{name}"] = float(p.M.grad if name == "M"
+                                    else p.sphere_pos.grad[3])
+    k3, k4 = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
+
+    dM, dz = tangents["M"], tangents["z"]
+    want = {"loss_M": float(torch.mean(2.0 * (rgb_o - targets["M"]) * dM)),
+            "loss_z": float(torch.mean(2.0 * (rgb_o - targets["z"]) * dz)),
+            "proj_M": float((w * dM).sum()), "proj_z": float((w * dz).sum())}
+    rel = {k: abs(got[k] - v) / abs(v) if v else float("inf")
+           for k, v in want.items()}
+    primal = float((rgb - rgb_o).abs().max())
+    hits = int(((rgb_o[:, 2] - 1.0).abs() < 0.01).sum())
+    max_dM, max_dz = float(dM.abs().max()), float(dz.abs().max())
+    phase(f"dual oracle vs {label} example2 {n}x{n} f64 rk4/20", t0,
+          card=repr(card), rays=xg.shape[0], k3_launches=k3,
+          k4_launches=k4, sphere_hits=hits,
+          max_abs_drgb_dM=f"{max_dM:.6e}", max_abs_drgb_dz=f"{max_dz:.6e}",
+          primal_max_abs_diff=f"{primal:.3e}",
+          **{f"rel_{k}": f"{v:.3e}" for k, v in rel.items()},
+          **{f"oracle_{k}": f"{v:.17e}" for k, v in want.items()},
+          oracle_ms_dM=f"{oracle_ms['M']:.1f}",
+          oracle_ms_dz=f"{oracle_ms['z']:.1f}", oracle_host_syncs=syncs["n"],
+          route_ms=[f"{v:.1f}" for v in route_ms])
+    if backend is None:
+        require(k3 > 0 and k4 > 0, f"oracle {n}x{n}: the route launched K3 "
+                f"{k3} and K4 {k4} times")
+    require(hits >= 3 and max_dM > 0.1 and max_dz > 1.0,
+            f"oracle {n}x{n}: the check is empty ({hits} sphere hits, max "
+            f"|drgb/dM| {max_dM:.3e}, max |drgb/dz| {max_dz:.3e})")
+    require(syncs["n"] <= 2 * ORACLE_SCENE_READS,
+            f"oracle {n}x{n}: {syncs['n']} host syncs in two renders")
+    require(primal <= ORACLE_PRIMAL_ATOL,
+            f"oracle {n}x{n} {label}: primal differs by {primal:.3e}")
+    bad = {k: v for k, v in rel.items() if not v <= ORACLE_GRAD_RTOL}
+    require(not bad, f"oracle {n}x{n} {label}: relative gaps {bad} above "
+            f"{ORACLE_GRAD_RTOL}")
+    return {"rel": rel, "primal": primal, "oracle_ms": oracle_ms,
+            "route_ms": route_ms, "k3": k3, "k4": k4}
+
+
+def dual_oracle_slice(dev, card: str, reset_counts) -> dict:
+    """25. The Dual oracle against the training path's kernels: K3 and K4
+    (the default route on the card) at 8x8 and 16x16, and the row-major
+    route at 8x8."""
+    return {(n, backend): dual_oracle_case(dev, card, reset_counts, n,
+                                           backend)
+            for n, backend in ((8, None), (16, None), (8, "rowmajor"))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2965,6 +3101,10 @@ def main() -> int:
     #        card. 24. The row-major route.
     sharding_slice(dev, card, reset_counts)
     rowmajor_slice(dev, card)
+
+    # 25. The Dual oracle against K3 and K4's gradients (and the row-major
+    #     route's): a differentiation that shares no code with the port.
+    dual_oracle_slice(dev, card, reset_counts)
 
     # 16. K2 on the disk's packed tail: the SASS instruction mix of K2's and
     #     K4's f32 Kerr-Schild Tsit5 kernels, the tail's state replicated

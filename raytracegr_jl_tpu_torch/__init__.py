@@ -18,8 +18,11 @@ Adam step; data parallelism over cards with torch.distributed
 (parallel/sharding.py: the pixel batch split over ranks, the loss and
 gradients all-reduced), and the generic-metric row-major route
 (``backend="rowmajor"``: ``dmetric``, ``christoffel``, ``geodesic``,
-``integrate_rays``) for any metric written as a function of torch ops.
-Each kernel has its plain PyTorch version beside it. The
+``integrate_rays``) for any metric written as a function of torch ops,
+and the reference's hand-rolled forward mode (``Dual``, ops/dual.py) with
+the end-to-end gradient oracle built on it (ops/dual_oracle.py), which
+checks the training path's gradients with a differentiation that shares
+no code with them. Each kernel has its plain PyTorch version beside it. The
 factories and the fits build on the CUDA card unless the caller names
 another device (``device="cpu"``). Importing the package imports torch
 and never jax; the CUDA kernels are built with nvcc at their first
@@ -28,6 +31,7 @@ launch.
 
 from .ops.metrics import (D, KerrSchildParams, Metric, kerr_schild,
                           make_metric, minkowski)
+from .ops.dual import Dual
 from .ops.geometry import Ray, christoffel, dmetric, geodesic, r2s, s2r
 from .ops.integrate import IntegratorConfig, TraceResult, integrate_rays
 from .ops.geodesic_cm import (impact_parameter_order, integrate_rays_cm,
@@ -36,7 +40,7 @@ from .models.objects import (Disk, Plane, Scene, Sphere, distances,
                              make_scene, min_distance, shade,
                              shade_soft)
 from .models.camera import Canvas, make_canvas
-from .models.shading import shade_redshift
+from .models.shading import g_factors, keplerian_velocity, shade_redshift
 from .models.scenes import (SceneSpec, accretion_disk_spec, build, example1,
                             example1_spec, example2, example2_spec,
                             lensing_inverse_spec, render_spec)

@@ -840,3 +840,28 @@ def test_rowmajor_route_on_the_card():
     scale = float(grads[1].abs().max())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-9,
                                atol=1e-10 * scale)
+
+
+def test_dual_oracle_matches_k3_k4():
+    """The training path's f64 gradients through K3 and K4 (the default
+    route on CUDA tensors) against the Dual oracle, a differentiation that
+    shares no code with them, at example2 8x8 rk4/20: the primal within
+    1e-12, the loss gradients for M and z and the projections within
+    relative 1e-9 (tests/test_torch_dual_oracle.py's bars)."""
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                      forward_segment_cuda)
+    from test_torch_dual_oracle import (GRAD_RTOL, PRIMAL_ATOL,
+                                        assert_not_vacuous, gaps, oracle,
+                                        route)
+    dev = torch.device("cuda")
+    orc = oracle(8, dev)
+    assert orc[0].device.type == "cuda"
+    assert_not_vacuous(orc)
+    before = (forward_segment_cuda.launches, backward_cuda.launches)
+    r = route(8, dev)
+    assert forward_segment_cuda.launches > before[0]
+    assert backward_cuda.launches > before[1]
+    g = gaps(orc, r)
+    assert g["primal"] <= PRIMAL_ATOL, g
+    for k in ("loss_M", "loss_z", "proj_M", "proj_z"):
+        assert g[k] <= GRAD_RTOL, (k, g)

@@ -34,11 +34,15 @@ MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.utils.image",
            "raytracegr_jl_tpu_torch.parallel.sharding",
            "raytracegr_jl_tpu_torch.ops.geometry",
-           "raytracegr_jl_tpu_torch.ops.integrate"]
-# The generic-metric API the JAX package exports, and the sharding entry
-# points.
+           "raytracegr_jl_tpu_torch.ops.integrate",
+           "raytracegr_jl_tpu_torch.ops.dual",
+           "raytracegr_jl_tpu_torch.ops.dual_oracle"]
+# The generic-metric API and the Dual the JAX package exports, and the
+# sharding entry points.
 NAMES = {"raytracegr_jl_tpu_torch": ["dmetric", "christoffel", "geodesic",
-                                     "Ray", "r2s", "s2r", "integrate_rays"],
+                                     "Ray", "r2s", "s2r", "integrate_rays",
+                                     "Dual", "g_factors",
+                                     "keplerian_velocity"],
          "raytracegr_jl_tpu_torch.parallel.sharding": [
              "init_distributed", "make_mesh", "pad_rows", "shard_pixels",
              "global_pixels", "crop_rows", "gather_rows", "sharded_render",
