@@ -258,6 +258,75 @@ def sync_count():
                    for w in caught)
 
 
+# The runtime calls by which the host puts work on the card, as the
+# profiler names them: a kernel launch, a graph launch, a copy or a fill.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemcpyToSymbolAsync", "cudaMemsetAsync")
+
+
+def profile_steps(fn, reps: int = 3) -> dict:
+    """torch.profiler over ``reps`` runs of ``fn()`` (after one): per run,
+    the device's busy ms (its kernels, copies and fills summed), its
+    kernels, the K3 and K4 kernels among them, and the host's launch calls
+    (``LAUNCH_CALLS``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+
+    def count(events, names):
+        return sum(e.count for e in events
+                   if any(n in e.key for n in names)) / reps
+
+    return dict(
+        busy_ms=sum(e.self_device_time_total for e in dev) / 1e3 / reps,
+        kernels=sum(e.count for e in dev) / reps,
+        k3=count(dev, ("k3_kernel",)), k4=count(dev, ("k4_kernel",)),
+        host_launches=sum(e.count for e in avg
+                          if e.device_type == DeviceType.CPU
+                          and e.key in LAUNCH_CALLS) / reps)
+
+
+def in_turns(fns: dict, reps: int = REPEATS) -> dict:
+    """Milliseconds of each ``fns[k]()`` on the host's clock to a
+    synchronize, run in turns (the order reversed every other round)
+    after one warm-up each: ``{k: median of reps}``."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for r in range(reps):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def no_sync(fn, n: int) -> int:
+    """``n`` runs of ``fn()`` under CUDA sync debug mode "error" (a host
+    sync raises), then ``n`` more counted under "warn": the syncs seen."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with sync_count() as syncs:
+        for _ in range(n):
+            fn()
+    return syncs["n"]
+
+
 def summed_ms(pairs) -> float:
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs)
@@ -477,8 +546,9 @@ def k3_single_launch() -> bool:
 def k3_forward_ms(route, P0, args):
     """K3's launches of one forward pass from ``P0``, each between CUDA
     events, the host's reads outside them: ``(ms summed, checkpoints,
-    n_used)``. One launch where K3 runs the whole pass, else one per
-    segment (older checkouts)."""
+    used)`` (``used [1 + B]``: n_used, then the rays' end segments). One
+    launch where K3 runs the whole pass, else one per segment (older
+    checkouts; ``used`` is then n_used alone)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
                      device=P0.device)
@@ -486,47 +556,59 @@ def k3_forward_ms(route, P0, args):
     if k3_single_launch():
         used, ms = events_call(lambda: adj.forward_segment_cuda(route, ck,
                                                                 args))
-        return ms, ck, int(used[0])
+        return ms, ck, used
     total, s = 0.0, 0
     while s < route.n_seg and bool(ck[s, adj.P_ACTIVE].any()):
         total += events_ms(lambda: adj.forward_segment_cuda(
             route, ck[s], ck[s + 1], args))
         s += 1
-    return total, ck, s
+    return total, ck, torch.tensor([s], dtype=torch.int32)
+
+
+def k4_walk(used):
+    """What the loaded package's K4 takes to walk a pass back from K3's
+    ``used``: the rays' end segments on the card (``used[1:]``), or the
+    host's n_used where K4 takes that (older checkouts, ``kernel_times.py
+    --tree``)."""
+    import inspect
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    if "ends" in inspect.signature(adj.backward_cuda).parameters:
+        return used[1:]
+    return int(used[0])
 
 
 def k3_pass(route, P0, args=None):
-    """K3's one launch from ``P0``: (checkpoints, n_used, the rays' end
-    segments), the host's one read."""
+    """K3's one launch from ``P0``: (checkpoints, used), read nothing."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
                      device=P0.device)
     ck[0] = P0
     used = adj.forward_segment_cuda(route, ck,
                                     args or adj.launch_args(route, P0))
-    return ck, int(used[0]), used[1:]
+    return ck, used
 
 
 def require_k3_equal(label, route, P0):
     """K3's one launch against the plain per-segment chain: bitwise on
     n_used, the end segments and every checkpoint value a reader takes
-    (``adj.read_mask``). Returns (max |d|, kernel's checkpoints, n_used,
-    plain checkpoints)."""
+    (``adj.read_mask``). Returns (max |d|, kernel's checkpoints and used,
+    plain checkpoints and used)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    ck_k, n_k, ends_k = k3_pass(route, P0)
-    ck_p, n_p = adj.run_segments(route._replace(cuda=False), P0)
+    ck_k, used_k = k3_pass(route, P0)
+    ck_p, used_p = adj.run_segments(route._replace(cuda=False), P0)
     torch.cuda.synchronize()
+    n_k, n_p = int(used_k[0]), int(used_p[0])
     require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
-    ends_p = adj.end_segments(ck_p, n_p, route.n_seg)
+    ends_k, ends_p = used_k[1:], used_p[1:]
     require(torch.equal(ends_k, ends_p), f"{label}: K3's end segments "
             f"differ on {int((ends_k != ends_p).sum())} rays")
-    mask = adj.read_mask(ends_p, n_p)
-    a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
+    mask = adj.read_mask(ends_p, route.n_seg)
+    a, b = ck_k[mask], ck_p[mask]
     err = float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.
     bits = torch.int32 if a.dtype == torch.float32 else torch.int64
     require(torch.equal(a.view(bits), b.view(bits)),
             f"{label}: K3 not bitwise equal (max |d| {err:.3e})")
-    return err, ck_k, n_k, ck_p
+    return err, ck_k, used_k, ck_p, used_p
 
 
 def k1_entry(metric, scene, integ, y0, dt0, max_steps=None):
@@ -807,8 +889,7 @@ def k3_trace(dev):
 
     def run():
         t0 = time.perf_counter()
-        out["n_used"] = adj.run_segments(route, P0)[1]
-        torch.cuda.synchronize()
+        out["n_used"] = int(adj.run_segments(route, P0)[1][0])
         out.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
 
     evs = profiled_kernels(run, ("k3_kernel", "k3_close"), reps=1)
@@ -978,6 +1059,73 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
+FIT_NAMES = ("M", "a", "sphere_pos")
+# Replays (and graphed Adam steps) after the first under sync debug mode.
+GRAPH_REPLAYS = 5
+
+
+def same_fit(a, b) -> bool:
+    """Two FitResults bit for bit: the loss and parameter histories, the
+    final parameters, Adam's state."""
+    return (bits_equal(a.loss_history, b.loss_history)
+            and a.opt_state["step"] == b.opt_state["step"]
+            and all(bits_equal(a.params_history[n], b.params_history[n])
+                    and bits_equal(getattr(a.final_params, n).detach(),
+                                   getattr(b.final_params, n).detach())
+                    and all(bits_equal(a.opt_state[k][n], b.opt_state[k][n])
+                            for k in ("exp_avg", "exp_avg_sq"))
+                    for n in FIT_NAMES))
+
+
+def adam_steps(loss_fn, make_params, trainable=None, lr: float = 5e-3):
+    """One Adam step of ``fit``'s loop on ``loss_fn``, eager and graphed,
+    each over its own parameters from ``make_params()``: zero the
+    gradients, the loss and its backward pass (or a replay), the masks,
+    Adam's step. Returns ``(eager, graphed, peak bytes while the graph
+    was built)``."""
+    from raytracegr_jl_tpu_torch.step_graph import GraphedStep
+    pe, pg = make_params(), make_params()
+    oe = torch.optim.Adam(pe.parameters(), lr=lr)
+    og = torch.optim.Adam(pg.parameters(), lr=lr)
+
+    def masked(p):
+        if trainable is not None:
+            with torch.no_grad():
+                for n in FIT_NAMES:
+                    getattr(p, n).grad.mul_(getattr(trainable, n))
+
+    def eager():
+        oe.zero_grad(set_to_none=False)
+        loss_fn(pe).sum().backward()
+        masked(pe)
+        oe.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = GraphedStep(loss_fn, pg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def graphed():
+        og.zero_grad(set_to_none=False)
+        step.replay()
+        masked(pg)
+        og.step()
+
+    return eager, graphed, peak
+
+
+def eager_peak(fn) -> int:
+    """Peak bytes allocated above the current while ``fn()`` runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def require_grouped_equal(label: str, dev, dtype, method: str,
                           refine: bool = False):
     """Grouped K3 (with k3_close) and K4 against their grouped plain
@@ -988,44 +1136,31 @@ def require_grouped_equal(label: str, dev, dtype, method: str,
     singles, grouped, P0 = inverse_case(dev, dtype, method, refine=refine)
     B = singles[0][1].shape[1]
 
-    def k3(route, P):
-        ck = torch.empty((route.n_seg + 1,) + tuple(P.shape), dtype=P.dtype,
-                         device=dev)
-        ck[0] = P
-        used = adj.forward_segment_cuda(route, ck, adj.launch_args(route, P))
-        return ck, int(used[0]), used[1:]
-
-    ck_k, n_k, ends_k = k3(grouped, P0)
-    ck_p, n_p = adj.run_segments(grouped._replace(cuda=False), P0)
-    torch.cuda.synchronize()
-    require(n_k == n_p, f"{label}: grouped K3 ran {n_k} segments, plain {n_p}")
-    ends_p = adj.end_segments(ck_p, n_p, grouped.n_seg)
-    require(torch.equal(ends_k, ends_p), f"{label}: grouped K3's end "
-            "segments differ")
-    mask = adj.read_mask(ends_p, n_p)
-    a, b = ck_k[:n_k + 1][mask], ck_p[:n_p + 1][mask]
-    err = max_err(a, b)
-    require(bits_equal(a, b), f"{label}: grouped K3 not bitwise equal to the "
-            f"grouped plain chain (max |d| {err:.3e})")
+    err, ck_k, used_k, ck_p, used_p = require_k3_equal(
+        f"{label} grouped", grouped, P0)
+    n_k = int(used_k[0])
     gen = torch.Generator(device=dev).manual_seed(1)
     ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
-    c_k, p_k = adj.backward_cuda(grouped, ck_k, n_k, ct)
-    c_p, p_p = adj.backward_plain(grouped._replace(cuda=False), ck_p, n_p, ct)
+    c_k, p_k = adj.backward_cuda(grouped, ck_k, used_k[1:], ct)
+    c_p, p_p = adj.backward_plain(grouped._replace(cuda=False), ck_p,
+                                  used_p[1:], ct)
     torch.cuda.synchronize()
     err = max(err, max_err(c_k, c_p), max_err(p_k, p_p))
     require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
             f"{label}: grouped K4 not bitwise equal to the grouped plain "
             f"version (max |d| {err:.3e})")
+    fin = ck_k[grouped.n_seg]
     for s, (route, P) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
-        ck, n, _ = k3(route, P)
-        c, p = adj.backward_cuda(route, ck, n, ct[:, rays])
+        ck, used = k3_pass(route, P)
+        c, p = adj.backward_cuda(route, ck, used[1:], ct[:, rays])
         torch.cuda.synchronize()
-        require(n <= n_k and bits_equal(ck[n], ck_k[n_k][:, rays])
+        require(int(used[0]) <= n_k
+                and bits_equal(ck[route.n_seg], fin[:, rays])
                 and bits_equal(c, c_k[:, rays]) and bits_equal(p, p_k[rays]),
                 f"{label}: start {s}: the grouped launch differs from its "
                 "own ungrouped launch")
-    hits = int(ck_k[n_k, adj.P_HIT].sum())
+    hits = int(fin[adj.P_HIT].sum())
     require(hits > 0, f"{label}: no ray hit the sphere")
     return err, n_k, hits
 
@@ -1077,7 +1212,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     torch.cuda.synchronize()
     tw = time.perf_counter()
     res = rt.fit(spec, target, init, cfg, steps=INV_STEPS,
-                 learning_rate=5e-3, **kw)
+                 learning_rate=5e-3, graph=False, **kw)
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - tw) * 1e3 / INV_STEPS
     k3n, k4n = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
@@ -1106,14 +1241,14 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
                                  [0.0, 5.0, 12.0, 0.02 * ((k % 7) - 3)],
                                  f32, dev) for k in range(n)]
 
-    def timed_fit(n, vectorized, steps):
+    def timed_fit(n, vectorized, steps, graph=False):
         starts = inits(n)
         reset_counts()
         torch.cuda.synchronize()
         tw = time.perf_counter()
         r = rt.fit_multistart(spec, target, starts, cfg,
                               vectorized=vectorized, steps=steps,
-                              learning_rate=5e-3, **kw)
+                              learning_rate=5e-3, graph=graph, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - tw) * 1e3 / steps
         return r, ms, (adj.forward_segment_cuda.launches,
@@ -1170,6 +1305,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    host_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU
+                        and e.key in LAUNCH_CALLS) / 2
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     vec4_ms = step_ms[(4, True)]
     phase("profile vectorized step lensing 32x32 f32 4 starts", t0,
@@ -1177,9 +1315,58 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / vec4_ms):.4f}",
           device_kernels_per_step=f"{sum(e.count for e in kernels) / 2:.0f}",
+          host_launches_per_step=f"{host_launches:.0f}",
           top=[f"{e.key[:40]}:{e.self_device_time_total / 2e3:.3f}ms"
                f"x{e.count // 2}" for e in top])
     require(busy_ms > 0, "the profiler saw no device time")
+
+    # 3b. Config 5 with one CUDA graph per step: the 60-step fit and the
+    #     vectorized multistart at 4 and 16 starts, graphed against eager,
+    #     bitwise; an Adam step eager and graphed in turns, the graphed
+    #     step's device time, kernels and host launch calls (profiler), no
+    #     host sync in graphed steps 2..n, peak memory.
+    t0 = time.perf_counter()
+    same = {"fit60": same_fit(rt.fit(spec, target, init, cfg,
+                                     steps=INV_STEPS, learning_rate=5e-3,
+                                     graph=True, **kw), res),
+            "vec4": same_fit(timed_fit(4, True, 10, graph=True)[0], vec),
+            "vec16": same_fit(timed_fit(16, True, 5, graph=True)[0],
+                              timed_fit(16, True, 5)[0])}
+
+    def stacked(n):
+        return lambda: rt.InverseParams(*(
+            torch.stack([getattr(i, k).detach() for i in inits(n)])
+            for k in FIT_NAMES), dtype=f32, device=dev)
+
+    steps = {"fit": (rt.make_loss_fn(spec, target, cfg, 0, f32, dev),
+                     init.copy)}
+    for n in (4, 16):
+        steps[f"vec{n}"] = (rt.make_multistart_loss_fn(spec, target, cfg, 0,
+                                                       f32, dev), stacked(n))
+    graphed_cells = {}
+    for name, (loss_fn, make_params) in steps.items():
+        eager, graphed, peak_g = adam_steps(loss_fn, make_params, trainable)
+        peak_e = eager_peak(eager)
+        syncs = no_sync(graphed, GRAPH_REPLAYS)
+        ms = in_turns({"eager": eager, "graphed": graphed})
+        prof = profile_steps(graphed)
+        graphed_cells[name] = dict(
+            eager_ms=f"{ms['eager']:.3f}", graphed_ms=f"{ms['graphed']:.3f}",
+            speedup=f"{ms['eager'] / ms['graphed']:.3f}",
+            device_ms=f"{prof['busy_ms']:.4f}",
+            idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
+            kernels=f"{prof['kernels']:.0f}", k3=prof["k3"], k4=prof["k4"],
+            host_launches=f"{prof['host_launches']:.0f}", syncs=syncs,
+            eager_peak_mib=f"{peak_e / 2**20:.1f}",
+            graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
+    phase("graphed config 5 lensing 32x32 f32", t0, card=repr(card),
+          bitwise=same, **graphed_cells)
+    require(all(same.values()), f"config 5: a graphed fit differs from the "
+            f"eager one: {same}")
+    for name, c in graphed_cells.items():
+        require(c["syncs"] == 0 and c["k3"] == 1 and c["k4"] == 1,
+                f"config 5 {name}: {c['syncs']} host syncs, K3 {c['k3']} and "
+                f"K4 {c['k4']} per graphed step")
 
     # 4. A fit checkpointed after 3 steps, restored and run 3 more, against
     #    6 uninterrupted steps, with a 6-step cosine schedule.
@@ -1220,30 +1407,31 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         runs = [k3_forward_ms(route, P, a) for _ in range(REPEATS + 1)][1:]
         return statistics.median(r[0] for r in runs), runs[0][1], runs[0][2]
 
-    def k4_ms(route, ck, n, c, a):
+    def k4_ms(route, ck, ends, c, a):
         return statistics.median(
-            events_ms(lambda: adj.backward_cuda(route, ck, n, c, a))
+            events_ms(lambda: adj.backward_cuda(route, ck, ends, c, a))
             for _ in range(REPEATS))
 
-    g3, ck, n_used = k3_ms(grouped, P0, args)
-    g4 = k4_ms(grouped, ck, n_used, ct, args)
+    g3, ck, used = k3_ms(grouped, P0, args)
+    n_used = int(used[0])
+    g4 = k4_ms(grouped, ck, used[1:], ct, args)
     g3_any = k3_ms(grouped, P0, any_args)[0]
-    g4_any = k4_ms(grouped, ck, n_used, ct, any_args)
+    g4_any = k4_ms(grouped, ck, used[1:], ct, any_args)
     B = singles[0][1].shape[1]
     u3 = u4 = u3_any = u4_any = 0.0
     for s, (route, P) in enumerate(singles):
         a = adj.launch_args(route, P)
         a_any = (a[0], a[1][:3] + (SC_ANY,) + a[1][4:])
-        t3, ck_s, n_s = k3_ms(route, P, a)
+        t3, ck_s, used_s = k3_ms(route, P, a)
         u3 += t3
         u3_any += k3_ms(route, P, a_any)[0]
         c = ct[:, s * B:(s + 1) * B].contiguous()
-        u4 += k4_ms(route, ck_s, n_s, c, a)
-        u4_any += k4_ms(route, ck_s, n_s, c, a_any)
+        u4 += k4_ms(route, ck_s, used_s[1:], c, a)
+        u4_any += k4_ms(route, ck_s, used_s[1:], c, a_any)
     plain = grouped._replace(cuda=False)
-    (ck_p, n_p), k3_plain_ms = events_call(lambda: adj.run_segments(plain,
-                                                                    P0))
-    k4_plain_ms = events_ms(lambda: adj.backward_plain(plain, ck, n_used, ct))
+    _, k3_plain_ms = events_call(lambda: adj.run_segments(plain, P0))
+    k4_plain_ms = events_ms(lambda: adj.backward_plain(plain, ck, used[1:],
+                                                       ct))
     # This run's work: each ray's iterations while active at the plain
     # body's count for one ray, K4 also each accepted step's reverse step.
     with torch.no_grad():
@@ -1841,13 +2029,13 @@ def options_slice(dev, card: str, reset_counts) -> dict:
                               n_seg=steps // 4, cuda=True)
             init, _ = make_step_cm(metric, scene_event_cm(scene), ci)
             P0 = adj.pack_state(init(y_cm, d0))
-            e3, ck_k, n_k, ck_p = require_k3_equal(
+            e3, ck_k, used_k, ck_p, used_p = require_k3_equal(
                 f"refine K3 {dtype} {method}", route, P0)
             gen = torch.Generator(device=dev).manual_seed(2)
             ct = torch.randn(P0.shape, generator=gen, dtype=dtype,
                              device=dev)
-            c_k, p_k = adj.backward_cuda(route, ck_k, n_k, ct)
-            c_p, p_p = adj.backward_plain(route, ck_p, n_k, ct)
+            c_k, p_k = adj.backward_cuda(route, ck_k, used_k[1:], ct)
+            c_p, p_p = adj.backward_plain(route, ck_p, used_p[1:], ct)
             torch.cuda.synchronize()
             e4 = max(max_err(c_k, c_p), max_err(p_k, p_p))
             require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
@@ -1942,13 +2130,13 @@ def options_slice(dev, card: str, reset_counts) -> dict:
             P0 = adj.pack_state(init(yy.t(), initial_dt(tmetric, yy, integ)))
         args = adj.launch_args(route, P0)
         runs = [k3_forward_ms(route, P0, args) for _ in range(REPEATS + 1)]
-        _, ck, n_used = runs[0]
+        _, ck, used = runs[0]
         ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
-        k4 = [events_ms(lambda: adj.backward_cuda(route, ck, n_used, ct,
+        k4 = [events_ms(lambda: adj.backward_cuda(route, ck, used[1:], ct,
                                                   args))
               for _ in range(REPEATS + 1)]
         return (statistics.median(r[0] for r in runs[1:]),
-                statistics.median(k4[1:]), n_used)
+                statistics.median(k4[1:]), int(used[0]))
 
     k34 = {r: k3_k4_ms(tcfg.integrator._replace(refine_minima=r))
            for r in (False, True)}
@@ -2525,6 +2713,134 @@ def dual_oracle_slice(dev, card: str, reset_counts) -> dict:
             for n, backend in ((8, None), (16, None), (8, "rowmajor"))}
 
 
+def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
+                      ng, fit_target) -> dict:
+    """The training step as one CUDA graph (step_graph.py) against the
+    eager step, at 200x200 f32 for each training configuration: the loss
+    and gradients bitwise (also after the parameters change in place), no
+    host sync in replays 2..n, the step's time eager and graphed in turns,
+    the replay's device time, kernels, K3 and K4 launches and host launch
+    calls (profiler), peak memory; then fit's default configuration for 3
+    Adam steps, graphed against eager, bitwise, and one Adam step of it
+    measured as the training steps are (the eager one profiled once).
+    Returns each configuration's numbers."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.step_graph import GraphedStep
+    f32 = torch.float32
+    out = {}
+    for label, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        loss_fn = rt.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+        target = targets[label]
+
+        def params(M=1.05):
+            return rt.InverseParams(M, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+        def grads(p):
+            return torch.cat([p.M.grad[None], p.a.grad[None],
+                              p.sphere_pos.grad])
+
+        def eager(p):
+            for q in p.parameters():
+                q.grad = None
+            loss = loss_fn(p, xg, ng, target)
+            loss.backward()
+            return loss.detach()
+
+        pe = params()
+        peak_e = eager_peak(lambda: eager(pe))
+        loss_e = eager(pe)
+        pg = params()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
+        torch.cuda.synchronize()
+        peak_g = torch.cuda.max_memory_allocated() - base
+        held_g = torch.cuda.memory_allocated() - base
+
+        def replay():
+            for q in pg.parameters():
+                q.grad.zero_()
+            return step.replay()
+
+        same = bits_equal(replay(), loss_e) and bits_equal(grads(pg),
+                                                           grads(pe))
+        syncs = no_sync(replay, GRAPH_REPLAYS)
+        same = same and bits_equal(step.loss, loss_e) and bits_equal(
+            grads(pg), grads(pe))
+        # The leaves are read in place: a new M reaches the replay.
+        with torch.no_grad():
+            pg.M.fill_(1.06)
+        pe2 = params(1.06)
+        loss_e2 = eager(pe2)
+        moved = (bits_equal(replay(), loss_e2)
+                 and bits_equal(grads(pg), grads(pe2))
+                 and not bits_equal(loss_e2, loss_e))
+        ms = in_turns({"eager": lambda: eager(pe), "graphed": replay})
+        prof = profile_steps(replay)
+        out[label] = dict(ms=ms, prof=prof, peak_e=peak_e, peak_g=peak_g)
+        phase(f"graphed train step {label} 200x200 f32", t0, card=repr(card),
+              bitwise=same, new_params_bitwise=moved,
+              loss=f"{float(loss_e):.9e}",
+              host_syncs_in_replays=syncs,
+              eager_step_ms=f"{ms['eager']:.4f}",
+              graphed_step_ms=f"{ms['graphed']:.4f}",
+              speedup=f"{ms['eager'] / ms['graphed']:.3f}",
+              graphed_rays_per_s=f"{xg.shape[0] / ms['graphed'] * 1e3:.1f}",
+              replay_device_ms=f"{prof['busy_ms']:.4f}",
+              replay_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
+              replay_device_kernels=f"{prof['kernels']:.0f}",
+              k3_per_replay=prof["k3"], k4_per_replay=prof["k4"],
+              replay_host_launches=f"{prof['host_launches']:.0f}",
+              eager_peak_mib=f"{peak_e / 2**20:.1f}",
+              graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}",
+              graphed_held_mib=f"{held_g / 2**20:.1f}")
+        require(same and moved, f"{label}: the graphed step differs from "
+                "the eager one")
+        require(syncs == 0, f"{label}: {syncs} host syncs in replays")
+        require(prof["k3"] == 1 and prof["k4"] == 1,
+                f"{label}: a replay ran K3 {prof['k3']} and K4 {prof['k4']} "
+                "times, not once each")
+
+    t0 = time.perf_counter()
+    fit_cfg = rt.default_inverse_cfg(f32, soft_temp=0.05, stop_rho=0.5)
+    init = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    res = {g: rt.fit(spec, fit_target, init, fit_cfg, steps=3, dtype=f32,
+                     device=dev, graph=g) for g in (False, True)}
+    same = same_fit(res[True], res[False])
+    # One Adam step of that fit, eager and graphed.
+    eager, graphed, peak_g = adam_steps(
+        rt.make_loss_fn(spec, fit_target, fit_cfg, 2, f32, dev), init.copy,
+        lr=3e-2)
+    peak_e = eager_peak(eager)
+    syncs = no_sync(graphed, GRAPH_REPLAYS)
+    ms = in_turns({"eager": eager, "graphed": graphed})
+    prof, prof_e = profile_steps(graphed), profile_steps(eager, reps=1)
+    phase("graphed fit 3 Adam steps 200x200 f32", t0, card=repr(card),
+          bitwise=same,
+          losses=[f"{v:.9e}" for v in res[True].loss_history.tolist()],
+          M=f"{float(res[True].final_params.M.detach()):.9f}",
+          host_syncs_in_graphed_steps=syncs,
+          eager_step_ms=f"{ms['eager']:.4f}",
+          graphed_step_ms=f"{ms['graphed']:.4f}",
+          speedup=f"{ms['eager'] / ms['graphed']:.3f}",
+          eager_device_ms=f"{prof_e['busy_ms']:.4f}",
+          eager_idle_share=f"{max(0.0, 1 - prof_e['busy_ms'] / ms['eager']):.4f}",
+          eager_host_launches=f"{prof_e['host_launches']:.0f}",
+          graphed_device_ms=f"{prof['busy_ms']:.4f}",
+          graphed_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
+          graphed_host_launches=f"{prof['host_launches']:.0f}",
+          k3_per_step=prof["k3"], k4_per_step=prof["k4"],
+          eager_peak_mib=f"{peak_e / 2**20:.1f}",
+          graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
+    require(same, "the graphed fit differs from the eager one")
+    require(syncs == 0 and prof["k3"] == 1 and prof["k4"] == 1,
+            f"fit: {syncs} host syncs, K3 {prof['k3']} and K4 {prof['k4']} "
+            "per graphed step")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2828,29 +3144,37 @@ def main() -> int:
         t0 = time.perf_counter()
         integ = train_cfg(dtype, method, max_steps).integrator
         metric, scene, y0, dt0, route, P0 = ckpt_setup(n, dtype, integ)
-        k3_err, ck_k, n_k, ck_p = require_k3_equal(label, route, P0)
+        k3_err, ck_k, used_k, ck_p, used_p = require_k3_equal(label, route,
+                                                              P0)
+        n_k = int(used_k[0])
         # Every ray at the end of its span (it stops after its first step)
         # and every third inactive from the start: n_used is 1.
         P_stop = P0.clone()
         P_stop[adj.P_LAM] = integ.lam_max
         P_stop[adj.P_ACTIVE, ::3] = 0
-        err_stop, _, n_stop, _ = require_k3_equal(f"{label} stopped", route,
-                                                  P_stop)
+        err_stop, ck_s, used_s, ck_sp, used_sp = require_k3_equal(
+            f"{label} stopped", route, P_stop)
+        n_stop = int(used_s[0])
         require(n_stop == 1, f"{label}: the stopped batch ran {n_stop} "
                 "segments")
         k3_err = max(k3_err, err_stop)
         with sync_count() as syncs:
             adj.run_segments(route, P0)
-        require(syncs["n"] == 1, f"{label}: the forward pass synced the host "
+        require(syncs["n"] == 0, f"{label}: the forward pass synced the host "
                 f"{syncs['n']} times")
         ct = diff_ct(P0)
-        c_k, p_k = adj.backward_cuda(route, ck_k, n_k, ct)
-        c_p, p_p = adj.backward_plain(route, ck_p, n_k, ct)
-        torch.cuda.synchronize()
-        k4_err = max(float((c_k - c_p).abs().max()),
-                     float((p_k - p_p).abs().max()))
-        require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
-                f"{label}: K4 not bitwise equal (max |d| {k4_err:.3e})")
+        k4_err = 0.0
+        for what, cks in (("", (ck_k, used_k, ck_p, used_p)),
+                          (" stopped", (ck_s, used_s, ck_sp, used_sp))):
+            ck_a, used_a, ck_b, used_b = cks
+            c_k, p_k = adj.backward_cuda(route, ck_a, used_a[1:], ct)
+            c_p, p_p = adj.backward_plain(route, ck_b, used_b[1:], ct)
+            torch.cuda.synchronize()
+            k4_err = max(k4_err, float((c_k - c_p).abs().max()),
+                         float((p_k - p_p).abs().max()))
+            require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
+                    f"{label}{what}: K4 not bitwise equal (max |d| "
+                    f"{k4_err:.3e})")
 
         def grads(fn):
             metric, scene, y0, dt0, _, _ = ckpt_setup(n, dtype, integ,
@@ -2871,7 +3195,7 @@ def main() -> int:
         rel = max(abs(k - o) / abs(o) for k, o in zip(g_k, g_o))
         phase(f"K3/K4 vs plain {label}", t0, segments=n_k,
               forward_host_syncs=syncs["n"],
-              hits=int(ck_k[n_k, adj.P_HIT].sum()),
+              hits=int(ck_k[route.n_seg, adj.P_HIT].sum()),
               k3_max_abs_err=k3_err, k4_max_abs_err=k4_err,
               grad_M_kernel=f"{g_k[0]:.9e}", grad_M_autograd=f"{g_o[0]:.9e}",
               grad_a_kernel=f"{g_k[1]:.9e}", grad_a_autograd=f"{g_o[1]:.9e}",
@@ -2954,7 +3278,7 @@ def main() -> int:
     init = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
     reset_counts()
     res = rt.fit(spec, target_img, init, fit_cfg, steps=3, dtype=f32,
-                 device=dev)
+                 device=dev, graph=False)
     torch.cuda.synchronize()
     fit_counts = [fn.launches for fn in counted]
     res_p = rt.fit(spec, target_img, init, plain_cfg(fit_cfg), steps=3,
@@ -2997,23 +3321,24 @@ def main() -> int:
         k3_runs = [k3_forward_ms(route, P0, args)
                    for _ in range(REPEATS + 1)][1:]
         k3_ms = statistics.median(r[0] for r in k3_runs)
-        _, ck, n_used = k3_runs[0]
+        _, ck, used = k3_runs[0]
+        n_used = int(used[0])
         k3_device_ms = sum(b - a for _, a, b in profiled_kernels(
             lambda: adj.run_segments(route, P0),
             ("k3_kernel", "k3_close"))) / 1e3 / REPEATS
         ct = diff_ct(P0)
         k4_ms = statistics.median(
-            events_ms(lambda: adj.backward_cuda(route, ck, n_used, ct, args))
+            events_ms(lambda: adj.backward_cuda(route, ck, used[1:], ct,
+                                                args))
             for _ in range(REPEATS))
-        (ck_p, n_p), k3_plain_ms = events_call(
+        (ck_p, used_p), k3_plain_ms = events_call(
             lambda: adj.run_segments(route._replace(cuda=False), P0))
-        mask = adj.read_mask(adj.end_segments(ck_p, n_p, route.n_seg), n_p)
-        require(n_p == n_used and torch.equal(
-            ck[:n_used + 1][mask].view(torch.int32),
-            ck_p[:n_p + 1][mask].view(torch.int32)),
+        mask = adj.read_mask(used_p[1:], route.n_seg)
+        require(torch.equal(used, used_p) and torch.equal(
+            ck[mask].view(torch.int32), ck_p[mask].view(torch.int32)),
             f"{label}: K3 at 200x200 differs from the plain chain")
         k4_plain_ms = events_ms(lambda: adj.backward_plain(
-            route._replace(cuda=False), ck, n_used, ct))
+            route._replace(cuda=False), ck, used[1:], ct))
         # Work of this run: each ray's iterations while active, at the
         # plain body's count for one ray; K4 replays them and walks back
         # each accepted one at step_vjp's count.
@@ -3075,6 +3400,9 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
     n_kernels = sum(e.count for e in kernels) / 3
+    host_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU
+                        and e.key in LAUNCH_CALLS) / 3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     step_ms = train_times["rk4/200"]["step_ms"]
     phase("profile train step rk4/200 200x200 f32", t0, card=repr(card),
@@ -3083,9 +3411,15 @@ def main() -> int:
           device_busy_ms_per_step=f"{busy_ms:.3f}",
           device_idle_share=f"{max(0.0, 1 - busy_ms / step_ms):.4f}",
           device_kernels_per_step=f"{n_kernels:.0f}",
+          host_launches_per_step=f"{host_launches:.0f}",
           top=[f"{e.key[:40]}:{e.self_device_time_total / 3e3:.3f}ms"
                f"x{e.count // 3}" for e in top])
     require(busy_ms > 0, "the profiler saw no device time")
+
+    # 9a. The training step as one CUDA graph against the eager step, and
+    #     fit's default configuration graphed against eager.
+    graph_train_slice(dev, card, main_cfgs, targets, spec, xg, ng,
+                      target_img)
 
     # 9b. The inversion slice (config 5; grouped K3 and K4).
     inverse_entries = inverse_slice(dev, card, reset_counts)

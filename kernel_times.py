@@ -57,9 +57,9 @@ import time
 from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, cuda_tool,
                         demangle, diagnose_k1, diagnose_tail, disk_setup,
                         k1_entry, k1_main_call, k1_takes_own_step,
-                        k3_forward_ms, kernel_alone_ms, profiled_kernels,
-                        ptxas_report, require, sass_report, short_name,
-                        summed_ms, timed_calls)
+                        k3_forward_ms, k4_walk, kernel_alone_ms,
+                        profiled_kernels, ptxas_report, require, sass_report,
+                        short_name, summed_ms, timed_calls)
 
 
 def libraries() -> list:
@@ -232,18 +232,18 @@ def times(out: list, dev, card: str) -> None:
 
         k3_runs = [k3_forward_ms(route, P0, args)
                    for _ in range(REPEATS + 1)][1:]
-        _, ck, n_used = k3_runs[0]
+        _, ck, used = k3_runs[0]
         gen = torch.Generator(device=dev).manual_seed(0)
         ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
-        k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, n_used, ct,
-                                                  args))
+        walk = k4_walk(used)
+        k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, walk, ct, args))
         k3_kernels = profiled_kernels(lambda: adj.run_segments(route, P0),
                                       ("k3_kernel", "k3_close"))
         emit(out, "time", card=card, what=f"train {label} 200x200 f32",
              step_ms=step_ms,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
-             / 1e3 / REPEATS, segments=n_used, k4_ms=k4_ms)
+             / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms)
 
 
 def main() -> int:

@@ -14,8 +14,12 @@
 // afterwards in PyTorch, where it is differentiable.
 //
 // K4 replaces _run_bwd of the same file: the whole backward pass in one
-// launch. Per ray, the segments in reverse; a segment whose checkpoint shows
-// the ray inactive is skipped (an inactive step is the identity); a live one
+// launch. Per ray, its segments in reverse from its end segment e_i (K3's
+// ends[i]; a segment at or past it is the identity for the ray, as JAX's
+// kernel skips a dead tile of every one of its n_seg segments); a warp
+// walks them in step from its largest e_i, the lanes past their own end
+// idle, so that its lanes replay the same segment together (a walk from
+// each lane's own end was slower at tsit5/48 on the H100, PERF.md); each
 // is replayed from its checkpoint, each accepted step's (y, k1, dt_try, hit)
 // kept in local memory, and then walked back with the hand-written adjoint
 // of the step (step_vjp) and of the right-hand side (rhs_vjp). CUDA has no
@@ -25,6 +29,11 @@
 // detection only decides masks, so object fields get none inside the loop.
 // The (M, a) cotangents are written per ray, [B, 2], and summed by the
 // wrapper: deterministic, and comparable bitwise with the plain version.
+//
+// No launch reads anything back to the host, and every shape is static: the
+// final state of every ray goes to the fixed slot ck[n_seg] and K4 takes the
+// end segments on the card, so a CUDA graph can hold a whole training step
+// (raytracegr_jl_tpu_torch/step_graph.py, the counterpart of jax.jit).
 //
 // The plain PyTorch versions are in ops/adjoint.py (forward_segment,
 // backward_plain, step_vjp, rhs_vjp); this file follows them operation by
@@ -584,8 +593,8 @@ __device__ __forceinline__ void step_vjp(const PP& p, int r_mode,
 // states: a ray's segments depend only on its own state, so nothing needs a
 // grid-wide barrier between them. n_used, the number of segments the chain
 // runs (the first s at which no ray is active), is the largest e_i: one
-// atomicMax per warp into used. k3_close then completes what the chain's
-// launches past a ray's end would have left for its readers.
+// atomicMax per warp into used. k3_close then puts every ray's final state
+// into the fixed slot ck[n_seg].
 // GROUPED: each ray's M, a and object rows from its group's row of groups
 // (GroupParams); rays_per_group and group_stride are read only then.
 template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
@@ -619,32 +628,29 @@ k3_kernel(T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
   if ((threadIdx.x & 31) == 0 && end > 0) atomicMax(used, end);
 }
 
-// After k3_kernel, for a ray that ended before n_used: its final state
-// (checkpoint e_i) copied into checkpoint n_used, and P_ACTIVE = 0 in the
-// checkpoints between, which is all that K4 (the planes' ACTIVE flag of a
-// checkpoint where the ray is inactive) and the forward's result (checkpoint
-// n_used) read there. The chain's launches wrote a frozen copy of the whole
-// state into each of them.
+// After k3_kernel, for a ray that ended before n_seg: its final state
+// (checkpoint e_i) copied into the fixed slot ck[n_seg], where the forward's
+// result is read. Nothing else past a ray's end is read: K4 walks ray i's
+// segments from e_i - 1 down.
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
-k3_close(T* __restrict__ ck, const int* __restrict__ used,
-         const int* __restrict__ ends, int n) {
+k3_close(T* __restrict__ ck, const int* __restrict__ ends, int n,
+         int n_seg) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int n_used = *used, e = ends[i];
-  if (e >= n_used) return;
+  const int e = ends[i];
+  if (e >= n_seg) return;
   const size_t stride = static_cast<size_t>(N_PLANES) * n;
   const T* src = ck + e * stride;
-  T* dst = ck + n_used * stride;
+  T* dst = ck + n_seg * stride;
 #pragma unroll
   for (int q = 0; q < N_PLANES; ++q) dst[q * n + i] = src[q * n + i];
-  for (int s = e + 1; s < n_used; ++s)
-    ck[s * stride + PL_ACTIVE * n + i] = T(0);
 }
 
 template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
-k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
+k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
+          const T* __restrict__ ct,
           T* __restrict__ ct0, T* __restrict__ pbar, int n, int r_mode,
           int n_obj, int npts, int seg_len, const T* __restrict__ groups,
           int rays_per_group, int group_stride) {
@@ -662,9 +668,14 @@ k4_kernel(const T* __restrict__ ck, int n_used, const T* __restrict__ ct,
   T pM = T(0), pa = T(0);
   T ry[MAX_SEG][8], rk[MAX_SEG][8], rdt[MAX_SEG];
   bool rhit[MAX_SEG];
-  for (int s = n_used - 1; s >= 0; --s) {
+  // The ray is active at the start of each of its segments s < e_i. The
+  // warp walks from its largest end segment in step, each lane skipping
+  // the segments at or past its own end.
+  const int e = ends[i];
+  const int top = __reduce_max_sync(__activemask(), e);
+  for (int s = top - 1; s >= 0; --s) {
+    if (s >= e) continue;
     const T* P = ck + static_cast<size_t>(s) * N_PLANES * n;
-    if (!(P[PL_ACTIVE * n + i] > T(0))) continue;  // inactive: identity
     RayState<T> r;
     load_state(P, n, i, r);
     int nrec = 0;
@@ -729,6 +740,8 @@ inline bool groups_ok(const void* groups, int n, int n_obj,
 }
 
 // K3's pass: used (1 int) zeroed, k3_kernel, then k3_close, all on st.
+// used[0] is n_used (the count of segments the per-segment chain runs),
+// kept on the card: nothing on the path reads it.
 template <typename T>
 int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
               int kerr, int tsit5, int r_mode, int scene, int n_obj, int npts,
@@ -757,12 +770,12 @@ int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  k3_close<T><<<blocks, MAX_THREADS, 0, st>>>(c, u, e, n);
+  k3_close<T><<<blocks, MAX_THREADS, 0, st>>>(c, e, n, n_seg);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
+int launch_k4(const void* ck, const void* ends, const void* ct, void* ct0,
               void* pbar, const void* prm, int n, int kerr, int tsit5,
               int r_mode, int scene, int n_obj, int npts, int seg_len,
               const void* groups, int rays_per_group, int group_stride,
@@ -774,6 +787,7 @@ int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   const T* c = static_cast<const T*>(ck);
+  const int* e = static_cast<const int*>(ends);
   const T* g = static_cast<const T*>(ct);
   T* g0 = static_cast<T*>(ct0);
   T* pb = static_cast<T*>(pbar);
@@ -784,7 +798,7 @@ int launch_k4(const void* ck, int n_used, const void* ct, void* ct0,
               RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
                             k4_kernel<T, KERR_, TSIT5_, SC_, GROUPED_>
                             <<<blocks, MAX_THREADS, 0, st>>>(
-                                c, n_used, g, g0, pb, n, r_mode, n_obj, npts,
+                                c, e, g, g0, pb, n, r_mode, n_obj, npts,
                                 seg_len, gr, rays_per_group, group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   }));
@@ -817,27 +831,44 @@ extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
 #endif
 
 #if RTGR_F32
-extern "C" int rtgr_k4_f32(const void* ck, int n_used, const void* ct,
+extern "C" int rtgr_k4_f32(const void* ck, const void* ends, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len,
                            const void* groups, int rays_per_group,
                            int group_stride, void* stream) {
-  return launch_k4<float>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
+  return launch_k4<float>(ck, ends, ct, ct0, pbar, prm, n, kerr, tsit5,
                           r_mode, scene, n_obj, npts, seg_len, groups,
                           rays_per_group, group_stride, stream);
 }
 #endif
 
 #if RTGR_F64
-extern "C" int rtgr_k4_f64(const void* ck, int n_used, const void* ct,
+extern "C" int rtgr_k4_f64(const void* ck, const void* ends, const void* ct,
                            void* ct0, void* pbar, const void* prm, int n,
                            int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len,
                            const void* groups, int rays_per_group,
                            int group_stride, void* stream) {
-  return launch_k4<double>(ck, n_used, ct, ct0, pbar, prm, n, kerr, tsit5,
+  return launch_k4<double>(ck, ends, ct, ct0, pbar, prm, n, kerr, tsit5,
                            r_mode, scene, n_obj, npts, seg_len, groups,
                            rays_per_group, group_stride, stream);
+}
+#endif
+
+// The fence around a graph replay that holds K3 and K4 launches
+// (params_fence in geodesic_common.cuh): called on the replay stream just
+// before and just after the replay.
+#if RTGR_F32
+extern "C" int rtgr_fence_f32(void* stream) {
+  return static_cast<int>(
+      params_fence<float>(static_cast<cudaStream_t>(stream)));
+}
+#endif
+
+#if RTGR_F64
+extern "C" int rtgr_fence_f64(void* stream) {
+  return static_cast<int>(
+      params_fence<double>(static_cast<cudaStream_t>(stream)));
 }
 #endif

@@ -246,44 +246,110 @@ __device__ __forceinline__
 // on st, then launch() puts the kernel on st, so the stream orders the two.
 // The constant copy is shared by every launch of the library and type on
 // the device: a copy on another stream could overwrite it while an earlier
-// kernel still reads it. So the launches are serialized: a mutex keeps each
+// kernel still reads it. So the launches are serialized (params_serial, one
+// state per library and type, whichever kernel launches): a mutex keeps each
 // copy and its launch together on the host, an event is recorded on st
 // after every launch, and a launch on another stream than the previous one
 // first waits for that event. On one stream, as on every main path, the
 // cost is the event record.
+//
+// Under stream capture (a CUDA graph of a training step, step_graph.py) the
+// copy and the launch become a copy node and a kernel node in capture order,
+// so a replay orders them itself; the event is neither waited on nor
+// recorded, since an event recorded outside a capture cannot be waited on
+// inside it, and one recorded inside refers to the graph. The rule between a
+// replay and eager launches is the rule between two streams: whoever replays
+// a graph that holds this library's launches calls params_fence on the
+// replay stream just before and just after the replay (the C entry points
+// rtgr_fence_f32 and rtgr_fence_f64), so that the replay waits for the last
+// eager launch on another stream and the next eager launch on another stream
+// waits for the replay.
 constexpr int MAX_DEVICES = 64;
+
+struct ParamsSerial {
+  std::mutex mu;
+  cudaStream_t stream[MAX_DEVICES];
+  cudaEvent_t done[MAX_DEVICES];
+};
+
+template <typename T>
+ParamsSerial& params_serial() {
+  static ParamsSerial s;
+  return s;
+}
+
+// With the lock held: st waits for the previous launch if it was on another
+// stream.
+inline cudaError_t serial_wait(ParamsSerial& s, int dev, cudaStream_t st) {
+  if (s.done[dev] == nullptr)
+    return cudaEventCreateWithFlags(&s.done[dev], cudaEventDisableTiming);
+  if (st != s.stream[dev]) return cudaStreamWaitEvent(st, s.done[dev], 0);
+  return cudaSuccess;
+}
+
+// With the lock held: the next launch on another stream waits for st.
+inline cudaError_t serial_record(ParamsSerial& s, int dev, cudaStream_t st) {
+  s.stream[dev] = st;
+  return cudaEventRecord(s.done[dev], st);
+}
+
+inline cudaError_t current_device(int& dev) {
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return dev < 0 || dev >= MAX_DEVICES ? cudaErrorInvalidDevice : cudaSuccess;
+}
+
+template <typename T>
+cudaError_t copy_params(const void* prm, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value)
+    return cudaMemcpyToSymbolAsync(c_params_f32, prm, sizeof(Params<T>), 0,
+                                   cudaMemcpyDeviceToDevice, st);
+  else
+    return cudaMemcpyToSymbolAsync(c_params_f64, prm, sizeof(Params<T>), 0,
+                                   cudaMemcpyDeviceToDevice, st);
+}
 
 template <typename T, typename Launch>
 cudaError_t launch_with_params(const void* prm, cudaStream_t st,
                                Launch&& launch) {
-  struct Last {
-    cudaStream_t stream;
-    cudaEvent_t done;
-  };
-  static std::mutex mu;
-  static Last last[MAX_DEVICES];
   int dev;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(dev);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  Last& l = last[dev];
-  if (l.done == nullptr)
-    err = cudaEventCreateWithFlags(&l.done, cudaEventDisableTiming);
-  else if (st != l.stream)
-    err = cudaStreamWaitEvent(st, l.done, 0);
+  cudaStreamCaptureStatus capture;
+  err = cudaStreamIsCapturing(st, &capture);
   if (err != cudaSuccess) return err;
-  if constexpr (std::is_same<T, float>::value)
-    err = cudaMemcpyToSymbolAsync(c_params_f32, prm, sizeof(Params<T>), 0,
-                                  cudaMemcpyDeviceToDevice, st);
-  else
-    err = cudaMemcpyToSymbolAsync(c_params_f64, prm, sizeof(Params<T>), 0,
-                                  cudaMemcpyDeviceToDevice, st);
+  ParamsSerial& s = params_serial<T>();
+  std::lock_guard<std::mutex> lock(s.mu);
+  if (capture != cudaStreamCaptureStatusNone) {
+    err = copy_params<T>(prm, st);
+    return err == cudaSuccess ? launch() : err;
+  }
+  err = serial_wait(s, dev, st);
+  if (err != cudaSuccess) return err;
+  err = copy_params<T>(prm, st);
   if (err == cudaSuccess) err = launch();
   // Recorded whether or not the launch went out: the copy did.
-  const cudaError_t rec = cudaEventRecord(l.done, st);
-  l.stream = st;
+  const cudaError_t rec = serial_record(s, dev, st);
   return err != cudaSuccess ? err : rec;
+}
+
+// The fence around a replay on st of a graph that holds launches of this
+// library's kernels of type T (see launch_with_params). Refused while st is
+// capturing.
+template <typename T>
+cudaError_t params_fence(cudaStream_t st) {
+  int dev;
+  cudaError_t err = current_device(dev);
+  if (err != cudaSuccess) return err;
+  cudaStreamCaptureStatus capture;
+  err = cudaStreamIsCapturing(st, &capture);
+  if (err != cudaSuccess) return err;
+  if (capture != cudaStreamCaptureStatusNone)
+    return cudaErrorStreamCaptureUnsupported;
+  ParamsSerial& s = params_serial<T>();
+  std::lock_guard<std::mutex> lock(s.mu);
+  err = serial_wait(s, dev, st);
+  return err != cudaSuccess ? err : serial_record(s, dev, st);
 }
 
 // Objects, samples and kinds of a scene: compile-time constants for the

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .models.camera import make_canvas, pixel_grid, pixel_rays
+from .models.camera import pixel_grid, pixel_rays
 from .models.objects import Scene
 from .models.scenes import SceneSpec, build
 from .ops.integrate import IntegratorConfig
@@ -77,18 +77,20 @@ def _with_spheres(scene: Scene, index: int, pos: torch.Tensor,
 def make_render_for_params(spec: SceneSpec, cfg: RenderConfig,
                            sphere_index: int = 2, dtype=torch.float32,
                            device=None):
-    """``params -> rgb [ni, nj, 3]``; the canvas is rebuilt per call because
-    the pixels' null normals depend on the metric (so on M and a)."""
+    """``params -> rgb [ni, nj, 3]``; the canvas's null normals are
+    rebuilt per call (``make_canvas``'s) because they depend on the metric
+    (so on M and a); its pixel grid is built once, so that a call copies
+    nothing from the host."""
     device = resolve_device(device)
     _, scene0, _ = build(spec, dtype, device)
+    xg, ng = pixel_grid(spec.cam_pos, spec.cam_widthx, spec.cam_widthy,
+                        spec.cam_normal, spec.ni, spec.nj, dtype, device)
 
     def render(params: InverseParams) -> torch.Tensor:
         metric = _metric(spec, params, cfg)
         scene = _with_sphere(scene0, sphere_index, params.sphere_pos)
-        canvas = make_canvas(metric, spec.cam_pos, spec.cam_widthx,
-                             spec.cam_widthy, spec.cam_normal, spec.ni,
-                             spec.nj, dtype=dtype, device=device)
-        return render_fn(metric, scene, cfg)(canvas.pos, canvas.normal)
+        pos, normal = pixel_rays(metric, xg, ng)
+        return render_fn(metric, scene, cfg)(pos, normal)
 
     return render
 

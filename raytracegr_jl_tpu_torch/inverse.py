@@ -5,6 +5,13 @@ The forward model is the differentiable pipeline of grad.py with soft
 shading. The loss is piecewise smooth with a finite basin, so ``fit``
 returns the best iterate, and ``fit_multistart`` restarts from several
 initializations, all of them in one ray batch by default.
+
+On a CUDA card with the kernel route (K3 and K4) each step replays one
+CUDA graph of the loss and its backward pass (step_graph.py, the
+counterpart of the JAX package's jitted step), and Adam steps eagerly
+beside it, so that a fit equals the eager loop bit for bit. The eager loop
+(``_adam_loop`` without a graph) is what the plain route
+(``backend="torch"``), ``grad_mode="scan"`` and CPU tensors run.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import torch
 from .grad import (InverseParams, default_inverse_cfg, make_loss_fn,
                    make_multistart_loss_fn)
 from .models.scenes import SceneSpec
-from .render import RenderConfig
+from .render import RenderConfig, resolve_backend
+from .step_graph import GraphedStep
 
 PARAM_NAMES = ("M", "a", "sphere_pos")
 
@@ -49,13 +57,31 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     return schedule
 
 
+def graphed(cfg: RenderConfig, params: InverseParams) -> bool:
+    """Whether a fit of ``params`` under ``cfg`` replays a CUDA graph of its
+    step: parameters on a CUDA card and the kernel route (K3 and K4). The
+    plain route (``backend="torch"``), ``grad_mode="scan"`` and CPU
+    tensors step eagerly."""
+    return (resolve_backend(cfg, params.M) == "cuda"
+            and cfg.integrator.grad_mode in ("auto", "ckpt_cuda"))
+
+
 def _adam_loop(params: InverseParams, loss_fn, steps: int, learning_rate,
-               trainable, opt_state):
+               trainable, opt_state, graph: bool = False):
     """``steps`` Adam updates of ``params`` (in place) on ``loss_fn(params)
     .sum()``: ``(losses [steps, ...], {name: [steps, ...]}, opt_state)``,
     each step's loss and parameters before its update. ``learning_rate``:
     a float or ``step -> lr``, evaluated at the count of updates already
-    made (0 for the first, the resumed count after ``opt_state``)."""
+    made (0 for the first, the resumed count after ``opt_state``).
+
+    Each step: zero the gradients, the loss and its backward pass, the
+    masks, the loss and the parameters copied into device buffers, the
+    learning rate, Adam's eager step; nothing is read back to the host.
+    With ``graph`` the loss and its backward pass are captured once
+    (``GraphedStep``, before the first update) and replayed in each step.
+    The values equal the eager loop's bit for bit (the same kernels on the
+    same values; Adam outside the graph, since the capturable Adam rounds
+    its bias corrections apart)."""
     schedule = learning_rate if callable(learning_rate) else None
     step0 = 0 if opt_state is None else int(opt_state["step"])
     lr = schedule(step0) if schedule else learning_rate
@@ -73,12 +99,17 @@ def _adam_loop(params: InverseParams, loss_fn, steps: int, learning_rate,
                                     dtype=params.M.dtype,
                                     device=params.M.device).detach()
                  for n in PARAM_NAMES}
-    history = {n: [] for n in PARAM_NAMES}
-    losses = []
+    step = GraphedStep(loss_fn, params) if graph else None
+    history = {n: getattr(params, n).detach().new_empty(
+        (steps,) + tuple(getattr(params, n).shape)) for n in PARAM_NAMES}
+    losses = None
     for k in range(steps):
         opt.zero_grad(set_to_none=False)
-        loss = loss_fn(params)
-        loss.sum().backward()
+        if step is not None:
+            loss = step.replay()
+        else:
+            loss = loss_fn(params)
+            loss.sum().backward()
         with torch.no_grad():
             for n in PARAM_NAMES:
                 p = getattr(params, n)
@@ -86,9 +117,11 @@ def _adam_loop(params: InverseParams, loss_fn, steps: int, learning_rate,
                     p.grad = torch.zeros_like(p)
                 if masks is not None:
                     p.grad.mul_(masks[n])
-        for n in PARAM_NAMES:
-            history[n].append(getattr(params, n).detach().clone())
-        losses.append(loss.detach())
+            if losses is None:
+                losses = loss.new_empty((steps,) + tuple(loss.shape))
+            losses[k].copy_(loss)
+            for n in PARAM_NAMES:
+                history[n][k].copy_(getattr(params, n))
         if schedule:
             for group in opt.param_groups:
                 group["lr"] = schedule(step0 + k)
@@ -98,15 +131,14 @@ def _adam_loop(params: InverseParams, loss_fn, steps: int, learning_rate,
                          for n in PARAM_NAMES},
              "exp_avg_sq": {n: opt.state[getattr(params, n)]["exp_avg_sq"]
                             .clone() for n in PARAM_NAMES}}
-    return (torch.stack(losses), {n: torch.stack(v) for n, v in
-                                  history.items()}, state)
+    return losses, history, state
 
 
 def fit(spec: SceneSpec, target_rgb: torch.Tensor, init: InverseParams,
         cfg: RenderConfig | None = None, *, steps: int = 100,
         learning_rate=3e-2, sphere_index: int = 2, trainable=None,
         opt_state: dict | None = None, dtype=torch.float32,
-        device=None) -> FitResult:
+        device=None, graph: bool | None = None) -> FitResult:
     """Fit ``init`` (left unchanged) toward the target with
     ``torch.optim.Adam`` (the defaults of optax's adam).
 
@@ -121,7 +153,12 @@ def fit(spec: SceneSpec, target_rgb: torch.Tensor, init: InverseParams,
     ``trainable`` optionally masks the gradients: an object with 0/1 ``M``,
     ``a`` and ``sphere_pos`` (an ``InverseParams`` or a namedtuple), e.g.
     to freeze the spin of a non-spinning scene. Returns the best-loss
-    iterate, which the rough landscape makes more useful than the last."""
+    iterate, which the rough landscape makes more useful than the last.
+
+    ``graph``: None replays a CUDA graph of the loss and its backward pass
+    in each step where ``graphed`` says so (a card and the kernel route),
+    False steps eagerly, True replays a graph (and raises where it cannot
+    be captured). Graphed or not, the result is the same bit for bit."""
     if cfg is None:
         cfg = default_inverse_cfg(dtype, soft_temp=0.05, stop_rho=0.5)
     device = init.M.device if device is None else device
@@ -129,7 +166,9 @@ def fit(spec: SceneSpec, target_rgb: torch.Tensor, init: InverseParams,
                            device)
     params = init.copy()
     losses, history, state = _adam_loop(params, loss_fn, steps,
-                                        learning_rate, trainable, opt_state)
+                                        learning_rate, trainable, opt_state,
+                                        graphed(cfg, params) if graph is None
+                                        else graph)
     best = int(torch.argmin(losses))
     best_params = InverseParams(*(history[n][best] for n in PARAM_NAMES),
                                 dtype=dtype, device=params.M.device)
@@ -143,7 +182,7 @@ def _fit_stacked(spec: SceneSpec, target_rgb: torch.Tensor,
                  *, steps: int = 100, learning_rate=3e-2,
                  sphere_index: int = 2, trainable=None,
                  opt_state: dict | None = None, dtype=torch.float32,
-                 device=None) -> FitResult:
+                 device=None, graph: bool | None = None) -> FitResult:
     """The vectorized multistart: one Adam over the inits stacked along a
     leading start axis, on the sum of the starts' losses, whose gradients
     are independent (so each start follows its own ``fit``), rendered as
@@ -160,7 +199,9 @@ def _fit_stacked(spec: SceneSpec, target_rgb: torch.Tensor,
                              for n in PARAM_NAMES), dtype=dtype,
                            device=device)
     losses, history, state = _adam_loop(params, loss_fn, steps,
-                                        learning_rate, trainable, opt_state)
+                                        learning_rate, trainable, opt_state,
+                                        graphed(cfg, params) if graph is None
+                                        else graph)
     best_step = torch.argmin(losses, dim=0)  # per start, the first minimum
     best_loss = losses.gather(0, best_step[None])[0]
     run = int(torch.argmin(best_loss))  # first minimum, as the serial loop

@@ -7,14 +7,23 @@ and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
 ``integrate_rays_cm_ckpt_pallas``):
 
 * forward: the ``make_step_cm`` body runs in segments of ``seg_len`` steps,
-  one checkpoint of the 13-field state per segment, and stops early once no
-  ray is active (on the card one K3 launch runs every ray through its
-  segments, and the host reads the count of segments once);
-* backward: the segments in reverse, each replayed from its checkpoint, and
-  the cotangents pushed back through each step by a hand-written adjoint
-  (``step_vjp``, ``rhs_vjp``), the same in PyTorch and in K4;
-* after the loop, the dead-ray cutoff and ``localize_events_cm`` in plain
-  PyTorch autograd, which carry the event and object gradients.
+  one checkpoint of the 13-field state per segment; each ray's end segment
+  is the first at whose start it is inactive, and every ray's final state
+  lies in the fixed slot ``ck[n_seg]`` (on the card one K3 launch runs
+  every ray through its segments; the plain version stops the batch early
+  once no ray is active);
+* backward: each ray's segments in reverse from its end segment, each
+  replayed from its checkpoint, and the cotangents pushed back through each
+  step by a hand-written adjoint (``step_vjp``, ``rhs_vjp``), the same in
+  PyTorch and in K4;
+* after the loop, the dead-ray cutoff and ``localize_events_cm`` over every
+  ray (a hit ray's result selected by ``torch.where``) in plain PyTorch
+  autograd, which carry the event and object gradients.
+
+On the card nothing here reads a value back to the host and every shape is
+static (the segment counts stay on the card), so a CUDA graph can hold a
+whole training step (step_graph.py), as ``jax.jit`` holds the JAX
+package's.
 
 Which state carries a cotangent follows from the body. ``y``, ``k1`` and
 ``ev_y0`` do. ``dt_try`` is detached, so ``dt``, ``err_old`` and the
@@ -43,7 +52,11 @@ render's ``grad_mode="scan"``, optionally rematerialized).
 
 The state is packed into ``[34, B]`` planes of the working type (layout
 below); the checkpoint buffer is ``[n_seg + 1, 34, B]``: the state at the
-start of each segment run, then the final state.
+start of each segment a ray runs, then every ray's final state in
+``ck[n_seg]``. A forward pass also returns ``used [1 + B]`` (int32, on the
+state's device): ``used[0]`` the count of segments the per-segment chain
+runs (``n_used``, the largest end segment), ``used[1:]`` the rays' end
+segments.
 """
 
 from __future__ import annotations
@@ -631,13 +644,16 @@ def forward_segment(route: Route, P: torch.Tensor) -> torch.Tensor:
     return pack_state(st)
 
 
-def backward_plain(route: Route, ck: torch.Tensor, n_used: int,
+def backward_plain(route: Route, ck: torch.Tensor, ends: torch.Tensor,
                    ct: torch.Tensor):
-    """Plain version of K4: ``(checkpoints, n_used, ct of the final state
-    [34, B]) -> (ct of the initial state [34, B], per-ray (M, a) cotangents
-    [B, 2])``. Segments in reverse; each is replayed from its checkpoint
-    and its accepted steps are walked back with ``step_vjp``. A ray's
-    non-stepping iterations are the identity; where-masks keep them so."""
+    """Plain version of K4: ``(checkpoints, the rays' end segments [B]
+    int32, ct of the final state [34, B]) -> (ct of the initial state
+    [34, B], per-ray (M, a) cotangents [B, 2])``. Ray i's segments in
+    reverse from ``ends[i] - 1``; each is replayed from its checkpoint and
+    its accepted steps are walked back with ``step_vjp``. A segment at or
+    past a ray's end, and a ray's non-stepping iteration, are the identity;
+    where-masks keep them so (what the checkpoints hold there is never
+    taken)."""
     metric, scene = route_rows(route, ck.shape[2])
     p = adj_params(metric, ck.dtype, ck.device)
     tsit5 = route.cfg.method == "tsit5"
@@ -648,8 +664,11 @@ def backward_plain(route: Route, ck: torch.Tensor, n_used: int,
     B = ck.shape[2]
     pM = torch.zeros(B, dtype=ck.dtype, device=ck.device)
     pa = torch.zeros_like(pM)
-    for s in range(n_used - 1, -1, -1):
+    # The plain version reads the longest walk to the host.
+    n = int(ends.max()) if B else 0
+    for s in range(n - 1, -1, -1):
         st = unpack_state(ck[s])
+        st = st._replace(active=st.active & (s < ends))
         recs = []
         for _ in range(route.seg_len):
             nxt, rec = body(st)
@@ -717,16 +736,16 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     ``ck[0]``; each ray runs its segments and writes their checkpoints.
     Returns ``used [1 + B]`` (int32, on the card, not read here):
     ``used[0]`` is ``n_used`` and ``used[1 + i]`` ray i's end segment (the
-    first at whose start it is inactive). For every ``s < n_used`` the
-    buffer then holds what the per-segment chain (``run_segments``' plain
-    route) holds wherever a reader looks: the whole state of a ray active
-    at the start of segment s, ``P_ACTIVE = 0`` of one inactive there, and
-    every ray's whole final state in ``ck[n_used]``. ``args`` from
-    ``launch_args`` (built here if not given). Adds one to
-    ``forward_segment_cuda.launches`` per pass and its rays to
-    ``forward_segment_cuda.rays``. A grouped route launches
-    the grouped kernel (each ray's parameters from its group's row of
-    ``route.groups``) in the same one launch."""
+    first at whose start it is inactive, ``n_seg`` if none). The buffer
+    then holds what the per-segment chain (``run_segments``' plain route)
+    holds wherever a reader looks (``read_mask``): ray i's whole state at
+    the start of each segment up to its end, and every ray's whole final
+    state in ``ck[n_seg]``. ``args`` from ``launch_args`` (built here if
+    not given). Adds one to ``forward_segment_cuda.launches`` per pass and
+    its rays to ``forward_segment_cuda.rays`` (where the launch is issued:
+    a CUDA graph's replays of a captured launch do not count). A grouped
+    route launches the grouped kernel (each ray's parameters from its
+    group's row of ``route.groups``) in the same one launch."""
     if ck.device.type != "cuda":
         raise ValueError(f"K3 needs CUDA tensors, got {ck.device}")
     if ck.dim() != 3 or ck.shape[0] != route.n_seg + 1 or (
@@ -753,29 +772,31 @@ forward_segment_cuda.launches = 0
 forward_segment_cuda.rays = 0
 
 
-def backward_cuda(route: Route, ck: torch.Tensor, n_used: int,
+def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
                   ct: torch.Tensor, args=None):
     """K4: the whole backward pass in one launch, one thread per ray; the
     same contract as ``backward_plain`` (a grouped route's rays with their
-    groups' parameters); ``args`` as for K3. Adds one to
+    groups' parameters); ``ends`` K3's end segments on the card (``used[1:]``
+    of ``forward_segment_cuda``), ``args`` as for K3. Adds one to
     ``backward_cuda.launches`` per launch and its rays to
-    ``backward_cuda.rays``."""
+    ``backward_cuda.rays`` (where issued, as K3's)."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
-    prm, flags = args if args is not None else launch_args(route, ck)
     B = ck.shape[2]
+    if (ends.device != ck.device or ends.dtype != torch.int32
+            or ends.shape != (B,) or not ends.is_contiguous()):
+        raise ValueError("K4 takes the end segments as a contiguous int32 "
+                         "[B] tensor on the checkpoints' device")
+    prm, flags = args if args is not None else launch_args(route, ck)
     ct = ct.contiguous()
     ct0 = torch.zeros_like(ct)
     pbar = torch.empty((B, 2), dtype=ck.dtype, device=ck.device)
     fn = _lib().rtgr_k4_f32 if ck.dtype == torch.float32 else \
         _lib().rtgr_k4_f64
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(ck.device):
-        rc = fn(ctypes.c_void_p(ck.data_ptr()), n_used,
-                ctypes.c_void_p(ct.data_ptr()),
-                ctypes.c_void_p(ct0.data_ptr()),
-                ctypes.c_void_p(pbar.data_ptr()),
-                ctypes.c_void_p(prm.data_ptr()), B, *flags, route.seg_len,
-                *_group_args(route, B),
+        rc = fn(ptr(ck), ptr(ends), ptr(ct), ptr(ct0), ptr(pbar), ptr(prm),
+                B, *flags, route.seg_len, *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
@@ -789,27 +810,30 @@ backward_cuda.rays = 0
 
 
 def run_segments(route: Route, P0: torch.Tensor):
-    """The forward loop: ``(checkpoints [n_seg + 1, 34, B], n_used)``.
-    Checkpoint s holds the state at the start of segment s, checkpoint
-    ``n_used`` the final state; the loop stops after a segment that leaves
-    no ray active (the early exit of the JAX ``_ckpt_fwd``). The plain
-    route launches one segment at a time and checks for an active ray
-    before each; the kernel route is one K3 launch, whose ``n_used`` the
-    host reads once. Past a ray's end the kernel route leaves only what is
-    read (``forward_segment_cuda``)."""
+    """The forward loop: ``(checkpoints [n_seg + 1, 34, B], used [1 + B])``
+    with ``used`` as ``forward_segment_cuda`` returns it. Checkpoint s
+    holds the state at the start of segment s for the rays active there,
+    checkpoint ``n_seg`` every ray's final state. The kernel route is one
+    K3 launch and reads nothing back. The plain route launches one segment
+    at a time and checks for an active ray before each, stopping after a
+    segment that leaves none active (the early exit of the JAX
+    ``_ckpt_fwd``); it then copies the final state into ``ck[n_seg]`` and
+    reads the end segments from its checkpoints (``end_segments``)."""
     ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
                      device=P0.device)
     ck[0] = P0
     if route.cuda:
         if P0.shape[1] == 0:
-            return ck, 0
-        used = forward_segment_cuda(route, ck, launch_args(route, P0))
-        return ck, int(used[0])
+            return ck, torch.zeros(1, dtype=torch.int32, device=P0.device)
+        return ck, forward_segment_cuda(route, ck, launch_args(route, P0))
     s = 0
     while s < route.n_seg and bool(ck[s, P_ACTIVE].any()):
         ck[s + 1] = forward_segment(route, ck[s])
         s += 1
-    return ck, s
+    if s < route.n_seg:
+        ck[route.n_seg] = ck[s]
+    n_used = torch.full((1,), s, dtype=torch.int32, device=P0.device)
+    return ck, torch.cat([n_used, end_segments(ck, s, route.n_seg)])
 
 
 def end_segments(ck: torch.Tensor, n_used: int, n_seg: int) -> torch.Tensor:
@@ -821,18 +845,15 @@ def end_segments(ck: torch.Tensor, n_used: int, n_seg: int) -> torch.Tensor:
     return torch.where(inactive.any(0), first, torch.full_like(first, n_seg))
 
 
-def read_mask(ends: torch.Tensor, n_used: int) -> torch.Tensor:
-    """``[n_used + 1, 34, B]`` bool: the values of checkpoints ``ck[0 ..
-    n_used]`` that their readers take, given the rays' end segments: every
-    plane of ray i up to its end segment and at ``n_used`` (the forward's
-    result), and ``P_ACTIVE`` everywhere (K4 reads only that flag where the
-    ray is inactive). The kernel route writes these; the plain route writes
-    frozen copies of the whole state in the rest."""
-    s = torch.arange(n_used + 1, device=ends.device)[:, None]
-    rows = (s <= ends[None, :]) | (s == n_used)
-    mask = rows[:, None, :].repeat(1, N_PLANES, 1)
-    mask[:, P_ACTIVE] = True
-    return mask
+def read_mask(ends: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """``[n_seg + 1, 34, B]`` bool: the values of the checkpoints that their
+    readers take, given the rays' end segments: every plane of ray i at
+    each segment up to its end (K4's replays; the end's own is its final
+    state) and at ``n_seg`` (the forward's result). The kernel route writes
+    just these; the plain route writes more."""
+    s = torch.arange(n_seg + 1, device=ends.device)[:, None]
+    rows = (s <= ends[None, :]) | (s == n_seg)
+    return rows[:, None, :].expand(n_seg + 1, N_PLANES, ends.shape[0])
 
 
 def used_segments(ends: torch.Tensor, n_seg: int) -> int:
@@ -869,13 +890,14 @@ def sorted_parts(y0: torch.Tensor, n_parts: int) -> SortedParts:
 
 class _Checkpointed(torch.autograd.Function):
     """``(P0 [34, B], pvec [P], route, info, parts) -> final state [34,
-    B]``, with the number of segments run in ``info["n_used"]`` (the most
-    of any part); gradients for the y, k1 and ev_y0 planes of P0 and for
-    M, a (pvec[0:2]). The other planes' cotangents are dropped (see the
-    module docstring), and the object fields get none. On a grouped route
-    ``pvec`` is the ``[G, P]`` table and each group's (M, a) cotangent the
-    sum over its rays. ``parts``: None (one pass over the batch as given)
-    or the ``SortedParts`` to run it as."""
+    B]``, with the number of segments run in ``info["n_used"]`` (a 0-d
+    int32 tensor on the state's device, the most of any part); gradients
+    for the y, k1 and ev_y0 planes of P0 and for M, a (pvec[0:2]). The
+    other planes' cotangents are dropped (see the module docstring), and
+    the object fields get none. On a grouped route ``pvec`` is the ``[G,
+    P]`` table and each group's (M, a) cotangent the sum over its rays.
+    ``parts``: None (one pass over the batch as given) or the
+    ``SortedParts`` to run it as."""
 
     @staticmethod
     def forward(ctx, P0, pvec, route, info, parts):
@@ -885,12 +907,12 @@ class _Checkpointed(torch.autograd.Function):
         bounds = (0, P0.shape[1]) if parts is None else parts.bounds
         runs = [run_segments(route, P0[:, lo:hi].contiguous())
                 for lo, hi in zip(bounds, bounds[1:])]
-        info["n_used"] = max(n for _, n in runs)
+        info["n_used"] = torch.cat([used[:1] for _, used in runs]).amax()
         ctx.route, ctx.parts, ctx.bounds = route, parts, bounds
-        ctx.n_used = [n for _, n in runs]
-        ctx.save_for_backward(*(ck for ck, _ in runs))
+        ctx.save_for_backward(*(ck for ck, _ in runs),
+                              *(used for _, used in runs))
         ctx.p_shape = pvec.shape
-        out = torch.cat([ck[n] for ck, n in runs], dim=1)
+        out = torch.cat([ck[route.n_seg] for ck, _ in runs], dim=1)
         return out if parts is None else out[:, parts.inverse]
 
     @staticmethod
@@ -899,9 +921,10 @@ class _Checkpointed(torch.autograd.Function):
         parts, bounds = ctx.parts, ctx.bounds
         if parts is not None:
             ct = ct[:, parts.order]
-        res = [back(ctx.route, ck, n, ct[:, lo:hi].contiguous())
-               for ck, n, lo, hi in zip(ctx.saved_tensors, ctx.n_used,
-                                        bounds, bounds[1:])]
+        saved = ctx.saved_tensors
+        cks, useds = saved[:len(saved) // 2], saved[len(saved) // 2:]
+        res = [back(ctx.route, ck, used[1:], ct[:, lo:hi].contiguous())
+               for ck, used, lo, hi in zip(cks, useds, bounds, bounds[1:])]
         ct0 = torch.cat([c for c, _ in res], dim=1)
         pbar = torch.cat([p for _, p in res], dim=0)
         if parts is not None:  # (M, a) summed in the caller's order
@@ -958,12 +981,13 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
         def step(s):
             return body(s)[0]
 
-        st, n_used = st0, 0
-        while n_used < route.n_seg and bool(st.active.any()):
+        st, n = st0, 0
+        while n < route.n_seg and bool(st.active.any()):
             for _ in range(seg):
                 st = (checkpoint(step, st, use_reentrant=False) if remat
                       else step(st))
-            n_used += 1
+            n += 1
+        n_used = torch.full((), n, dtype=torch.int32, device=y0.device)
     else:
         info = {}
         parts = (None if sort_parts is None
@@ -977,12 +1001,14 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
     # in the JAX package. Rays still active at the step budget keep theirs.
     dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
     y = torch.where(dead, st.y.detach(), st.y)
-    lam = st.lam
-    if bool(st.hit.any()):
-        th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
-                                             st.ev_dt, st.ev_lo, st.ev_hi)
-        y = torch.where(st.hit, y_star, y)
-        lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, lam)
+    # Every ray is localized, as in the JAX package, and a hit ray's result
+    # selected: no host read decides it. A ray that never hit keeps the
+    # initial event record (its start, a span of 1), whose localization is
+    # finite, so the zero cotangent that the selection gives it stays zero.
+    th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
+                                         st.ev_dt, st.ev_lo, st.ev_hi)
+    y = torch.where(st.hit, y_star, y)
+    lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, st.lam)
     return TraceResult(y=y.t(), lam=lam, hit=st.hit,
                        steps=st.steps.to(torch.int32), n_iters=n_used * seg)
 

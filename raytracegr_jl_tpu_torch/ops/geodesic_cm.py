@@ -260,8 +260,9 @@ def _rk4_step_cm(f, y, dt, k1):
     k2 = f(y + 0.5 * dt * k1)
     k3 = f(y + 0.5 * dt * k2)
     k4 = f(y + dt * k3)
-    # A tensor divisor keeps this a true division on CUDA as well.
-    y1 = y + (dt / dt.new_tensor(6.0)) * (k1 + 2 * k2 + 2 * k3 + k4)
+    # A tensor divisor keeps this a true division on CUDA as well; it is
+    # filled on the device (no copy from the host).
+    y1 = y + (dt / torch.full_like(dt, 6.0)) * (k1 + 2 * k2 + 2 * k3 + k4)
     return y1, None, f(y1), None
 
 
@@ -745,6 +746,11 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     return _config_slots(metric, cfg, dtype) + rows + _sample_slots(cfg)
 
 
+# The host part of each parameter block built so far, on its device, by
+# its values: built once and kept (a captured CUDA graph copies from it).
+_HOST_BLOCKS: dict = {}
+
+
 def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
                 dtype: torch.dtype, device) -> torch.Tensor:
     """The bytes of csrc ``Params<T>`` on ``device`` (uint8,
@@ -755,12 +761,17 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     zero pad. Every launch copies it into the kernels' constant memory on its
     stream (csrc launch_with_params).
 
-    Nothing is read back from the card: the configuration, samples and
-    kinds are host values, copied to a card from pinned memory without a
-    host sync; the object rows, and M and a where they are tensors (the
-    training path), are copied on the device from the scene's and the
-    metric's tensors, so their current values reach the kernels.
-    Raises for what the kernels do not take (``check_kernel_config``)."""
+    Nothing is read back from the card, and after the first pass of a
+    configuration nothing is copied from the host: the configuration,
+    samples and kinds (and M and a where they are floats) are host values,
+    put on the device once per set of values and device (from pinned
+    memory, without a host sync) and kept; each pass clones that block on
+    the device and copies the object rows, and M and a where they are
+    tensors (the training path), into it from the scene's and the
+    metric's tensors, so that their current values reach the kernels,
+    also when a CUDA graph replays the pass. Raises for what the kernels
+    do not take (``check_kernel_config``), and where a new block would be
+    copied from the host while the stream is being captured."""
     kinds = check_kernel_config(metric, scene, cfg)
     params = metric.params
     tensors = {i: v for i, v in enumerate((params.M, params.a))
@@ -775,15 +786,24 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     samples = _sample_slots(cfg)
     vals[smp:smp + len(samples)] = samples
     refine = int(cfg.min_refine_iters) if cfg.refine_minima else 0
-    ints = torch.tensor(list(kinds) + [0] * (_MAX_OBJECTS - n_obj)
-                        + [refine, 0], dtype=torch.int32)
-    host = torch.cat([torch.tensor(vals, dtype=dtype).view(torch.uint8),
-                      ints.view(torch.uint8)])
+    ints = list(kinds) + [0] * (_MAX_OBJECTS - n_obj) + [refine, 0]
     device = torch.device(device)
-    if device.type == "cuda":
-        out = host.pin_memory().to(device, non_blocking=True)
-    else:
-        out = host.to(device)
+    key = (tuple(vals), tuple(ints), dtype, device)
+    base = _HOST_BLOCKS.get(key)
+    if base is None:
+        host = torch.cat([torch.tensor(vals, dtype=dtype).view(torch.uint8),
+                          torch.tensor(ints, dtype=torch.int32)
+                          .view(torch.uint8)])
+        if device.type == "cuda":
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a new parameter block cannot be copied "
+                                   "to the card during stream capture: run "
+                                   "the pass once before capturing it")
+            base = host.pin_memory().to(device, non_blocking=True)
+        else:
+            base = host.to(device)
+        _HOST_BLOCKS[key] = base
+    out = base.clone()
     out_vals = out[:PARAM_VALUES * dtype.itemsize].view(dtype)
     out_vals[N_CFG:N_CFG + 8 * n_obj] = _object_rows(scene, dtype).reshape(-1)
     for i, v in tensors.items():

@@ -38,8 +38,10 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def eta(dtype=torch.float64, device=None) -> torch.Tensor:
-    """Minkowski eta_ab = diag(-1, 1, 1, 1)."""
-    return torch.diag(torch.tensor(_ETA_DIAG, dtype=dtype, device=device))
+    """Minkowski eta_ab = diag(-1, 1, 1, 1), made on the device (no copy
+    from the host, so a CUDA graph can hold it)."""
+    time_axis = (torch.arange(D, device=device) == 0).to(dtype)
+    return torch.diag(1.0 - 2.0 * time_axis)
 
 
 def minkowski(x: torch.Tensor) -> torch.Tensor:

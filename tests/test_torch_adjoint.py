@@ -28,6 +28,17 @@ from raytracegr_jl_tpu_torch.ops.metrics import (KerrSchildParams,  # noqa: E402
                                                  make_metric)
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RHO_MIN = 0.25  # the JAX adjoint tests' clamp
 
 
@@ -111,9 +122,9 @@ def test_forward_segment_matches_jax_step_body(method):
         init, _ = make_step_cm(tm, scene_event_cm(scene), cfg)
         P0 = A.pack_state(init(torch.from_numpy(y0.T.copy()),
                                torch.from_numpy(dt0)))
-        ck, n_used = A.run_segments(route, P0)
-        assert n_used == 3
-        _compare_states(A.unpack_state(ck[n_used]), states[6])
+        ck, used = A.run_segments(route, P0)
+        assert int(used[0]) == 3
+        _compare_states(A.unpack_state(ck[route.n_seg]), states[6])
 
 
 @pytest.mark.parametrize("a,rf", [(0.0, "as_written"), (0.3, "textbook"),
@@ -229,8 +240,8 @@ def test_hand_adjoint_matches_autograd_per_ray():
         M.detach(), at.detach()), rho_min=RHO_MIN)
     route = A.Route(metric=plain_tm, scene=scene, cfg=cfg, seg_len=4,
                      n_seg=2, cuda=False)
-    ck, n_used = A.run_segments(route, P0.detach())
-    ct0, pbar = A.backward_plain(route, ck, n_used, ct)
+    ck, used = A.run_segments(route, P0.detach())
+    ct0, pbar = A.backward_plain(route, ck, used[1:], ct)
     np.testing.assert_allclose(ct0.numpy(), (gP0 * keep).numpy(),
                                rtol=1e-10, atol=1e-12)
     # autograd reaches M and a also through k1 = rhs(y0) of init; the

@@ -32,6 +32,17 @@ from raytracegr_jl_tpu_torch.ops.metrics import kerr_schild_radius  # noqa: E402
 from raytracegr_jl_tpu_torch.render import _shade, initial_dt  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # Horizon rule and bars of tests/test_torch_integrate.py.
 HORIZON_BAND = 1.04
 MIN_CHECKED_SHARE = 0.85

@@ -90,29 +90,29 @@ CKPT_CASES = [(32, torch.float32, "rk4", 40), (32, torch.float32, "tsit5", 16),
               (16, torch.float64, "rk4", 40), (16, torch.float64, "tsit5", 16)]
 
 
-def _read_equal(A, route, ck, n_used, ck_p, n_p):
-    """K3's checkpoints against the per-segment chain's: the same n_used,
-    and bitwise on every value that K4 and the forward's result read (the
-    whole state of a ray up to its end segment and at n_used, P_ACTIVE
-    everywhere: ``read_mask``)."""
-    mask = A.read_mask(A.end_segments(ck_p, n_p, route.n_seg), n_p)
+def _read_equal(A, route, ck, used, ck_p, used_p):
+    """K3's checkpoints against the per-segment chain's: the same n_used and
+    end segments (``used``), and bitwise on every value that K4 and the
+    forward's result read (the whole state of a ray up to its end segment,
+    and every ray's final state at n_seg: ``read_mask``)."""
+    mask = A.read_mask(used_p[1:], route.n_seg)
     bits = torch.int32 if ck.dtype == torch.float32 else torch.int64
-    return n_used == n_p and torch.equal(ck[:n_used + 1][mask].view(bits),
-                                         ck_p[:n_p + 1][mask].view(bits))
+    return torch.equal(used, used_p) and torch.equal(ck[mask].view(bits),
+                                                     ck_p[mask].view(bits))
 
 
 @pytest.mark.parametrize("n,dtype,method,max_steps", CKPT_CASES)
 def test_k3_k4_match_plain_bitwise(n, dtype, method, max_steps):
     A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
     before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
-    ck, n_used = A.run_segments(route, P0)
-    ck_p, n_p = A.run_segments(route._replace(cuda=False), P0)
+    ck, used = A.run_segments(route, P0)
+    ck_p, used_p = A.run_segments(route._replace(cuda=False), P0)
     torch.cuda.synchronize()
     assert A.forward_segment_cuda.launches == before[0] + 1
-    assert _read_equal(A, route, ck, n_used, ck_p, n_p)
+    assert _read_equal(A, route, ck, used, ck_p, used_p)
     ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
-    c, p = A.backward_cuda(route, ck, n_used, ct)
-    c_p, p_p = A.backward_plain(route, ck_p, n_p, ct)
+    c, p = A.backward_cuda(route, ck, used[1:], ct)
+    c_p, p_p = A.backward_plain(route, ck_p, used_p[1:], ct)
     torch.cuda.synchronize()
     assert A.backward_cuda.launches == before[1] + 1
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
@@ -265,11 +265,11 @@ def test_k4_tsit5_matches_plain_bitwise(n, dtype):
     training path's configuration (tsit5/48), against backward_plain on the
     same checkpoints."""
     A, route, P0, _ = _ckpt_case(n, dtype, "tsit5", 48)
-    ck, n_used = A.run_segments(route, P0)
+    ck, used = A.run_segments(route, P0)
     gen = torch.Generator(device=P0.device).manual_seed(1)
     ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
-    c, p = A.backward_cuda(route, ck, n_used, ct)
-    c_p, p_p = A.backward_plain(route, ck, n_used, ct)
+    c, p = A.backward_cuda(route, ck, used[1:], ct)
+    c_p, p_p = A.backward_plain(route, ck, used[1:], ct)
     torch.cuda.synchronize()
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
 
@@ -300,17 +300,17 @@ def test_gate_on_matches_gate_off_k1_k3_k4(dtype, method, max_steps):
 
     A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps)
     g_route = route._replace(cfg=route.cfg._replace(event_gate=True))
-    ck_on, n_on = A.run_segments(g_route, P0)
-    ck_off, n_off = A.run_segments(route, P0)
-    ck_p, n_p = A.run_segments(g_route._replace(cuda=False), P0)
-    assert n_on == n_off == n_p
-    assert _read_equal(A, route, ck_on, n_on, ck_p, n_p)
-    assert _read_equal(A, route, ck_off, n_off, ck_p, n_p)
+    ck_on, used_on = A.run_segments(g_route, P0)
+    ck_off, used_off = A.run_segments(route, P0)
+    ck_p, used_p = A.run_segments(g_route._replace(cuda=False), P0)
+    assert torch.equal(used_on, used_off)
+    assert _read_equal(A, route, ck_on, used_on, ck_p, used_p)
+    assert _read_equal(A, route, ck_off, used_off, ck_p, used_p)
     gen = torch.Generator(device=dev).manual_seed(2)
     ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
-    c_on, p_on = A.backward_cuda(g_route, ck_on, n_on, ct)
-    c_off, p_off = A.backward_cuda(route, ck_off, n_off, ct)
-    c_p, p_p = A.backward_plain(g_route, ck_p, n_p, ct)
+    c_on, p_on = A.backward_cuda(g_route, ck_on, used_on[1:], ct)
+    c_off, p_off = A.backward_cuda(route, ck_off, used_off[1:], ct)
+    c_p, p_p = A.backward_plain(g_route, ck_p, used_p[1:], ct)
     torch.cuda.synchronize()
     assert torch.equal(c_on, c_off) and torch.equal(p_on, p_off)
     assert torch.equal(c_on, c_p) and torch.equal(p_on, p_p)
@@ -345,6 +345,43 @@ def test_launches_on_two_streams_keep_their_parameters():
                                                  for g in got_short]:
         for f in ("y", "lam", "hit", "steps"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_k3_and_k4_on_two_streams_keep_their_parameters():
+    """K3 and K4 take one constant copy of the parameters in their library
+    (per type), whichever kernel launches. A K3 pass on one stream, then K4
+    launches with another mass on a second stream, queued without a sync,
+    and the same with K4 first: each result equals the same launch run
+    alone (the library serializes the launches of all its kernels across
+    streams, not each kernel's alone)."""
+    A, route, P0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
+    heavy = route._replace(metric=route.metric._replace(
+        params=route.metric.params._replace(M=1.3)))
+    ck_ref, used_ref = A.run_segments(route, P0)
+    gen = torch.Generator(device=P0.device).manual_seed(4)
+    ct = torch.randn(P0.shape, generator=gen, dtype=P0.dtype,
+                     device=P0.device)
+    want = A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        ck, used = A.run_segments(route, P0)
+    with torch.cuda.stream(s2):
+        got = [A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
+               for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(used, used_ref)
+    assert _read_equal(A, route, ck, used, ck_ref, used_ref)
+    for c, p in got:
+        assert torch.equal(c, want[0]) and torch.equal(p, want[1])
+    with torch.cuda.stream(s1):
+        c, p = A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
+    with torch.cuda.stream(s2):
+        runs = [A.run_segments(route, P0) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(c, want[0]) and torch.equal(p, want[1])
+    for ck, used in runs:
+        assert _read_equal(A, route, ck, used, ck_ref, used_ref)
 
 
 def _example2_rays(n_rays, dtype):
@@ -432,7 +469,7 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
     """K3's single launch against the plain per-segment chain at the
     training configurations: n_used, the end segments and every value a
     reader takes, bitwise; a batch where every ray stops in segment 0 (and
-    every third is inactive from the start); one host sync per pass; two
+    every third is inactive from the start); no host sync in a pass; two
     launches equal."""
     import warnings
     n = 48 if dtype == torch.float32 else 24
@@ -448,14 +485,15 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
         used = A.forward_segment_cuda(route, ck)
         assert A.forward_segment_cuda.launches == before + 1
         n_used = int(used[0])
-        ck_p, n_p = A.run_segments(route._replace(cuda=False), P)
-        assert _read_equal(A, route, ck, n_used, ck_p, n_p)
+        ck_p, used_p = A.run_segments(route._replace(cuda=False), P)
+        n_p = int(used_p[0])
+        assert _read_equal(A, route, ck, used, ck_p, used_p)
         assert torch.equal(used[1:], A.end_segments(ck_p, n_p, route.n_seg))
         assert n_used == A.used_segments(used[1:], route.n_seg)
         if stopped:
             assert n_used == 1
-        ck2, n2 = A.run_segments(route, P)
-        assert n2 == n_used and _read_equal(A, route, ck2, n2, ck_p, n_p)
+        ck2, used2 = A.run_segments(route, P)
+        assert _read_equal(A, route, ck2, used2, ck_p, used_p)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -465,7 +503,7 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught
              if "synchronizing cuda operation" in str(w.message).lower()]
-    assert len(syncs) == 1
+    assert len(syncs) == 0
 
 
 def _lensing_grouped(dtype, method, starts, n=16, refine=False):
@@ -521,26 +559,29 @@ def _check_grouped_k3_k4(dtype, method, refine):
     A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts,
                                                refine=refine)
     before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
-    ck, n_used = A.run_segments(grouped, P0)
-    ck_p, n_p = A.run_segments(grouped._replace(cuda=False), P0)
+    ck, used = A.run_segments(grouped, P0)
+    ck_p, used_p = A.run_segments(grouped._replace(cuda=False), P0)
     torch.cuda.synchronize()
     assert A.forward_segment_cuda.launches == before[0] + 1
-    assert _read_equal(A, grouped, ck, n_used, ck_p, n_p)
-    assert bool(ck[n_used, A.P_HIT].any())
+    assert _read_equal(A, grouped, ck, used, ck_p, used_p)
+    fin = ck[grouped.n_seg]
+    assert bool(fin[A.P_HIT].any())
     gen = torch.Generator(device=P0.device).manual_seed(3)
     ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
-    c, p = A.backward_cuda(grouped, ck, n_used, ct)
-    c_p, p_p = A.backward_plain(grouped._replace(cuda=False), ck_p, n_p, ct)
+    c, p = A.backward_cuda(grouped, ck, used[1:], ct)
+    c_p, p_p = A.backward_plain(grouped._replace(cuda=False), ck_p,
+                                used_p[1:], ct)
     torch.cuda.synchronize()
     assert A.backward_cuda.launches == before[1] + 1
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
     B = singles[0][1].shape[1]
     for s, (route, P) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
-        ck_s, n_s = A.run_segments(route, P)
-        c_s, p_s = A.backward_cuda(route, ck_s, n_s, ct[:, rays].contiguous())
+        ck_s, used_s = A.run_segments(route, P)
+        c_s, p_s = A.backward_cuda(route, ck_s, used_s[1:],
+                                   ct[:, rays].contiguous())
         torch.cuda.synchronize()
-        assert torch.equal(ck_s[n_s], ck[n_used][:, rays])
+        assert torch.equal(ck_s[route.n_seg], fin[:, rays])
         assert torch.equal(c_s, c[:, rays]) and torch.equal(p_s, p[rays])
 
 
@@ -552,7 +593,9 @@ def test_config5_recovery_through_the_kernels():
     starts picks the run the serial one picks, one K3 and K4 launch per
     step, with loss histories within 1e-4 of the serial ones relative to
     their largest loss (chip_smoke.py's VEC_SERIAL_RTOL: the camera, the
-    means and the cotangent sums reduce over other batch shapes)."""
+    means and the cotangent sums reduce over other batch shapes). The
+    counted fits step eagerly (``graph=False``): a graph's replays issue no
+    launch from Python."""
     from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
                                                       forward_segment_cuda)
     dev = torch.device("cuda")
@@ -570,7 +613,7 @@ def test_config5_recovery_through_the_kernels():
                                         dev))
     init = T.InverseParams(0.53, 0.0, [0.0, 5.0, 12.0, 0.03], f32, dev)
     before = (forward_segment_cuda.launches, backward_cuda.launches)
-    res = T.fit(spec, target, init, cfg, steps=60, **kw)
+    res = T.fit(spec, target, init, cfg, steps=60, graph=False, **kw)
     assert (forward_segment_cuda.launches - before[0],
             backward_cuda.launches - before[1]) == (60, 60)
     m = float(res.params.M.detach())
@@ -581,7 +624,8 @@ def test_config5_recovery_through_the_kernels():
     inits = [init, T.InverseParams(0.47, 0.0, [0.0, 5.0, 12.0, -0.04], f32,
                                    dev)]
     before = (forward_segment_cuda.launches, backward_cuda.launches)
-    vec = T.fit_multistart(spec, target, inits, cfg, steps=4, **kw)
+    vec = T.fit_multistart(spec, target, inits, cfg, steps=4, graph=False,
+                           **kw)
     assert (forward_segment_cuda.launches - before[0],
             backward_cuda.launches - before[1]) == (4, 4)
     ser = T.fit_multistart(spec, target, inits, cfg, steps=4,
@@ -652,12 +696,12 @@ def test_k3_k4_refine_match_plain_bitwise(method, max_steps, dtype):
     """K3 (one launch, k3_close) and K4 with refine_minima: K4's replay
     makes K3's refined decisions."""
     A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps, refine=True)
-    ck, n_used = A.run_segments(route, P0)
-    ck_p, n_p = A.run_segments(route._replace(cuda=False), P0)
-    assert _read_equal(A, route, ck, n_used, ck_p, n_p)
+    ck, used = A.run_segments(route, P0)
+    ck_p, used_p = A.run_segments(route._replace(cuda=False), P0)
+    assert _read_equal(A, route, ck, used, ck_p, used_p)
     ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
-    c, p = A.backward_cuda(route, ck, n_used, ct)
-    c_p, p_p = A.backward_plain(route, ck_p, n_p, ct)
+    c, p = A.backward_cuda(route, ck, used[1:], ct)
+    c_p, p_p = A.backward_plain(route, ck_p, used_p[1:], ct)
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
 
 
@@ -865,3 +909,117 @@ def test_dual_oracle_matches_k3_k4():
     assert g["primal"] <= PRIMAL_ATOL, g
     for k in ("loss_M", "loss_z", "proj_M", "proj_z"):
         assert g[k] <= GRAD_RTOL, (k, g)
+
+
+# ---------------------------------------------------------------------------
+# The training step as one CUDA graph (step_graph.py)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b):
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+def _config5(n=32):
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    spec = T.lensing_inverse_spec(n, n)
+    cfg = T.default_inverse_cfg(f32, max_steps=120, rk4_dt=0.5,
+                                soft_temp=0.05, stop_rho=0.5)._replace(
+        soft_freq=2.0)
+    cfg = cfg._replace(integrator=cfg.integrator._replace(lam_max=60.0))
+    truth = T.InverseParams(0.5, 0.0, [0.0, 5.0, 12.0, 0.0], f32, dev)
+    with torch.no_grad():
+        target = T.make_render_for_params(spec, cfg, 0, f32, dev)(truth)
+    kw = dict(sphere_index=0, learning_rate=5e-3, dtype=f32,
+              trainable=T.InverseParams(1.0, 0.0, [0.0, 0.0, 0.0, 1.0], f32,
+                                        dev))
+    return spec, cfg, target, kw
+
+
+@pytest.mark.parametrize("vectorized", [False, True],
+                         ids=["fit", "multistart"])
+def test_graphed_fit_matches_eager_bitwise(vectorized):
+    """Config 5 at 32x32 for 3 Adam steps, each step a replay of one CUDA
+    graph of the loss and its backward pass, against the eager loop: the
+    loss and parameter histories, the final parameters and Adam's state,
+    bit for bit (``fit`` and the vectorized multistart of two starts)."""
+    spec, cfg, target, kw = _config5()
+    dev = torch.device("cuda")
+    init = T.InverseParams(0.53, 0.0, [0.0, 5.0, 12.0, 0.03], torch.float32,
+                           dev)
+    assert T.inverse.graphed(cfg, init)
+
+    def run(graph):
+        if not vectorized:
+            return T.fit(spec, target, init, cfg, steps=3, graph=graph, **kw)
+        inits = [init, T.InverseParams(0.47, 0.0, [0.0, 5.0, 12.0, -0.04],
+                                       torch.float32, dev)]
+        return T.fit_multistart(spec, target, inits, cfg, steps=3,
+                                graph=graph, **kw)
+
+    g, e = run(True), run(False)
+    assert _bits_equal(g.loss_history, e.loss_history)
+    assert g.opt_state["step"] == e.opt_state["step"] == 3
+    for n in ("M", "a", "sphere_pos"):
+        assert _bits_equal(g.params_history[n], e.params_history[n]), n
+        assert _bits_equal(getattr(g.final_params, n).detach(),
+                           getattr(e.final_params, n).detach()), n
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert _bits_equal(g.opt_state[k][n], e.opt_state[k][n]), (k, n)
+
+
+def test_graphed_replays_do_not_sync():
+    """A graphed training step at example2 32x32 f32 rk4/40: the first
+    replay's loss and gradients equal the eager step's bitwise; replays
+    2..n run under sync debug mode "error" (a host sync raises) and keep
+    the same bits; K3 and K4 were counted in the warm-up passes and the
+    capture only."""
+    from raytracegr_jl_tpu_torch.ops.adjoint import (backward_cuda,
+                                                      forward_segment_cuda)
+    from raytracegr_jl_tpu_torch.step_graph import (WARMUP_PASSES,
+                                                    GraphedStep)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    spec = T.example2_spec(32, 32)
+    cfg = T.default_inverse_cfg(f32, max_steps=40, rk4_dt=2.5, stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, f32, dev)
+    truth = T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+            truth, xg, ng)
+    loss_fn = T.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+
+    def params():
+        return T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+    def grads(p):
+        return torch.cat([p.M.grad[None], p.a.grad[None], p.sphere_pos.grad])
+
+    pe = params()
+    loss_e = loss_fn(pe, xg, ng, target)
+    loss_e.backward()
+    pg = params()
+    before = (forward_segment_cuda.launches, backward_cuda.launches)
+    step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
+    counted = (WARMUP_PASSES + 1, WARMUP_PASSES + 1)
+    assert (forward_segment_cuda.launches - before[0],
+            backward_cuda.launches - before[1]) == counted
+
+    def replay():
+        for q in pg.parameters():
+            q.grad.zero_()
+        return step.replay()
+
+    assert _bits_equal(replay(), loss_e.detach())
+    assert _bits_equal(grads(pg), grads(pe))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (forward_segment_cuda.launches - before[0],
+            backward_cuda.launches - before[1]) == counted
+    assert _bits_equal(step.loss, loss_e.detach())
+    assert _bits_equal(grads(pg), grads(pe))

@@ -29,6 +29,17 @@ from raytracegr_jl_tpu.render import trace_batch as j_trace_batch  # noqa: E402
 import raytracegr_jl_tpu_torch as T  # noqa: E402
 from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 1024
 SAMPLES = 16_384
 MAX_STEPS = 1_000

@@ -28,6 +28,17 @@ from raytracegr_jl_tpu_torch import KerrSchildParams, kerr_schild, minkowski  # 
 from raytracegr_jl_tpu_torch.ops.dual import Dual  # noqa: E402
 from raytracegr_jl_tpu_torch.ops.geometry import dmetric  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 ULP_BAR = 4
 N = 9  # elements per seeded input

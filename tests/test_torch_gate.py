@@ -31,6 +31,17 @@ from raytracegr_jl_tpu_torch.utils import cuda_build  # noqa: E402
 
 from test_event_detection import _grazing_rays  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # The object sets of the JAX package's scene-bound test, one kind at a time
 # and all together.
 OBJECTS = {

@@ -24,6 +24,16 @@ from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _states(seed=0, n=400):
     """[8, n] states: random, plus positions near the as_written horizon
     (rho ~ 1.56) and at the coordinate origin (inside the clamp)."""

@@ -22,6 +22,17 @@ from raytracegr_jl_tpu_torch.models import camera as t_camera  # noqa: E402
 from raytracegr_jl_tpu_torch.models import objects as t_objects  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 8
 TRUTH = dict(M=1.0, a=0.0, sphere_pos=[0.0, 4.0, 0.0, 0.0])
 

@@ -37,6 +37,17 @@ from raytracegr_jl_tpu_torch.ops.metrics import (kerr_schild_radius,  # noqa: E4
                                                  make_metric)
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HORIZON_BAND = 1.04  # final Kerr-Schild radius below this * r+: on the horizon
 MIN_CHECKED_SHARE = 0.85  # rays off the horizon, held to equal steps
 

@@ -29,6 +29,17 @@ from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,  # noqa: E402
 from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import checkpoint  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 REF = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "torch_inverse_ref.npz"))
@@ -229,21 +240,23 @@ def test_grouped_plain_k3_k4_equal_single_runs():
     cotangents."""
     singles, grouped, P0 = _grouped_case([(0.5, 0.0), (0.53, 0.3)])
     B = singles[0][1].shape[1]
-    ck_g, n_g = A.run_segments(grouped, P0)
+    ck_g, used_g = A.run_segments(grouped, P0)
     ct = torch.randn(P0.shape, generator=torch.Generator().manual_seed(0),
                      dtype=F64)
-    ct0_g, pbar_g = A.backward_plain(grouped, ck_g, n_g, ct)
-    assert bool(ck_g[n_g, A.P_HIT].any())
+    ct0_g, pbar_g = A.backward_plain(grouped, ck_g, used_g[1:], ct)
+    fin_g = ck_g[grouped.n_seg]
+    assert bool(fin_g[A.P_HIT].any())
     for k, (route, P) in enumerate(singles):
         rays = slice(k * B, (k + 1) * B)
-        ck, n = A.run_segments(route, P)
-        assert n <= n_g
-        assert torch.equal(ck_g[n_g][:, rays], ck[n])
-        ct0, pbar = A.backward_plain(route, ck, n, ct[:, rays])
+        ck, used = A.run_segments(route, P)
+        assert int(used[0]) <= int(used_g[0])
+        assert torch.equal(used_g[1:][rays], used[1:])
+        assert torch.equal(fin_g[:, rays], ck[route.n_seg])
+        ct0, pbar = A.backward_plain(route, ck, used[1:], ct[:, rays])
         assert torch.equal(ct0_g[:, rays], ct0)
         assert torch.equal(pbar_g[rays], pbar)
     # The starts differ: so do their final states.
-    assert not torch.equal(ck_g[n_g][:, :B], ck_g[n_g][:, B:])
+    assert not torch.equal(fin_g[:, :B], fin_g[:, B:])
 
 
 def test_grouped_loss_gradients_match_per_start():

@@ -25,6 +25,17 @@ from raytracegr_jl_tpu_torch.ops.integrate import mean8  # noqa: E402
 from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPECS = {"example1": T.example1_spec(4, 4), "example2": T.example2_spec(4, 4),
          "disk": T.accretion_disk_spec(4, 4)}
 
@@ -158,9 +169,11 @@ def test_used_segments_rule_matches_the_chain(method, max_steps):
     largest equals the count of the chain on the whole batch, and the end
     segments read from the batch's checkpoints equal the rays' own."""
     route, P0 = _chain(method, max_steps)
-    ck, n_used = A.run_segments(route, P0)
+    ck, used = A.run_segments(route, P0)
+    n_used = int(used[0])
     ends = A.end_segments(ck, n_used, route.n_seg)
-    alone = torch.tensor([A.run_segments(route, P0[:, i:i + 1])[1]
+    assert torch.equal(ends, used[1:])
+    alone = torch.tensor([int(A.run_segments(route, P0[:, i:i + 1])[1][0])
                           for i in range(P0.shape[1])], dtype=torch.int32)
     assert torch.equal(ends, alone)
     assert A.used_segments(alone, route.n_seg) == n_used

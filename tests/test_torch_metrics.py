@@ -19,6 +19,17 @@ from raytracegr_jl_tpu_torch.ops import metrics as tmet  # noqa: E402
 from raytracegr_jl_tpu_torch.ops.geodesic_cm import ks_parts  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [(0.0, "as_written"), (0.0, "textbook"), (0.8, "as_written"),
          (0.8, "textbook")]
 

@@ -27,6 +27,17 @@ from raytracegr_jl_tpu_torch.ops import adjoint as adj  # noqa: E402
 from raytracegr_jl_tpu_torch.render import (MIN_RAYS_PER_GRAD_GROUP,  # noqa: E402
                                             initial_dt)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 SCAN_RTOL = 1e-12
 

@@ -20,6 +20,17 @@ from raytracegr_jl_tpu_torch.ops.geodesic_cm import (CFG_SLOTS, N_CFG,  # noqa: 
 from raytracegr_jl_tpu_torch.render import resolve_backend  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import cuda_build  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.models.scenes",
            "raytracegr_jl_tpu_torch.ops.geodesic_cm",
@@ -29,6 +40,7 @@ MODULES = ["raytracegr_jl_tpu_torch", "raytracegr_jl_tpu_torch.render",
            "raytracegr_jl_tpu_torch.utils.stats",
            "raytracegr_jl_tpu_torch.grad",
            "raytracegr_jl_tpu_torch.inverse",
+           "raytracegr_jl_tpu_torch.step_graph",
            "raytracegr_jl_tpu_torch.utils.convert",
            "raytracegr_jl_tpu_torch.utils.cuda_build",
            "raytracegr_jl_tpu_torch.utils.image",

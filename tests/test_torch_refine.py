@@ -29,6 +29,17 @@ from raytracegr_jl_tpu_torch.models.camera import pixel_rays  # noqa: E402
 from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cm  # noqa: E402
 from raytracegr_jl_tpu_torch.render import trace_batch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "torch_refine_ref.npz")
 ATOL = 1e-8

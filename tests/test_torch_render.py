@@ -19,6 +19,17 @@ import raytracegr_jl_tpu_torch as T  # noqa: E402
 from raytracegr_jl_tpu_torch.models.scenes import build as t_build  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import convert, image  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPECS = {"example1": (j_example1, T.example1_spec, "rk4"),
          "example2": (j_example2, T.example2_spec, "tsit5")}
 

@@ -14,6 +14,17 @@ from raytracegr_jl_tpu.models import serialize as j_ser  # noqa: E402
 import raytracegr_jl_tpu_torch as T  # noqa: E402
 from raytracegr_jl_tpu_torch.models import serialize as t_ser  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPECS = {
     "example1": (lambda: j_scenes.example1_spec(16, 8),
                  lambda: T.example1_spec(16, 8)),

@@ -23,6 +23,17 @@ from raytracegr_jl_tpu_torch.models import shading as ts  # noqa: E402
 from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cm  # noqa: E402
 from raytracegr_jl_tpu_torch.render import initial_dt, trace_batch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-12
 M, A = 1.0, 0.8
 

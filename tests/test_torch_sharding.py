@@ -29,6 +29,17 @@ import jax.numpy as jnp  # noqa: E402
 from raytracegr_jl_tpu.parallel import sharding as J  # noqa: E402
 from raytracegr_jl_tpu_torch.parallel import sharding as S  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the tests' tensors are small, and under a
+    parallel test run more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(HERE, "torch_sharding_ref.npz")
 WORLD = 2
