@@ -1,11 +1,13 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
-raytracegr_jl_tpu_torch/csrc (K1; K3 and K4 of the training path; K2 of the
-compacted render; K5, its fused shading; one build per library, in
-parallel) and prints each
+raytracegr_jl_tpu_torch/csrc (K1; K3, K4 and, in a library of their own, K6
+and K7 of the training path; K2 of the compacted render; K5, its fused
+shading; one build per library, in parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
 per-segment chain, the grouped K3 and K4 of the vectorized multistart
-against theirs and against one launch per start) and K1 against the
+against theirs and against one launch per start, K6 and K7 on K3's final
+states, and K7 against torch.autograd of the plain epilogue) and K1 against
+the
 committed golden images, drives the forward render and the training path
 (one pixel-loss step for two configurations, three Adam steps) of the
 reference's example2, the inversion of BASELINE config 5 (the lensing
@@ -73,7 +75,7 @@ GRAD_RTOL = {torch.float64: 1e-10, torch.float32: 2e-3}
 # kernels equal their plain versions bitwise and the rest is the same
 # PyTorch code, so they should agree exactly; the bar allows f32 rounding.
 MAIN_GRAD_RTOL = 1e-5
-LIBRARIES = ("geodesic", "adjoint", "compaction", "shading")
+LIBRARIES = ("geodesic", "adjoint", "localize", "compaction", "shading")
 # The accretion disk's step census at 1024x1024, a=0.8, f32, as the JAX
 # package recorded it (BASELINE.md:61): a property of the workload.
 JAX_DISK_CENSUS = "total 659.2M accepted ray-steps, p50 21, p99 15,451"
@@ -268,8 +270,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 def profile_steps(fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` runs of ``fn()`` (after one): per run,
     the device's busy ms (its kernels, copies and fills summed), its
-    kernels, the K3 and K4 kernels among them, and the host's launch calls
-    (``LAUNCH_CALLS``)."""
+    kernels, the K3, K4, K6 and K7 kernels among them, and the host's launch
+    calls (``LAUNCH_CALLS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -290,6 +292,7 @@ def profile_steps(fn, reps: int = 3) -> dict:
         busy_ms=sum(e.self_device_time_total for e in dev) / 1e3 / reps,
         kernels=sum(e.count for e in dev) / reps,
         k3=count(dev, ("k3_kernel",)), k4=count(dev, ("k4_kernel",)),
+        k6=count(dev, ("k6_kernel",)), k7=count(dev, ("k7_kernel",)),
         host_launches=sum(e.count for e in avg
                           if e.device_type == DeviceType.CPU
                           and e.key in LAUNCH_CALLS) / reps)
@@ -1216,6 +1219,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - tw) * 1e3 / INV_STEPS
     k3n, k4n = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
+    k6n, k7n = adj.localize_cuda.launches, adj.localize_vjp_cuda.launches
     m = float(res.params.M.detach())
     z = float(res.params.sphere_pos.detach()[3])
     hist = res.loss_history.tolist()
@@ -1225,9 +1229,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
           best_loss=f"{float(res.loss):.6e}", first_loss=f"{hist[0]:.6e}",
           last_loss=f"{hist[-1]:.6e}",
           losses=[f"{v:.4e}" for v in hist[::6]],
-          ms_per_step=f"{fit_ms:.3f}", k3_launches=k3n, k4_launches=k4n)
-    require(k3n == INV_STEPS and k4n == INV_STEPS,
-            f"config 5: {k3n} K3 and {k4n} K4 launches in {INV_STEPS} steps")
+          ms_per_step=f"{fit_ms:.3f}", k3_launches=k3n, k4_launches=k4n,
+          k6_launches=k6n, k7_launches=k7n)
+    require(k3n == k4n == k6n == k7n == INV_STEPS,
+            f"config 5: {k3n} K3, {k4n} K4, {k6n} K6 and {k7n} K7 launches "
+            f"in {INV_STEPS} steps")
     require(abs(m - 0.5) / 0.5 < 0.01 and abs(z) < 0.01,
             f"config 5 not recovered: M {m}, z {z}")
     require(float(res.params.a.detach()) == 0.0, "config 5: the spin moved")
@@ -1252,7 +1258,8 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - tw) * 1e3 / steps
         return r, ms, (adj.forward_segment_cuda.launches,
-                       adj.backward_cuda.launches), starts
+                       adj.backward_cuda.launches, adj.localize_cuda.launches,
+                       adj.localize_vjp_cuda.launches), starts
 
     vec, _, main_counts, starts = timed_fit(4, True, 10)
     ser, _, ser_counts, _ = timed_fit(4, False, 10)
@@ -1265,8 +1272,8 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
 
     scale = float(ser.loss_history.abs().max())
     rel = float((vec.loss_history - ser.loss_history).abs().max()) / scale
-    require(main_counts == (10, 10), f"vectorized fit of 4 starts launched "
-            f"K3 {main_counts[0]} and K4 {main_counts[1]} times in 10 steps")
+    require(main_counts == (10, 10, 10, 10), f"vectorized fit of 4 starts "
+            f"launched K3, K4, K6 and K7 {main_counts} times in 10 steps")
     require(picked(vec) == picked(ser) and len(picked(vec)) == 1,
             f"vectorized picked start {picked(vec)}, serial {picked(ser)}")
     require(rel <= VEC_SERIAL_RTOL, f"vectorized and serial loss histories "
@@ -1278,11 +1285,12 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         step_ms[(n, vectorized)] = statistics.median(r[1] for r in runs)
         per_step[(n, vectorized)] = [c / 5 for c in runs[-1][2]]
     for n in (1, 4, 16):
-        require(per_step[(n, True)] == [1.0, 1.0], f"vectorized N={n}: "
-                f"{per_step[(n, True)]} K3/K4 launches per step")
+        require(per_step[(n, True)] == [1.0] * 4, f"vectorized N={n}: "
+                f"{per_step[(n, True)]} K3/K4/K6/K7 launches per step")
     phase("main path vectorized multistart lensing 32x32 f32", t0,
           card=repr(card), starts=4, steps=10,
           k3_launches=main_counts[0], k4_launches=main_counts[1],
+          k6_launches=main_counts[2], k7_launches=main_counts[3],
           serial_k3_launches=ser_counts[0], picked=picked(vec),
           picked_serial=picked(ser), loss_hist_rel_diff=f"{rel:.3e}",
           bar=VEC_SERIAL_RTOL,
@@ -1356,6 +1364,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
             device_ms=f"{prof['busy_ms']:.4f}",
             idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
             kernels=f"{prof['kernels']:.0f}", k3=prof["k3"], k4=prof["k4"],
+            k6=prof["k6"], k7=prof["k7"],
             host_launches=f"{prof['host_launches']:.0f}", syncs=syncs,
             eager_peak_mib=f"{peak_e / 2**20:.1f}",
             graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
@@ -1364,9 +1373,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     require(all(same.values()), f"config 5: a graphed fit differs from the "
             f"eager one: {same}")
     for name, c in graphed_cells.items():
-        require(c["syncs"] == 0 and c["k3"] == 1 and c["k4"] == 1,
-                f"config 5 {name}: {c['syncs']} host syncs, K3 {c['k3']} and "
-                f"K4 {c['k4']} per graphed step")
+        require(c["syncs"] == 0 and c["k3"] == 1 and c["k4"] == 1
+                and c["k6"] == 1 and c["k7"] == 1,
+                f"config 5 {name}: {c['syncs']} host syncs, K3 {c['k3']}, "
+                f"K4 {c['k4']}, K6 {c['k6']} and K7 {c['k7']} per graphed "
+                "step")
 
     # 4. A fit checkpointed after 3 steps, restored and run 3 more, against
     #    6 uninterrupted steps, with a 6-step cosine schedule.
@@ -2667,6 +2678,7 @@ def dual_oracle_case(dev, card: str, reset_counts, n: int,
         got[f"loss_{name}"] = float(p.M.grad if name == "M"
                                     else p.sphere_pos.grad[3])
     k3, k4 = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
+    k6, k7 = adj.localize_cuda.launches, adj.localize_vjp_cuda.launches
 
     dM, dz = tangents["M"], tangents["z"]
     want = {"loss_M": float(torch.mean(2.0 * (rgb_o - targets["M"]) * dM)),
@@ -2679,7 +2691,7 @@ def dual_oracle_case(dev, card: str, reset_counts, n: int,
     max_dM, max_dz = float(dM.abs().max()), float(dz.abs().max())
     phase(f"dual oracle vs {label} example2 {n}x{n} f64 rk4/20", t0,
           card=repr(card), rays=xg.shape[0], k3_launches=k3,
-          k4_launches=k4, sphere_hits=hits,
+          k4_launches=k4, k6_launches=k6, k7_launches=k7, sphere_hits=hits,
           max_abs_drgb_dM=f"{max_dM:.6e}", max_abs_drgb_dz=f"{max_dz:.6e}",
           primal_max_abs_diff=f"{primal:.3e}",
           **{f"rel_{k}": f"{v:.3e}" for k, v in rel.items()},
@@ -2688,8 +2700,9 @@ def dual_oracle_case(dev, card: str, reset_counts, n: int,
           oracle_ms_dz=f"{oracle_ms['z']:.1f}", oracle_host_syncs=syncs["n"],
           route_ms=[f"{v:.1f}" for v in route_ms])
     if backend is None:
-        require(k3 > 0 and k4 > 0, f"oracle {n}x{n}: the route launched K3 "
-                f"{k3} and K4 {k4} times")
+        require(k3 > 0 and k4 > 0 and k6 > 0 and k7 > 0,
+                f"oracle {n}x{n}: the route launched K3 {k3}, K4 {k4}, K6 "
+                f"{k6} and K7 {k7} times")
     require(hits >= 3 and max_dM > 0.1 and max_dz > 1.0,
             f"oracle {n}x{n}: the check is empty ({hits} sphere hits, max "
             f"|drgb/dM| {max_dM:.3e}, max |drgb/dz| {max_dz:.3e})")
@@ -2792,6 +2805,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
               replay_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
               replay_device_kernels=f"{prof['kernels']:.0f}",
               k3_per_replay=prof["k3"], k4_per_replay=prof["k4"],
+              k6_per_replay=prof["k6"], k7_per_replay=prof["k7"],
               replay_host_launches=f"{prof['host_launches']:.0f}",
               eager_peak_mib=f"{peak_e / 2**20:.1f}",
               graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}",
@@ -2799,9 +2813,9 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
         require(same and moved, f"{label}: the graphed step differs from "
                 "the eager one")
         require(syncs == 0, f"{label}: {syncs} host syncs in replays")
-        require(prof["k3"] == 1 and prof["k4"] == 1,
-                f"{label}: a replay ran K3 {prof['k3']} and K4 {prof['k4']} "
-                "times, not once each")
+        require(all(prof[k] == 1 for k in ("k3", "k4", "k6", "k7")),
+                f"{label}: a replay ran K3 {prof['k3']}, K4 {prof['k4']}, K6 "
+                f"{prof['k6']} and K7 {prof['k7']} times, not once each")
 
     t0 = time.perf_counter()
     fit_cfg = rt.default_inverse_cfg(f32, soft_temp=0.05, stop_rho=0.5)
@@ -2832,12 +2846,237 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
           graphed_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
           graphed_host_launches=f"{prof['host_launches']:.0f}",
           k3_per_step=prof["k3"], k4_per_step=prof["k4"],
+          k6_per_step=prof["k6"], k7_per_step=prof["k7"],
           eager_peak_mib=f"{peak_e / 2**20:.1f}",
           graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
     require(same, "the graphed fit differs from the eager one")
-    require(syncs == 0 and prof["k3"] == 1 and prof["k4"] == 1,
-            f"fit: {syncs} host syncs, K3 {prof['k3']} and K4 {prof['k4']} "
-            "per graphed step")
+    require(syncs == 0 and all(prof[k] == 1
+                               for k in ("k3", "k4", "k6", "k7")),
+            f"fit: {syncs} host syncs, K3 {prof['k3']}, K4 {prof['k4']}, K6 "
+            f"{prof['k6']} and K7 {prof['k7']} per graphed step")
+    return out
+
+
+# K6 and K7 (the localization epilogue and its VJP) against their plain
+# versions, bitwise, and K7 against torch.autograd of the plain epilogue.
+LOC_GRAD_RTOL = 1e-12
+LOC_CASES = (  # (label, spec, dtype, method, max_steps, refine)
+    ("example2 200x200 f32 rk4/200", "example2", torch.float32, "rk4", 200,
+     False),
+    ("example2 200x200 f32 tsit5/48", "example2", torch.float32, "tsit5",
+     48, False),
+    ("example2 200x200 f64 rk4/200", "example2", torch.float64, "rk4", 200,
+     False),
+    ("example2 200x200 f64 tsit5/48", "example2", torch.float64, "tsit5",
+     48, False),
+    ("example1 200x200 f32 rk4/200", "example1", torch.float32, "rk4", 200,
+     False),
+    ("example1 200x200 f64 tsit5/48", "example1", torch.float64, "tsit5",
+     48, False),
+    ("example2 200x200 f32 rk4/200 refine_minima", "example2",
+     torch.float32, "rk4", 200, True))
+
+
+def final_state(dev, spec_name: str, dtype, method: str, max_steps: int,
+                refine: bool = False, n: int = 200):
+    """The training path's final packed state at n x n through K3: (route
+    on the card, P [34, B])."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    integ = rt.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
+                                   rk4_dt=100.0 / max_steps,
+                                   stop_rho=0.5).integrator
+    integ = integ._replace(refine_minima=refine)
+    spec = (rt.example2_spec if spec_name == "example2"
+            else rt.example1_spec)(n, n)
+    metric, scene, _ = rt.build(spec, dtype, dev)
+    if spec_name == "example2":
+        metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(
+            torch.tensor(1.05, dtype=dtype, device=dev),
+            torch.tensor(0.0, dtype=dtype, device=dev)), rho_min=0.25)
+    xg, ng = rt.flat_pixel_grid(spec, dtype, dev)
+    seg = adj.segment_length(integ, integ.grad_seg_len)
+    route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                      n_seg=integ.max_steps // seg, cuda=True)
+    with torch.no_grad():
+        x, u = pixel_rays(metric, xg, ng)
+        y0 = torch.cat([x, u], -1)
+        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+        P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+        ck, _ = adj.run_segments(route, P0)
+    return route, ck[route.n_seg].contiguous()
+
+
+def loc_cotangents(P: torch.Tensor, seed: int = 3):
+    """Seeded cotangents of (y, lam), every seventh ray's all zero."""
+    gen = torch.Generator(device=P.device).manual_seed(seed)
+    B = P.shape[1]
+    ct_y = torch.randn((8, B), generator=gen, dtype=P.dtype, device=P.device)
+    ct_lam = torch.randn(B, generator=gen, dtype=P.dtype, device=P.device)
+    ct_y[:, ::7] = 0
+    ct_lam[::7] = 0
+    return ct_y, ct_lam
+
+
+def require_loc_equal(label: str, route, P) -> float:
+    """K6 against localize_plain and K7 against localize_vjp on the same
+    CUDA tensors, bit for bit; returns the largest |difference| (0)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    plain = route._replace(cuda=False)
+    y_k, lam_k = adj.localize_cuda(route, P)
+    y_p, lam_p = adj.localize_plain(plain, P)
+    ct_y, ct_lam = loc_cotangents(P)
+    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam)
+    c_p, p_p = adj.localize_vjp(plain, P, ct_y, ct_lam)
+    torch.cuda.synchronize()
+    err = max(max_err(y_k, y_p), max_err(lam_k, lam_p), max_err(c_k, c_p),
+              max_err(p_k, p_p))
+    require(bits_equal(y_k, y_p) and bits_equal(lam_k, lam_p),
+            f"{label}: K6 not bitwise equal to its plain version "
+            f"(max |d| {err:.3e})")
+    require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
+            f"{label}: K7 not bitwise equal to localize_vjp "
+            f"(max |d| {err:.3e})")
+    return err
+
+
+def localize_autograd(route, P, ct_y, ct_lam):
+    """torch.autograd of the plain epilogue (the dead-ray cutoff, then
+    localize_events_cm and the selection) on an ungrouped route, with M, a
+    and the objects' fields as leaves: (ct of P [34, B], of pvec [P])."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (OBJ_FIELDS,
+                                                         localize_events_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.ops.metrics import KerrSchildParams
+    P = P.clone().requires_grad_()
+    pv = adj.flatten_params(route.metric, route.scene).detach()
+    pv.requires_grad_()
+    metric = route.metric._replace(params=KerrSchildParams(M=pv[0],
+                                                           a=pv[1]))
+    sc = route.scene
+    rows = pv[2:].reshape(sc.n_objects, 8)
+    scene = sc._replace(pos=torch.cat([sc.pos[:, :1], rows[:, :3]], 1),
+                        **{f: rows[:, 3 + k]
+                           for k, f in enumerate(OBJ_FIELDS[3:])})
+    st = adj.unpack_state(P)
+    cfg = route.cfg
+    dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
+    y = torch.where(dead, st.y.detach(), st.y)
+    th, ys = localize_events_cm(metric, scene_event_cm(scene), cfg, st.ev_y0,
+                                st.ev_dt, st.ev_lo, st.ev_hi)
+    y = torch.where(st.hit, ys, y)
+    lam = torch.where(st.hit, st.ev_lam + th * st.ev_dt, st.lam)
+    return torch.autograd.grad((y * ct_y).sum() + (lam * ct_lam).sum(),
+                               (P, pv))
+
+
+def loc_autograd_gap(route, P) -> float:
+    """K7 against torch.autograd of the plain epilogue: the largest
+    relative gap of the y and ev_y0 planes' cotangents (each against the
+    largest of its reference) and of each parameter's (against the sum of
+    its per-ray cotangents' magnitudes, the scale of the sum's rounding)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    ct_y, ct_lam = loc_cotangents(P)
+    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam)
+    g_P, g_p = localize_autograd(route, P, ct_y, ct_lam)
+    gap = 0.0
+    for lo in (adj.P_Y, adj.P_EV_Y0):
+        ref = g_P[lo:lo + 8]
+        gap = max(gap, max_err(c_k[lo:lo + 8], ref)
+                  / max(float(ref.abs().max()), 1e-300))
+    scale = p_k.abs().sum(1).clamp_min(1e-300)
+    gap = max(gap, float(((p_k.sum(1) - g_p).abs() / scale).max()))
+    return gap
+
+
+def localize_slice(dev, card: str) -> dict:
+    """K6 and K7 against their plain versions on the card, bitwise, on the
+    final states of the training configurations at 200x200 (f32 and f64,
+    rk4/200 and tsit5/48; example1's flat space; refine_minima) and of
+    config 5's grouped batch at 4 starts (f32, rk4 and tsit5, and
+    refine_minima); K7 against torch.autograd of the plain epilogue at f64;
+    then each kernel's time, its plain version's and its bound on the main
+    path's final state (rk4/200 f32). Returns the numbers for the kernels'
+    JSON line."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    t0 = time.perf_counter()
+    err, gaps, hits = 0.0, {}, {}
+    for label, spec_name, dtype, method, steps, refine in LOC_CASES:
+        route, P = final_state(dev, spec_name, dtype, method, steps, refine)
+        hits[label] = int((P[adj.P_HIT] > 0).sum())
+        err = max(err, require_loc_equal(label, route, P))
+        if dtype == torch.float64:
+            gaps[label] = loc_autograd_gap(route, P)
+    for method, refine in (("rk4", False), ("tsit5", False), ("rk4", True)):
+        _, grouped, P0 = inverse_case(dev, torch.float32, method,
+                                      refine=refine)
+        ck, _ = k3_pass(grouped, P0)
+        P = ck[grouped.n_seg].contiguous()
+        label = (f"config 5 grouped 4 starts f32 {method}"
+                 + (" refine_minima" if refine else ""))
+        hits[label] = int((P[adj.P_HIT] > 0).sum())
+        err = max(err, require_loc_equal(label, grouped, P))
+    gap = max(gaps.values())
+    phase("K6/K7 vs plain and autograd", t0, cases=len(hits),
+          hits=hits, max_abs_err=err,
+          k7_vs_autograd_max_rel_gap=f"{gap:.3e}",
+          per_case={k: f"{v:.3e}" for k, v in gaps.items()},
+          rtol=LOC_GRAD_RTOL)
+    require(all(v > 0 for v in hits.values()), "a case had no hit ray")
+    require(gap <= LOC_GRAD_RTOL, f"K7 differs from autograd of the plain "
+            f"epilogue by {gap:.3e}")
+
+    # Times and bounds on the main path's final state. Work of this run:
+    # K6 localizes each hit ray (the plain epilogue's count for one ray);
+    # K7 walks back each hit ray with a non-zero cotangent (localize_vjp's
+    # count for one ray). Bytes: K6 reads 22 planes and writes 9; K7 reads
+    # 14 planes and 9 of cotangents, writes 34 planes and 2 + 8 N rows.
+    t0 = time.perf_counter()
+    out = {}
+    for label, method, steps in (("rk4/200", "rk4", 200),
+                                 ("tsit5/48", "tsit5", 48)):
+        route, P = final_state(dev, "example2", torch.float32, method, steps)
+        plain = route._replace(cuda=False)
+        ct_y, ct_lam = loc_cotangents(P)
+        args = adj.localize_args(route, P)
+        k6_ms = cuda_ms(lambda: adj.localize_cuda(route, P, args))
+        k7_ms = cuda_ms(lambda: adj.localize_vjp_cuda(route, P, ct_y, ct_lam,
+                                                      args))
+        k6_dev = kernel_alone_ms(lambda: adj.localize_cuda(route, P, args),
+                                 "k6_kernel")
+        k7_dev = kernel_alone_ms(lambda: adj.localize_vjp_cuda(
+            route, P, ct_y, ct_lam, args), "k7_kernel")
+        k6_plain_ms = cuda_ms(lambda: adj.localize_plain(plain, P))
+        k7_plain_ms = cuda_ms(lambda: adj.localize_vjp(plain, P, ct_y,
+                                                       ct_lam))
+        hit = P[adj.P_HIT] > 0
+        live = hit & ((ct_y != 0).any(0) | (ct_lam != 0))
+        j = int(torch.nonzero(live)[0])
+        one = lambda t: t[..., j:j + 1].contiguous()  # noqa: E731
+        with torch.no_grad():
+            f6 = count_flops(lambda: adj.localize_plain(plain, one(P)))
+            f7 = count_flops(lambda: adj.localize_vjp(
+                plain, one(P), one(ct_y), one(ct_lam)))
+        B, n_par = P.shape[1], 2 + 8 * route.scene.n_objects
+        n_hit, n_live = int(hit.sum()), int(live.sum())
+        b6 = bound(n_hit * f6, B * (22 + 9) * 4)
+        b7 = bound(n_live * f7, B * (14 + 9 + adj.N_PLANES + n_par) * 4)
+        out[label] = dict(k6_ms=k6_ms, k7_ms=k7_ms, k6_plain_ms=k6_plain_ms,
+                          k7_plain_ms=k7_plain_ms, k6_bound=b6, k7_bound=b7)
+        phase(f"time K6/K7 {label} 200x200 f32", t0, card=repr(card),
+              hits=n_hit, live=n_live, k6_ms=f"{k6_ms:.4f}",
+              k6_device_ms=k6_dev, k7_device_ms=k7_dev,
+              k6_plain_ms=f"{k6_plain_ms:.4f}", k7_ms=f"{k7_ms:.4f}",
+              k7_plain_ms=f"{k7_plain_ms:.4f}",
+              flops_per_localization=f6, flops_per_vjp=f7,
+              k6_bound_ms=f"{b6[0]:.6f}", k6_bound_by=b6[1],
+              k7_bound_ms=f"{b7[0]:.6f}", k7_bound_by=b7[1])
+    out["err"] = err
     return out
 
 
@@ -2862,7 +3101,8 @@ def main() -> int:
     from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
 
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
-               adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda)
+               adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda,
+               adj.localize_cuda, adj.localize_vjp_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -3211,6 +3451,10 @@ def main() -> int:
                 f"example2 {n}x{n} {str(dtype)[6:]} {method}/{steps}", n,
                 dtype, method, steps))
 
+    # 6b. K6 and K7 against their plain versions and K7 against autograd;
+    #     their times and bounds.
+    loc = localize_slice(dev, card)
+
     # 7. The training main path, counted: one pixel-loss step (loss and
     #    backward) of make_ray_loss_fn at 200x200 f32 for each bench
     #    configuration, then three Adam steps of inverse.fit; each against
@@ -3257,13 +3501,16 @@ def main() -> int:
         rel = float((g - g_p).abs().max() / g_p.abs().max())
         phase(f"main path train step {label} 200x200 f32", t0,
               k1_launches=counts[0], k3_launches=counts[1],
-              k4_launches=counts[2], loss=f"{loss:.9e}",
+              k4_launches=counts[2], k6_launches=counts[5],
+              k7_launches=counts[6], loss=f"{loss:.9e}",
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
-        require(counts[1] == 1 and counts[2] == 1,
-                f"{label}: the training step launched K3 {counts[1]} and K4 "
-                f"{counts[2]} times, not once each")
+        require(counts[1] == 1 and counts[2] == 1 and counts[5] == 1
+                and counts[6] == 1,
+                f"{label}: the training step launched K3 {counts[1]}, K4 "
+                f"{counts[2]}, K6 {counts[5]} and K7 {counts[6]} times, not "
+                "once each")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
                 f"{label}: non-finite loss or gradients")
         require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
@@ -3290,11 +3537,12 @@ def main() -> int:
                          .abs().max()) for k in ("M", "a", "sphere_pos"))
     phase("main path fit 3 Adam steps 200x200 f32", t0,
           k3_launches=fit_counts[1], k4_launches=fit_counts[2],
+          k6_launches=fit_counts[5], k7_launches=fit_counts[6],
           losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
           M=f"{float(res.final_params.M.detach()):.9f}",
           max_param_diff_vs_plain=f"{fit_diff:.3e}")
-    require(fit_counts[1] == 3 and fit_counts[2] == 3,
-            "fit did not launch K3 and K4 once in each step")
+    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6)),
+            "fit did not launch K3, K4, K6 and K7 once in each step")
     require(bool(torch.isfinite(res.loss_history).all())
             and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
@@ -3492,6 +3740,30 @@ def main() -> int:
         "plain_ms": main["k4_plain_ms"],
         "bound_ms": main["k4_bound"][0],
         "bound_by": main["k4_bound"][1],
+        "library_ms": None}, {
+        "name": "K6 localize_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/localize.cu",
+        "replaces": "none: XLA's fusion of localize_events_cm after K3 "
+                    "(raytracegr_jl_tpu/ops/pallas_adjoint.py:380)",
+        "launches": step_launches["rk4/200"][5],
+        "max_abs_err": loc["err"],
+        "ms": loc["rk4/200"]["k6_ms"],
+        "plain_ms": loc["rk4/200"]["k6_plain_ms"],
+        "bound_ms": loc["rk4/200"]["k6_bound"][0],
+        "bound_by": loc["rk4/200"]["k6_bound"][1],
+        "library_ms": None}, {
+        "name": "K7 localize_vjp_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/localize.cu",
+        "replaces": "none: XLA's AD of localize_events_cm after K3 "
+                    "(raytracegr_jl_tpu/ops/pallas_adjoint.py:380)",
+        "launches": step_launches["rk4/200"][6],
+        "max_abs_err": loc["err"],
+        "ms": loc["rk4/200"]["k7_ms"],
+        "plain_ms": loc["rk4/200"]["k7_plain_ms"],
+        "bound_ms": loc["rk4/200"]["k7_bound"][0],
+        "bound_by": loc["rk4/200"]["k7_bound"][1],
         "library_ms": None}] + disk_entries + inverse_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

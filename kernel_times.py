@@ -13,9 +13,13 @@ main paths' shapes: K2 on the 1024x1024 disk (chunks summed, and the last
 chunk alone; with the detection gate on and off), the compacted disk
 render, K1 on example2 at 200x200 and 1024x1024 (the kernel alone from the
 profiler, the call as the tree's render_fn makes it, the call given dt0,
-the render), K3 (its launches of a forward pass summed) and K4 in the
-rk4/200 and tsit5/48 training steps at 200x200 f32, and those steps end
-to end.
+the render), K3 (its launches of a forward pass summed), K4, and K6 and
+K7 where the tree has them (in events and alone from the profiler) in the
+rk4/200 and tsit5/48 training steps at 200x200 f32; those steps end to
+end, eager and as a graph replay in turns, with the replay's device ms
+and kernels (profiler) and the eager step's loss to the last bit; and an
+Adam step of config 5 (32x32 f32) at 1, 4 and 16 starts, eager and
+graphed in turns, with the graphed step's device ms and kernels.
 
 ``diagnose-k1``: chip_smoke.py's diagnosis of K1 (``diagnose_k1``: its
 time four ways, the step census, warp-iterations, scheduler cycles per
@@ -54,10 +58,11 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, cuda_ms, cuda_tool,
-                        demangle, diagnose_k1, diagnose_tail, disk_setup,
-                        k1_entry, k1_main_call, k1_takes_own_step,
-                        k3_forward_ms, k4_walk, kernel_alone_ms,
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, cuda_ms,
+                        cuda_tool, demangle, diagnose_k1, diagnose_tail,
+                        disk_setup, in_turns, k1_entry, k1_main_call,
+                        k1_takes_own_step, k3_forward_ms, k4_walk,
+                        kernel_alone_ms, loc_cotangents, profile_steps,
                         profiled_kernels, ptxas_report, require, sass_report,
                         short_name, summed_ms, timed_calls)
 
@@ -209,11 +214,21 @@ def times(out: list, dev, card: str) -> None:
                 truth, xg, ng)
         loss_fn = rt.make_ray_loss_fn(spec, tcfg, 2, f32, dev)
 
+        def params():
+            return rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32,
+                                    dev)
+
         def step():
-            p = rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
-            loss_fn(p, xg, ng, target).backward()
+            p = params()
+            loss = loss_fn(p, xg, ng, target)
+            loss.backward()
+            return loss
 
         step_ms = cuda_ms(step)
+        loss_hex = float(step().detach()).hex()
+        graphed = graphed_step(lambda q: loss_fn(q, xg, ng, target), params)
+        turns = in_turns({"eager": step, "graphed": graphed})
+        prof = profile_steps(graphed)
         M = torch.tensor(1.05, dtype=f32, device=dev)
         a = torch.tensor(0.0, dtype=f32, device=dev)
         metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M, a),
@@ -239,11 +254,77 @@ def times(out: list, dev, card: str) -> None:
         k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, walk, ct, args))
         k3_kernels = profiled_kernels(lambda: adj.run_segments(route, P0),
                                       ("k3_kernel", "k3_close"))
+        loc = {}
+        if hasattr(adj, "localize_cuda"):
+            P = ck[route.n_seg].contiguous()
+            ct_y, ct_lam = loc_cotangents(P)
+            largs = adj.localize_args(route, P)
+            k6 = lambda: adj.localize_cuda(route, P, largs)  # noqa: E731
+            k7 = lambda: adj.localize_vjp_cuda(  # noqa: E731
+                route, P, ct_y, ct_lam, largs)
+            loc = dict(k6_ms=cuda_ms(k6), k7_ms=cuda_ms(k7),
+                       k6_device_ms=kernel_alone_ms(k6, "k6_kernel"),
+                       k7_device_ms=kernel_alone_ms(k7, "k7_kernel"))
         emit(out, "time", card=card, what=f"train {label} 200x200 f32",
-             step_ms=step_ms,
+             step_ms=step_ms, eager_step_ms_in_turns=turns["eager"],
+             graphed_step_ms=turns["graphed"],
+             replay_device_ms=prof["busy_ms"],
+             replay_kernels=prof["kernels"], loss_hex=loss_hex,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
-             / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms)
+             / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms, **loc)
+
+    # Config 5: an Adam step (zero, loss and backward or a replay, masks,
+    # Adam) of fit at one start and of the vectorized multistart at 4 and
+    # 16, eager and graphed in turns.
+    spec = rt.lensing_inverse_spec(32, 32)
+    cfg = rt.default_inverse_cfg(f32, max_steps=120, rk4_dt=0.5,
+                                 soft_temp=0.05, stop_rho=0.5)
+    cfg = cfg._replace(soft_freq=2.0, integrator=cfg.integrator._replace(
+        lam_max=60.0))
+    with torch.no_grad():
+        target = rt.make_render_for_params(spec, cfg, 0, f32, dev)(
+            rt.InverseParams(0.5, 0.0, [0.0, 5.0, 12.0, 0.0], f32, dev))
+    trainable = rt.InverseParams(1.0, 0.0, [0.0, 0.0, 0.0, 1.0], f32, dev)
+    for n in (1, 4, 16):
+        inits = [rt.InverseParams(0.5 + 0.04 * ((k % 5) - 2) / 2, 0.0,
+                                  [0.0, 5.0, 12.0, 0.02 * ((k % 7) - 3)],
+                                  f32, dev) for k in range(n)]
+        if n == 1:
+            loss_fn, make = (rt.make_loss_fn(spec, target, cfg, 0, f32, dev),
+                             inits[0].copy)
+        else:
+            loss_fn = rt.make_multistart_loss_fn(spec, target, cfg, 0, f32,
+                                                 dev)
+
+            def make(inits=inits):
+                return rt.InverseParams(*(
+                    torch.stack([getattr(i, k).detach() for i in inits])
+                    for k in ("M", "a", "sphere_pos")), dtype=f32,
+                    device=dev)
+        eager, graphed, _ = adam_steps(loss_fn, make, trainable)
+        turns = in_turns({"eager": eager, "graphed": graphed})
+        prof = profile_steps(graphed)
+        emit(out, "time", card=card, what=f"config 5 Adam step {n} starts",
+             eager_ms=turns["eager"], graphed_ms=turns["graphed"],
+             graphed_device_ms=prof["busy_ms"],
+             graphed_kernels=prof["kernels"])
+
+
+def graphed_step(loss_fn, make_params):
+    """A replay of ``loss_fn``'s loss and backward captured as one CUDA
+    graph over ``make_params()`` (the tree's step_graph.GraphedStep), with
+    the gradients zeroed first, as a training step runs it."""
+    from raytracegr_jl_tpu_torch.step_graph import GraphedStep
+    p = make_params()
+    step = GraphedStep(loss_fn, p)
+
+    def replay():
+        for q in p.parameters():
+            q.grad.zero_()
+        return step.replay()
+
+    return replay
 
 
 def main() -> int:

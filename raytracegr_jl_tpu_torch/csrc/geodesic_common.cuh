@@ -3,7 +3,8 @@
 // derivative, dense output, the detection sweep and its gate, localization,
 // and the Tsit5 and RK4 stage sweeps, the packed loop state and one step of
 // the loop body. K1 (geodesic.cu), K2 (compaction.cu), K3 and K4 (adjoint.cu)
-// step alike because they include the same functions. Each follows the
+// step alike because they include the same functions, and K6 (adjoint.cu)
+// localizes as K1 does. Each follows the
 // plain PyTorch version in ops/geodesic_cm.py operation by operation (build
 // with --fmad=false).
 //
@@ -119,14 +120,23 @@ __host__ __device__ constexpr int sc_npts(int sc) {
   } else {                                                                   \
     ok = false;                                                              \
   }
+// RTGR_DISPATCH_SC with REFINE false instantiates no SC_REFINE kernel (the
+// localization, which has no trisection, launches SC_ANY for it) and sets
+// ok to false for that code.
 #define RTGR_DISPATCH(ok, T, kerr, tsit5, scene, ...)                        \
+  RTGR_DISPATCH_SC(ok, T, kerr, tsit5, scene, true, __VA_ARGS__)
+#define RTGR_DISPATCH_SC(ok, T, kerr, tsit5, scene, REFINE, ...)             \
   ok = true;                                                                 \
   if ((scene) == SC_ANY) {                                                   \
     constexpr int SC_ = SC_ANY;                                              \
     RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))            \
   } else if ((scene) == SC_REFINE) {                                         \
-    constexpr int SC_ = SC_REFINE;                                           \
-    RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))            \
+    if constexpr (REFINE) {                                                  \
+      constexpr int SC_ = SC_REFINE;                                         \
+      RTGR_BOOL(kerr, KERR_, RTGR_BOOL(tsit5, TSIT5_, __VA_ARGS__))          \
+    } else {                                                                 \
+      ok = false;                                                            \
+    }                                                                        \
   } else if constexpr (std::is_same<T, float>::value) {                      \
     constexpr bool KERR_ = true;                                             \
     if (!(kerr)) {                                                           \
@@ -756,14 +766,15 @@ __device__ __forceinline__ void interp(const StepData<T, TSIT5>& s, T th,
   }
 }
 
-template <typename T, bool TSIT5>
+// Its derivative in theta on the first ROWS components.
+template <typename T, bool TSIT5, int ROWS = 4>
 __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
                                         T* out) {
   if constexpr (TSIT5) {
     T db[7];
     tsit5_dbi(th, db);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < ROWS; ++c) {
       T acc = db[0] * s.k[0][c];
 #pragma unroll
       for (int j = 1; j < 7; ++j) acc = acc + db[j] * s.k[j][c];
@@ -772,7 +783,7 @@ __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
   } else {
     const T dt = s.dt;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < ROWS; ++c) {
       const T y0 = s.y0[c], y1 = s.y1[c], f0 = s.k[0][c], f1 = s.k[6][c];
       const T g = (T(1) - T(2) * th) * (y1 - y0) + (th - T(1)) * dt * f0
                   + th * dt * f1;
@@ -898,18 +909,26 @@ __device__ __forceinline__ bool may_cross(const PP& p, int n_obj,
   return scene_bound<T, SC>(p, n_obj, lo, hi) <= T(0);
 }
 
-// Bisection of the bracket, then one clipped Newton step: theta*.
+// Bisection of the bracket [lo, hi]: its upper end.
 template <typename T, bool TSIT5, int SC, typename PP>
-__device__ __forceinline__ T localize(const PP& p, int n_obj,
-                                      int bisect_iters,
-                                      const StepData<T, TSIT5>& s, T lo, T hi) {
+__device__ __forceinline__ T bisect(const PP& p, int n_obj, int bisect_iters,
+                                    const StepData<T, TSIT5>& s, T lo,
+                                    T hi) {
   for (int b = 0; b < bisect_iters; ++b) {
     const T mid = T(0.5) * (lo + hi);
     T x[4];
     interp<T, TSIT5, 4>(s, mid, x);
     if (event<T, SC>(p, n_obj, x) > T(0)) lo = mid; else hi = mid;
   }
-  const T th0 = hi;
+  return hi;
+}
+
+// Bisection of the bracket, then one clipped Newton step: theta*.
+template <typename T, bool TSIT5, int SC, typename PP>
+__device__ __forceinline__ T localize(const PP& p, int n_obj,
+                                      int bisect_iters,
+                                      const StepData<T, TSIT5>& s, T lo, T hi) {
+  const T th0 = bisect<T, TSIT5, SC>(p, n_obj, bisect_iters, s, lo, hi);
   T x[4], dx[4], val, dval;
   interp<T, TSIT5, 4>(s, th0, x);
   dinterp<T, TSIT5>(s, th0, dx);

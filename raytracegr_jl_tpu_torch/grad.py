@@ -15,6 +15,7 @@ from torch import nn
 from .models.camera import pixel_grid, pixel_rays
 from .models.objects import Scene
 from .models.scenes import SceneSpec, build
+from .ops.adjoint import per_ray
 from .ops.integrate import IntegratorConfig
 from .ops.metrics import KerrSchildParams, make_metric
 from .render import RenderConfig, render_fn
@@ -57,7 +58,7 @@ def _metric(spec: SceneSpec, params: InverseParams, cfg: RenderConfig,
     consecutive rays (``[N * rays]``)."""
     M, a = params.M, params.a
     if rays is not None:
-        M, a = M.repeat_interleave(rays), a.repeat_interleave(rays)
+        M, a = per_ray(M, rays), per_ray(a, rays)
     return make_metric(spec.metric_name, KerrSchildParams(M=M, a=a),
                        r_formula=spec.r_formula, rho_min=_grad_rho_min(cfg))
 
@@ -70,8 +71,7 @@ def _with_spheres(scene: Scene, index: int, pos: torch.Tensor,
     base = scene.pos.expand(pos.shape[0], -1, -1)
     rows = [pos[:, None] if i == index else base[:, i:i + 1]
             for i in range(scene.n_objects)]
-    return scene._replace(pos=torch.cat(rows, dim=1).repeat_interleave(
-        rays, dim=0))
+    return scene._replace(pos=per_ray(torch.cat(rows, dim=1), rays))
 
 
 def make_render_for_params(spec: SceneSpec, cfg: RenderConfig,

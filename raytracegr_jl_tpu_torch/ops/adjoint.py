@@ -1,6 +1,7 @@
 """The checkpointed adjoint of the geodesic integration: the differentiable
 path of the port, with K3 (forward segment) and K4 (fused backward replay)
-as CUDA kernels (csrc/adjoint.cu) beside their plain PyTorch versions.
+as CUDA kernels (csrc/adjoint.cu), and K6 (localization) and K7 (its VJP)
+(csrc/localize.cu), beside their plain PyTorch versions.
 
 Counterpart of raytracegr_jl_tpu/ops/adjoint.py (``integrate_rays_cm_ckpt``)
 and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
@@ -16,9 +17,13 @@ and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
   replayed from its checkpoint, and the cotangents pushed back through each
   step by a hand-written adjoint (``step_vjp``, ``rhs_vjp``), the same in
   PyTorch and in K4;
-* after the loop, the dead-ray cutoff and ``localize_events_cm`` over every
-  ray (a hit ray's result selected by ``torch.where``) in plain PyTorch
-  autograd, which carry the event and object gradients.
+* after the loop, the epilogue as one function (``_Localized``): each hit
+  ray localized from its event record (``localize_events_cm``), every other
+  ray's state as it stands (K6); on backward its hand-written VJP (K7,
+  ``localize_vjp``), with the dead-ray cutoff, which carries the event's
+  and the objects' gradients and hands the ``y`` and ``ev_y0`` planes'
+  cotangents to K4. The JAX package leaves this epilogue to XLA's fusion
+  of plain AD inside its jitted step.
 
 On the card nothing here reads a value back to the host and every shape is
 static (the segment counts stay on the card), so a CUDA graph can hold a
@@ -33,7 +38,9 @@ and take none; detection only decides masks, so the object fields get no
 cotangent inside the loop. The loop's parameter cotangents are therefore
 those of M and a alone, summed per ray (``[B, 2]``) and then over rays with
 one ``torch.sum``, so that the kernel and the plain version can be compared
-bitwise and the sum is deterministic.
+bitwise and the sum is deterministic. The epilogue's cotangents reach every
+entry of ``flatten_params``, per ray (``ray_params``, ``[2 + 8 N, B]``),
+and autograd sums them into the caller's tensors with the shading's.
 
 A grouped route runs several parameter sets in one batch (the starts of a
 vectorized multistart fit): G groups of ``B / G`` consecutive rays, each
@@ -67,14 +74,18 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.objects import Scene
-from .geodesic_cm import (OBJ_FIELDS, StepState, _check_options,
-                          check_kernel_config, geodesic_cm,
+from ..models.objects import (KIND_DISTANCE_JVP, KIND_PLANE, KIND_SPHERE,
+                              Scene, object_kinds)
+from .geodesic_cm import (OBJ_FIELDS, SC_ANY, SC_REFINE, StepState,
+                          _check_options, _interpolants, _object_get,
+                          _tsit5_dinterp_cm, bisect_bracket,
+                          check_kernel_config, crossing_step, geodesic_cm,
                           impact_parameter_order, kernel_r_mode,
                           launch_config, localize_events_cm, make_step_cm,
                           scene_event_cm)
 from .geometry import det_min, sanitize_bounds
-from .integrate import TS_A, IntegratorConfig, TraceResult
+from .integrate import (TS_A, IntegratorConfig, TraceResult, hermite_dinterp,
+                        tsit5_bi, tsit5_dbi)
 from .metrics import KerrSchildParams, Metric
 
 # Plane layout of the packed state (csrc/adjoint.cu, enum Plane).
@@ -133,6 +144,56 @@ def flatten_params(metric: Metric, scene: Scene,
         cols += [per_group(scene.pos[..., i, c]) for c in (1, 2, 3)]
         cols += [per_group(getattr(scene, f)[..., i]) for f in OBJ_FIELDS[3:]]
     return torch.stack(cols, dim=1)
+
+
+class _PerRay(torch.autograd.Function):
+    """``per_ray``: ``repeat_interleave`` along the first axis, its
+    backward each group's sum in float64."""
+
+    @staticmethod
+    def forward(ctx, v, rays):
+        ctx.shape = v.shape
+        return v.repeat_interleave(rays, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g.reshape(ctx.shape[0], -1, *ctx.shape[1:])
+        return rows.sum(dim=1, dtype=torch.float64).to(g.dtype), None
+
+
+def per_ray(v: torch.Tensor, rays: int) -> torch.Tensor:
+    """A parameter per ray: ``v [G, ...]`` (one row per group of ``rays``
+    consecutive rays) repeated to ``[G * rays, ...]``. On backward each
+    group's per-ray cotangents are summed in float64 and rounded once, so
+    that a parameter's gradient does not depend on how its rays are
+    batched: a start of a vectorized multistart gets the gradient of its
+    own serial fit (but in the last bit, rarely). That matters where the
+    gradient is rounding alone, as at a start that a symmetry of the scene
+    leaves with none: Adam divides it by its eps (1e-8), and a difference
+    in the order of an f32 sum of ~1e-10 moves the fit."""
+    return _PerRay.apply(v, rays)
+
+
+def ray_params(metric: Metric, scene: Scene, B: int) -> torch.Tensor:
+    """``flatten_params``' entries per ray, ``[2 + 8 N, B]``, as the
+    caller's tensors hold them: a grouped batch's per-ray value as it is, a
+    shared value through ``per_ray``, so that the gradients reach those
+    tensors ray by ray, summed as ``per_ray`` sums."""
+    like = scene.pos
+    as_t = lambda v: torch.as_tensor(v, dtype=like.dtype,  # noqa: E731
+                                     device=like.device)
+    parts = [as_t(metric.params.M), as_t(metric.params.a)]
+    for i in range(scene.n_objects):
+        parts += [scene.pos[..., i, c] for c in (1, 2, 3)]
+        parts += [getattr(scene, f)[..., i] for f in OBJ_FIELDS[3:]]
+    shared = [i for i, v in enumerate(parts) if v.dim() == 0]
+    if shared:
+        vals = per_ray(torch.stack([parts[i] for i in shared])[None], B).t()
+        if len(shared) == len(parts):
+            return vals
+        for k, i in enumerate(shared):
+            parts[i] = vals[k]
+    return torch.stack(parts)
 
 
 def segment_length(cfg: IntegratorConfig, seg_len: int | None) -> int:
@@ -527,12 +588,14 @@ def _stage_input(y, dt, ks, row):
     return y + dt * acc
 
 
-def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k):
+def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k, ct_ks=None):
     """Reverse mode of one accepted step ``(y, k1) -> (y_new, k_last)`` at
     the (detached) step ``dt``: ``(ct_y_new, ct_k_last) -> (ct_y, ct_k1,
     ct_M [B], ct_a [B])``. The stages are recomputed from ``(y, k1, dt)``.
     The error estimate feeds only the controller and the masks, so it
-    takes no cotangent."""
+    takes no cotangent. ``ct_ks`` (Tsit5 only): cotangents of the stages
+    k1..k6 themselves, which a reader of the dense output adds (the
+    localization's VJP), injected where the reverse sweep starts."""
     rhs = lambda s: geodesic_cm(p.metric, s)  # noqa: E731
     if tsit5:
         ks = [k1]
@@ -544,6 +607,8 @@ def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k):
         yb = b
         sb = dt * b
         kb = [TS_A[5][j] * sb for j in range(6)]
+        if ct_ks is not None:
+            kb = [kb[j] + ct_ks[j] for j in range(6)]
         for m in range(5, 0, -1):
             g, dM, da = rhs_vjp(p, _stage_input(y, dt, ks, m - 1), kb[m])
             gM = gM + dM
@@ -553,6 +618,8 @@ def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k):
             for j in range(m):
                 kb[j] = kb[j] + TS_A[m - 1][j] * sb
         return yb, kb[0], gM, ga
+    if ct_ks is not None:
+        raise ValueError("stage cotangents are injected on Tsit5 only")
     z2 = y + 0.5 * dt * k1
     k2 = rhs(z2)
     z3 = y + 0.5 * dt * k2
@@ -809,6 +876,332 @@ backward_cuda.launches = 0
 backward_cuda.rays = 0
 
 
+# ---------------------------------------------------------------------------
+# K6 and K7: the localization epilogue and its hand-written VJP
+#
+# After the loop every ray's result is read from its final state: a hit
+# ray's localized from its event record (``localize_events_cm``), any
+# other's as it stands. K6 computes it in one launch; K7 pushes the
+# cotangents of ``(y, lam)`` back to the final state's ``y`` and ``ev_y0``
+# planes and to every parameter the epilogue reads: M and a (the replayed
+# crossing step) and the objects' fields (the event). The plain versions
+# below hold the arithmetic the kernels repeat, in their order.
+#
+# The VJP follows torch autograd of the plain epilogue: the interpolation
+# of y* at theta*; theta* through the clamps (torch's gradient is inclusive
+# at a clamp's bounds) and the ``ok`` selection of the Newton polish; val
+# AND dval (the event's JVP at the bracket's end: the VJP of a JVP, which
+# reaches the tangent's dense-output derivative and the event's second
+# derivatives); the balanced min and max of the event, half to each side on
+# a tie; and the replayed step back to ev_y0, M and a (``step_vjp`` with a
+# cotangent injected per Tsit5 stage, whose dense output reads all seven).
+# The bracket, ev_dt and the masks take none.
+# ---------------------------------------------------------------------------
+
+def localize_plain(route: Route, P: torch.Tensor):
+    """Plain version of K6: ``(y [8, B], lam [B])`` from the packed final
+    state ``[34, B]``: every ray localized (``localize_events_cm``, as the
+    JAX package's epilogue), then a hit ray's result selected, any other
+    ray's y and lam as they stand. A grouped route's rays read their
+    group's parameters."""
+    metric, scene = route_rows(route, P.shape[1])
+    st = unpack_state(P)
+    th, ys = localize_events_cm(metric, scene_event_cm(scene), route.cfg,
+                                st.ev_y0, st.ev_dt, st.ev_lo, st.ev_hi)
+    return (torch.where(st.hit, ys, st.y),
+            torch.where(st.hit, st.ev_lam + th * st.ev_dt, st.lam))
+
+
+def _incl(x, lo, hi):
+    """Where torch's clamp(x, lo, hi) passes its gradient: lo <= x <= hi."""
+    return (x >= lo) & (x <= hi)
+
+
+def _balanced_w(a, b, is_max: bool):
+    """The balanced min or max's weights ``(wa, wb)``: 1 to the side taken,
+    half to each on a tie (``models.objects.balanced_min``)."""
+    m = torch.maximum(a, b) if is_max else torch.minimum(a, b)
+    one = torch.ones_like(m)
+    wa = torch.where(a == m, torch.where(b == m, 0.5 * one, one), 0 * one)
+    wb = torch.where(b == m, torch.where(a == m, 0.5 * one, one), 0 * one)
+    return wa, wb
+
+
+def _object_jvp_vjp(kind: int, get, x, dx, cv, cdv, ct_x, ct_dx):
+    """Reverse mode of one object's ``KIND_DISTANCE_JVP`` at position rows
+    ``x`` and tangent rows ``dx`` (4 each): the cotangents ``(cv, cdv)`` of
+    its value and tangent added into ``ct_x`` and ``ct_dx`` (lists of rows,
+    updated in place), and returned per field, ``{OBJ_FIELDS index:
+    cotangent}``."""
+    if kind == KIND_PLANE:  # v = t - time, dv = dt
+        ct_x[0] = ct_x[0] + cv
+        ct_dx[0] = ct_dx[0] + cdv
+        return {4: -cv}
+    d = [x[c] - get("pos", c) for c in (1, 2, 3)]
+    if kind == KIND_SPHERE:  # v = s (|d|^2 - r^2), dv = s 2 (d . dx)
+        r = get("radius")
+        sgn = torch.sign(r)
+        gv = sgn * cv
+        t = 2 * (sgn * cdv)
+        out = {}
+        for c in range(3):
+            cd = 2 * d[c] * gv + t * dx[c + 1]
+            ct_x[c + 1] = ct_x[c + 1] + cd
+            ct_dx[c + 1] = ct_dx[c + 1] + t * d[c]
+            out[c] = -cd
+        out[3] = -(2 * r * gv)
+        return out
+    # disk: max(|dz| - half, max(rho2 - r_out^2, r_in^2 - rho2))
+    r_in, r_out, half = get("r_in"), get("r_out"), get("half")
+    rho2 = d[0] * d[0] + d[1] * d[1]
+    slab = torch.abs(d[2]) - half
+    ra, rb = rho2 - r_out ** 2, r_in ** 2 - rho2
+    wra, wrb = _balanced_w(ra, rb, True)
+    wa, wb = _balanced_w(slab, torch.maximum(ra, rb), True)
+    c_slab, c_ring = cv * wa, cv * wb
+    c_dslab, c_dring = cdv * wa, cdv * wb
+    c_a, c_b = c_ring * wra, c_ring * wrb
+    c_rho2 = c_a - c_b
+    t = 2 * (c_dring * wra - c_dring * wrb)
+    c_dz = torch.sign(d[2]) * c_slab
+    ct_dx[3] = ct_dx[3] + torch.where(d[2] >= 0, c_dslab, -c_dslab)
+    out = {}
+    for c in range(2):
+        cd = 2 * d[c] * c_rho2 + t * dx[c + 1]
+        ct_x[c + 1] = ct_x[c + 1] + cd
+        ct_dx[c + 1] = ct_dx[c + 1] + t * d[c]
+        out[c] = -cd
+    ct_x[3] = ct_x[3] + c_dz
+    out[2] = -c_dz
+    out[5] = 2 * r_in * c_b
+    out[6] = -(2 * r_out * c_a)
+    out[7] = -c_slab
+    return out
+
+
+def _event_vjp(scene: Scene, x, dx, cv, cdv):
+    """Reverse mode of ``scene_event_cm(scene).jvp`` (the fold of the
+    objects' value and tangent by the balanced min): ``(ct_x, ct_dx,
+    fields)``, ``ct_x`` and ``ct_dx`` lists of 4 rows, ``fields[i]`` object
+    i's ``{OBJ_FIELDS index: cotangent}``. The fold's weights are
+    recomputed forward; the objects are visited last to first."""
+    kinds = object_kinds(scene)
+    gets = [_object_get(scene, i) for i in range(len(kinds))]
+    xs, dxs = [x[c] for c in range(4)], [dx[c] for c in range(4)]
+    v, w = None, []
+    for kind, get in zip(kinds, gets):
+        vi, _ = KIND_DISTANCE_JVP[kind](*xs, *dxs, get)
+        if v is None:
+            v = vi
+        else:
+            w.append(_balanced_w(v, vi, False))
+            v = torch.minimum(v, vi)
+    zero = torch.zeros_like(cv)
+    ct_x, ct_dx = [zero] * 4, [zero] * 4
+    fields = [None] * len(kinds)
+    for i in range(len(kinds) - 1, -1, -1):
+        if i > 0:
+            wa, wb = w[i - 1]
+            ci, cdi = cv * wb, cdv * wb
+            cv, cdv = cv * wa, cdv * wa
+        else:
+            ci, cdi = cv, cdv
+        fields[i] = _object_jvp_vjp(kinds[i], gets[i], xs, dxs, ci, cdi,
+                                    ct_x, ct_dx)
+    return ct_x, ct_dx, fields
+
+
+def _hermite_vjp(th, dt, ct, dct):
+    """Reverse mode of ``hermite_interp`` (and, with ``dct``, of
+    ``hermite_dinterp``) at ``th`` over rows: the cotangents of ``(y0, y1,
+    f0, f1)``."""
+    h = th * (th - 1)
+    ct_g = h * ct if dct is None else h * ct + (2 * th - 1) * dct
+    ct_y0 = (1 - th) * ct
+    ct_y1 = th * ct
+    ct_d = (1 - 2 * th) * ct_g
+    ct_f0 = ((th - 1) * dt) * ct_g
+    ct_f1 = (th * dt) * ct_g
+    if dct is not None:
+        ct_dg = h * dct
+        ct_d = ct_d - 2 * ct_dg + dct
+        ct_f0 = ct_f0 + dt * ct_dg
+        ct_f1 = ct_f1 + dt * ct_dg
+    return ct_y0 - ct_d, ct_y1 + ct_d, ct_f0, ct_f1
+
+
+def localize_vjp(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
+                 ct_lam: torch.Tensor):
+    """Plain version of K7, the reverse mode of ``localize_plain`` after the
+    dead-ray cutoff: ``(P [34, B], ct_y [8, B], ct_lam [B]) -> (ct_P [34,
+    B], pbar [2 + 8 N, B])``. ``ct_P`` holds the cotangent of the ``y``
+    plane (a ray that did not hit and is not dead: see ``_integrate``) and
+    of the ``ev_y0`` plane (a hit ray), zeros elsewhere; ``pbar`` the
+    per-ray cotangents of ``flatten_params``' entries (M, a, then 8 fields
+    per object), which the caller sums over the batch or per group. A ray
+    whose cotangents are all zero, or that did not hit, takes zeros here
+    without its step being replayed, as in K7."""
+    B = P.shape[1]
+    metric, scene = route_rows(route, B)
+    cfg = route.cfg
+    tsit5 = cfg.method == "tsit5"
+    st = unpack_state(P)
+    zero = torch.zeros_like(st.lam)
+    dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
+    keep = ~st.hit & ~dead
+    live = st.hit & ((ct_y != 0).any(0) | (ct_lam != 0))
+    n_obj = scene.n_objects
+
+    # -- forward (localize_events_cm), keeping what the reverse reads --
+    p = adj_params(metric, P.dtype, P.device)
+    y0, dt = st.ev_y0, st.ev_dt
+    y1, k1, k_last, ks = crossing_step(metric, cfg, y0, dt)
+    interp, dinterp = _interpolants(y0, y1, k1, k_last, dt, ks, 4)
+    event_fn = scene_event_cm(scene)
+    th0 = bisect_bracket(event_fn, interp, cfg, st.ev_lo, st.ev_hi)
+    x, dx = interp(th0), dinterp(th0)
+    val, dval = event_fn.jvp(x, dx)
+    ok = torch.abs(dval) > 1e-3 * (1.0 + torch.abs(val))
+    den = torch.where(ok, dval, torch.ones_like(dval))
+    delta = torch.where(ok, val, zero) / den
+    u = th0 - torch.clamp(delta, -1.0, 1.0)
+    th = torch.clamp(u, 0.0, 1.0)
+
+    # -- reverse --
+    # y* = dense output at th (8 rows); lam* = ev_lam + th ev_dt
+    if tsit5:
+        d8 = _tsit5_dinterp_cm(ks, dt, th)
+    else:
+        d8 = hermite_dinterp(y0, y1, k1, k_last, dt, th)
+    ct_th = ct_lam * dt
+    for c in range(8):
+        ct_th = ct_th + ct_y[c] * d8[c]
+    ct_u = torch.where(_incl(u, 0.0, 1.0), ct_th, zero)
+    ct_delta = -torch.where(_incl(delta, -1.0, 1.0), ct_u, zero)
+    q = ct_delta / den
+    ct_val = torch.where(ok, q, zero)
+    ct_dval = torch.where(ok, -(q * delta), zero)
+    ct_x, ct_dx, fields = _event_vjp(scene, x, dx, ct_val, ct_dval)
+    ct_x, ct_dx = torch.stack(ct_x), torch.stack(ct_dx)
+    # the dense output's data: at th (8 rows, y*) and at th0 (4 rows, x, dx)
+    if tsit5:
+        bw, b0, db0 = tsit5_bi(th), tsit5_bi(th0), tsit5_dbi(th0)
+        cy, cx, cdx = dt * ct_y, dt * ct_x, dt * ct_dx
+        ct_k = []
+        for j in range(7):
+            kj = bw[j] * cy
+            ct_k.append(torch.cat([kj[:4] + b0[j] * cx + db0[j] * cdx,
+                                   kj[4:]]))
+        ct_y0 = torch.cat([ct_y[:4] + ct_x, ct_y[4:]])
+        yb, ct_k1, gM, ga = step_vjp(p, True, y0, k1, dt, torch.zeros_like(y0),
+                                     ct_k[6], ct_ks=ct_k[:6])
+    else:
+        a8, b8, f08, f18 = _hermite_vjp(th, dt, ct_y, None)
+        a4, b4, f04, f14 = _hermite_vjp(th0, dt, ct_x, ct_dx)
+        top = lambda u8, u4: torch.cat([u8[:4] + u4, u8[4:]])  # noqa: E731
+        ct_y0, ct_y1 = top(a8, a4), top(b8, b4)
+        ct_f0, ct_f1 = top(f08, f04), top(f18, f14)
+        yb, k1b, gM, ga = step_vjp(p, False, y0, k1, dt, ct_y1, ct_f1)
+        ct_k1 = ct_f0 + k1b
+    g, dM, da = rhs_vjp(p, y0, ct_k1)
+    ct_ev = ct_y0 + yb + g
+    rows = [gM + dM, ga + da]
+    for i in range(n_obj):
+        rows += [fields[i].get(f, zero) for f in range(8)]
+    pbar = torch.where(live, torch.stack(rows), torch.zeros_like(rows[0]))
+    ct_P = torch.zeros_like(P)
+    ct_P[P_Y:P_Y + 8] = torch.where(keep, ct_y, torch.zeros_like(ct_y))
+    ct_P[P_EV_Y0:P_EV_Y0 + 8] = torch.where(live, ct_ev,
+                                            torch.zeros_like(ct_ev))
+    return ct_P, pbar
+
+
+
+def localize_args(route: Route, P: torch.Tensor):
+    """K6's and K7's parameter block on the card and their int flags (those
+    of ``launch_config`` for the localize library, SC_REFINE launched as
+    SC_ANY: the localization has no trisection, so the two would compile to
+    the same kernel; then the bisection count), built once per pass."""
+    if P.device.type != "cuda":
+        raise ValueError(f"K6 and K7 need CUDA tensors, got {P.device}")
+    if P.dim() != 2 or P.shape[0] != N_PLANES or not P.is_contiguous():
+        raise ValueError(f"bad packed state {tuple(P.shape)}")
+    _check_kernel_inputs(route, P)
+    prm, flags = launch_config(route.metric, route.scene, route.cfg, P,
+                               "localize")
+    kerr, tsit5, r_mode, code, n_obj, npts = flags
+    return prm, (kerr, tsit5, r_mode, SC_ANY if code == SC_REFINE else code,
+                 n_obj, npts, int(route.cfg.bisect_iters))
+
+
+def _loc_lib():
+    from ..utils import cuda_build
+    return cuda_build.load("localize")
+
+
+def localize_cuda(route: Route, P: torch.Tensor, args=None):
+    """K6: ``localize_plain`` in one launch on the card, one thread per ray
+    (csrc/localize.cu k6_kernel): ``(y [8, B], lam [B])`` from the packed
+    final state ``P [34, B]``, a grouped route's rays with their groups'
+    parameters. ``args`` from ``localize_args`` (built here if not given).
+    Reads nothing back. Adds one to ``localize_cuda.launches`` per launch
+    (where it is issued, as K3's)."""
+    prm, flags = args if args is not None else localize_args(route, P)
+    B = P.shape[1]
+    y = torch.empty((8, B), dtype=P.dtype, device=P.device)
+    lam = torch.empty(B, dtype=P.dtype, device=P.device)
+    if B == 0:
+        return y, lam
+    fn = _loc_lib().rtgr_k6_f32 if P.dtype == torch.float32 else \
+        _loc_lib().rtgr_k6_f64
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(P.device):
+        rc = fn(ptr(P), ptr(y), ptr(lam), ptr(prm), B, *flags,
+                *_group_args(route, B),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K6 launch failed: CUDA error {rc}")
+    localize_cuda.launches += 1
+    return y, lam
+
+
+localize_cuda.launches = 0
+
+
+def localize_vjp_cuda(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
+                      ct_lam: torch.Tensor, args=None):
+    """K7: ``localize_vjp`` in one launch on the card, one thread per ray
+    (csrc/localize.cu k7_kernel), the same contract; every plane of
+    ``ct_P`` and every row of ``pbar`` written by the kernel. Adds one to
+    ``localize_vjp_cuda.launches`` per launch (where issued)."""
+    prm, flags = args if args is not None else localize_args(route, P)
+    B = P.shape[1]
+    if ct_y.shape != (8, B) or ct_lam.shape != (B,):
+        raise ValueError(f"bad cotangents {tuple(ct_y.shape)}, "
+                         f"{tuple(ct_lam.shape)} for {B} rays")
+    ct_y = ct_y.to(P.dtype).contiguous()
+    ct_lam = ct_lam.to(P.dtype).contiguous()
+    n_par = 2 + 8 * route.scene.n_objects
+    ct_P = torch.empty_like(P)
+    pbar = torch.empty((n_par, B), dtype=P.dtype, device=P.device)
+    if B == 0:
+        return ct_P, pbar
+    fn = _loc_lib().rtgr_k7_f32 if P.dtype == torch.float32 else \
+        _loc_lib().rtgr_k7_f64
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(P.device):
+        rc = fn(ptr(P), ptr(ct_y), ptr(ct_lam), ptr(ct_P), ptr(pbar),
+                ptr(prm), B, *flags, *_group_args(route, B),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K7 launch failed: CUDA error {rc}")
+    localize_vjp_cuda.launches += 1
+    return ct_P, pbar
+
+
+localize_vjp_cuda.launches = 0
+
+
 def run_segments(route: Route, P0: torch.Tensor):
     """The forward loop: ``(checkpoints [n_seg + 1, 34, B], used [1 + B])``
     with ``used`` as ``forward_segment_cuda`` returns it. Checkpoint s
@@ -937,6 +1330,41 @@ class _Checkpointed(torch.autograd.Function):
         return ct0, g, None, None, None
 
 
+class _Localized(torch.autograd.Function):
+    """``(P [34, B], rows, route) -> (y [8, B], lam [B])``: the loop's
+    result from its packed final state (K6 on the kernel route,
+    ``localize_plain`` on the plain one), with the hand-written VJP on
+    backward (K7, ``localize_vjp``): gradients for P's y and ev_y0 planes
+    (which ``_Checkpointed`` hands to K4) and, per ray, for the parameters
+    the epilogue reads, ``rows`` (``ray_params``: the values the route
+    holds). Autograd sums the per-ray cotangents into the caller's tensors
+    (over the batch for a shared value, over a group's rays for a grouped
+    batch's), each together with the other per-ray cotangents that reach
+    the same tensor (the shading's)."""
+
+    @staticmethod
+    def forward(ctx, P, rows, route):
+        P = P.detach().contiguous()
+        if route.cuda:
+            ctx.args = localize_args(route, P)
+            y, lam = localize_cuda(route, P, ctx.args)
+        else:
+            y, lam = localize_plain(route, P)
+        ctx.route = route
+        ctx.save_for_backward(P)
+        return y, lam
+
+    @staticmethod
+    def backward(ctx, ct_y, ct_lam):
+        (P,) = ctx.saved_tensors
+        route = ctx.route
+        if route.cuda:
+            ct_P, pbar = localize_vjp_cuda(route, P, ct_y, ct_lam, ctx.args)
+        else:
+            ct_P, pbar = localize_vjp(route, P, ct_y, ct_lam)
+        return ct_P, pbar, None
+
+
 def _detached(scene: Scene) -> Scene:
     """The scene's fields without their graph; the kind tensor (ints, with
     its host copy of the kinds) as it is."""
@@ -944,7 +1372,7 @@ def _detached(scene: Scene) -> Scene:
                              for f in Scene._fields if f != "kind"})
 
 
-_FIELD_DIMS = {"pos": 2, "vel": 2}
+FIELD_DIMS = {"pos": 2, "vel": 2}
 
 
 def _first_group(scene: Scene) -> Scene:
@@ -952,13 +1380,14 @@ def _first_group(scene: Scene) -> Scene:
     axis at its first ray."""
     return scene._replace(**{
         f: getattr(scene, f)[0] for f in Scene._fields
-        if f != "kind" and getattr(scene, f).dim() > _FIELD_DIMS.get(f, 1)})
+        if f != "kind" and getattr(scene, f).dim() > FIELD_DIMS.get(f, 1)})
 
 
 def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str,
                groups: int | None = None, sort_parts: int | None = None,
-               remat: bool = False) -> TraceResult:
+               remat: bool = False,
+               autograd_epilogue: bool = False) -> TraceResult:
     _check_options(cfg)
     if sort_parts is not None and (groups is not None or sort_parts < 1):
         raise ValueError("sort_parts takes an ungrouped batch and at least "
@@ -988,27 +1417,37 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                       else step(st))
             n += 1
         n_used = torch.full((), n, dtype=torch.int32, device=y0.device)
+        P = pack_state(st)
     else:
         info = {}
         parts = (None if sort_parts is None
                  else sorted_parts(y0, sort_parts))
-        st = unpack_state(_Checkpointed.apply(pack_state(st0), pvec, route,
-                                              info, parts))
+        P = _Checkpointed.apply(pack_state(st0), pvec, route, info, parts)
         n_used = info["n_used"]
-    # Dead-ray cotangent cutoff: rays killed mid-flight (captured inside
-    # stop_rho or failed at dt_min) froze after a capture spiral whose
-    # step Jacobians are huge; their y is detached (values unchanged), as
-    # in the JAX package. Rays still active at the step budget keep theirs.
-    dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
-    y = torch.where(dead, st.y.detach(), st.y)
-    # Every ray is localized, as in the JAX package, and a hit ray's result
-    # selected: no host read decides it. A ray that never hit keeps the
-    # initial event record (its start, a span of 1), whose localization is
-    # finite, so the zero cotangent that the selection gives it stays zero.
-    th_star, y_star = localize_events_cm(metric, event_fn, cfg, st.ev_y0,
-                                         st.ev_dt, st.ev_lo, st.ev_hi)
-    y = torch.where(st.hit, y_star, y)
-    lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, st.lam)
+        st = unpack_state(P)
+    if autograd_epilogue:
+        # Dead-ray cotangent cutoff: rays killed mid-flight (captured
+        # inside stop_rho or failed at dt_min) froze after a capture spiral
+        # whose step Jacobians are huge; their y is detached (values
+        # unchanged), as in the JAX package. Rays still active at the step
+        # budget keep theirs.
+        dead = ~st.hit & ~st.active & (st.lam < cfg.lam_max - 1e-6)
+        y = torch.where(dead, st.y.detach(), st.y)
+        # Every ray is localized, as in the JAX package, and a hit ray's
+        # result selected: no host read decides it. A ray that never hit
+        # keeps the initial event record (its start, a span of 1), whose
+        # localization is finite, so the zero cotangent that the selection
+        # gives it stays zero.
+        th_star, y_star = localize_events_cm(metric, event_fn, cfg,
+                                             st.ev_y0, st.ev_dt, st.ev_lo,
+                                             st.ev_hi)
+        y = torch.where(st.hit, y_star, y)
+        lam = torch.where(st.hit, st.ev_lam + th_star * st.ev_dt, st.lam)
+    else:
+        # The same epilogue as one function, the dead-ray cutoff in its
+        # hand-written VJP (K6 and K7 on the kernel route).
+        y, lam = _Localized.apply(P, ray_params(metric, scene, y0.shape[0]),
+                                  route)
     return TraceResult(y=y.t(), lam=lam, hit=st.hit,
                        steps=st.steps.to(torch.int32), n_iters=n_used * seg)
 
@@ -1017,16 +1456,28 @@ def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
                             dt0: torch.Tensor, cfg: IntegratorConfig,
                             seg_len: int | None = None,
                             groups: int | None = None,
-                            remat: bool = False) -> TraceResult:
+                            remat: bool = False,
+                            autograd_epilogue: bool = False) -> TraceResult:
     """The same forward, with ``torch.autograd`` taping every step of the
     plain body: the differentiable path's ``grad_mode="scan"`` (the JAX
-    ``integrate_rays_cm_scan``), and the oracle the hand adjoint is held
-    against. With ``remat`` each step is rematerialized on backward
-    (``torch.utils.checkpoint``, JAX's ``remat=True``), so the tape holds
-    one state per step instead of every intermediate; the values and
-    gradients are the same. Step sizes stay detached either way."""
+    ``integrate_rays_cm_scan``), and the oracle the hand adjoint of the
+    loop (``step_vjp``, K4) is held against. With ``remat`` each step is
+    rematerialized on backward (``torch.utils.checkpoint``, JAX's
+    ``remat=True``), so the tape holds one state per step instead of every
+    intermediate; the values and gradients are the same. Step sizes stay
+    detached either way.
+
+    The epilogue (the dead-ray cutoff and the localization) takes the hand
+    VJP of the checkpointed routes (``localize_vjp``), so that this route
+    and those differentiate it with the same arithmetic: the localization's
+    Jacobian cancels almost exactly in the event's own direction (a hit
+    point lies on its surface whatever the parameters), and two correct
+    VJPs agree there only to about 1e-9. With ``autograd_epilogue`` torch
+    autograd differentiates the epilogue as well (``localize_events_cm``):
+    every gradient by autograd, the oracle of the hand VJP."""
     return _integrate(metric, scene, y0, dt0, cfg, seg_len, "autograd",
-                      groups, remat=remat)
+                      groups, remat=remat,
+                      autograd_epilogue=autograd_epilogue)
 
 
 def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,

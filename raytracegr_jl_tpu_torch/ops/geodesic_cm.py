@@ -387,23 +387,37 @@ def newton_polish(event_fn, interp, dinterp, th0):
     return torch.clamp(th0 - torch.clamp(delta, -1.0, 1.0), 0.0, 1.0)
 
 
-def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
-                       ev_y0, ev_dt, ev_lo, ev_hi):
-    """Replay each ray's recorded crossing step (FSAL: k1 = rhs(ev_y0)),
-    bisect the bracket on the dense output, Newton-polish it and
-    interpolate: ``(th_star [B], y_star [8, B])``."""
+def crossing_step(metric: Metric, cfg: IntegratorConfig, ev_y0, ev_dt):
+    """Each ray's recorded crossing step replayed from its event record
+    (FSAL: k1 = rhs(ev_y0)): ``(y1, k1, k_last, ks)``, ``ks`` the Tsit5
+    stages or None (RK4)."""
     rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
     k1 = rhs(ev_y0)
     step = _tsit5_step_cm if cfg.method == "tsit5" else _rk4_step_cm
     y1, _, k_last, ks = step(rhs, ev_y0, ev_dt, k1)
-    interp, dinterp = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 4)
-    lo, hi = ev_lo, ev_hi
-    with torch.no_grad():  # the bracket takes no gradient (JAX: sg)
+    return y1, k1, k_last, ks
+
+
+def bisect_bracket(event_fn, interp, cfg: IntegratorConfig, lo, hi):
+    """``cfg.bisect_iters`` bisections of the crossing bracket on the dense
+    output: its upper end, which takes no gradient (JAX: sg)."""
+    with torch.no_grad():
         for _ in range(cfg.bisect_iters):
             mid = 0.5 * (lo + hi)
             gt = event_fn(interp(mid)) > 0.0
             lo = torch.where(gt, mid, lo)
             hi = torch.where(gt, hi, mid)
+    return hi
+
+
+def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
+                       ev_y0, ev_dt, ev_lo, ev_hi):
+    """Replay each ray's recorded crossing step (FSAL: k1 = rhs(ev_y0)),
+    bisect the bracket on the dense output, Newton-polish it and
+    interpolate: ``(th_star [B], y_star [8, B])``."""
+    y1, k1, k_last, ks = crossing_step(metric, cfg, ev_y0, ev_dt)
+    interp, dinterp = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 4)
+    hi = bisect_bracket(event_fn, interp, cfg, ev_lo, ev_hi)
     th_star = newton_polish(event_fn, interp, dinterp, hi)
     interp8, _ = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 8)
     return th_star, interp8(th_star)
@@ -684,7 +698,7 @@ _SCENE_CODES = {((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 9): SC_SPS9,
                 ((KIND_SPHERE, KIND_PLANE, KIND_SPHERE), 4): SC_SPS4,
                 ((KIND_SPHERE,), 4): SC_S4}
 FIXED_SCENES = {"geodesic": (SC_SPS9, SC_SD9), "compaction": (SC_SD9,),
-                "adjoint": (SC_SPS4, SC_S4)}
+                "adjoint": (SC_SPS4, SC_S4), "localize": (SC_SPS4, SC_S4)}
 # Threads per block of every launch (csrc MAX_THREADS). Blocks of 32 and
 # 64 threads were measured no faster on the disk's packed tail (PERF.md).
 MAX_THREADS = 128
@@ -747,7 +761,10 @@ def kernel_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
 
 
 # The host part of each parameter block built so far, on its device, by
-# its values: built once and kept (a captured CUDA graph copies from it).
+# its values but for M and a (which every pass writes itself): built once
+# and kept, so that a captured CUDA graph's copy from it stays valid. Its
+# size is bounded by the configurations, scenes' kinds and devices in use,
+# not by the values of M and a that pass through it.
 _HOST_BLOCKS: dict = {}
 
 
@@ -763,22 +780,20 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
 
     Nothing is read back from the card, and after the first pass of a
     configuration nothing is copied from the host: the configuration,
-    samples and kinds (and M and a where they are floats) are host values,
-    put on the device once per set of values and device (from pinned
-    memory, without a host sync) and kept; each pass clones that block on
-    the device and copies the object rows, and M and a where they are
-    tensors (the training path), into it from the scene's and the
-    metric's tensors, so that their current values reach the kernels,
-    also when a CUDA graph replays the pass. Raises for what the kernels
-    do not take (``check_kernel_config``), and where a new block would be
-    copied from the host while the stream is being captured."""
+    samples and kinds are host values, put on the device once per set of
+    values and device (from pinned memory, without a host sync) and kept
+    (``_HOST_BLOCKS``, keyed without M and a); each pass clones that block
+    on the device and writes the object rows, and M and a, into it: the
+    rows from the scene's tensors, M and a from the metric's tensors (the
+    training path) or as floats (a fill, which a CUDA graph keeps as a
+    constant), so that their current values reach the kernels, also when a
+    graph replays the pass. Raises for what the kernels do not take
+    (``check_kernel_config``), and where a new block would be copied from
+    the host while the stream is being captured."""
     kinds = check_kernel_config(metric, scene, cfg)
     params = metric.params
-    tensors = {i: v for i, v in enumerate((params.M, params.a))
-               if isinstance(v, torch.Tensor)}
-    if tensors:
-        metric = metric._replace(params=params._replace(
-            **{("M", "a")[i]: 0.0 for i in tensors}))
+    ma = (params.M, params.a)
+    metric = metric._replace(params=params._replace(M=0.0, a=0.0))
     n_obj = len(kinds)
     vals = [0.0] * PARAM_VALUES
     vals[:N_CFG] = _config_slots(metric, cfg, dtype)
@@ -806,8 +821,11 @@ def pack_params(metric: Metric, scene: Scene, cfg: IntegratorConfig,
     out = base.clone()
     out_vals = out[:PARAM_VALUES * dtype.itemsize].view(dtype)
     out_vals[N_CFG:N_CFG + 8 * n_obj] = _object_rows(scene, dtype).reshape(-1)
-    for i, v in tensors.items():
-        out_vals[i] = v.detach()
+    for i, v in enumerate(ma):
+        if isinstance(v, torch.Tensor):
+            out_vals[i] = v.detach()
+        else:  # a fill: a float set by index would be copied from the host
+            out_vals[i].fill_(float(v))
     return out
 
 

@@ -25,8 +25,9 @@ import torch
 from .models.camera import Canvas
 from .models.objects import Scene, shade, shade_soft
 from .models.shading import shade_redshift
-from .ops.adjoint import (integrate_rays_autograd, integrate_rays_ckpt,
-                          integrate_rays_ckpt_cuda)
+from .ops.adjoint import (FIELD_DIMS, integrate_rays_autograd,
+                          integrate_rays_ckpt, integrate_rays_ckpt_cuda,
+                          per_ray)
 from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
                               integrate_rays_cuda, launch_config)
 from .models.objects import min_distance
@@ -70,10 +71,11 @@ def default_tol(dtype: torch.dtype) -> float:
 
 
 # The differentiable path's modes, with JAX's names: "ckpt" is the
-# checkpointed adjoint's plain version, "ckpt_cuda" the same with K3 and K4
-# (JAX's "ckpt_pallas"), "scan" autograd through every step of the plain
-# body, each rematerialized (JAX's integrate_rays_cm_scan), and "auto"
-# picks "ckpt_cuda" where ``backend`` resolves to "cuda" and "ckpt"
+# checkpointed adjoint's plain version, "ckpt_cuda" the same with K3, K4,
+# K6 and K7 (JAX's "ckpt_pallas"), "scan" autograd through every step of
+# the plain body, each rematerialized (JAX's integrate_rays_cm_scan; the
+# localization after the loop takes the hand VJP of the other modes), and
+# "auto" picks "ckpt_cuda" where ``backend`` resolves to "cuda" and "ckpt"
 # elsewhere.
 GRAD_MODES = ("auto", "ckpt", "ckpt_cuda", "scan")
 # grad_groups splits only batches of at least this many rays per part
@@ -244,6 +246,14 @@ def _shade(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
         p = getattr(metric, "params", KerrSchildParams(M=0.0, a=0.0))
         return shade_redshift(metric, scene, y0, y, p.M, p.a, cfg.hit_dmin,
                               cfg.beaming, cfg.exposure)
+    # The fields that take gradients, per ray: their per-ray cotangents
+    # then meet the localization's ray by ray, and each parameter's are
+    # summed once (ops.adjoint.per_ray).
+    B = y.shape[0]
+    scene = scene._replace(**{
+        f: per_ray(v[None], B) for f, v in scene._asdict().items()
+        if f != "kind" and v.requires_grad
+        and v.dim() == FIELD_DIMS.get(f, 1)})
     if cfg.soft_temp is not None:
         return shade_soft(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
                           color_freq=cfg.soft_freq)

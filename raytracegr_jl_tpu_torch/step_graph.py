@@ -3,9 +3,9 @@ captured once in a CUDA graph and replayed, the counterpart of the JAX
 package's ``jax.jit(step)`` (raytracegr_jl_tpu/inverse.py).
 
 Eagerly, a 200x200 training step issues thousands of small kernels from the
-host (the camera, the differentiable localization, the soft shading and
-autograd around K3 and K4), and the card waits for the host most of the
-time. Captured, the whole step is one launch. This needs a step that reads
+host (the camera, the soft shading and autograd around K3, K4, K6 and K7),
+and the card waits for the host most of the time. Captured, the whole step
+is one launch. This needs a step that reads
 nothing back to the host and whose shapes do not depend on the data, which
 the kernel route of ops/adjoint.py provides (K3 and K4 keep the segment
 counts on the card), and parameter blocks that a replay refreshes from the
@@ -22,9 +22,10 @@ before, as an eager step does). A failed capture raises: there is no eager
 fallback. CPU tensors raise too: a graph is a CUDA device program.
 
 The launch counters of the kernel wrappers (``forward_segment_cuda.
-launches``, ``backward_cuda.launches``) count the warm-up passes and the
-capture, not the replays, which issue no launch from Python; a replay's
-kernels are seen by a profiler.
+launches``, ``backward_cuda.launches``, ``localize_cuda.launches``,
+``localize_vjp_cuda.launches``) count the warm-up passes and the capture,
+not the replays, which issue no launch from Python; a replay's kernels are
+seen by a profiler.
 """
 
 from __future__ import annotations
@@ -42,16 +43,17 @@ WARMUP_PASSES = 2
 
 
 def _params_fence(dtype: torch.dtype, stream: torch.cuda.Stream) -> None:
-    """The adjoint library's fence on ``stream`` (csrc params_fence): a
-    replay, whose K3 and K4 launches take the library's constant parameter
-    copy, is ordered after the library's last eager launch on another
-    stream, and the next one after it."""
-    lib = adjoint._lib()
-    fn = lib.rtgr_fence_f32 if dtype == torch.float32 else lib.rtgr_fence_f64
-    rc = fn(ctypes.c_void_p(stream.cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"the parameter-block fence failed: CUDA error "
-                           f"{rc}")
+    """The adjoint and localize libraries' fences on ``stream`` (csrc
+    params_fence): a replay, whose K3, K4, K6 and K7 launches take their
+    library's constant parameter copy, is ordered after each library's
+    last eager launch on another stream, and the next one after it."""
+    for lib in (adjoint._lib(), adjoint._loc_lib()):
+        fn = (lib.rtgr_fence_f32 if dtype == torch.float32
+              else lib.rtgr_fence_f64)
+        rc = fn(ctypes.c_void_p(stream.cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"the parameter-block fence failed: CUDA "
+                               f"error {rc}")
 
 
 class GraphedStep:

@@ -118,7 +118,9 @@ def test_chunk_schedule_follows_jax(traced):
 
 def test_trace_stats_matches_jax(traced):
     """The port's trace_stats against the JAX package's on the same
-    results: every field but the device, which is "cpu" here."""
+    results, called both ways (with wall_s and cfg; with neither, when
+    escapes are judged against lam_max 100 and method and max_steps are
+    left out): every field but the device, which is "cpu" here."""
     _, cfg, _, _, comp, _ = traced
     j_res = J.TraceResult(*(jnp.asarray(getattr(comp, f).numpy())
                             for f in ("y", "lam", "hit", "steps")),
@@ -126,12 +128,19 @@ def test_trace_stats_matches_jax(traced):
     j_cfg = J.IntegratorConfig(**{f: getattr(cfg, f)
                                   for f in J.IntegratorConfig._fields
                                   if f in cfg._fields})
-    want = j_trace_stats(j_res, cfg=j_cfg)
-    got = T.trace_stats(comp, cfg=cfg)
-    assert got.pop("device") == "cpu"
-    want.pop("device")
-    assert got == want
-    assert got["rays"] == comp.steps.numel() and got["hit_frac"] > 0
+    for want, got in ((j_trace_stats(j_res, wall_s=0.25, cfg=j_cfg),
+                       T.trace_stats(comp, wall_s=0.25, cfg=cfg)),
+                      (j_trace_stats(j_res), T.trace_stats(comp))):
+        assert got.pop("device") == "cpu"
+        want.pop("device")
+        assert got == want
+        assert got["rays"] == comp.steps.numel() and got["hit_frac"] > 0
+    full = T.trace_stats(comp, wall_s=0.25, cfg=cfg)
+    assert full["wall_s"] == 0.25
+    assert full["rays_per_s"] == round(comp.steps.numel() / 0.25, 1)
+    assert full["method"] == cfg.method
+    bare = T.trace_stats(comp)
+    assert not {"wall_s", "rays_per_s", "method", "max_steps"} & set(bare)
 
 
 def test_sorted_equals_unsorted():

@@ -1023,3 +1023,262 @@ def test_graphed_replays_do_not_sync():
             backward_cuda.launches - before[1]) == counted
     assert _bits_equal(step.loss, loss_e.detach())
     assert _bits_equal(grads(pg), grads(pe))
+
+
+def test_graphed_replay_after_a_float_mass_sweep():
+    """The parameter blocks' host parts are kept by configuration, not by
+    the value of a float M or a (which each pass writes itself): 1,000
+    blocks packed for 1,000 float masses add at most one kept host part,
+    and a graphed training step captured before them replays bit for bit
+    after them."""
+    from raytracegr_jl_tpu_torch.ops import geodesic_cm as G
+    from raytracegr_jl_tpu_torch.step_graph import GraphedStep
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    spec = T.example2_spec(32, 32)
+    cfg = T.default_inverse_cfg(f32, max_steps=40, rk4_dt=2.5, stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, f32, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev), xg, ng)
+    loss_fn = T.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+    pg = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+    step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
+
+    def replay():
+        for q in pg.parameters():
+            q.grad.zero_()
+        loss = step.replay().clone()
+        return loss, torch.cat([pg.M.grad[None], pg.a.grad[None],
+                                pg.sphere_pos.grad])
+
+    want = replay()
+    _, scene, _ = T.build(spec, f32, dev)
+    kept = len(G._HOST_BLOCKS)
+    for i in range(1000):
+        metric = T.make_metric("kerr_schild",
+                               T.KerrSchildParams(0.5 + 1e-3 * i, 0.0),
+                               rho_min=0.25)
+        blk = G.pack_params(metric, scene, cfg.integrator, f32, dev)
+    assert len(G._HOST_BLOCKS) <= kept + 1
+    assert float(blk[:4].view(f32)) == float(torch.tensor(1.499, dtype=f32))
+    got = replay()
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the localization epilogue and its VJP
+# ---------------------------------------------------------------------------
+
+def _final(A, route, P0):
+    """K3's pass from P0: every ray's final packed state [34, B]."""
+    ck, _ = A.run_segments(route, P0)
+    return ck[route.n_seg].contiguous()
+
+
+def _loc_cotangents(P, seed=3):
+    gen = torch.Generator(device=P.device).manual_seed(seed)
+    ct_y = torch.randn((8, P.shape[1]), generator=gen, dtype=P.dtype,
+                       device=P.device)
+    ct_lam = torch.randn(P.shape[1], generator=gen, dtype=P.dtype,
+                         device=P.device)
+    ct_y[:, ::7] = 0
+    ct_lam[::7] = 0
+    return ct_y, ct_lam
+
+
+def _check_k6_k7(A, route, P):
+    """K6 and K7 against localize_plain and localize_vjp on the same CUDA
+    tensors, bit for bit, each launched once; returns K7's outputs."""
+    plain = route._replace(cuda=False)
+    before = (A.localize_cuda.launches, A.localize_vjp_cuda.launches)
+    y, lam = A.localize_cuda(route, P)
+    ct_y, ct_lam = _loc_cotangents(P)
+    c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam)
+    torch.cuda.synchronize()
+    assert (A.localize_cuda.launches - before[0],
+            A.localize_vjp_cuda.launches - before[1]) == (1, 1)
+    y_p, lam_p = A.localize_plain(plain, P)
+    c_p, p_p = A.localize_vjp(plain, P, ct_y, ct_lam)
+    assert bool((P[A.P_HIT] > 0).any())
+    assert _bits_equal(y, y_p) and _bits_equal(lam, lam_p)
+    assert _bits_equal(c, c_p) and _bits_equal(p, p_p)
+    return y, lam, c, p
+
+
+# K3's cases, with the f64 Tsit5 run long enough for its rays to hit.
+LOC_CASES = CKPT_CASES[:3] + [(16, torch.float64, "tsit5", 200)]
+
+
+@pytest.mark.parametrize("n,dtype,method,max_steps", LOC_CASES)
+@pytest.mark.parametrize("refine", [False, True], ids=["", "refine"])
+def test_k6_k7_match_plain_bitwise(n, dtype, method, max_steps, refine):
+    """K6 and K7 on K3's final states (example2, f32 and f64, RK4 and
+    Tsit5, with and without refine_minima, whose SC_REFINE code K6 and K7
+    launch as SC_ANY) against their plain versions: bitwise."""
+    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps, refine=refine)
+    _check_k6_k7(A, route, _final(A, route, P0))
+
+
+@pytest.mark.parametrize("dtype,method", [(torch.float32, "rk4"),
+                                          (torch.float64, "tsit5")])
+def test_k6_k7_minkowski_match_plain_bitwise(dtype, method):
+    """The same in flat space (example1: no M and a cotangents)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    integ = T.default_inverse_cfg(dtype, max_steps=40, method=method,
+                                  rk4_dt=2.5, stop_rho=0.5).integrator
+    metric, scene, canvas = T.build(T.example1_spec(32, 32), dtype,
+                                    torch.device("cuda"))
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    seg = A.segment_length(integ, integ.grad_seg_len)
+    route = A.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                    n_seg=integ.max_steps // seg, cuda=True)
+    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+    P = _final(A, route, A.pack_state(init(y0.t(),
+                                           initial_dt(metric, y0, integ))))
+    _, _, _, p = _check_k6_k7(A, route, P)
+    assert not bool(p[:2].any())
+
+
+@pytest.mark.parametrize("dtype,method", [
+    (torch.float32, "rk4"), (torch.float32, "tsit5"),
+    (torch.float64, "rk4"), (torch.float64, "tsit5")])
+def test_grouped_k6_k7_match_plain_and_each_start(dtype, method):
+    """Grouped K6 and K7 over four starts of different (M, z) against the
+    grouped plain versions (bitwise), and each start's rays against that
+    start's own ungrouped launches (bitwise, per ray)."""
+    starts = [(0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1)]
+    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts)
+    P = _final(A, grouped, P0)
+    y, lam, c, p = _check_k6_k7(A, grouped, P)
+    ct_y, ct_lam = _loc_cotangents(P)
+    B = singles[0][1].shape[1]
+    for s, (route, _) in enumerate(singles):
+        rays = slice(s * B, (s + 1) * B)
+        Ps = P[:, rays].contiguous()
+        ys, lams = A.localize_cuda(route, Ps)
+        cs, ps = A.localize_vjp_cuda(route, Ps, ct_y[:, rays].contiguous(),
+                                     ct_lam[rays].contiguous())
+        torch.cuda.synchronize()
+        assert _bits_equal(ys, y[:, rays]) and _bits_equal(lams, lam[rays])
+        assert _bits_equal(cs, c[:, rays]) and _bits_equal(ps, p[:, rays])
+
+
+def test_k7_matches_autograd_f64():
+    """K7 against torch autograd of the plain epilogue on the card at f64
+    (example2 32x32 RK4 and Tsit5), within 1e-12 of each output block's
+    largest entry (the parameters: of the sum of their per-ray
+    magnitudes)."""
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (OBJ_FIELDS,
+                                                         localize_events_cm,
+                                                         scene_event_cm)
+    for method, steps in (("rk4", 40), ("tsit5", 200)):
+        A, route, P0, _ = _ckpt_case(32, torch.float64, method, steps)
+        P = _final(A, route, P0)
+        ct_y, ct_lam = _loc_cotangents(P)
+        c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam)
+        pv = A.flatten_params(route.metric, route.scene).detach()
+        pv.requires_grad_()
+        Pl = P.clone().requires_grad_()
+        metric = route.metric._replace(params=T.KerrSchildParams(pv[0],
+                                                                 pv[1]))
+        sc = route.scene
+        rows = pv[2:].reshape(sc.n_objects, 8)
+        scene = sc._replace(pos=torch.cat([sc.pos[:, :1], rows[:, :3]], 1),
+                            **{f: rows[:, 3 + k]
+                               for k, f in enumerate(OBJ_FIELDS[3:])})
+        st = A.unpack_state(Pl)
+        dead = ~st.hit & ~st.active & (st.lam < route.cfg.lam_max - 1e-6)
+        y = torch.where(dead, st.y.detach(), st.y)
+        th, ys = localize_events_cm(metric, scene_event_cm(scene), route.cfg,
+                                    st.ev_y0, st.ev_dt, st.ev_lo, st.ev_hi)
+        y = torch.where(st.hit, ys, y)
+        lam = torch.where(st.hit, st.ev_lam + th * st.ev_dt, st.lam)
+        g_P, g_p = torch.autograd.grad(
+            (y * ct_y).sum() + (lam * ct_lam).sum(), (Pl, pv))
+        for lo in (A.P_Y, A.P_EV_Y0):
+            want = g_P[lo:lo + 8]
+            torch.testing.assert_close(
+                c[lo:lo + 8], want, rtol=0,
+                atol=1e-12 * float(want.abs().max()))
+        assert bool(((p.sum(1) - g_p).abs()
+                     <= 1e-12 * p.abs().sum(1)).all())
+
+
+def test_k6_k7_under_capture_and_on_two_streams():
+    """K6 and K7 captured in a CUDA graph replay what they compute eagerly;
+    and launched on two streams without a sync, K6 after a long K3 pass
+    and K7 with another mass, each equals its launch run alone (the
+    library serializes all its kernels' launches across streams)."""
+    A, route, P0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
+    P = _final(A, route, P0)
+    ct_y, ct_lam = _loc_cotangents(P)
+    args = A.localize_args(route, P)
+    y_e, lam_e = A.localize_cuda(route, P, args)
+    c_e, p_e = A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.localize_cuda(route, P, args)
+        A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, lam_g = A.localize_cuda(route, P, args)
+        c_g, p_g = A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+    from raytracegr_jl_tpu_torch.step_graph import _params_fence
+    stream = torch.cuda.current_stream()
+    _params_fence(torch.float32, stream)
+    graph.replay()
+    _params_fence(torch.float32, stream)
+    torch.cuda.synchronize()
+    assert _bits_equal(y_g, y_e) and _bits_equal(lam_g, lam_e)
+    assert _bits_equal(c_g, c_e) and _bits_equal(p_g, p_e)
+
+    heavy = route._replace(metric=route.metric._replace(
+        params=route.metric.params._replace(M=1.3)))
+    want_h = A.localize_vjp_cuda(heavy, P, ct_y, ct_lam)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        A.run_segments(route, P0)
+        got_6 = A.localize_cuda(route, P)
+    with torch.cuda.stream(s2):
+        got_7 = [A.localize_vjp_cuda(heavy, P, ct_y, ct_lam)
+                 for _ in range(3)]
+    torch.cuda.synchronize()
+    assert not _bits_equal(want_h[1], p_e)
+    assert _bits_equal(got_6[0], y_e) and _bits_equal(got_6[1], lam_e)
+    for c, p in got_7:
+        assert _bits_equal(c, want_h[0]) and _bits_equal(p, want_h[1])
+
+
+def test_train_step_launches_k6_and_k7():
+    """A training step on CUDA tensors launches K6 and K7 once each; the
+    plain route none; the two give the same loss and gradients bitwise."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    dev = torch.device("cuda")
+    spec = T.example2_spec(24, 24)
+    cfg = T.default_inverse_cfg(torch.float32, max_steps=48, method="tsit5",
+                                stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, torch.float32, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, device=dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev),
+            xg, ng)
+    out = []
+    for backend in (None, "torch"):
+        p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
+        before = (A.localize_cuda.launches, A.localize_vjp_cuda.launches)
+        loss = T.make_ray_loss_fn(spec, cfg._replace(backend=backend),
+                                  device=dev)(p, xg, ng, target)
+        loss.backward()
+        out.append((A.localize_cuda.launches - before[0],
+                    A.localize_vjp_cuda.launches - before[1],
+                    loss.detach(), torch.cat([p.M.grad[None], p.a.grad[None],
+                                              p.sphere_pos.grad])))
+    assert out[0][:2] == (1, 1) and out[1][:2] == (0, 0)
+    assert _bits_equal(out[0][2], out[1][2])
+    assert _bits_equal(out[0][3], out[1][3])

@@ -288,6 +288,30 @@ def test_kept_parameter_block_has_the_parent_bytes(dtype, as_tensors):
                        _parent_block(metric, scene, other, dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_parameter_block_cache_is_bounded_over_float_masses(dtype):
+    """A sweep of 1,000 float values of M and a (one block each, as 1,000
+    renders of one scene would pack them) keeps at most one new host part:
+    the kept parts are keyed by everything but M and a, which every pass
+    writes into its block; each block carries its own M and a, rounded to
+    the working type, and otherwise the bytes it had when packed anew."""
+    cfg = T.default_inverse_cfg(dtype, max_steps=20, stop_rho=0.5)
+    _, scene, _ = T.build(T.example2_spec(4, 4), dtype, "cpu")
+    integ = cfg.integrator
+    kept = len(G._HOST_BLOCKS)
+    for i in range(1000):
+        params = T.KerrSchildParams(0.5 + 1e-3 * i, 0.25 - 5e-4 * i)
+        metric = T.make_metric("kerr_schild", params, rho_min=0.25)
+        block = G.pack_params(metric, scene, integ, dtype, "cpu")
+        vals = block[:G.PARAM_VALUES * dtype.itemsize].view(dtype)
+        assert float(vals[0]) == float(torch.tensor(params.M, dtype=dtype))
+        assert float(vals[1]) == float(torch.tensor(params.a, dtype=dtype))
+        if i % 250 == 0:
+            assert torch.equal(block, _parent_block(metric, scene, integ,
+                                                    dtype))
+    assert len(G._HOST_BLOCKS) <= kept + 1
+
+
 def test_graphed_step_refuses_cpu_tensors():
     """A CUDA graph is a device program: the graphed step raises on
     parameters on the CPU and names their device, before running
