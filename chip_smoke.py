@@ -4,12 +4,13 @@ and K7 of the training path; K2 of the compacted render; K5, its fused
 shading; one build per library, in parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
-per-segment chain, the grouped K3 and K4 of the vectorized multistart
-against theirs and against one launch per start, K6 and K7 on K3's final
-states, and K7 against torch.autograd of the plain epilogue) and K1 against
-the
-committed golden images, drives the forward render and the training path
-(one pixel-loss step for two configurations, three Adam steps) of the
+per-segment chain, K4 on ragged, one-end and every-end batches and on the
+training batches and K4's work-order kernels against the stable sort, the grouped K3 and K4 of the vectorized
+multistart against theirs and against one launch per start, K6 and K7 on
+K3's final states, and K7 against torch.autograd of the plain epilogue) and
+K1 against the committed golden images, drives the forward render and the
+training path (one pixel-loss step for two configurations, three Adam
+steps) of the
 reference's example2, the inversion of BASELINE config 5 (the lensing
 scene at 32x32: M and z recovered in 60 Adam steps, the vectorized
 multistart against the serial one, a resumed fit against an uninterrupted
@@ -1053,6 +1054,141 @@ def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N,
     return singles, grouped, torch.cat([P for _, P in singles], dim=1)
 
 
+def config5_starts(n: int):
+    """``n`` (M, z) starts of config 5: INV_STARTS' first n up to 4, and
+    16 spread over M in [0.48, 0.52] and z in [-0.06, 0.06]."""
+    if n <= len(INV_STARTS):
+        return INV_STARTS[:n]
+    return tuple((0.5 + 0.01 * ((k % 5) - 2), 0.02 * ((k % 7) - 3))
+                 for k in range(n))
+
+
+# K4's work-order cases (tests/test_torch_cuda.py's): example2 RK4 at n x n,
+# max_steps steps of dt. "ragged": 225 rays, a multiple of no block size,
+# at config 5's segments of 15; "one end": every ray 15 steps from the end
+# of its span, which none reaches a surface in, so all end in segment 2;
+# "every end": spans cut at 1 to max_steps steps and every fifth ray
+# inactive from the start, so that the ends cover every segment. Then
+# grouped config 5 (32x32 a start) at 1, 4 and 16 starts.
+K4_ORDER_CASES = (("ragged", 15, torch.float32, 120, 0.2),
+                  ("one end", 16, torch.float32, 100, 0.1),
+                  ("every end", 16, torch.float32, 100, 0.1),
+                  ("every end", 16, torch.float64, 100, 0.1))
+K4_ORDER_STARTS = (1, 4, 16)
+
+
+def k4_order_case(dev, case: str, n: int, dtype, max_steps: int, dt: float):
+    """One of K4_ORDER_CASES on the card: (route, P0)."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    integ = rt.default_inverse_cfg(dtype, max_steps=max_steps, method="rk4",
+                                   rk4_dt=dt, stop_rho=0.5).integrator
+    _, scene, canvas = rt.build(rt.example2_spec(n, n), dtype, dev)
+    metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M=1.05),
+                            rho_min=0.25)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    seg = adj.segment_length(integ, integ.grad_seg_len)
+    route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                      n_seg=max_steps // seg, cuda=True)
+    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+    with torch.no_grad():
+        P = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+    if case == "one end":
+        P[adj.P_LAM] = integ.lam_max - 15 * dt
+    elif case == "every end":
+        k = torch.arange(P.shape[1], device=dev)
+        P[adj.P_LAM] = integ.lam_max - (1 + (k * 7) % max_steps).to(
+            P.dtype) * dt
+        P[adj.P_ACTIVE, ::5] = 0
+    return route, P
+
+
+def k4_vs_plain(label: str, route, P, seed: int = 5, plain=None):
+    """K3 from ``P`` against its plain chain, then K4 as the wrapper
+    launches it (its work order, then K4 in that order), bitwise equal to
+    ``backward_plain`` on the plain chain's checkpoints. ``plain``:
+    (cotangent, backward_plain's output) of these
+    rays, taken from a larger batch that holds them (rays are
+    independent), in place of the plain chain. Returns (the rays' end
+    segments, max |d|, the plain version's output, the cotangent)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    if plain is None:
+        err, ck, used, ck_p, used_p = require_k3_equal(label, route, P)
+        ct = torch.randn(P.shape, generator=torch.Generator(
+            device=P.device).manual_seed(seed), dtype=P.dtype,
+            device=P.device)
+        want = adj.backward_plain(route._replace(cuda=False), ck_p,
+                                  used_p[1:], ct)
+    else:
+        (ck, used), err = k3_pass(route, P), 0.0
+        ct, want = plain
+    ends = used[1:]
+    c, p = adj.backward_cuda(route, ck, ends, ct)
+    torch.cuda.synchronize()
+    err = max(err, max_err(c, want[0]), max_err(p, want[1]))
+    require(bits_equal(c, want[0]) and bits_equal(p, want[1]),
+            f"{label}: K4 not bitwise equal to the plain version (max |d| "
+            f"{err:.3e})")
+    return ends, err, want, ct
+
+
+def k4_order_slice(dev, card: str) -> float:
+    """K4 and its work order (the order's kernels against the stable sort)
+    against the plain versions on K4_ORDER_CASES and grouped config 5 at
+    K4_ORDER_STARTS starts (each start's rays also against its own
+    ungrouped launch). Returns the largest |d| (0: bitwise)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    t0 = time.perf_counter()
+    err, lines = 0.0, []
+    for case, n, dtype, max_steps, dt in K4_ORDER_CASES:
+        label = f"{case} example2 {n}x{n} {str(dtype)[6:]} rk4/{max_steps}"
+        route, P = k4_order_case(dev, case, n, dtype, max_steps, dt)
+        ends, e, _, _ = k4_vs_plain(label, route, P)
+        err = max(err, e)
+        require(torch.equal(adj.work_order_cuda(ends, route.n_seg),
+                            adj.work_order(ends)),
+                f"{label}: K4's work order differs from the stable sort")
+        hist = torch.bincount(ends, minlength=route.n_seg + 1)
+        require(bool((hist > 0).all()) if case == "every end" else
+                int(hist[2]) == P.shape[1] if case == "one end" else
+                P.shape[1] % 32 != 0, f"{label}: ends {hist.tolist()}")
+        lines.append(f"{label}:{hist.tolist()}")
+    # The 16 starts' plain version holds the 1 and 4 starts' rays too:
+    # their batches are its first 1,024 and 4,096 rays.
+    starts = INV_STARTS + config5_starts(16)[:12]
+    plain = None
+    for n in sorted(K4_ORDER_STARTS, reverse=True):
+        label = f"grouped config 5 {n} starts"
+        singles, grouped, P0 = inverse_case(dev, torch.float32, "rk4",
+                                            starts=starts[:n])
+        if plain is not None:  # the first P0.shape[1] rays of 16 starts
+            ct16, (c16, p16) = plain
+            r = P0.shape[1]
+            plain = (ct16[:, :r].contiguous(), (c16[:, :r], p16[:r]))
+        ends, e, (c, p), ct = k4_vs_plain(label, grouped, P0, plain=plain)
+        plain = plain or (ct, (c, p))
+        err = max(err, e)
+        require(torch.equal(adj.work_order_cuda(ends, grouped.n_seg),
+                            adj.work_order(ends)),
+                f"{label}: K4's work order differs from the stable sort")
+        B = singles[0][1].shape[1]
+        for s, (route, P) in enumerate(singles):
+            rays = slice(s * B, (s + 1) * B)
+            ck_s, used_s = k3_pass(route, P)
+            c_s, p_s = adj.backward_cuda(route, ck_s, used_s[1:],
+                                         ct[:, rays].contiguous())
+            torch.cuda.synchronize()
+            require(bits_equal(c_s, c[:, rays]) and bits_equal(p_s, p[rays]),
+                    f"{label}: start {s} differs from its own launch")
+        lines.append(f"{label}:{int(ends.max())}")
+    phase("K4 and its work order vs plain", t0,
+          card=repr(card), cases=lines, max_abs_err=err)
+    return err
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     bits = torch.int32 if a.dtype == torch.float32 else torch.int64
     return a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
@@ -1060,6 +1196,55 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
+
+
+def adjoint_work(route, P0, ct, n_used: int) -> dict:
+    """This run's work of K3 and K4 from ``P0`` over ``n_used`` segments:
+    each ray's iterations while active at the plain body's count for one
+    ray (the first group's, on a grouped route), K4 also each accepted
+    step's reverse step at step_vjp's count (for RK4 less its three
+    forward right-hand sides, whose values K4 keeps from the replay); and
+    their bounds (``bound``:
+    K3 reads and writes the state of each segment, K4 reads the
+    checkpoints, the cotangent and writes its two outputs)."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    plain = route._replace(cuda=False)
+    R = P0.shape[1]
+    with torch.no_grad():
+        metric, scene = adj.route_rows(plain, R)
+        _, body = make_step_cm(metric, scene_event_cm(scene), route.cfg)
+        m1, s1 = (adj.route_rows(plain._replace(groups=route.groups[:1]), 1)
+                  if route.groups is not None else (route.metric,
+                                                    route.scene))
+        _, body1 = make_step_cm(m1, scene_event_cm(s1), route.cfg)
+        st = adj.unpack_state(P0)
+        one = lambda t: t[..., :1]  # noqa: E731
+        step_flops = count_flops(lambda: body1(type(st)(*map(one, st))))
+        p = adj.adj_params(m1, P0.dtype, P0.device)
+        tsit5 = route.cfg.method == "tsit5"
+        vjp_flops = count_flops(lambda: adj.step_vjp(
+            p, tsit5, one(st.y), one(st.k1), one(st.dt),
+            one(ct[adj.P_Y:adj.P_Y + 8]), one(ct[adj.P_K1:adj.P_K1 + 8])))
+        if not tsit5:  # K4 keeps the replay's stages: no forward rhs
+            vjp_flops -= 3 * count_flops(lambda: adj.geodesic_cm(
+                p.metric, one(st.y)))
+        iters = accepted = 0
+        for _ in range(n_used * route.seg_len):
+            iters += int(st.active.sum())
+            st, rec = body(st)
+            accepted += int(rec.do.sum())
+    size = P0.element_size()
+    table = route.groups.numel() * size if route.groups is not None else 0
+    return dict(
+        iters=iters, accepted=accepted, step_flops=step_flops,
+        vjp_flops=vjp_flops,
+        k3_bound=bound(iters * step_flops,
+                       n_used * 2 * adj.N_PLANES * R * size + table),
+        k4_bound=bound(iters * step_flops + accepted * vjp_flops,
+                       (n_used + 2) * adj.N_PLANES * R * size + R * 2 * size
+                       + table))
 
 
 FIT_NAMES = ("M", "a", "sphere_pos")
@@ -1180,9 +1365,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     K3 and K4 entries of the kernels line."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (SC_ANY,
-                                                         make_step_cm,
-                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import SC_ANY
     from raytracegr_jl_tpu_torch.utils import checkpoint
     f32 = torch.float32
 
@@ -1443,33 +1626,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     _, k3_plain_ms = events_call(lambda: adj.run_segments(plain, P0))
     k4_plain_ms = events_ms(lambda: adj.backward_plain(plain, ck, used[1:],
                                                        ct))
-    # This run's work: each ray's iterations while active at the plain
-    # body's count for one ray, K4 also each accepted step's reverse step.
-    with torch.no_grad():
-        metric, scene = adj.route_rows(plain, P0.shape[1])
-        _, body = make_step_cm(metric, scene_event_cm(scene), grouped.cfg)
-        m1, s1 = adj.route_rows(plain._replace(groups=grouped.groups[:1]),
-                                1)
-        _, body1 = make_step_cm(m1, scene_event_cm(s1), grouped.cfg)
-        st = adj.unpack_state(P0)
-        one = lambda t: t[..., :1]  # noqa: E731
-        step_flops = count_flops(lambda: body1(type(st)(*map(one, st))))
-        p = adj.adj_params(m1, f32, dev)
-        vjp_flops = count_flops(lambda: adj.step_vjp(
-            p, False, one(st.y), one(st.k1), one(st.dt),
-            one(ct[adj.P_Y:adj.P_Y + 8]), one(ct[adj.P_K1:adj.P_K1 + 8])))
-        iters = accepted = 0
-        for _ in range(n_used * grouped.seg_len):
-            iters += int(st.active.sum())
-            st, rec = body(st)
-            accepted += int(rec.do.sum())
+    work = adjoint_work(grouped, P0, ct, n_used)
+    k3_bound, k4_bound = work["k3_bound"], work["k4_bound"]
     R = P0.shape[1]
-    table_bytes = grouped.groups.numel() * 4
-    k3_bound = bound(iters * step_flops,
-                     n_used * 2 * adj.N_PLANES * R * 4 + table_bytes)
-    k4_bound = bound(iters * step_flops + accepted * vjp_flops,
-                     (n_used + 2) * adj.N_PLANES * R * 4 + R * 2 * 4
-                     + table_bytes)
+    iters, accepted = work["iters"], work["accepted"]
+    step_flops, vjp_flops = work["step_flops"], work["vjp_flops"]
     phase("time grouped K3/K4 lensing 32x32 f32 rk4/120 4 starts", t0,
           card=repr(card), rays=R, segments=n_used,
           k3_grouped_ms=f"{g3:.4f}", k3_ungrouped_4_launches_ms=f"{u3:.4f}",
@@ -3102,7 +3263,7 @@ def main() -> int:
 
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
                adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda,
-               adj.localize_cuda, adj.localize_vjp_cuda)
+               adj.localize_cuda, adj.localize_vjp_cuda, adj.work_order_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -3451,6 +3612,11 @@ def main() -> int:
                 f"example2 {n}x{n} {str(dtype)[6:]} {method}/{steps}", n,
                 dtype, method, steps))
 
+    # 6a. K4 and its work order, bitwise to the plain
+    #     version, on ragged, one-end and every-end batches (f32, f64) and
+    #     grouped config 5 at 1, 4 and 16 starts.
+    adj_err = max(adj_err, k4_order_slice(dev, card))
+
     # 6b. K6 and K7 against their plain versions and K7 against autograd;
     #     their times and bounds.
     loc = localize_slice(dev, card)
@@ -3502,15 +3668,16 @@ def main() -> int:
         phase(f"main path train step {label} 200x200 f32", t0,
               k1_launches=counts[0], k3_launches=counts[1],
               k4_launches=counts[2], k6_launches=counts[5],
-              k7_launches=counts[6], loss=f"{loss:.9e}",
+              k7_launches=counts[6], k4_order_launches=counts[7],
+              loss=f"{loss:.9e}",
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
         require(counts[1] == 1 and counts[2] == 1 and counts[5] == 1
-                and counts[6] == 1,
+                and counts[6] == 1 and counts[7] == 1,
                 f"{label}: the training step launched K3 {counts[1]}, K4 "
-                f"{counts[2]}, K6 {counts[5]} and K7 {counts[6]} times, not "
-                "once each")
+                f"{counts[2]}, K6 {counts[5]}, K7 {counts[6]} and K4's work "
+                f"order {counts[7]} times, not once each")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
                 f"{label}: non-finite loss or gradients")
         require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
@@ -3548,8 +3715,9 @@ def main() -> int:
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
             "fit: kernel path differs from the plain path")
 
-    # 8. Times of the training path at 200x200 f32, and the bounds of K3
-    #    and K4 from this run's work.
+    # 8. Times of the training path at 200x200 f32, the bounds of K3 and
+    #    K4 from this run's work, and K4 on this batch bitwise to the plain
+    #    version.
     train_times = {}
     for label, cfg in main_cfgs.items():
         t0 = time.perf_counter()
@@ -3560,8 +3728,8 @@ def main() -> int:
         with torch.no_grad():
             y0 = torch.cat([x, u], -1)
             dt0 = initial_dt(metric, y0, integ)
-            init, body = make_step_cm(route.metric, scene_event_cm(scene),
-                                      integ)
+            init, _ = make_step_cm(route.metric, scene_event_cm(scene),
+                                   integ)
             P0 = adj.pack_state(init(y0.t(), dt0))
 
         args = adj.launch_args(route, P0)
@@ -3579,46 +3747,56 @@ def main() -> int:
             events_ms(lambda: adj.backward_cuda(route, ck, used[1:], ct,
                                                 args))
             for _ in range(REPEATS))
+        # K4's work order: the counting sort's kernels against the stable
+        # sort (the plain version, and the one PyTorch call that computes
+        # the same order); bound: the ends read and the order written.
+        ends = used[1:]
+        order = adj.work_order_cuda(ends, route.n_seg)
+        require(torch.equal(order, adj.work_order(ends)),
+                f"{label}: K4's work order differs from the stable sort")
+        order_ms = cuda_ms(lambda: adj.work_order_cuda(ends, route.n_seg))
+        order_sort_ms = cuda_ms(lambda: adj.work_order(ends))
+        order_bound = bound(0, ends.numel() * (4 + 8))
         (ck_p, used_p), k3_plain_ms = events_call(
             lambda: adj.run_segments(route._replace(cuda=False), P0))
         mask = adj.read_mask(used_p[1:], route.n_seg)
         require(torch.equal(used, used_p) and torch.equal(
             ck[mask].view(torch.int32), ck_p[mask].view(torch.int32)),
             f"{label}: K3 at 200x200 differs from the plain chain")
-        k4_plain_ms = events_ms(lambda: adj.backward_plain(
+        # K4 as the training step launches it (its work order, then K4 in
+        # that order) against the plain version on this batch, bitwise.
+        want, k4_plain_ms = events_call(lambda: adj.backward_plain(
             route._replace(cuda=False), ck, used[1:], ct))
-        # Work of this run: each ray's iterations while active, at the
-        # plain body's count for one ray; K4 replays them and walks back
-        # each accepted one at step_vjp's count.
-        with torch.no_grad():
-            st = adj.unpack_state(P0)
-            one = lambda t: t[..., :1]  # noqa: E731
-            step_flops = count_flops(lambda: body(type(st)(*map(one, st))))
-            p = adj.adj_params(route.metric, f32, dev)
-            vjp_flops = count_flops(lambda: adj.step_vjp(
-                p, integ.method == "tsit5", one(st.y), one(st.k1),
-                one(dt0), one(ct[adj.P_Y:adj.P_Y + 8]),
-                one(ct[adj.P_K1:adj.P_K1 + 8])))
-            iters = accepted = 0
-            for _ in range(n_used * route.seg_len):
-                iters += int(st.active.sum())
-                st, rec = body(st)
-                accepted += int(rec.do.sum())
+        before = adj.work_order_cuda.launches
+        c4, p4 = adj.backward_cuda(route, ck, used[1:], ct, args)
+        work_order_cuda_launches = adj.work_order_cuda.launches - before
+        torch.cuda.synchronize()
+        k4_err = max(max_err(c4, want[0]), max_err(p4, want[1]))
+        require(work_order_cuda_launches == 1 and bits_equal(c4, want[0])
+                and bits_equal(p4, want[1]),
+                f"{label}: K4 at 200x200 not bitwise equal to the plain "
+                f"version (max |d| {k4_err:.3e}; work order launched "
+                f"{work_order_cuda_launches} times)")
+        work = adjoint_work(route, P0, ct, n_used)
+        k3_bound, k4_bound = work["k3_bound"], work["k4_bound"]
+        iters, accepted = work["iters"], work["accepted"]
+        step_flops, vjp_flops = work["step_flops"], work["vjp_flops"]
         B = y0.shape[0]
-        k3_bound = bound(iters * step_flops, n_used * 2 * adj.N_PLANES * B * 4)
-        k4_bound = bound(iters * step_flops + accepted * vjp_flops,
-                         (n_used + 2) * adj.N_PLANES * B * 4 + B * 2 * 4)
         train_times[label] = dict(
             step_ms=step_ms, k3_ms=k3_ms,
             k4_ms=k4_ms, k3_plain_ms=k3_plain_ms, k4_plain_ms=k4_plain_ms,
-            k3_bound=k3_bound, k4_bound=k4_bound)
+            k3_bound=k3_bound, k4_bound=k4_bound, order_ms=order_ms,
+            order_sort_ms=order_sort_ms, order_bound=order_bound)
         phase(f"time train step {label} 200x200 f32", t0, card=repr(card),
               step_ms=f"{step_ms:.4f}",
               fwd_bwd_rays_per_s=f"{B / step_ms * 1e3:.1f}",
               plain_step_ms=f"{plain_step_ms[label]:.4f}",
               k3_ms_all_segments=f"{k3_ms:.4f}",
               k3_device_ms_per_pass=f"{k3_device_ms:.4f}",
-              k4_ms=f"{k4_ms:.4f}",
+              k4_ms=f"{k4_ms:.4f}", k4_max_abs_err_vs_plain=k4_err,
+              k4_order_ms=f"{order_ms:.4f}",
+              k4_order_sort_ms=f"{order_sort_ms:.4f}",
+              k4_order_bound_ms=f"{order_bound[0]:.6f}",
               k3_plain_ms=f"{k3_plain_ms:.4f}",
               k4_plain_ms=f"{k4_plain_ms:.4f}", segments=n_used,
               k3_launches_per_step=step_launches[label][1],
@@ -3741,6 +3919,19 @@ def main() -> int:
         "bound_ms": main["k4_bound"][0],
         "bound_by": main["k4_bound"][1],
         "library_ms": None}, {
+        "name": "K4 work order work_order_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/adjoint.cu",
+        "replaces": "none: port-only, the order K4 walks its rays in "
+                    "(raytracegr_jl_tpu/ops/pallas_adjoint.py:203 walks "
+                    "them in pixel order)",
+        "launches": step_launches["rk4/200"][7],
+        "max_abs_err": 0.0,
+        "ms": main["order_ms"],
+        "plain_ms": main["order_sort_ms"],
+        "bound_ms": main["order_bound"][0],
+        "bound_by": main["order_bound"][1],
+        "library_ms": main["order_sort_ms"]}, {
         "name": "K6 localize_cuda",
         "route": "cuda",
         "source": "raytracegr_jl_tpu_torch/csrc/localize.cu",

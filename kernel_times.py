@@ -6,6 +6,8 @@ versions can be compared in one run on one card.
     python3 kernel_times.py times [--tree DIR] [--out FILE]
     python3 kernel_times.py diagnose [--tree DIR] [--out FILE]
     python3 kernel_times.py diagnose-k1 [--tree DIR] [--out FILE]
+    python3 kernel_times.py k4 [--tree DIR] [--out FILE]
+    python3 kernel_times.py k4-kernel [--tree DIR] [--out FILE]
     python3 kernel_times.py sass [--tree DIR] [--out FILE]
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
@@ -17,9 +19,18 @@ the render), K3 (its launches of a forward pass summed), K4, and K6 and
 K7 where the tree has them (in events and alone from the profiler) in the
 rk4/200 and tsit5/48 training steps at 200x200 f32; those steps end to
 end, eager and as a graph replay in turns, with the replay's device ms
-and kernels (profiler) and the eager step's loss to the last bit; and an
+and kernels (profiler), the eager step's loss to the last bit and the
+memory the steps take; and an
 Adam step of config 5 (32x32 f32) at 1, 4 and 16 starts, eager and
 graphed in turns, with the graphed step's device ms and kernels.
+
+``k4``: K4's diagnosis (``k4_times``: its f32 RK4 kernels' ptxas lines
+and SASS mix; K4 alone at rk4/200 and tsit5/48 on the training batch, on
+that batch pre-permuted by end segment, cut and replicated; grouped at
+config 5 at 1, 4 and 16 starts with its bound), then the training
+steps and config 5's Adam steps as ``times`` gives them. Builds only the
+libraries those paths run. ``k4-kernel``: the diagnosis alone (builds
+only the adjoint library).
 
 ``diagnose-k1``: chip_smoke.py's diagnosis of K1 (``diagnose_k1``: its
 time four ways, the step census, warp-iterations, scheduler cycles per
@@ -58,13 +69,15 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, cuda_ms,
-                        cuda_tool, demangle, diagnose_k1, diagnose_tail,
-                        disk_setup, in_turns, k1_entry, k1_main_call,
-                        k1_takes_own_step, k3_forward_ms, k4_walk,
-                        kernel_alone_ms, loc_cotangents, profile_steps,
-                        profiled_kernels, ptxas_report, require, sass_report,
-                        short_name, summed_ms, timed_calls)
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps,
+                        adjoint_work, config5_starts, cuda_ms, cuda_tool,
+                        demangle, diagnose_k1, diagnose_tail, disk_setup,
+                        in_turns, instruction_mix, inverse_case, k1_entry,
+                        k1_main_call, k1_takes_own_step, k3_forward_ms,
+                        k3_pass, k4_walk, kernel_alone_ms, loc_cotangents,
+                        profile_steps, profiled_kernels, ptxas_report,
+                        require, sass_report, short_name, summed_ms,
+                        timed_calls)
 
 
 def libraries() -> list:
@@ -141,12 +154,8 @@ def times(out: list, dev, card: str) -> None:
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch import compaction as C
-    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
-    from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (integrate_rays_cuda,
-                                                         make_step_cm,
-                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
     from raytracegr_jl_tpu_torch.render import initial_dt
 
     f32 = torch.float32
@@ -200,7 +209,58 @@ def times(out: list, dev, card: str) -> None:
                 k1_entry(metric, scene, bench, y0, None), "k1_kernel")
         emit(out, "time", card=card, what=f"K1 example2 {n}x{n} f32", **rec)
 
-    # The training steps at 200x200 f32: end to end, K3 summed, K4.
+    train_times(out, dev, card)
+    config5_times(out, dev, card)
+
+
+def train_route(dev, method: str, steps: int):
+    """The K3/K4 route of the training step at 200x200 f32 (example2,
+    M = 1.05, the bench's configuration ``method/steps``), its initial
+    state and its launch arguments."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.camera import pixel_rays
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    f32 = torch.float32
+    spec = example2_spec(200, 200)
+    integ = rt.default_inverse_cfg(f32, max_steps=steps, method=method,
+                                   rk4_dt=100.0 / steps,
+                                   stop_rho=0.5).integrator
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+    M = torch.tensor(1.05, dtype=f32, device=dev)
+    a = torch.tensor(0.0, dtype=f32, device=dev)
+    metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M, a),
+                            rho_min=max(1e-3, 0.5 * integ.stop_rho))
+    _, scene, _ = build(spec, f32, dev)
+    seg = adj.segment_length(integ, integ.grad_seg_len)
+    route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
+                      n_seg=integ.max_steps // seg, cuda=True)
+    with torch.no_grad():
+        x, u = pixel_rays(metric, xg, ng)
+        y0 = torch.cat([x, u], -1)
+        dt0 = initial_dt(metric, y0, integ)
+        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
+        P0 = adj.pack_state(init(y0.t(), dt0))
+    return route, P0, adj.launch_args(route, P0)
+
+
+def train_times(out: list, dev, card: str) -> None:
+    """The training steps at 200x200 f32, rk4/200 and tsit5/48: eager and
+    graphed in turns, the replay's device ms and kernels, the eager loss's
+    bits; the memory they take (``memory``: the allocator's peak in the
+    eager steps, in the capture and in the steps in turns, what it holds
+    reserved after them, and the card's memory in use, which also counts
+    the CUDA context and the local memory CUDA keeps for the
+    kernels' stacks); K3 summed and alone, K4, K6 and K7."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.scenes import example2_spec
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    f32 = torch.float32
     spec = example2_spec(200, 200)
     truth = rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
     xg, ng = rt.flat_pixel_grid(spec, f32, dev)
@@ -208,7 +268,6 @@ def times(out: list, dev, card: str) -> None:
                                  ("tsit5/48", "tsit5", 48)):
         tcfg = rt.default_inverse_cfg(f32, max_steps=steps, method=method,
                                       rk4_dt=100.0 / steps, stop_rho=0.5)
-        integ = tcfg.integrator
         with torch.no_grad():
             target = rt.make_ray_render_for_params(spec, tcfg, 2, f32, dev)(
                 truth, xg, ng)
@@ -224,26 +283,21 @@ def times(out: list, dev, card: str) -> None:
             loss.backward()
             return loss
 
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         step_ms = cuda_ms(step)
         loss_hex = float(step().detach()).hex()
+        mem = {"eager_peak_mib": peak_mib(dev)}
         graphed = graphed_step(lambda q: loss_fn(q, xg, ng, target), params)
+        mem["capture_peak_mib"] = peak_mib(dev)
         turns = in_turns({"eager": step, "graphed": graphed})
+        mem["in_turns_peak_mib"] = peak_mib(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        mem.update(reserved_mib=torch.cuda.memory_reserved(dev) / 2**20,
+                   device_used_mib=(total - free) / 2**20)
         prof = profile_steps(graphed)
-        M = torch.tensor(1.05, dtype=f32, device=dev)
-        a = torch.tensor(0.0, dtype=f32, device=dev)
-        metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M, a),
-                                rho_min=max(1e-3, 0.5 * integ.stop_rho))
-        _, scene, _ = build(spec, f32, dev)
-        seg = adj.segment_length(integ, integ.grad_seg_len)
-        route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
-                          n_seg=integ.max_steps // seg, cuda=True)
-        with torch.no_grad():
-            x, u = pixel_rays(metric, xg, ng)
-            y0 = torch.cat([x, u], -1)
-            dt0 = initial_dt(metric, y0, integ)
-            init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-            P0 = adj.pack_state(init(y0.t(), dt0))
-        args = adj.launch_args(route, P0)
+        route, P0, args = train_route(dev, method, steps)
 
         k3_runs = [k3_forward_ms(route, P0, args)
                    for _ in range(REPEATS + 1)][1:]
@@ -272,8 +326,27 @@ def times(out: list, dev, card: str) -> None:
              replay_kernels=prof["kernels"], loss_hex=loss_hex,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
-             / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms, **loc)
+             / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms,
+             memory=mem, **loc)
 
+
+def peak_mib(dev) -> float:
+    """The allocator's peak since the last call (or reset), in MiB; resets
+    it."""
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+
+def config5_times(out: list, dev, card: str) -> None:
+    """An Adam step of config 5 (32x32 f32) at 1, 4 and 16 starts, eager
+    and graphed in turns, with the graphed step's device ms and kernels."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    f32 = torch.float32
     # Config 5: an Adam step (zero, loss and backward or a replay, masks,
     # Adam) of fit at one start and of the vectorized multistart at 4 and
     # 16, eager and graphed in turns.
@@ -311,6 +384,131 @@ def times(out: list, dev, card: str) -> None:
              graphed_kernels=prof["kernels"])
 
 
+# K4's diagnosis: the training batch cut to a quarter and a half (every
+# fourth and every second ray, so the mix of rays stays) and replicated
+# twice and four times; config 5's starts.
+K4_SCALES = ("quarter", "half", "1x", "2x", "4x")
+K4_STARTS = (1, 4, 16)
+# The libraries the k4 mode runs (the training and inversion steps).
+K4_LIBRARIES = ("geodesic", "adjoint", "localize")
+
+
+def k4_scaled(ck, ends, ct, scale: str):
+    """K4's inputs (checkpoints, end segments, cotangent) at ``scale``."""
+    if scale == "1x":
+        return ck, ends, ct
+    if scale in ("quarter", "half"):
+        k = 4 if scale == "quarter" else 2
+        return (ck[:, :, ::k].contiguous(), ends[::k].contiguous(),
+                ct[:, ::k].contiguous())
+    k = int(scale[0])
+    return ck.repeat(1, 1, k), ends.repeat(k), ct.repeat(1, k)
+
+
+def k4_times(out: list, dev, card: str) -> None:
+    """K4 at the main paths' inputs: its f32 Kerr-Schild RK4 kernels' ptxas
+    lines and SASS mix; at rk4/200 and tsit5/48 (200x200 f32) the call in
+    events and the kernel alone (profiler), the histogram of end segments,
+    the kernel on the batch pre-permuted by end segment (the permutation
+    made outside the timed window) and the sort's own time, at rk4/200 the
+    batch cut and replicated; grouped at config 5 (rk4/120, 32x32 a start)
+    at 1, 4 and 16 starts with its bound, and the ungrouped launch of one
+    start."""
+    import torch
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    f32 = torch.float32
+    for kern, regs, stack, st, ld in ptxas_report(cb.build_log("adjoint")):
+        if kern.startswith("k4_kernel<float, true, false"):
+            emit(out, "ptxas", library="adjoint", kernel=kern,
+                 registers=regs, stack_bytes=stack, spill_stores=st,
+                 spill_loads=ld)
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        emit(out, "sass", library="adjoint", mix="not measured (no cuobjdump)")
+    else:
+        sass = subprocess.run([tool, "-sass", cb._paths("adjoint")[1]],
+                              capture_output=True, text=True).stdout
+        for kern, counts in instruction_mix(
+                sass, "k4_kernel<float, true, false").items():
+            emit(out, "sass", library="adjoint", kernel=kern, mix=counts)
+    def alone(route, ck, ends, ct, args):
+        return kernel_alone_ms(
+            lambda: adj.backward_cuda(route, ck, ends, ct, args),
+            "k4_kernel")
+
+    def inputs(route, P0, args, seed):
+        ck, used = k3_pass(route, P0, args)
+        ct = torch.randn(P0.shape, generator=torch.Generator(device=dev)
+                         .manual_seed(seed), dtype=f32, device=dev)
+        return ck, used, used[1:], ct
+
+    for label, method, steps in (("rk4/200", "rk4", 200),
+                                 ("tsit5/48", "tsit5", 48)):
+        route, P0, args = train_route(dev, method, steps)
+        ck, used, ends, ct = inputs(route, P0, args, 0)
+        k4 = lambda: adj.backward_cuda(route, ck, ends, ct, args)  # noqa
+        sort = lambda: torch.argsort(ends, descending=True,  # noqa: E731
+                                     stable=True)
+        order = sort()
+        rec = dict(
+            rays=ends.shape[0], segments=int(used[0]),
+            seg_len=route.seg_len,
+            ends_histogram=torch.bincount(
+                ends, minlength=route.n_seg + 1).tolist(),
+            k4_ms=cuda_ms(k4), k4_device_ms=kernel_alone_ms(k4, "k4_kernel"),
+            k4_device_ms_prepermuted=alone(
+                route, ck[:, :, order].contiguous(), ends[order].contiguous(),
+                ct[:, order].contiguous(), args),
+            argsort_ms=cuda_ms(sort),
+            argsort_device_ms=sum(b - a for _, a, b in profiled_kernels(
+                sort, ("",))) / 1e3 / REPEATS)
+        if hasattr(adj, "work_order_cuda"):
+            count = lambda: adj.work_order_cuda(  # noqa: E731
+                ends, route.n_seg)
+            require(torch.equal(count(), order), "K4's work order differs "
+                    "from the stable sort")
+            rec.update(order_ms=cuda_ms(count),
+                       order_device_ms=sum(
+                           b - a for _, a, b in profiled_kernels(
+                               count, ("k4_order",))) / 1e3 / REPEATS)
+        if method == "rk4":
+            rec["k4_device_ms_by_batch"] = {
+                s: alone(route, *k4_scaled(ck, ends, ct, s), args)
+                for s in K4_SCALES}
+        emit(out, "k4", card=card, what=f"K4 train {label} 200x200 f32",
+             **rec)
+
+    for n in K4_STARTS:
+        singles, grouped, P0 = inverse_case(dev, f32, "rk4",
+                                            starts=config5_starts(n))
+        args = adj.launch_args(grouped, P0)
+        ck, used, ends, ct = inputs(grouped, P0, args, 2)
+        k4 = lambda: adj.backward_cuda(grouped, ck, ends, ct, args)  # noqa
+        work = adjoint_work(grouped, P0, ct, int(used[0]))
+        rec = dict(rays=ends.shape[0], segments=int(used[0]),
+                   seg_len=grouped.seg_len,
+                   k4_ms=cuda_ms(k4),
+                   k4_device_ms=kernel_alone_ms(k4, "k4_kernel"),
+                   bound_ms=work["k4_bound"][0], bound_by=work["k4_bound"][1],
+                   ray_iterations=work["iters"], accepted=work["accepted"])
+        if n == 1:
+            route, P = singles[0]
+            a1 = adj.launch_args(route, P)
+            ck1, _, ends1, ct1 = inputs(route, P, a1, 2)
+            rec["k4_ungrouped_device_ms"] = alone(route, ck1, ends1, ct1, a1)
+        emit(out, "k4", card=card, what=f"K4 grouped config 5 {n} starts",
+             **rec)
+
+
+def k4_mode(out: list, dev, card: str) -> None:
+    """``k4``: K4's diagnosis, then the training steps and config 5's Adam
+    steps as ``times`` gives them (without the disk and K1)."""
+    k4_times(out, dev, card)
+    train_times(out, dev, card)
+    config5_times(out, dev, card)
+
+
 def graphed_step(loss_fn, make_params):
     """A replay of ``loss_fn``'s loss and backward captured as one CUDA
     graph over ``make_params()`` (the tree's step_graph.GraphedStep), with
@@ -329,8 +527,8 @@ def graphed_step(loss_fn, make_params):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "sass",
-                                     "times"))
+    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "k4",
+                                     "k4-kernel", "sass", "times"))
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
     ns = ap.parse_args()
@@ -360,8 +558,10 @@ def main() -> int:
         except Exception as e:  # reported below
             errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=build_one, args=(n,))
-               for n in libraries()]
+    names = [n for n in libraries()
+             if not ns.mode.startswith("k4") or n in K4_LIBRARIES
+             and (ns.mode == "k4" or n == "adjoint")]
+    threads = [threading.Thread(target=build_one, args=(n,)) for n in names]
     for t in threads:
         t.start()
     for t in threads:
@@ -371,7 +571,8 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
     {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
-     "sass": sass_digests, "times": times}[ns.mode](out, dev, card)
+     "k4": k4_mode, "k4-kernel": k4_times, "sass": sass_digests,
+     "times": times}[ns.mode](out, dev, card)
     emit(out, "done", tree=tree, mode=ns.mode,
          seconds=time.perf_counter() - t0)
     if ns.out:

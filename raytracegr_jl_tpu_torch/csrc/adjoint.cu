@@ -20,9 +20,10 @@
 // walks them in step from its largest e_i, the lanes past their own end
 // idle, so that its lanes replay the same segment together (a walk from
 // each lane's own end was slower at tsit5/48 on the H100, PERF.md); each
-// is replayed from its checkpoint, each accepted step's (y, k1, dt_try, hit)
-// kept in local memory, and then walked back with the hand-written adjoint
-// of the step (step_vjp) and of the right-hand side (rhs_vjp). CUDA has no
+// is replayed from its checkpoint, each accepted step's record (y, k1,
+// dt_try, hit; RK4 also its stages) kept in local memory, and then walked
+// back with the hand-written adjoint of the step (step_vjp; RK4's rk4_vjp
+// on the kept stages) and of the right-hand side (rhs_vjp). CUDA has no
 // autodiff inside a kernel; the TPU kernel took jax.vjp of the step body
 // (adjoint_common.cuh, shared with K7).
 // Only y, k1 and ev_y0 carry cotangents: dt_try is detached, so the
@@ -43,21 +44,48 @@
 //
 // Design: one thread per ray, as K1. Both kernels are bound by arithmetic and
 // latency, not memory: K3 writes 34 values of state per ray per segment it
-// runs; K4 reads one checkpoint per live segment and recomputes the
-// stages twice (replay, then the adjoint's own forward sweep), so it costs
-// about three forward steps per step. The per-step records of a segment
-// live in local memory, sized for MAX_SEG steps (2.2 KB per thread in f32).
-// A training batch of 200x200 rays makes ~9.5 warps per SM, too few to hide
-// a local-memory round trip, so nothing on the step's own chain goes
-// through local memory: the Tsit5 adjoint's stages are unrolled at compile
-// time (stage_input<ROW>, back_stage<M>), its tableau entries are
-// immediates (ts_a folds), and its stage arrays ks and kb live in registers
-// (f32 Kerr-Schild: 222 registers, no spills; before, ks, kb and the tableau
-// were ~3,900 local loads and stores). Only the per-step records stay in
-// local memory. As in K1 and K2 the parameters are constant-bank operands
-// (launch_with_params) and the training path's scene compile-time
-// (SC_SPS4, example2 with 4 detection samples; SC_S4, the inversion's
-// lensing scene). Blocks of MAX_THREADS.
+// runs; K4 reads one checkpoint per live segment, replays its steps and
+// walks them back. What bounds K4's RK4 path on the H100 (PERF.md): at a
+// training batch of 200x200 rays (1,250 warps on the card's 528
+// schedulers) the schedulers' issue (half and twice the batch took 0.66
+// and 1.73 of its time); at config 5 (1,024 to 16,384 rays, a warp or
+// fewer per scheduler) each warp's chain (1.40-1.53 ms at 1 to 16 starts,
+// ~11.7 us a step). Before, a step's reverse sweep recomputed the three
+// forward right-hand sides its replay had just computed: 7 rhs and 4 rhs
+// VJPs a step where 4 and 4 do. The walk:
+// * RK4 keeps the replay's stages k2, k3 and k4 in the step's record (41
+//   values, not 17), and the reverse sweep (rk4_vjp) runs no forward rhs:
+//   the same numbers, bitwise. K4 took 21-27% less time at rk4/200 and at
+//   config 5 (with the rest: rk4/200 1.73 to 1.14 ms, config 5 at 1, 4
+//   and 16 starts 1.37-1.41/1.51-1.53/1.54-1.56 to 1.11/1.22-1.27/
+//   1.25-1.32).
+// * Thread t walks ray order[t]: the rays by end segment, largest first
+//   (ops/adjoint.py work_order_cuda: a stable counting sort in three small
+//   kernels, k4_order_*, 7 us against a general sort's 35 us), so that a
+//   warp's lanes share their walk and the longest walks start first:
+//   4-10% less time at rk4/200, 23-25% at tsit5/48, as fast at config 5's
+//   1 and 4 starts and up to 6% slower at 16 (512 warps), where the
+//   rays' own order would need a second path for ~0.06 ms of a 6.9 ms
+//   step.
+// * The records stay in local memory, sized for MAX_SEG steps (5.2 KB a
+//   thread for RK4 at f32, 2.2 KB for Tsit5), where the compiler keeps
+//   them in L1; CUDA keeps that stack for every thread the card can
+//   hold (780 MiB more device memory than 2.2 KB did). Measured and
+//   dropped: a scratch buffer in device memory sized to the segment (2-5%
+//   slower: its stores go through to L2), and a ring in shared memory
+//   (slower where it cut the warps an SM holds: 1.96 against 1.38 ms at
+//   rk4/200).
+// * Blocks of MAX_THREADS, a warp on each of an SM's four schedulers.
+//   Measured and dropped: blocks of 32 and 64 (rk4/200 1.36 and 1.25
+//   against 1.17 ms; tsit5/48 3.11 and 2.62 against 2.08).
+// The Tsit5 adjoint's stages are unrolled at compile time
+// (stage_input<ROW>, back_stage<M>), its tableau entries are immediates
+// (ts_a folds), and its stage arrays ks and kb live in registers (f32
+// Kerr-Schild: 222 registers, no spills; before, ks, kb and the tableau
+// were ~3,900 local loads and stores). As in K1 and K2 the parameters are
+// constant-bank operands (launch_with_params) and the training path's
+// scene compile-time (SC_SPS4, example2 with 4 detection samples; SC_S4,
+// the inversion's lensing scene).
 //
 // Grouped launches (GROUPED, a table in device memory): one K3 and one K4
 // launch carry all starts of a vectorized multistart fit, each ray reading
@@ -65,6 +93,8 @@
 // geodesic_common.cuh); the starts' rays are a batch as one start's are, so
 // a step costs one launch of each at any number of starts. The ungrouped
 // instantiations compile as they did before the flag.
+
+#include <climits>
 
 #include "adjoint_common.cuh"
 
@@ -75,6 +105,8 @@ namespace {
 // sphere, 4 samples).
 constexpr int FIXED_SCENES = (1 << SC_SPS4) | (1 << SC_S4);
 
+// The longest segment K4 replays: a segment's hit flags are the bits of
+// one 32-bit word.
 constexpr int MAX_SEG = 32;
 
 // --------------------------------------------------------------------------
@@ -142,15 +174,25 @@ k3_close(T* __restrict__ ck, const int* __restrict__ ends, int n,
   for (int q = 0; q < N_PLANES; ++q) dst[q * n + i] = src[q * n + i];
 }
 
+// K4: thread t walks ray i = order[t] (the wrapper's work order) back from its end segment e_i. Each of its segments is
+// replayed from its checkpoint and each accepted step's record kept in
+// local memory: y and k1 before it and dt_try (REC values), for RK4 also
+// the step's stages k2, k3 and k4 (REC_KEEP values: the reverse sweep then
+// runs no forward rhs), and whether it hit (a bit of `hits`). Then the
+// steps are walked back.
+constexpr int REC = 17;
+constexpr int REC_KEEP = REC + 24;
+
 template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
 k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
-          const T* __restrict__ ct,
+          const long long* __restrict__ order, const T* __restrict__ ct,
           T* __restrict__ ct0, T* __restrict__ pbar, int n, int r_mode,
           int n_obj, int npts, int seg_len, const T* __restrict__ groups,
           int rays_per_group, int group_stride) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const int i = static_cast<int>(order[t]);
   decltype(auto) p = ray_params<T, GROUPED>(groups, rays_per_group,
                                             group_stride, i);
   T cy[8], ck1[8], cev[8];
@@ -161,8 +203,8 @@ k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
     cev[c] = ct[(PL_EV_Y0 + c) * n + i];
   }
   T pM = T(0), pa = T(0);
-  T ry[MAX_SEG][8], rk[MAX_SEG][8], rdt[MAX_SEG];
-  bool rhit[MAX_SEG];
+  constexpr int RN = TSIT5 ? REC : REC_KEEP;  // a step's record
+  T rec[MAX_SEG * RN];
   // The ray is active at the start of each of its segments s < e_i. The
   // warp walks from its largest end segment in step, each lane skipping
   // the segments at or past its own end.
@@ -174,8 +216,9 @@ k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
     RayState<T> r;
     load_state(P, n, i, r);
     int nrec = 0;
+    unsigned hits = 0u;
     for (int it = 0; it < seg_len && r.active > T(0); ++it) {
-      T y_before[8], k_before[8], dt_try;
+      T y_before[8], k_before[8], stages[24], dt_try;
       bool hit_now;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
@@ -183,22 +226,43 @@ k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
         k_before[c] = r.k1[c];
       }
       if (body_step<T, KERR, TSIT5, SC>(p, r_mode, n_obj, npts, r, dt_try,
-                                        hit_now)) {
+                                        hit_now,
+                                        TSIT5 ? nullptr : stages)) {
+        T* q = rec + nrec * RN;
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-          ry[nrec][c] = y_before[c];
-          rk[nrec][c] = k_before[c];
+          q[c] = y_before[c];
+          q[8 + c] = k_before[c];
         }
-        rdt[nrec] = dt_try;
-        rhit[nrec] = hit_now;
+        q[16] = dt_try;
+        if constexpr (!TSIT5) {
+#pragma unroll
+          for (int c = 0; c < 24; ++c) q[REC + c] = stages[c];
+        }
+        if (hit_now) hits |= 1u << nrec;
         ++nrec;
       }
     }
     for (int j = nrec - 1; j >= 0; --j) {
-      T yb[8], kb[8], gM, ga;
-      step_vjp<T, KERR, TSIT5>(p, r_mode, ry[j], rk[j], rdt[j], cy, ck1, yb,
-                               kb, gM, ga);
-      if (rhit[j]) {
+      const T* q = rec + j * RN;
+      T y[8], k1[8], yb[8], kb[8], gM, ga;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        y[c] = q[c];
+        k1[c] = q[8 + c];
+      }
+      const T dt = q[16];
+      if constexpr (TSIT5) {
+        step_vjp<T, KERR, TSIT5>(p, r_mode, y, k1, dt, cy, ck1, yb, kb, gM,
+                                 ga);
+      } else {
+        T st[24];
+#pragma unroll
+        for (int c = 0; c < 24; ++c) st[c] = q[REC + c];
+        rk4_vjp<T, KERR>(p, r_mode, y, k1, st, st + 8, st + 16, dt, cy, ck1,
+                         yb, kb, gM, ga);
+      }
+      if ((hits >> j) & 1u) {
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           yb[c] = yb[c] + cev[c];
@@ -260,19 +324,20 @@ int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
 }
 
 template <typename T>
-int launch_k4(const void* ck, const void* ends, const void* ct, void* ct0,
-              void* pbar, const void* prm, int n, int kerr, int tsit5,
-              int r_mode, int scene, int n_obj, int npts, int seg_len,
-              const void* groups, int rays_per_group, int group_stride,
-              void* stream) {
+int launch_k4(const void* ck, const void* ends, const void* order,
+              const void* ct, void* ct0, void* pbar, const void* prm, int n,
+              int kerr, int tsit5, int r_mode, int scene, int n_obj,
+              int npts, int seg_len, const void* groups, int rays_per_group,
+              int group_stride, void* stream) {
   if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
       !groups_ok(groups, n, n_obj, rays_per_group, group_stride) ||
-      seg_len < 1 || seg_len > MAX_SEG)
+      order == nullptr || seg_len < 1 || seg_len > MAX_SEG)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   const T* c = static_cast<const T*>(ck);
   const int* e = static_cast<const int*>(ends);
+  const long long* o = static_cast<const long long*>(order);
   const T* g = static_cast<const T*>(ct);
   T* g0 = static_cast<T*>(ct0);
   T* pb = static_cast<T*>(pbar);
@@ -283,11 +348,143 @@ int launch_k4(const void* ck, const void* ends, const void* ct, void* ct0,
               RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
                             k4_kernel<T, KERR_, TSIT5_, SC_, GROUPED_>
                             <<<blocks, MAX_THREADS, 0, st>>>(
-                                c, e, g, g0, pb, n, r_mode, n_obj, npts,
+                                c, e, o, g, g0, pb, n, r_mode, n_obj, npts,
                                 seg_len, gr, rays_per_group, group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   }));
 }
+
+// K4's work order (ops/adjoint.py work_order_cuda): the rays by end
+// segment, largest first, and in index order within one end segment: a
+// stable counting sort over the n_seg + 1 end segments in three small
+// launches, in place of a general sort. k4_order_count counts each tile of
+// ORDER_TILE rays' ends per bin (bin n_seg - e, so the largest end is bin
+// 0); k4_order_scan turns the counts, bin-major and tile-minor, into each
+// (bin, tile)'s first place in the order; k4_order_scatter writes each
+// ray's index at its place, a tile's rays in index order: within a warp by
+// lane (__match_any_sync groups the lanes of one bin), the warps one after
+// the other. Deterministic: no atomic decides a place. Only the f32 half
+// of the library compiles them (they take no working type).
+#if RTGR_F32
+constexpr int ORDER_TILE = 1024;
+constexpr int ORDER_THREADS = 256;
+constexpr int ORDER_SCAN_THREADS = 1024;
+
+__device__ __forceinline__ int order_bin(int e, int bins) {
+  return bins - 1 - min(max(e, 0), bins - 1);
+}
+
+__global__ void __launch_bounds__(ORDER_THREADS)
+k4_order_count(const int* __restrict__ ends, int* __restrict__ counts, int n,
+               int bins) {
+  extern __shared__ int hist[];
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+  const int base = blockIdx.x * ORDER_TILE;
+  for (int k = threadIdx.x; k < ORDER_TILE && base + k < n; k += blockDim.x)
+    atomicAdd(&hist[order_bin(ends[base + k], bins)], 1);
+  __syncthreads();
+  for (int b = threadIdx.x; b < bins; b += blockDim.x)
+    counts[b * gridDim.x + blockIdx.x] = hist[b];
+}
+
+// One block: the exclusive prefix sum of counts[0 .. m) in place.
+__global__ void __launch_bounds__(ORDER_SCAN_THREADS)
+k4_order_scan(int* __restrict__ counts, int m) {
+  __shared__ int warp_sums[ORDER_SCAN_THREADS / 32];
+  __shared__ int carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int base = 0; base < m; base += blockDim.x) {
+    const int k = base + threadIdx.x;
+    const int v = k < m ? counts[k] : 0;
+    int x = v;  // inclusive within the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sums[lane] = w;  // inclusive over the warps
+    }
+    __syncthreads();
+    const int excl = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+    if (k < m) counts[k] = excl;
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) carry = excl + v;
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(ORDER_THREADS)
+k4_order_scatter(const int* __restrict__ ends,
+                 const int* __restrict__ first, long long* __restrict__ order,
+                 int n, int bins) {
+  extern __shared__ int next[];  // per bin, this tile's next place
+  for (int b = threadIdx.x; b < bins; b += blockDim.x)
+    next[b] = first[b * gridDim.x + blockIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int base = blockIdx.x * ORDER_TILE;
+  for (int round = 0; round < ORDER_TILE; round += blockDim.x) {
+    const int k = base + round + threadIdx.x;
+    const int b = k < n ? order_bin(ends[k], bins) : -1;
+    const unsigned same = __match_any_sync(0xffffffffu, b);
+    const int rank = __popc(same & ((1u << lane) - 1u));
+    for (int w = 0; w < ORDER_THREADS / 32; ++w) {
+      int place = 0;
+      if (warp == w && b >= 0) place = next[b] + rank;
+      __syncwarp();
+      if (warp == w && b >= 0) {
+        order[place] = k;
+        if (rank == 0) next[b] += __popc(same);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The three launches on st; counts holds bins * ceil(n / ORDER_TILE) ints.
+int launch_k4_order(const int* ends, int* counts, long long* order, int n,
+                    int bins, cudaStream_t st) {
+  static int optin[MAX_DEVICES];
+  int dev;
+  cudaError_t err = current_device(dev);
+  if (err == cudaSuccess && optin[dev] == 0) {
+    err = cudaDeviceGetAttribute(
+        &optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k4_order_count,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin[dev]);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k4_order_scatter,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin[dev]);
+    if (err != cudaSuccess) optin[dev] = 0;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = sizeof(int) * static_cast<size_t>(bins);
+  const int tiles = (n + ORDER_TILE - 1) / ORDER_TILE;
+  if (n < 1 || bins < 1 || bytes > static_cast<size_t>(optin[dev]) ||
+      static_cast<long long>(bins) * tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  k4_order_count<<<tiles, ORDER_THREADS, bytes, st>>>(ends, counts, n, bins);
+  k4_order_scan<<<1, ORDER_SCAN_THREADS, 0, st>>>(counts, bins * tiles);
+  k4_order_scatter<<<tiles, ORDER_THREADS, bytes, st>>>(ends, counts, order,
+                                                       n, bins);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 }  // namespace
 
@@ -316,31 +513,43 @@ extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
 #endif
 
 #if RTGR_F32
-extern "C" int rtgr_k4_f32(const void* ck, const void* ends, const void* ct,
-                           void* ct0, void* pbar, const void* prm, int n,
-                           int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len,
-                           const void* groups, int rays_per_group,
-                           int group_stride, void* stream) {
-  return launch_k4<float>(ck, ends, ct, ct0, pbar, prm, n, kerr, tsit5,
-                          r_mode, scene, n_obj, npts, seg_len, groups,
+extern "C" int rtgr_k4_f32(const void* ck, const void* ends,
+                           const void* order, const void* ct, void* ct0,
+                           void* pbar, const void* prm, int n, int kerr,
+                           int tsit5, int r_mode, int scene, int n_obj,
+                           int npts, int seg_len, const void* groups,
+                           int rays_per_group, int group_stride,
+                           void* stream) {
+  return launch_k4<float>(ck, ends, order, ct, ct0, pbar, prm, n, kerr,
+                          tsit5, r_mode, scene, n_obj, npts, seg_len, groups,
                           rays_per_group, group_stride, stream);
 }
 #endif
 
 #if RTGR_F64
-extern "C" int rtgr_k4_f64(const void* ck, const void* ends, const void* ct,
-                           void* ct0, void* pbar, const void* prm, int n,
-                           int kerr, int tsit5, int r_mode, int scene,
-                           int n_obj, int npts, int seg_len,
-                           const void* groups, int rays_per_group,
-                           int group_stride, void* stream) {
-  return launch_k4<double>(ck, ends, ct, ct0, pbar, prm, n, kerr, tsit5,
-                           r_mode, scene, n_obj, npts, seg_len, groups,
+extern "C" int rtgr_k4_f64(const void* ck, const void* ends,
+                           const void* order, const void* ct, void* ct0,
+                           void* pbar, const void* prm, int n, int kerr,
+                           int tsit5, int r_mode, int scene, int n_obj,
+                           int npts, int seg_len, const void* groups,
+                           int rays_per_group, int group_stride,
+                           void* stream) {
+  return launch_k4<double>(ck, ends, order, ct, ct0, pbar, prm, n, kerr,
+                           tsit5, r_mode, scene, n_obj, npts, seg_len, groups,
                            rays_per_group, group_stride, stream);
 }
 #endif
 
+
+#if RTGR_F32
+extern "C" int rtgr_k4_order(const void* ends, void* counts, void* order,
+                             int n, int bins, void* stream) {
+  return launch_k4_order(static_cast<const int*>(ends),
+                         static_cast<int*>(counts),
+                         static_cast<long long*>(order), n, bins,
+                         static_cast<cudaStream_t>(stream));
+}
+#endif
 
 // The fence around a graph replay that holds K3 and K4 launches
 // (params_fence in geodesic_common.cuh): called on the replay stream just

@@ -423,6 +423,65 @@ __device__ __forceinline__ void back_stage(const PP& p, int r_mode,
       kb[j][c] = kb[j][c] + T(ts_a(M - 1, j)) * sb[c];
 }
 
+// The RK4 step's reverse sweep (step_vjp's RK4 branch) given its stages
+// k2, k3 and k4 as rk4_step computed them from (y, k1, dt): K4 keeps them
+// from its replay, so its reverse runs no forward rhs; step_vjp computes
+// them first. The stage inputs z2, z3, z4 are rebuilt, the same
+// expressions on the same numbers.
+template <typename T, bool KERR, typename PP>
+__device__ __forceinline__ void rk4_vjp(const PP& p, int r_mode, const T* y,
+                                        const T* k1, const T* k2,
+                                        const T* k3, const T* k4, T dt,
+                                        const T* cty, const T* ctk, T* yb,
+                                        T* k1b, T& gM, T& ga) {
+  T z2[8], z3[8], z4[8], y1[8], g[8], dM, da;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    z2[c] = y[c] + T(0.5) * dt * k1[c];
+    z3[c] = y[c] + T(0.5) * dt * k2[c];
+    z4[c] = y[c] + dt * k3[c];
+  }
+  const T dt6 = dt / T(6);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    y1[c] = y[c] + dt6 * (k1[c] + T(2) * k2[c] + T(2) * k3[c] + k4[c]);
+  rhs_vjp<T, KERR>(p, r_mode, y1, ctk, g, gM, ga);
+  T sb[8], k2b[8], k3b[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const T b = cty[c] + g[c];
+    yb[c] = b;
+    sb[c] = dt6 * b;
+    k1b[c] = sb[c];
+    k2b[c] = T(2) * sb[c];
+    k3b[c] = T(2) * sb[c];
+  }
+  rhs_vjp<T, KERR>(p, r_mode, z4, sb, g, dM, da);
+  gM = gM + dM;
+  ga = ga + da;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    yb[c] = yb[c] + g[c];
+    k3b[c] = k3b[c] + dt * g[c];
+  }
+  rhs_vjp<T, KERR>(p, r_mode, z3, k3b, g, dM, da);
+  gM = gM + dM;
+  ga = ga + da;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    yb[c] = yb[c] + g[c];
+    k2b[c] = k2b[c] + T(0.5) * dt * g[c];
+  }
+  rhs_vjp<T, KERR>(p, r_mode, z2, k2b, g, dM, da);
+  gM = gM + dM;
+  ga = ga + da;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    yb[c] = yb[c] + g[c];
+    k1b[c] = k1b[c] + T(0.5) * dt * g[c];
+  }
+}
+
 // Reverse mode of one accepted step (ops/adjoint.py step_vjp):
 // (ct of y_new, ct of k_last) -> (ct of y, ct of k1, ct of M, ct of a).
 // INJECT (Tsit5, K7): ctks holds cotangents of the stages k1..k6
@@ -474,55 +533,18 @@ __device__ __forceinline__ void step_vjp(const PP& p, int r_mode,
 #pragma unroll
     for (int c = 0; c < 8; ++c) k1b[c] = kb[0][c];
   } else {
-    T z2[8], z3[8], z4[8], k2[8], k3[8], k4[8], y1[8];
+    T z[8], k2[8], k3[8], k4[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) z2[c] = y[c] + T(0.5) * dt * k1[c];
-    rhs<T, KERR>(p, r_mode, z2, k2);
+    for (int c = 0; c < 8; ++c) z[c] = y[c] + T(0.5) * dt * k1[c];
+    rhs<T, KERR>(p, r_mode, z, k2);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) z3[c] = y[c] + T(0.5) * dt * k2[c];
-    rhs<T, KERR>(p, r_mode, z3, k3);
+    for (int c = 0; c < 8; ++c) z[c] = y[c] + T(0.5) * dt * k2[c];
+    rhs<T, KERR>(p, r_mode, z, k3);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) z4[c] = y[c] + dt * k3[c];
-    rhs<T, KERR>(p, r_mode, z4, k4);
-    const T dt6 = dt / T(6);
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      y1[c] = y[c] + dt6 * (k1[c] + T(2) * k2[c] + T(2) * k3[c] + k4[c]);
-    rhs_vjp<T, KERR>(p, r_mode, y1, ctk, g, gM, ga);
-    T sb[8], k2b[8], k3b[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const T b = cty[c] + g[c];
-      yb[c] = b;
-      sb[c] = dt6 * b;
-      k1b[c] = sb[c];
-      k2b[c] = T(2) * sb[c];
-      k3b[c] = T(2) * sb[c];
-    }
-    rhs_vjp<T, KERR>(p, r_mode, z4, sb, g, dM, da);
-    gM = gM + dM;
-    ga = ga + da;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      yb[c] = yb[c] + g[c];
-      k3b[c] = k3b[c] + dt * g[c];
-    }
-    rhs_vjp<T, KERR>(p, r_mode, z3, k3b, g, dM, da);
-    gM = gM + dM;
-    ga = ga + da;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      yb[c] = yb[c] + g[c];
-      k2b[c] = k2b[c] + T(0.5) * dt * g[c];
-    }
-    rhs_vjp<T, KERR>(p, r_mode, z2, k2b, g, dM, da);
-    gM = gM + dM;
-    ga = ga + da;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      yb[c] = yb[c] + g[c];
-      k1b[c] = k1b[c] + T(0.5) * dt * g[c];
-    }
+    for (int c = 0; c < 8; ++c) z[c] = y[c] + dt * k3[c];
+    rhs<T, KERR>(p, r_mode, z, k4);
+    rk4_vjp<T, KERR>(p, r_mode, y, k1, k2, k3, k4, dt, cty, ctk, yb, k1b, gM,
+                     ga);
   }
 }
 

@@ -1013,9 +1013,12 @@ __device__ __forceinline__ void tsit5_step(const PP& p, int r_mode,
                    + T(TS_BT6) * k[6][c]);
 }
 
+// With `stages`, its k2, k3 and k4 are also written there (24 values:
+// K4 keeps them for the step's reverse sweep, adjoint_common.cuh rk4_vjp).
 template <typename T, bool KERR, typename PP>
 __device__ __forceinline__ void rk4_step(const PP& p, int r_mode,
-                                         StepData<T, false>& s) {
+                                         StepData<T, false>& s,
+                                         T* stages = nullptr) {
   const T dt = s.dt;
   T yt[8], k2[8], k3[8], k4[8];
   const T* k1 = s.k[0];
@@ -1028,6 +1031,14 @@ __device__ __forceinline__ void rk4_step(const PP& p, int r_mode,
 #pragma unroll
   for (int c = 0; c < 8; ++c) yt[c] = s.y0[c] + dt * k3[c];
   rhs<T, KERR>(p, r_mode, yt, k4);
+  if (stages != nullptr) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      stages[c] = k2[c];
+      stages[8 + c] = k3[c];
+      stages[16 + c] = k4[c];
+    }
+  }
   const T dt6 = dt / T(6);
 #pragma unroll
   for (int c = 0; c < 8; ++c)
@@ -1174,10 +1185,12 @@ __device__ __forceinline__ T initial_step(const PP& p, int r_mode,
 
 // One iteration of the make_step_cm body for an ACTIVE ray. Returns whether
 // the ray stepped (do); sets the step tried and whether it hit in this step.
+// RK4 with `stages`: the step's k2, k3 and k4 there too (rk4_step).
 template <typename T, bool KERR, bool TSIT5, int SC, typename PP>
 __device__ __forceinline__ bool body_step(const PP& p, int r_mode,
                                           int n_obj, int npts, RayState<T>& r,
-                                          T& dt_try_out, bool& hit_now) {
+                                          T& dt_try_out, bool& hit_now,
+                                          T* stages = nullptr) {
   StepData<T, TSIT5> s;
   const T dt_min = p.cfg[P_DT_MIN], lam_max = p.cfg[P_LAM_MAX];
   T dt_try = nmax(nmin(r.dt, lam_max - r.lam), dt_min);
@@ -1220,7 +1233,7 @@ __device__ __forceinline__ bool body_step(const PP& p, int r_mode,
     dt_next = clip(dt_try * q, dt_min, lam_max);
     dead = (bad || !accept) && dt_try <= p.cfg[P_DT_DEAD];
   } else {
-    rk4_step<T, KERR>(p, r_mode, s);
+    rk4_step<T, KERR>(p, r_mode, s, stages);
 #pragma unroll
     for (int c = 0; c < 8; ++c) fin = fin && isfinite(s.y1[c]);
     accept = fin;

@@ -93,8 +93,9 @@ P_Y, P_LAM, P_DT, P_K1, P_ACTIVE, P_HIT, P_STEPS, P_ERR_OLD = (0, 8, 9, 10,
                                                                18, 19, 20, 21)
 P_EV_Y0, P_EV_DT, P_EV_LAM, P_EV_LO, P_EV_HI = 22, 30, 31, 32, 33
 N_PLANES = 34
-# Longest segment K4 replays: it keeps each step of a segment in local
-# memory (csrc/adjoint.cu MAX_SEG).
+# Longest segment K4 replays: it keeps a record of each step of a segment
+# and their hit flags as the bits of one 32-bit word (csrc/adjoint.cu
+# MAX_SEG).
 MAX_SEG = 32
 
 
@@ -839,14 +840,61 @@ forward_segment_cuda.launches = 0
 forward_segment_cuda.rays = 0
 
 
+def work_order(ends: torch.Tensor) -> torch.Tensor:
+    """K4's work order: the rays by end segment, largest first, and in
+    index order within one end segment (a stable sort, so that a launch's
+    warps and its times repeat). int64 ``[B]``, on ``ends``' device, made
+    there with no host read (capture-safe). Thread t of K4 walks ray
+    ``order[t]``, so a warp's lanes share their walk back and the longest
+    walks start first; which thread runs a ray changes none of its
+    values."""
+    return torch.argsort(ends, descending=True, stable=True)
+
+
+# Rays per tile of work_order_cuda's counting sort (csrc/adjoint.cu
+# ORDER_TILE).
+ORDER_TILE = 1024
+
+
+def work_order_cuda(ends: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """K4's work order on the card: ``work_order(ends)``'s permutation
+    (int64 ``[B]``), from a stable counting sort over the ``n_seg + 1`` end
+    segments in three small kernels of the adjoint library (csrc/adjoint.cu
+    k4_order_*) in place of a general sort. Reads nothing back, so a CUDA
+    graph can hold it. Adds one to ``work_order_cuda.launches`` per
+    launch."""
+    if (ends.device.type != "cuda" or ends.dtype != torch.int32
+            or ends.dim() != 1 or not ends.is_contiguous()):
+        raise ValueError("the work order takes the end segments as a "
+                         "contiguous int32 [B] tensor on the card")
+    B = ends.shape[0]
+    counts = torch.empty((n_seg + 1) * -(-B // ORDER_TILE),
+                         dtype=torch.int32, device=ends.device)
+    order = torch.empty(B, dtype=torch.int64, device=ends.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(ends.device):
+        rc = _lib().rtgr_k4_order(
+            ptr(ends), ptr(counts), ptr(order), B, n_seg + 1,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K4's work order failed: CUDA error {rc}")
+    work_order_cuda.launches += 1
+    return order
+
+
+work_order_cuda.launches = 0
+
+
 def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
                   ct: torch.Tensor, args=None):
     """K4: the whole backward pass in one launch, one thread per ray; the
     same contract as ``backward_plain`` (a grouped route's rays with their
-    groups' parameters); ``ends`` K3's end segments on the card (``used[1:]``
-    of ``forward_segment_cuda``), ``args`` as for K3. Adds one to
-    ``backward_cuda.launches`` per launch and its rays to
-    ``backward_cuda.rays`` (where issued, as K3's)."""
+    groups' parameters); ``ends`` K3's end segments on the card
+    (``used[1:]`` of ``forward_segment_cuda``), ``args`` as for K3. Thread
+    t walks ray ``order[t]``, the work order that ``work_order_cuda``
+    makes from ``ends`` first. Adds one to ``backward_cuda.launches`` per
+    launch and its rays to ``backward_cuda.rays`` (where issued, as
+    K3's)."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
     B = ck.shape[2]
@@ -854,6 +902,7 @@ def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
             or ends.shape != (B,) or not ends.is_contiguous()):
         raise ValueError("K4 takes the end segments as a contiguous int32 "
                          "[B] tensor on the checkpoints' device")
+    order = work_order_cuda(ends, route.n_seg)
     prm, flags = args if args is not None else launch_args(route, ck)
     ct = ct.contiguous()
     ct0 = torch.zeros_like(ct)
@@ -862,8 +911,9 @@ def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
         _lib().rtgr_k4_f64
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(ck.device):
-        rc = fn(ptr(ck), ptr(ends), ptr(ct), ptr(ct0), ptr(pbar), ptr(prm),
-                B, *flags, route.seg_len, *_group_args(route, B),
+        rc = fn(ptr(ck), ptr(ends), ptr(order), ptr(ct), ptr(ct0),
+                ptr(pbar), ptr(prm), B, *flags, route.seg_len,
+                *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")

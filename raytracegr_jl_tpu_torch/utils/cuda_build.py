@@ -43,14 +43,15 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # npts, bisect_iters, budget, init, threads (per block); stream). K3: (ck,
 # used, ends, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len, n_seg;
 # groups; rays_per_group, group_stride; stream).
-# K4: (ck, ends, ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene, n_obj,
-# npts, seg_len; groups; rays_per_group, group_stride; stream). K6: (P, y,
-# lam, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, bisect_iters;
-# groups; rays_per_group, group_stride; stream). K7: (P, ct_y, ct_lam, ct_P,
-# pbar, prm; the ints of K6; groups; rays_per_group, group_stride; stream).
-# groups is the group table of a grouped launch, or null. The adjoint and
-# localize libraries' fence
-# around a graph replay: (stream). K5: (y0, y, vel, rgb, prm;
+# K4: (ck, ends, order, ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene,
+# n_obj, npts, seg_len; groups; rays_per_group, group_stride; stream). K4's
+# work order: (ends, counts, order; n, bins; stream).
+# K6: (P, y, lam, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts,
+# bisect_iters; groups; rays_per_group, group_stride; stream). K7: (P, ct_y,
+# ct_lam, ct_P, pbar, prm; the ints of K6; groups; rays_per_group,
+# group_stride; stream). groups is the group table of a grouped launch, or
+# null. The adjoint and localize libraries' fence around a graph replay:
+# (stream). K5: (y0, y, vel, rgb, prm;
 # n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
@@ -60,8 +61,9 @@ _SIGNATURES = {
                    for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
     "adjoint": {**{name: [_P] * 4 + [_I] * 9 + [_P, _I, _I, _P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
-                **{name: [_P] * 6 + [_I] * 8 + [_P, _I, _I, _P]
+                **{name: [_P] * 7 + [_I] * 8 + [_P, _I, _I, _P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")},
+                "rtgr_k4_order": [_P] * 3 + [_I] * 2 + [_P],
                 **{name: [_P] for name in ("rtgr_fence_f32",
                                            "rtgr_fence_f64")}},
     "localize": {**{name: [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P]

@@ -66,12 +66,13 @@ def test_cuda_backend_render_matches_torch_backend():
     assert torch.equal(rgb, rgb_plain)
 
 
-def _ckpt_case(n, dtype, method, max_steps, refine=False):
+def _ckpt_case(n, dtype, method, max_steps, refine=False, rk4_dt=None):
     from raytracegr_jl_tpu_torch.ops import adjoint as A
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
                                                          scene_event_cm)
     cfg = T.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
-                                rk4_dt=100.0 / max_steps, stop_rho=0.5)
+                                rk4_dt=rk4_dt or 100.0 / max_steps,
+                                stop_rho=0.5)
     integ = cfg.integrator._replace(refine_minima=refine)
     _, scene, canvas = T.build(T.example2_spec(n, n), dtype,
                                torch.device("cuda"))
@@ -582,6 +583,120 @@ def _check_grouped_k3_k4(dtype, method, refine):
                                    ct[:, rays].contiguous())
         torch.cuda.synchronize()
         assert torch.equal(ck_s[route.n_seg], fin[:, rays])
+        assert torch.equal(c_s, c[:, rays]) and torch.equal(p_s, p[rays])
+
+
+def _k4_matches_plain(A, route, P, seed=5):
+    """K3 from ``P`` against its plain chain, then K4 as the wrapper
+    launches it (one launch of the work order's kernels, then K4 in that
+    order), bitwise equal to ``backward_plain`` on the plain chain's
+    checkpoints. Returns the rays' end segments and K4's output."""
+    ck, used = A.run_segments(route, P)
+    ck_p, used_p = A.run_segments(route._replace(cuda=False), P)
+    torch.cuda.synchronize()
+    assert _read_equal(A, route, ck, used, ck_p, used_p)
+    gen = torch.Generator(device=P.device).manual_seed(seed)
+    ct = torch.randn(P.shape, generator=gen, dtype=P.dtype, device=P.device)
+    want = A.backward_plain(route._replace(cuda=False), ck_p, used_p[1:], ct)
+    ends = used[1:]
+    before = (A.work_order_cuda.launches, A.backward_cuda.launches)
+    got = A.backward_cuda(route, ck, ends, ct)
+    assert (A.work_order_cuda.launches,
+            A.backward_cuda.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return ends, got
+
+
+@pytest.mark.parametrize("method,max_steps", [("rk4", 200), ("tsit5", 48)])
+def test_k4_training_batch_matches_plain_bitwise(method, max_steps):
+    """K4 on the training step's batch (example2 200x200 f32, 40,000 rays,
+    the bench's rk4/200 and tsit5/48) in the work order the wrapper makes,
+    bitwise equal to the plain version."""
+    A, route, P, _ = _ckpt_case(200, torch.float32, method, max_steps)
+    ends, _ = _k4_matches_plain(A, route, P)
+    assert ends.shape == (40_000,) and int(torch.unique(ends).numel()) > 1
+
+
+@pytest.mark.parametrize("n,bins,kind", [
+    (40_000, 21, "random"), (4_096, 9, "one end"), (1_027, 9, "random"),
+    (16_384, 1_251, "random"), (3_000, 5, "sorted"), (1, 3, "random")])
+def test_work_order_kernel_matches_the_stable_sort(n, bins, kind):
+    """The counting sort's order (K4's, three small kernels) equals
+    ``work_order``'s stable sort of the ends, largest first, exactly."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    ends = torch.randint(0, bins, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    if kind == "one end":
+        ends.fill_(bins // 2)
+    elif kind == "sorted":
+        ends = ends.sort().values.contiguous()
+    before = A.work_order_cuda.launches
+    got = A.work_order_cuda(ends, bins - 1)
+    assert A.work_order_cuda.launches == before + 1
+    assert torch.equal(got, A.work_order(ends))
+
+
+# K4's work-order cases, example2 RK4 (n x n, steps of dt): 225 rays, not a
+# multiple of any block size, at config 5's segments of 15; every ray 15
+# steps from the end of its span, which none reaches a surface in, so all
+# end in segment 2 of 10; and spans cut at 1 to 100 steps with every fifth
+# ray inactive from the start, so that the ends cover every segment (f32
+# and f64).
+K4_ORDER_CASES = [("ragged", 15, torch.float32, 120, 0.2),
+                  ("one end", 16, torch.float32, 100, 0.1),
+                  ("every end", 16, torch.float32, 100, 0.1),
+                  ("every end", 16, torch.float64, 100, 0.1)]
+
+
+@pytest.mark.parametrize("case,n,dtype,max_steps,dt", K4_ORDER_CASES)
+def test_k4_work_order_matches_plain_bitwise(case, n, dtype, max_steps, dt):
+    A, route, P, (_, _, _, integ) = _ckpt_case(n, dtype, "rk4", max_steps,
+                                               rk4_dt=dt)
+    B = P.shape[1]
+    if case == "one end":
+        P[A.P_LAM] = integ.lam_max - 15 * dt
+    elif case == "every end":
+        k = torch.arange(B, device=P.device)
+        P[A.P_LAM] = integ.lam_max - (1 + (k * 7) % max_steps).to(
+            P.dtype) * dt
+        P[A.P_ACTIVE, ::5] = 0
+    ends, _ = _k4_matches_plain(A, route, P)
+    hist = torch.bincount(ends, minlength=route.n_seg + 1)
+    if case == "ragged":
+        assert B % 32 and int((hist > 0).sum()) > 2
+    elif case == "one end":
+        assert int(hist[2]) == B
+    else:
+        assert bool((hist > 0).all()), hist.tolist()
+
+
+# config 5's starts at 16: M in [0.48, 0.52], z in [-0.06, 0.06].
+CONFIG5_STARTS = [(0.5 + 0.01 * ((k % 5) - 2), 0.02 * ((k % 7) - 3))
+                  for k in range(16)]
+
+
+@pytest.mark.parametrize("starts", [1, 4, 16])
+def test_grouped_k4_work_order_matches_plain_bitwise(starts):
+    """Grouped K4 at config 5 (32x32 a start, rk4/120) at 1, 4 and 16
+    starts of different (M, z): bitwise equal to the grouped plain
+    version, and each start's rays to its own ungrouped
+    launch. In work order a warp may hold rays of several starts, so each
+    ray must read its own group's row (the permuted index)."""
+    A, singles, grouped, P0 = _lensing_grouped(
+        torch.float32, "rk4", CONFIG5_STARTS[:starts], n=32)
+    _, (c, p) = _k4_matches_plain(A, grouped, P0)
+    gen = torch.Generator(device=P0.device).manual_seed(5)
+    ct = torch.randn(P0.shape, generator=gen, dtype=P0.dtype,
+                     device=P0.device)
+    B = singles[0][1].shape[1]
+    for s, (route, P) in enumerate(singles):
+        rays = slice(s * B, (s + 1) * B)
+        ck_s, used_s = A.run_segments(route, P)
+        c_s, p_s = A.backward_cuda(route, ck_s, used_s[1:],
+                                   ct[:, rays].contiguous())
+        torch.cuda.synchronize()
         assert torch.equal(c_s, c[:, rays]) and torch.equal(p_s, p[rays])
 
 
