@@ -1,13 +1,16 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
-raytracegr_jl_tpu_torch/csrc (K1; K3, K4 and, in a library of their own, K6
-and K7 of the training path; K2 of the compacted render; K5, its fused
-shading; one build per library, in parallel) and prints each
+raytracegr_jl_tpu_torch/csrc (K1; K3, K4 and, in libraries of their own,
+K6 and K7 and the camera's K8 and K9 of the training path; K2 of the
+compacted render; K5, its fused shading; one build per library, in
+parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
 per-segment chain, K4 on ragged, one-end and every-end batches and on the
 training batches and K4's work-order kernels against the stable sort, the grouped K3 and K4 of the vectorized
 multistart against theirs and against one launch per start, K6 and K7 on
-K3's final states, and K7 against torch.autograd of the plain epilogue) and
+K3's final states, and K7 against torch.autograd of the plain epilogue, K8
+and K9 on the training batches, shared and grouped, and K9 against
+torch.autograd of the plain camera) and
 K1 against the committed golden images, drives the forward render and the
 training path (one pixel-loss step for two configurations, three Adam
 steps) of the
@@ -76,7 +79,8 @@ GRAD_RTOL = {torch.float64: 1e-10, torch.float32: 2e-3}
 # kernels equal their plain versions bitwise and the rest is the same
 # PyTorch code, so they should agree exactly; the bar allows f32 rounding.
 MAIN_GRAD_RTOL = 1e-5
-LIBRARIES = ("geodesic", "adjoint", "localize", "compaction", "shading")
+LIBRARIES = ("geodesic", "adjoint", "localize", "compaction", "shading",
+             "camera")
 # The accretion disk's step census at 1024x1024, a=0.8, f32, as the JAX
 # package recorded it (BASELINE.md:61): a property of the workload.
 JAX_DISK_CENSUS = "total 659.2M accepted ray-steps, p50 21, p99 15,451"
@@ -271,8 +275,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 def profile_steps(fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` runs of ``fn()`` (after one): per run,
     the device's busy ms (its kernels, copies and fills summed), its
-    kernels, the K3, K4, K6 and K7 kernels among them, and the host's launch
-    calls (``LAUNCH_CALLS``)."""
+    kernels, the K3, K4, K6, K7, K8 and K9 kernels among them, and the
+    host's launch calls (``LAUNCH_CALLS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -294,9 +298,26 @@ def profile_steps(fn, reps: int = 3) -> dict:
         kernels=sum(e.count for e in dev) / reps,
         k3=count(dev, ("k3_kernel",)), k4=count(dev, ("k4_kernel",)),
         k6=count(dev, ("k6_kernel",)), k7=count(dev, ("k7_kernel",)),
+        k8=count(dev, ("k8_kernel",)), k9=count(dev, ("k9_kernel",)),
         host_launches=sum(e.count for e in avg
                           if e.device_type == DeviceType.CPU
                           and e.key in LAUNCH_CALLS) / reps)
+
+
+@contextlib.contextmanager
+def camera_launches():
+    """K8's and K9's launches within the block: yields a dict whose
+    ``"k8"`` and ``"k9"`` are set when the block ends. A graph's capture
+    launches them once each (its warm-up passes once each more); the
+    profiler's count per replay can miss one of these few-microsecond
+    kernels (seen on the card), so the graphed phases hold the capture's
+    count."""
+    from raytracegr_jl_tpu_torch.models import camera as cam
+    out = {}
+    before = (cam.pixel_rays_cuda.launches, cam.pixel_rays_vjp_cuda.launches)
+    yield out
+    out["k8"] = cam.pixel_rays_cuda.launches - before[0]
+    out["k9"] = cam.pixel_rays_vjp_cuda.launches - before[1]
 
 
 def in_turns(fns: dict, reps: int = REPEATS) -> dict:
@@ -666,6 +687,24 @@ def profiled_kernels(fn, names, reps: int = REPEATS):
            for e in prof.events() if e.device_type == DeviceType.CUDA
            and any(n in e.name for n in names)]
     return sorted(evs, key=lambda e: e[1])
+
+
+def graph_ms(fn, n: int = 100) -> float:
+    """Device milliseconds per call of ``fn()``: ``n`` calls captured in
+    one CUDA graph, its replay timed with CUDA events (median of
+    ``REPEATS``) over ``n``: the kernels back to back, with no host launch
+    between them."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay) / n
 
 
 def kernel_alone_ms(fn, name: str, reps: int = REPEATS):
@@ -1364,10 +1403,13 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     lensing scene's fixed scene code against SC_ANY. Returns the grouped
     K3 and K4 entries of the kernels line."""
     import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models import camera as cam
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import SC_ANY
+    from raytracegr_jl_tpu_torch.step_graph import WARMUP_PASSES
     from raytracegr_jl_tpu_torch.utils import checkpoint
     f32 = torch.float32
+    CAPTURED = WARMUP_PASSES + 1  # K8's, K9's launches as a graph is built
 
     # 1. Grouped against plain, and against one launch per start.
     grouped_err = 0.0
@@ -1403,6 +1445,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     fit_ms = (time.perf_counter() - tw) * 1e3 / INV_STEPS
     k3n, k4n = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
     k6n, k7n = adj.localize_cuda.launches, adj.localize_vjp_cuda.launches
+    k8n, k9n = cam.pixel_rays_cuda.launches, cam.pixel_rays_vjp_cuda.launches
     m = float(res.params.M.detach())
     z = float(res.params.sphere_pos.detach()[3])
     hist = res.loss_history.tolist()
@@ -1413,10 +1456,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
           last_loss=f"{hist[-1]:.6e}",
           losses=[f"{v:.4e}" for v in hist[::6]],
           ms_per_step=f"{fit_ms:.3f}", k3_launches=k3n, k4_launches=k4n,
-          k6_launches=k6n, k7_launches=k7n)
-    require(k3n == k4n == k6n == k7n == INV_STEPS,
-            f"config 5: {k3n} K3, {k4n} K4, {k6n} K6 and {k7n} K7 launches "
-            f"in {INV_STEPS} steps")
+          k6_launches=k6n, k7_launches=k7n, k8_launches=k8n,
+          k9_launches=k9n)
+    require(k3n == k4n == k6n == k7n == k8n == k9n == INV_STEPS,
+            f"config 5: {k3n} K3, {k4n} K4, {k6n} K6, {k7n} K7, {k8n} K8 "
+            f"and {k9n} K9 launches in {INV_STEPS} steps")
     require(abs(m - 0.5) / 0.5 < 0.01 and abs(z) < 0.01,
             f"config 5 not recovered: M {m}, z {z}")
     require(float(res.params.a.detach()) == 0.0, "config 5: the spin moved")
@@ -1442,7 +1486,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         ms = (time.perf_counter() - tw) * 1e3 / steps
         return r, ms, (adj.forward_segment_cuda.launches,
                        adj.backward_cuda.launches, adj.localize_cuda.launches,
-                       adj.localize_vjp_cuda.launches), starts
+                       adj.localize_vjp_cuda.launches,
+                       cam.pixel_rays_cuda.launches,
+                       cam.pixel_rays_vjp_cuda.launches), starts
 
     vec, _, main_counts, starts = timed_fit(4, True, 10)
     ser, _, ser_counts, _ = timed_fit(4, False, 10)
@@ -1455,8 +1501,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
 
     scale = float(ser.loss_history.abs().max())
     rel = float((vec.loss_history - ser.loss_history).abs().max()) / scale
-    require(main_counts == (10, 10, 10, 10), f"vectorized fit of 4 starts "
-            f"launched K3, K4, K6 and K7 {main_counts} times in 10 steps")
+    require(main_counts == (10,) * 6, f"vectorized fit of 4 starts "
+            f"launched K3, K4, K6, K7, K8 and K9 {main_counts} times in 10 "
+            "steps")
     require(picked(vec) == picked(ser) and len(picked(vec)) == 1,
             f"vectorized picked start {picked(vec)}, serial {picked(ser)}")
     require(rel <= VEC_SERIAL_RTOL, f"vectorized and serial loss histories "
@@ -1468,12 +1515,13 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         step_ms[(n, vectorized)] = statistics.median(r[1] for r in runs)
         per_step[(n, vectorized)] = [c / 5 for c in runs[-1][2]]
     for n in (1, 4, 16):
-        require(per_step[(n, True)] == [1.0] * 4, f"vectorized N={n}: "
-                f"{per_step[(n, True)]} K3/K4/K6/K7 launches per step")
+        require(per_step[(n, True)] == [1.0] * 6, f"vectorized N={n}: "
+                f"{per_step[(n, True)]} K3/K4/K6/K7/K8/K9 launches per step")
     phase("main path vectorized multistart lensing 32x32 f32", t0,
           card=repr(card), starts=4, steps=10,
           k3_launches=main_counts[0], k4_launches=main_counts[1],
           k6_launches=main_counts[2], k7_launches=main_counts[3],
+          k8_launches=main_counts[4], k9_launches=main_counts[5],
           serial_k3_launches=ser_counts[0], picked=picked(vec),
           picked_serial=picked(ser), loss_hist_rel_diff=f"{rel:.3e}",
           bar=VEC_SERIAL_RTOL,
@@ -1536,7 +1584,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
                                                        f32, dev), stacked(n))
     graphed_cells = {}
     for name, (loss_fn, make_params) in steps.items():
-        eager, graphed, peak_g = adam_steps(loss_fn, make_params, trainable)
+        with camera_launches() as cam_n:
+            eager, graphed, peak_g = adam_steps(loss_fn, make_params,
+                                                trainable)
         peak_e = eager_peak(eager)
         syncs = no_sync(graphed, GRAPH_REPLAYS)
         ms = in_turns({"eager": eager, "graphed": graphed})
@@ -1547,7 +1597,8 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
             device_ms=f"{prof['busy_ms']:.4f}",
             idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
             kernels=f"{prof['kernels']:.0f}", k3=prof["k3"], k4=prof["k4"],
-            k6=prof["k6"], k7=prof["k7"],
+            k6=prof["k6"], k7=prof["k7"], k8=prof["k8"], k9=prof["k9"],
+            k8_k9_captured=(cam_n["k8"], cam_n["k9"]),
             host_launches=f"{prof['host_launches']:.0f}", syncs=syncs,
             eager_peak_mib=f"{peak_e / 2**20:.1f}",
             graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
@@ -1556,11 +1607,13 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     require(all(same.values()), f"config 5: a graphed fit differs from the "
             f"eager one: {same}")
     for name, c in graphed_cells.items():
-        require(c["syncs"] == 0 and c["k3"] == 1 and c["k4"] == 1
-                and c["k6"] == 1 and c["k7"] == 1,
+        require(c["syncs"] == 0 and all(c[k] == 1 for k in (
+                    "k3", "k4", "k6", "k7"))
+                and c["k8_k9_captured"] == (CAPTURED, CAPTURED),
                 f"config 5 {name}: {c['syncs']} host syncs, K3 {c['k3']}, "
                 f"K4 {c['k4']}, K6 {c['k6']} and K7 {c['k7']} per graphed "
-                "step")
+                f"step, K8 and K9 {c['k8_k9_captured']} in the capture and "
+                "its warm-ups")
 
     # 4. A fit checkpointed after 3 steps, restored and run 3 more, against
     #    6 uninterrupted steps, with a 6-step cosine schedule.
@@ -2899,8 +2952,9 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
     measured as the training steps are (the eager one profiled once).
     Returns each configuration's numbers."""
     import raytracegr_jl_tpu_torch as rt
-    from raytracegr_jl_tpu_torch.step_graph import GraphedStep
+    from raytracegr_jl_tpu_torch.step_graph import WARMUP_PASSES, GraphedStep
     f32 = torch.float32
+    CAPTURED = WARMUP_PASSES + 1  # K8's, K9's launches as a graph is built
     out = {}
     for label, cfg in cfgs.items():
         t0 = time.perf_counter()
@@ -2928,7 +2982,8 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
+        with camera_launches() as cam_n:
+            step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
         torch.cuda.synchronize()
         peak_g = torch.cuda.max_memory_allocated() - base
         held_g = torch.cuda.memory_allocated() - base
@@ -2967,6 +3022,8 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
               replay_device_kernels=f"{prof['kernels']:.0f}",
               k3_per_replay=prof["k3"], k4_per_replay=prof["k4"],
               k6_per_replay=prof["k6"], k7_per_replay=prof["k7"],
+              k8_per_replay=prof["k8"], k9_per_replay=prof["k9"],
+              k8_k9_in_warmups_and_capture=(cam_n["k8"], cam_n["k9"]),
               replay_host_launches=f"{prof['host_launches']:.0f}",
               eager_peak_mib=f"{peak_e / 2**20:.1f}",
               graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}",
@@ -2974,9 +3031,12 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
         require(same and moved, f"{label}: the graphed step differs from "
                 "the eager one")
         require(syncs == 0, f"{label}: {syncs} host syncs in replays")
-        require(all(prof[k] == 1 for k in ("k3", "k4", "k6", "k7")),
+        require(all(prof[k] == 1 for k in ("k3", "k4", "k6", "k7"))
+                and cam_n == {"k8": CAPTURED, "k9": CAPTURED},
                 f"{label}: a replay ran K3 {prof['k3']}, K4 {prof['k4']}, K6 "
-                f"{prof['k6']} and K7 {prof['k7']} times, not once each")
+                f"{prof['k6']} and K7 {prof['k7']} times, not once each, or "
+                f"the capture and its warm-ups launched K8 and K9 {cam_n}, "
+                f"not {CAPTURED} times each")
 
     t0 = time.perf_counter()
     fit_cfg = rt.default_inverse_cfg(f32, soft_temp=0.05, stop_rho=0.5)
@@ -2985,9 +3045,9 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
                      device=dev, graph=g) for g in (False, True)}
     same = same_fit(res[True], res[False])
     # One Adam step of that fit, eager and graphed.
-    eager, graphed, peak_g = adam_steps(
-        rt.make_loss_fn(spec, fit_target, fit_cfg, 2, f32, dev), init.copy,
-        lr=3e-2)
+    loss_fn = rt.make_loss_fn(spec, fit_target, fit_cfg, 2, f32, dev)
+    with camera_launches() as cam_n:
+        eager, graphed, peak_g = adam_steps(loss_fn, init.copy, lr=3e-2)
     peak_e = eager_peak(eager)
     syncs = no_sync(graphed, GRAPH_REPLAYS)
     ms = in_turns({"eager": eager, "graphed": graphed})
@@ -3006,15 +3066,20 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
           graphed_device_ms=f"{prof['busy_ms']:.4f}",
           graphed_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
           graphed_host_launches=f"{prof['host_launches']:.0f}",
+          graphed_device_kernels=f"{prof['kernels']:.0f}",
           k3_per_step=prof["k3"], k4_per_step=prof["k4"],
           k6_per_step=prof["k6"], k7_per_step=prof["k7"],
+          k8_per_step=prof["k8"], k9_per_step=prof["k9"],
+          k8_k9_in_warmups_and_capture=(cam_n["k8"], cam_n["k9"]),
           eager_peak_mib=f"{peak_e / 2**20:.1f}",
           graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
     require(same, "the graphed fit differs from the eager one")
-    require(syncs == 0 and all(prof[k] == 1
-                               for k in ("k3", "k4", "k6", "k7")),
+    require(syncs == 0 and all(prof[k] == 1 for k in ("k3", "k4", "k6",
+                                                      "k7"))
+            and cam_n == {"k8": CAPTURED, "k9": CAPTURED},
             f"fit: {syncs} host syncs, K3 {prof['k3']}, K4 {prof['k4']}, K6 "
-            f"{prof['k6']} and K7 {prof['k7']} per graphed step")
+            f"{prof['k6']} and K7 {prof['k7']} per graphed step, K8 and K9 "
+            f"{cam_n} in the capture and its warm-ups")
     return out
 
 
@@ -3241,6 +3306,155 @@ def localize_slice(dev, card: str) -> dict:
     return out
 
 
+# K8 and K9 (the camera and its VJP) against their plain versions,
+# bitwise, and K9 against torch.autograd of the plain forward at f64: each
+# ray's (M, a) cotangents against the larger of the two
+# (tests/test_torch_camera.py's measure).
+CAM_GRAD_RTOL = 1e-12
+CAM_STARTS = 4
+
+
+def camera_cases(dev, dtype):
+    """(label, metric, pos, normal) of K8/K9's check at ``dtype``: the
+    training path's example2 (M 1.05, rho_min 0.25; at f64 also spinning,
+    a = 0.6) and example1 (Minkowski) at 200x200, and config 5's grouped
+    batch at 4 starts (32x32 each, textbook, M and a per ray; at f64 also
+    spins 0 to 0.3 per start)."""
+    import raytracegr_jl_tpu_torch as rt
+    name = str(dtype)[6:]
+    full = lambda v: torch.tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    xg, ng = rt.flat_pixel_grid(rt.example2_spec(200, 200), dtype, dev)
+    spins = (0.0, 0.6) if dtype == torch.float64 else (0.0,)
+    cases = [(f"example2 200x200 {name} a={a}", rt.make_metric(
+        "kerr_schild", rt.KerrSchildParams(full(1.05), full(a)),
+        rho_min=0.25), xg, ng) for a in spins]
+    xg, ng = rt.flat_pixel_grid(rt.example1_spec(200, 200), dtype, dev)
+    cases.append((f"example1 200x200 {name}", rt.make_metric("minkowski"),
+                  xg, ng))
+    xg, ng = rt.flat_pixel_grid(rt.lensing_inverse_spec(INV_N, INV_N),
+                                dtype, dev)
+    B = xg.shape[0]
+    Ms = full([M for M, _ in config5_starts(CAM_STARTS)])
+    for top in spins[:1] + ((0.3,) if dtype == torch.float64 else ()):
+        a = full([top * k / (CAM_STARTS - 1) for k in range(CAM_STARTS)])
+        cases.append((f"config 5 grouped {CAM_STARTS} starts {name} spins "
+                      f"0-{top}", rt.make_metric(
+                          "kerr_schild", rt.KerrSchildParams(
+                              Ms.repeat_interleave(B),
+                              a.repeat_interleave(B)),
+                          r_formula="textbook", rho_min=0.25),
+                      xg.repeat(CAM_STARTS, 1), ng.repeat(CAM_STARTS, 1)))
+    return cases
+
+
+def cam_cotangent(pos: torch.Tensor, seed: int = 4) -> torch.Tensor:
+    """A seeded cotangent of u, every ninth ray's zero."""
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    ct = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                     device=pos.device)
+    ct[::9] = 0
+    return ct
+
+
+def cam_autograd_gap(metric, pos, normal, ct) -> float:
+    """K9 against torch.autograd of pixel_rays_plain with M and a a leaf
+    per ray: the largest gap of a ray's (M, a) cotangents over the larger
+    of the two."""
+    from raytracegr_jl_tpu_torch.models import camera as cam
+    B = pos.shape[0]
+    leaf = lambda v: torch.as_tensor(  # noqa: E731
+        v, dtype=pos.dtype, device=pos.device).expand(B).clone(
+    ).requires_grad_()
+    M, a = leaf(metric.params.M), leaf(metric.params.a)
+    u = cam.pixel_rays_plain(metric._replace(params=metric.params._replace(
+        M=M, a=a)), pos, normal)
+    loss = (u * ct).sum()
+    want = (torch.stack(torch.autograd.grad(loss, (M, a)))
+            if loss.requires_grad else torch.zeros((2, B), dtype=pos.dtype,
+                                                   device=pos.device))
+    got = cam.pixel_rays_vjp_cuda(metric, pos, normal, ct)
+    scale = want.abs().amax(0)
+    gap = ((got - want).abs() / scale).nan_to_num(0.0, posinf=float("inf"))
+    require(bool(torch.isfinite(want).all()), "autograd of the camera is "
+            "not finite")
+    return float(gap.max())
+
+
+def camera_slice(dev, card: str) -> dict:
+    """K8 and K9 against their plain versions on the card, bitwise, at f32
+    and f64 (``camera_cases``), K9 against torch.autograd at f64; then
+    each kernel's time alone (100 launches replayed in one graph, and
+    the profiler) and in events, its plain version's, and its bound on
+    the training path's pixel batch (example2 200x200 f32). Returns the
+    numbers for the kernels' JSON line."""
+    from raytracegr_jl_tpu_torch.models import camera as cam
+    t0 = time.perf_counter()
+    err, gaps, n_cases = 0.0, {}, 0
+    for dtype in (torch.float32, torch.float64):
+        for label, metric, pos, normal in camera_cases(dev, dtype):
+            n_cases += 1
+            ct = cam_cotangent(pos)
+            u_k = cam.pixel_rays_cuda(metric, pos, normal)
+            u_p = cam.pixel_rays_plain(metric, pos, normal)
+            p_k = cam.pixel_rays_vjp_cuda(metric, pos, normal, ct)
+            p_p = cam.pixel_rays_vjp(metric, pos, normal, ct)
+            torch.cuda.synchronize()
+            e = max(max_err(u_k, u_p), max_err(p_k, p_p))
+            err = max(err, e)
+            require(bool(torch.isfinite(u_k).all()), f"{label}: u not finite")
+            require(bits_equal(u_k, u_p), f"{label}: K8 not bitwise equal to "
+                    f"pixel_rays_plain (max |d| {e:.3e})")
+            require(bits_equal(p_k, p_p), f"{label}: K9 not bitwise equal to "
+                    f"pixel_rays_vjp (max |d| {e:.3e})")
+            if dtype == torch.float64:
+                gaps[label] = cam_autograd_gap(metric, pos, normal, ct)
+    gap = max(gaps.values())
+    phase("K8/K9 vs plain and autograd", t0, cases=n_cases,
+          max_abs_err=err, k9_vs_autograd_max_rel_gap=f"{gap:.3e}",
+          per_case={k: f"{v:.3e}" for k, v in gaps.items()},
+          rtol=CAM_GRAD_RTOL)
+    require(gap <= CAM_GRAD_RTOL, f"K9 differs from autograd of the plain "
+            f"camera by {gap:.3e}")
+
+    # Times and bounds on the training path's pixel batch: in events (the
+    # wrapper's call), 100 launches in one graph (the kernel back to back)
+    # and from the profiler (None where it misses them). Work of this
+    # run: the plain version's operations on one ray, times the rays;
+    # bytes: K8 reads pos and normal and writes u, K9 reads pos, normal and
+    # the cotangent and writes (M_bar, a_bar), per ray.
+    t0 = time.perf_counter()
+    label, metric, pos, normal = camera_cases(dev, torch.float32)[0]
+    ct = cam_cotangent(pos)
+    k8 = lambda: cam.pixel_rays_cuda(metric, pos, normal)  # noqa: E731
+    k9 = lambda: cam.pixel_rays_vjp_cuda(  # noqa: E731
+        metric, pos, normal, ct)
+    k8_ms, k9_ms = cuda_ms(k8), cuda_ms(k9)
+    k8_graph, k9_graph = graph_ms(k8), graph_ms(k9)
+    k8_dev, k9_dev = (kernel_alone_ms(k8, "k8_kernel"),
+                      kernel_alone_ms(k9, "k9_kernel"))
+    k8_plain_ms = cuda_ms(lambda: cam.pixel_rays_plain(metric, pos, normal))
+    k9_plain_ms = cuda_ms(lambda: cam.pixel_rays_vjp(metric, pos, normal,
+                                                     ct))
+    with torch.no_grad():
+        f8 = count_flops(lambda: cam.pixel_rays_plain(metric, pos[:1],
+                                                      normal[:1]))
+        f9 = count_flops(lambda: cam.pixel_rays_vjp(metric, pos[:1],
+                                                    normal[:1], ct[:1]))
+    B, w = pos.shape[0], pos.element_size()
+    b8 = bound(B * f8, B * (4 + 4 + 4) * w)
+    b9 = bound(B * f9, B * (4 + 4 + 4 + 2) * w)
+    phase(f"time K8/K9 {label}", t0, card=repr(card), rays=B,
+          k8_ms=f"{k8_ms:.4f}", k8_graphed_ms=f"{k8_graph:.5f}",
+          k8_device_ms=k8_dev, k8_plain_ms=f"{k8_plain_ms:.4f}",
+          k9_ms=f"{k9_ms:.4f}", k9_graphed_ms=f"{k9_graph:.5f}",
+          k9_device_ms=k9_dev, k9_plain_ms=f"{k9_plain_ms:.4f}",
+          flops_per_ray_k8=f8, flops_per_ray_k9=f9,
+          k8_bound_ms=f"{b8[0]:.6f}", k8_bound_by=b8[1],
+          k9_bound_ms=f"{b9[0]:.6f}", k9_bound_by=b9[1])
+    return dict(err=err, k8_ms=k8_ms, k9_ms=k9_ms, k8_plain_ms=k8_plain_ms,
+                k9_plain_ms=k9_plain_ms, k8_bound=b8, k9_bound=b9)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3259,11 +3473,13 @@ def main() -> int:
     from raytracegr_jl_tpu_torch.utils import cuda_build
 
     from raytracegr_jl_tpu_torch import compaction
+    from raytracegr_jl_tpu_torch.models import camera
     from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
 
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
                adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda,
-               adj.localize_cuda, adj.localize_vjp_cuda, adj.work_order_cuda)
+               adj.localize_cuda, adj.localize_vjp_cuda, adj.work_order_cuda,
+               camera.pixel_rays_cuda, camera.pixel_rays_vjp_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -3621,6 +3837,10 @@ def main() -> int:
     #     their times and bounds.
     loc = localize_slice(dev, card)
 
+    # 6c. K8 and K9 (the camera) against their plain versions and K9
+    #     against autograd; their times and bounds.
+    cam = camera_slice(dev, card)
+
     # 7. The training main path, counted: one pixel-loss step (loss and
     #    backward) of make_ray_loss_fn at 200x200 f32 for each bench
     #    configuration, then three Adam steps of inverse.fit; each against
@@ -3669,15 +3889,16 @@ def main() -> int:
               k1_launches=counts[0], k3_launches=counts[1],
               k4_launches=counts[2], k6_launches=counts[5],
               k7_launches=counts[6], k4_order_launches=counts[7],
+              k8_launches=counts[8], k9_launches=counts[9],
               loss=f"{loss:.9e}",
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
-        require(counts[1] == 1 and counts[2] == 1 and counts[5] == 1
-                and counts[6] == 1 and counts[7] == 1,
+        require(all(counts[i] == 1 for i in (1, 2, 5, 6, 7, 8, 9)),
                 f"{label}: the training step launched K3 {counts[1]}, K4 "
-                f"{counts[2]}, K6 {counts[5]}, K7 {counts[6]} and K4's work "
-                f"order {counts[7]} times, not once each")
+                f"{counts[2]}, K6 {counts[5]}, K7 {counts[6]}, K4's work "
+                f"order {counts[7]}, K8 {counts[8]} and K9 {counts[9]} "
+                "times, not once each")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
                 f"{label}: non-finite loss or gradients")
         require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
@@ -3705,11 +3926,12 @@ def main() -> int:
     phase("main path fit 3 Adam steps 200x200 f32", t0,
           k3_launches=fit_counts[1], k4_launches=fit_counts[2],
           k6_launches=fit_counts[5], k7_launches=fit_counts[6],
+          k8_launches=fit_counts[8], k9_launches=fit_counts[9],
           losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
           M=f"{float(res.final_params.M.detach()):.9f}",
           max_param_diff_vs_plain=f"{fit_diff:.3e}")
-    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6)),
-            "fit did not launch K3, K4, K6 and K7 once in each step")
+    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6, 8, 9)),
+            "fit did not launch K3, K4, K6, K7, K8 and K9 once in each step")
     require(bool(torch.isfinite(res.loss_history).all())
             and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
@@ -3955,6 +4177,30 @@ def main() -> int:
         "plain_ms": loc["rk4/200"]["k7_plain_ms"],
         "bound_ms": loc["rk4/200"]["k7_bound"][0],
         "bound_by": loc["rk4/200"]["k7_bound"][1],
+        "library_ms": None}, {
+        "name": "K8 pixel_rays_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/camera.cu",
+        "replaces": "none: XLA's fusion of the camera's pixel_rays "
+                    "(raytracegr_jl_tpu/models/camera.py:43)",
+        "launches": step_launches["rk4/200"][8],
+        "max_abs_err": cam["err"],
+        "ms": cam["k8_ms"],
+        "plain_ms": cam["k8_plain_ms"],
+        "bound_ms": cam["k8_bound"][0],
+        "bound_by": cam["k8_bound"][1],
+        "library_ms": None}, {
+        "name": "K9 pixel_rays_vjp_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/camera.cu",
+        "replaces": "none: XLA's AD of the camera's pixel_rays "
+                    "(raytracegr_jl_tpu/models/camera.py:43)",
+        "launches": step_launches["rk4/200"][9],
+        "max_abs_err": cam["err"],
+        "ms": cam["k9_ms"],
+        "plain_ms": cam["k9_plain_ms"],
+        "bound_ms": cam["k9_bound"][0],
+        "bound_by": cam["k9_bound"][1],
         "library_ms": None}] + disk_entries + inverse_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,12 +10,14 @@ the counts do not depend on the width). An operation launches a kernel
 unless it is a view or only allocates. A forward operation belongs to the
 module whose call it runs in; a backward one to the module whose forward
 created the autograd node it runs for (by the node's sequence number).
-Modules: the camera (``grad.pixel_rays``), the initial step
-(``render.initial_dt``), the segments (``ops.adjoint._Checkpointed``: K3
-and K4 on the card), the localization (``ops.adjoint._Localized``: K6 and
-K7 on the card; in a tree without them, ``localize_events_cm`` under
+Modules: the camera (``models.camera._Camera``: K8 and K9 on the card;
+in a tree without them, ``grad.pixel_rays`` under autograd), the initial
+step (``render.initial_dt``), the segments (``ops.adjoint._Checkpointed``:
+K3 and K4 on the card), the localization (``ops.adjoint._Localized``: K6
+and K7 on the card; in a tree without them, ``localize_events_cm`` under
 autograd), the shading (``shade``, ``shade_soft``) and the rest (the
-loss, the dead-ray cutoff, the selections, packing). The operations of a
+loss, the dead-ray cutoff, the selections, packing, the camera's
+parameters per ray). The operations of a
 module that the card runs as kernels are not counted; its kernels are
 named instead. Launch setup that only the card runs (``pack_params``) is
 not seen here.
@@ -113,16 +115,21 @@ def main() -> int:
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch import grad, render
+    from raytracegr_jl_tpu_torch.models import camera
     from raytracegr_jl_tpu_torch.ops import adjoint
     if os.path.dirname(os.path.dirname(os.path.abspath(rt.__file__))) != tree:
         raise RuntimeError("the package did not load from the tree given")
 
-    labels = {"camera": [(grad, "pixel_rays")],
-              "initial_dt": [(render, "initial_dt")],
+    labels = {"initial_dt": [(render, "initial_dt")],
               "shading": [(render, "shade"), (render, "shade_soft")],
               "segments": [(adjoint._Checkpointed, "apply")]}
     # The modules that the card runs as kernels, and those kernels.
     on_card = {"segments": "K3, k3_close, K4"}
+    if hasattr(camera, "_Camera"):
+        labels["camera"] = [(camera._Camera, "apply")]
+        on_card["camera"] = "K8, K9"
+    else:
+        labels["camera"] = [(grad, "pixel_rays")]
     if hasattr(adjoint, "_Localized"):
         labels["localization"] = [(adjoint._Localized, "apply")]
         on_card["localization"] = "K6, K7"

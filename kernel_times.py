@@ -9,6 +9,7 @@ versions can be compared in one run on one card.
     python3 kernel_times.py k4 [--tree DIR] [--out FILE]
     python3 kernel_times.py k4-kernel [--tree DIR] [--out FILE]
     python3 kernel_times.py sass [--tree DIR] [--out FILE]
+    python3 kernel_times.py compare-images A.images.pt B.images.pt
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
 main paths' shapes: K2 on the 1024x1024 disk (chunks summed, and the last
@@ -17,12 +18,15 @@ render, K1 on example2 at 200x200 and 1024x1024 (the kernel alone from the
 profiler, the call as the tree's render_fn makes it, the call given dt0,
 the render), K3 (its launches of a forward pass summed), K4, and K6 and
 K7 where the tree has them (in events and alone from the profiler) in the
-rk4/200 and tsit5/48 training steps at 200x200 f32; those steps end to
-end, eager and as a graph replay in turns, with the replay's device ms
-and kernels (profiler), the eager step's loss to the last bit and the
+rk4/200 and tsit5/48 training steps at 200x200 f32, and K8 and K9 (the
+camera) where the tree has them; those steps end to
+end, eager and as a graph replay in turns, with the replay's device ms,
+kernels and K8/K9 launches (profiler), the eager step's loss to the last
+bit and the
 memory the steps take; and an
 Adam step of config 5 (32x32 f32) at 1, 4 and 16 starts, eager and
-graphed in turns, with the graphed step's device ms and kernels.
+graphed in turns, with the graphed step's device ms and kernels and each
+start's first loss to the last bit.
 
 ``k4``: K4's diagnosis (``k4_times``: its f32 RK4 kernels' ptxas lines
 and SASS mix; K4 alone at rk4/200 and tsit5/48 on the training batch, on
@@ -37,6 +41,12 @@ time four ways, the step census, warp-iterations, scheduler cycles per
 warp-iteration, the capped runs, torch.mean's order, a profile of one
 rk4/200 forward pass of the training path), with K1's ptxas and SASS
 lines.
+
+``compare-images`` (the CPU suffices): two trees' ``times`` images
+(``<out>.images.pt``): each training configuration's and config 5's
+starts' losses, their gap, and the pixels that differ and that flip
+(``compare_images``), which tell a loss that moved by rounding from one
+that moved because a few pixels crossed an edge.
 
 ``sass``: for every kernel of the tree's three libraries, its ``ptxas
 -v`` line (registers, stack, spills) and its static SASS: the count of
@@ -69,15 +79,14 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps,
-                        adjoint_work, config5_starts, cuda_ms, cuda_tool,
+from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, adjoint_work,
+                        cam_cotangent, config5_starts, cuda_ms, cuda_tool,
                         demangle, diagnose_k1, diagnose_tail, disk_setup,
                         in_turns, instruction_mix, inverse_case, k1_entry,
                         k1_main_call, k1_takes_own_step, k3_forward_ms,
                         k3_pass, k4_walk, kernel_alone_ms, loc_cotangents,
-                        profile_steps, profiled_kernels, ptxas_report,
-                        require, sass_report, short_name, summed_ms,
-                        timed_calls)
+                        profile_steps, profiled_kernels, ptxas_report, require,
+                        sass_report, short_name, summed_ms, timed_calls)
 
 
 def libraries() -> list:
@@ -258,6 +267,7 @@ def train_times(out: list, dev, card: str) -> None:
     kernels' stacks); K3 summed and alone, K4, K6 and K7."""
     import torch
     import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models import camera as cam
     from raytracegr_jl_tpu_torch.models.scenes import example2_spec
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     f32 = torch.float32
@@ -268,14 +278,19 @@ def train_times(out: list, dev, card: str) -> None:
                                  ("tsit5/48", "tsit5", 48)):
         tcfg = rt.default_inverse_cfg(f32, max_steps=steps, method=method,
                                       rk4_dt=100.0 / steps, stop_rho=0.5)
+        render = rt.make_ray_render_for_params(spec, tcfg, 2, f32, dev)
         with torch.no_grad():
-            target = rt.make_ray_render_for_params(spec, tcfg, 2, f32, dev)(
-                truth, xg, ng)
+            target = render(truth, xg, ng)
         loss_fn = rt.make_ray_loss_fn(spec, tcfg, 2, f32, dev)
 
         def params():
             return rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32,
                                     dev)
+
+        with torch.no_grad():
+            IMAGES[f"train {label}"] = dict(
+                render=render(params(), xg, ng)[None].cpu(),
+                target=target.cpu())
 
         def step():
             p = params()
@@ -298,6 +313,7 @@ def train_times(out: list, dev, card: str) -> None:
                    device_used_mib=(total - free) / 2**20)
         prof = profile_steps(graphed)
         route, P0, args = train_route(dev, method, steps)
+        metric = route.metric
 
         k3_runs = [k3_forward_ms(route, P0, args)
                    for _ in range(REPEATS + 1)][1:]
@@ -309,6 +325,14 @@ def train_times(out: list, dev, card: str) -> None:
         k3_kernels = profiled_kernels(lambda: adj.run_segments(route, P0),
                                       ("k3_kernel", "k3_close"))
         loc = {}
+        if hasattr(cam, "pixel_rays_cuda"):
+            ct_u = cam_cotangent(xg)
+            k8 = lambda: cam.pixel_rays_cuda(metric, xg, ng)  # noqa: E731
+            k9 = lambda: cam.pixel_rays_vjp_cuda(  # noqa: E731
+                metric, xg, ng, ct_u)
+            loc.update(k8_ms=cuda_ms(k8), k9_ms=cuda_ms(k9),
+                       k8_device_ms=kernel_alone_ms(k8, "k8_kernel"),
+                       k9_device_ms=kernel_alone_ms(k9, "k9_kernel"))
         if hasattr(adj, "localize_cuda"):
             P = ck[route.n_seg].contiguous()
             ct_y, ct_lam = loc_cotangents(P)
@@ -316,18 +340,91 @@ def train_times(out: list, dev, card: str) -> None:
             k6 = lambda: adj.localize_cuda(route, P, largs)  # noqa: E731
             k7 = lambda: adj.localize_vjp_cuda(  # noqa: E731
                 route, P, ct_y, ct_lam, largs)
-            loc = dict(k6_ms=cuda_ms(k6), k7_ms=cuda_ms(k7),
+            loc.update(k6_ms=cuda_ms(k6), k7_ms=cuda_ms(k7),
                        k6_device_ms=kernel_alone_ms(k6, "k6_kernel"),
                        k7_device_ms=kernel_alone_ms(k7, "k7_kernel"))
         emit(out, "time", card=card, what=f"train {label} 200x200 f32",
              step_ms=step_ms, eager_step_ms_in_turns=turns["eager"],
              graphed_step_ms=turns["graphed"],
              replay_device_ms=prof["busy_ms"],
-             replay_kernels=prof["kernels"], loss_hex=loss_hex,
+             replay_kernels=prof["kernels"],
+             replay_k8_k9=(prof["k8"], prof["k9"]), loss_hex=loss_hex,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
              / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms,
              memory=mem, **loc)
+
+
+# The images behind the steps' losses (``times``): each training
+# configuration's render at the step's parameters and its target, and
+# config 5's 16 starts' renders and target, written beside ``--out`` as
+# ``<out>.images.pt`` for ``compare-images``.
+IMAGES = {}
+# A pixel flips where a channel moves by more than this between two trees
+# (a hit or miss, or a checker edge, crossed), not by rounding.
+FLIP = 0.05
+
+
+def on_edge(a, flip):
+    """Of the pixels ``flip`` (a square image's ``[n, n]`` mask), those on
+    an edge of image ``a`` (``[n, n, 3]``): a neighbour (of the 8) differs
+    from the pixel by more than ``FLIP``, as across a silhouette or a
+    checker line, where a ray that moves a little may cross."""
+    import torch.nn.functional as F
+    n = a.shape[0]
+    pad = F.pad(a.permute(2, 0, 1), (1, 1, 1, 1), value=float("nan"))
+    edge = False
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            nb = pad[:, dy:dy + n, dx:dx + n].permute(1, 2, 0)
+            edge = edge | ((nb - a).abs() > FLIP).any(-1)
+    return flip & edge
+
+
+def compare_images(a_path: str, b_path: str) -> list:
+    """``compare-images A B`` (CPU): two trees' ``times`` images. Per
+    configuration (and per start of config 5): the pixel-MSE loss of each
+    (float64 over the f32 images) and their relative gap, the pixels that
+    differ at all and that flip (``FLIP``, in the render or the target),
+    those of them on an edge of the image (``on_edge``, in the render and
+    the target), and the loss over the pixels that flip in neither, with
+    its gap."""
+    import torch
+    A, B = torch.load(a_path), torch.load(b_path)
+    out = []
+    for key in A:
+        ra, ta = A[key]["render"].double(), A[key]["target"].double()
+        rb, tb = B[key]["render"].double(), B[key]["target"].double()
+        moved = ((ra - rb).abs() > FLIP) | ((ta - tb).abs() > FLIP)[None]
+        flip = moved.any(-1, keepdim=True).expand_as(ra)
+        differ = ((ra != rb) | (ta != tb)[None]).any(-1)
+        n = int(round(ra[0, ..., 0].numel() ** 0.5))
+        sq = lambda t: t.reshape(n, n, 3)  # noqa: E731
+        t_flip = ((ta - tb).abs() > FLIP).any(-1).reshape(n, n)
+        t_edge = int(on_edge(sq(ta), t_flip).sum())
+        for i in range(ra.shape[0]):
+            r_flip = ((ra[i] - rb[i]).abs() > FLIP).any(-1).reshape(n, n)
+            la = ((ra[i] - ta) ** 2).mean()
+            lb = ((rb[i] - tb) ** 2).mean()
+            keep = ~flip[i]
+            ka = ((ra[i] - ta) ** 2)[keep].mean()
+            kb = ((rb[i] - tb) ** 2)[keep].mean()
+            rec = dict(kind="images", what=key, start=i,
+                       loss_a=float(la), loss_b=float(lb),
+                       rel_gap=float((la - lb).abs() / la),
+                       abs_gap=float((la - lb).abs()),
+                       pixels=int(differ[i].numel()),
+                       pixels_differ=int(differ[i].sum()),
+                       pixels_flip=int(flip[i].any(-1).sum()),
+                       render_flips=int(r_flip.sum()),
+                       render_flips_on_edge=int(on_edge(sq(ra[i]),
+                                                        r_flip).sum()),
+                       target_flips=int(t_flip.sum()),
+                       target_flips_on_edge=t_edge,
+                       unflipped_rel_gap=float((ka - kb).abs() / ka))
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
+    return out
 
 
 def peak_mib(dev) -> float:
@@ -363,6 +460,12 @@ def config5_times(out: list, dev, card: str) -> None:
         inits = [rt.InverseParams(0.5 + 0.04 * ((k % 5) - 2) / 2, 0.0,
                                   [0.0, 5.0, 12.0, 0.02 * ((k % 7) - 3)],
                                   f32, dev) for k in range(n)]
+        if n == 16:
+            render = rt.make_render_for_params(spec, cfg, 0, f32, dev)
+            with torch.no_grad():
+                IMAGES["config 5 starts"] = dict(
+                    render=torch.stack([render(p) for p in inits]).cpu(),
+                    target=target.cpu())
         if n == 1:
             loss_fn, make = (rt.make_loss_fn(spec, target, cfg, 0, f32, dev),
                              inits[0].copy)
@@ -375,13 +478,17 @@ def config5_times(out: list, dev, card: str) -> None:
                     torch.stack([getattr(i, k).detach() for i in inits])
                     for k in ("M", "a", "sphere_pos")), dtype=f32,
                     device=dev)
+        with torch.no_grad():
+            losses = loss_fn(make()).reshape(-1).tolist()
         eager, graphed, _ = adam_steps(loss_fn, make, trainable)
         turns = in_turns({"eager": eager, "graphed": graphed})
         prof = profile_steps(graphed)
         emit(out, "time", card=card, what=f"config 5 Adam step {n} starts",
              eager_ms=turns["eager"], graphed_ms=turns["graphed"],
              graphed_device_ms=prof["busy_ms"],
-             graphed_kernels=prof["kernels"])
+             graphed_kernels=prof["kernels"],
+             graphed_k8_k9=(prof["k8"], prof["k9"]),
+             loss_hex=[float(v).hex() for v in losses])
 
 
 # K4's diagnosis: the training batch cut to a quarter and a half (every
@@ -390,7 +497,7 @@ def config5_times(out: list, dev, card: str) -> None:
 K4_SCALES = ("quarter", "half", "1x", "2x", "4x")
 K4_STARTS = (1, 4, 16)
 # The libraries the k4 mode runs (the training and inversion steps).
-K4_LIBRARIES = ("geodesic", "adjoint", "localize")
+K4_LIBRARIES = ("geodesic", "adjoint", "localize", "camera")
 
 
 def k4_scaled(ck, ends, ct, scale: str):
@@ -527,11 +634,17 @@ def graphed_step(loss_fn, make_params):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("diagnose", "diagnose-k1", "k4",
-                                     "k4-kernel", "sass", "times"))
+    ap.add_argument("mode", choices=("compare-images", "diagnose",
+                                     "diagnose-k1", "k4", "k4-kernel",
+                                     "sass", "times"))
+    ap.add_argument("images", nargs="*", help="compare-images: A B")
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
     ns = ap.parse_args()
+    if ns.mode == "compare-images":
+        require(len(ns.images) == 2, "compare-images takes two files")
+        compare_images(*ns.images)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -580,6 +693,8 @@ def main() -> int:
         with open(ns.out, "w") as f:
             for rec in out:
                 f.write(json.dumps(rec) + "\n")
+        if IMAGES:
+            torch.save(IMAGES, f"{ns.out}.images.pt")
     return 0
 
 

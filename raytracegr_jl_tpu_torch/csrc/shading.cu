@@ -17,7 +17,8 @@
 // the launch point (Kerr-Schild g = eta + f k k as ops/metrics.py
 // kerr_schild writes it, or Minkowski), the camera observer's frequency
 // (the normalised raised time covector, from the closed-form inverse's
-// first column, ops/geometry.py inv4), the emitter's 4-velocity (Keplerian
+// first column, ops/geometry.py inv4_column0; these device functions are
+// csrc/camera_common.cuh's, shared with K8 and K9), the emitter's 4-velocity (Keplerian
 // for a disk, the stored vel otherwise, normalised with the local metric),
 // the g-factor, and the colour scaled by clip(exposure g^beaming, 0, 1);
 // black on a miss. Only the nearest object's colour and g-factor are
@@ -32,58 +33,9 @@
 // checker step (the JAX package's fused epilogue moves ~2% of its pixels
 // the same way).
 
-#include "geodesic_common.cuh"
+#include "camera_common.cuh"
 
 namespace {
-
-// Kerr-Schild's metric at x as ops/metrics.py kerr_schild computes it.
-template <typename T, bool KERR>
-__device__ __forceinline__ void metric_at(const Params<T>& p, int r_mode,
-                                          const T* x, T g[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) g[a][b] = a != b ? T(0) : (a == 0 ? T(-1) : T(1));
-  if constexpr (!KERR) return;
-  const T M = p.cfg[P_M], a = p.cfg[P_A], eps2 = p.cfg[P_EPS2];
-  const T xs = x[1], ys = x[2], zs = x[3];
-  const T rho2_raw = xs * xs + ys * ys + zs * zs;
-  const T rho2 = r_mode == R_AS_WRITTEN ? nmax(rho2_raw, a * a + eps2)
-                                        : nmax(rho2_raw, eps2);
-  const T half = (rho2 - a * a) * T(0.5);
-  T inner = sqrt(a * a * zs * zs + half * half);
-  T r;
-  if (r_mode == R_AS_WRITTEN) {
-    r = sqrt(rho2 - a * a) * T(0.5) + inner;
-  } else if (r_mode == R_TEXTBOOK) {
-    inner = nmax(inner, p.cfg[P_EPS2_HALF]);
-    r = sqrt(nmax(half + inner, eps2));
-  } else {
-    r = sqrt(half + inner);
-  }
-  const T r2 = r * r;
-  const T f = T(2) * M * (r * r2) / (r2 * r2 + a * a * zs * zs);
-  const T denom = r2 + a * a;
-  const T k[4] = {T(1), (r * xs + a * ys) / denom, (r * ys - a * xs) / denom,
-                  zs / r};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) g[i][j] = g[i][j] + f * k[i] * k[j];
-}
-
-// u^a g_ab v^b, the inner sums over b.
-template <typename T>
-__device__ __forceinline__ T quad(const T* u, const T g[4][4], const T* v) {
-  T acc = T(0);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const T gv = g[a][0] * v[0] + g[a][1] * v[1] + g[a][2] * v[2]
-                 + g[a][3] * v[3];
-    acc = a == 0 ? u[a] * gv : acc + u[a] * gv;
-  }
-  return acc;
-}
 
 // v / sqrt(max(-g(v, v), 1e-6)): a unit timelike vector (models/shading.py
 // normalize_timelike).
@@ -93,20 +45,6 @@ __device__ __forceinline__ void normalize_timelike(const T g[4][4], T* v) {
   const T s = sqrt(nmax(n2, T(1e-6)));
 #pragma unroll
   for (int a = 0; a < 4; ++a) v[a] = v[a] / s;
-}
-
-// The determinant of the 3x3 minor of m without row r and column c.
-template <typename T>
-__device__ __forceinline__ T det3(const T m[4][4], int r, int c) {
-  int rs[3], cs[3];
-  for (int i = 0, n = 0; i < 4; ++i)
-    if (i != r) rs[n++] = i;
-  for (int j = 0, n = 0; j < 4; ++j)
-    if (j != c) cs[n++] = j;
-  const T a = m[rs[0]][cs[0]], b = m[rs[0]][cs[1]], c0 = m[rs[0]][cs[2]];
-  const T d = m[rs[1]][cs[0]], e = m[rs[1]][cs[1]], f = m[rs[1]][cs[2]];
-  const T g = m[rs[2]][cs[0]], h = m[rs[2]][cs[1]], i = m[rs[2]][cs[2]];
-  return a * (e * i - f * h) - b * (d * i - f * g) + c0 * (d * h - e * g);
 }
 
 // torch.remainder(v, 1): fmod, moved into [0, 1).
@@ -170,7 +108,8 @@ k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
     }
     // The emitter's 4-velocity in the metric at the hit.
     T g[4][4], u[4];
-    metric_at<T, KERR>(p, r_mode, x, g);
+    metric_at<T, KERR>(p.cfg[P_M], p.cfg[P_A], p.cfg[P_EPS2],
+                       p.cfg[P_EPS2_HALF], r_mode, x, g);
     if (kind == KIND_DISK) {
       const T rho = sqrt(nmax(xx * xx + yy * yy, T(1e-6)));
       const T sqrtM = sqrt(nmax(p.cfg[P_M], T(0)));
@@ -186,19 +125,10 @@ k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
     normalize_timelike(g, u);
     const T w_emit = nmax(quad(u, g, k), T(1e-3));
     // The camera observer's frequency at the launch point.
-    T g0[4][4], t[4];
-    metric_at<T, KERR>(p, r_mode, x0, g0);
-    T det = T(0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      t[c] = (c % 2 ? T(-1) : T(1)) * det3(g0, 0, c);
-      det = det + g0[0][c] * t[c];
-    }
-    const T dmn = p.cfg[P_DET_MIN];
-    det = det < T(0) ? nmin(det, -dmn) : nmax(det, dmn);
-    const T inv_det = T(1) / det;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) t[c] = t[c] * inv_det;
+    T g0[4][4], cof[4], inv_det, t[4];
+    metric_at<T, KERR>(p.cfg[P_M], p.cfg[P_A], p.cfg[P_EPS2],
+                       p.cfg[P_EPS2_HALF], r_mode, x0, g0);
+    time_column(g0, p.cfg[P_DET_MIN], cof, inv_det, t);
     normalize_timelike(g0, t);
     const T w_obs = -quad(t, g0, k0);
     const T gf = w_obs / w_emit;

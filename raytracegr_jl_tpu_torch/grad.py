@@ -13,8 +13,8 @@ import torch
 from torch import nn
 
 from .models.camera import pixel_grid, pixel_rays
-from .models.objects import Scene
-from .models.scenes import SceneSpec, build
+from .models.objects import Scene, make_scene
+from .models.scenes import SceneSpec
 from .ops.adjoint import per_ray
 from .ops.integrate import IntegratorConfig
 from .ops.metrics import KerrSchildParams, make_metric
@@ -82,7 +82,7 @@ def make_render_for_params(spec: SceneSpec, cfg: RenderConfig,
     (so on M and a); its pixel grid is built once, so that a call copies
     nothing from the host."""
     device = resolve_device(device)
-    _, scene0, _ = build(spec, dtype, device)
+    scene0 = make_scene(spec.objects, dtype, device)
     xg, ng = pixel_grid(spec.cam_pos, spec.cam_widthx, spec.cam_widthy,
                         spec.cam_normal, spec.ni, spec.nj, dtype, device)
 
@@ -108,7 +108,7 @@ def make_ray_render_for_params(spec: SceneSpec, cfg: RenderConfig,
                                device=None):
     """``(params, xg, ng) -> rgb [B, 3]``: the render with the pixel batch
     as data. Gradients reach M and a through ``pixel_rays``."""
-    _, scene0, _ = build(spec, dtype, device)
+    scene0 = make_scene(spec.objects, dtype, device)
 
     def render(params: InverseParams, xg: torch.Tensor, ng: torch.Tensor):
         metric = _metric(spec, params, cfg)
@@ -165,7 +165,7 @@ def make_multistart_loss_fn(spec: SceneSpec, target_rgb: torch.Tensor,
     launch on the card, whatever N (the JAX package vmaps ``make_loss_fn``
     over the starts). Start i's loss equals ``make_loss_fn``'s at its
     parameters."""
-    _, scene0, _ = build(spec, dtype, device)
+    scene0 = make_scene(spec.objects, dtype, device)
     xg, ng = flat_pixel_grid(spec, dtype, scene0.pos.device)
     B = xg.shape[0]
     target = target_rgb.reshape(B, 3)

@@ -147,19 +147,25 @@ def flatten_params(metric: Metric, scene: Scene,
     return torch.stack(cols, dim=1)
 
 
+def group_sums(g: torch.Tensor, groups: int) -> torch.Tensor:
+    """``g [G * rays, ...]``'s sum over each group of ``rays`` consecutive
+    rows, in float64, rounded once to ``g``'s dtype: ``[G, ...]``."""
+    rows = g.reshape(groups, -1, *g.shape[1:])
+    return rows.sum(dim=1, dtype=torch.float64).to(g.dtype)
+
+
 class _PerRay(torch.autograd.Function):
     """``per_ray``: ``repeat_interleave`` along the first axis, its
-    backward each group's sum in float64."""
+    backward each group's sum in float64 (``group_sums``)."""
 
     @staticmethod
     def forward(ctx, v, rays):
-        ctx.shape = v.shape
+        ctx.groups = v.shape[0]
         return v.repeat_interleave(rays, dim=0)
 
     @staticmethod
     def backward(ctx, g):
-        rows = g.reshape(ctx.shape[0], -1, *ctx.shape[1:])
-        return rows.sum(dim=1, dtype=torch.float64).to(g.dtype), None
+        return group_sums(g, ctx.groups), None
 
 
 def per_ray(v: torch.Tensor, rays: int) -> torch.Tensor:

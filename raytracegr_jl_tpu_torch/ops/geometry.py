@@ -53,27 +53,40 @@ def clamp_det(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d < 0, torch.clamp_max(d, -m), torch.clamp_min(d, m))
 
 
+def det3(m, r: int, c: int):
+    """The determinant of the 3x3 minor of the entries ``m[a][b]`` without
+    row r and column c (csrc/camera_common.cuh det3 alike)."""
+    rs = [i for i in range(4) if i != r]
+    cs = [j for j in range(4) if j != c]
+    a, b, c0 = m[rs[0]][cs[0]], m[rs[0]][cs[1]], m[rs[0]][cs[2]]
+    d, e, f = m[rs[1]][cs[0]], m[rs[1]][cs[1]], m[rs[1]][cs[2]]
+    g_, h, i = m[rs[2]][cs[0]], m[rs[2]][cs[1]], m[rs[2]][cs[2]]
+    return (a * (e * i - f * h) - b * (d * i - f * g_)
+            + c0 * (d * h - e * g_))
+
+
 def inv4(g: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of 4x4 matrices, batched: ``[..., 4, 4]``
     (adjugate over a clamped determinant)."""
     m = [[g[..., a, b] for b in range(4)] for a in range(4)]
-
-    def det3(r, c):
-        rs = [i for i in range(4) if i != r]
-        cs = [j for j in range(4) if j != c]
-        a, b, c0 = m[rs[0]][cs[0]], m[rs[0]][cs[1]], m[rs[0]][cs[2]]
-        d, e, f = m[rs[1]][cs[0]], m[rs[1]][cs[1]], m[rs[1]][cs[2]]
-        g_, h, i = m[rs[2]][cs[0]], m[rs[2]][cs[1]], m[rs[2]][cs[2]]
-        return (a * (e * i - f * h) - b * (d * i - f * g_)
-                + c0 * (d * h - e * g_))
-
-    cof = [[((-1) ** (a + b)) * det3(a, b) for b in range(4)]
+    cof = [[((-1) ** (a + b)) * det3(m, a, b) for b in range(4)]
            for a in range(4)]
     det = sum(m[0][c] * cof[0][c] for c in range(4))
     inv_det = 1.0 / clamp_det(det)
     rows = [torch.stack([cof[b][a] * inv_det for b in range(4)], dim=-1)
             for a in range(4)]
     return torch.stack(rows, dim=-2)
+
+
+def inv4_column0(m):
+    """Column 0 of ``inv4`` from the entries ``m[a][b]`` (tensors of one
+    shape), as a list of four: row 0's cofactors over the clamped
+    determinant, the same expressions as ``inv4``'s, so the same bits,
+    without the other twelve cofactors."""
+    cof = [((-1) ** c) * det3(m, 0, c) for c in range(4)]
+    det = sum(m[0][c] * cof[c] for c in range(4))
+    inv_det = 1.0 / clamp_det(det)
+    return [cof[c] * inv_det for c in range(4)]
 
 
 def dmetric(metric: MetricFn, x: torch.Tensor

@@ -34,9 +34,10 @@ F32_FLAGS = NVCC_FLAGS + ("-DRTGR_F32=1",)
 F64_FLAGS = NVCC_FLAGS + ("-rdc=true", "-DRTGR_F64=1")
 POW_FLAGS = _COMMON + ("-rdc=true", "--fmad=true")
 LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
-# The C entry points, each returning a cudaError_t. Every one takes the
-# packed parameter block (prm: ops/geodesic_cm.py pack_params), copies it
-# into the library's constant memory on the stream and launches there. K1:
+# The C entry points, each returning a cudaError_t. Every one but K8's and
+# K9's takes the packed parameter block (prm: ops/geodesic_cm.py
+# pack_params), copies it into the library's constant memory on the stream
+# and launches there. K1:
 # (y0, dt0, y, lam, hit, steps, prm: pointers; n, kerr, tsit5, r_mode,
 # scene, max_steps, n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0,
 # dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
@@ -53,6 +54,9 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # null. The adjoint and localize libraries' fence around a graph replay:
 # (stream). K5: (y0, y, vel, rgb, prm;
 # n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
+# K8, K9 (no parameter block: M and a by pointer): (pos, normal, M, a, u;
+# n, M's stride, a's stride, kerr, r_mode; eps2, eps2 / 2, det_min:
+# doubles; stream), K9 with the cotangent after a and pbar for u.
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
@@ -74,6 +78,10 @@ _SIGNATURES = {
                                             "rtgr_fence_f64")}},
     "shading": {name: [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P]
                 for name in ("rtgr_k5_f32", "rtgr_k5_f64")},
+    "camera": {**{name: [_P] * 5 + [_I] * 5 + [_D] * 3 + [_P]
+                  for name in ("rtgr_k8_f32", "rtgr_k8_f64")},
+               **{name: [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P]
+                  for name in ("rtgr_k9_f32", "rtgr_k9_f64")}},
 }
 
 _lock = threading.Lock()

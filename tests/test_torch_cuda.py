@@ -1397,3 +1397,112 @@ def test_train_step_launches_k6_and_k7():
     assert out[0][:2] == (1, 1) and out[1][:2] == (0, 0)
     assert _bits_equal(out[0][2], out[1][2])
     assert _bits_equal(out[0][3], out[1][3])
+
+
+def _camera_batch(case):
+    """(metric, pos, normal) of a K8/K9 case on the card: example2 as the
+    training path builds it (M 1.05, rho_min 0.25) at n x n, example1
+    (Minkowski), or config 5's lensing scene at 4 starts of 32x32 each
+    (textbook, M and a per ray)."""
+    name, n, dtype, a = case
+    dev = torch.device("cuda")
+    full = lambda v: torch.tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    if name == "grouped":
+        xg, ng = T.flat_pixel_grid(T.lensing_inverse_spec(n, n), dtype, dev)
+        B = xg.shape[0]
+        M = full([0.5, 0.53, 0.47, 0.51]).repeat_interleave(B)
+        av = full([a * k / 3 for k in range(4)]).repeat_interleave(B)
+        metric = T.make_metric("kerr_schild", T.KerrSchildParams(M, av),
+                               r_formula="textbook", rho_min=0.25)
+        return metric, xg.repeat(4, 1), ng.repeat(4, 1)
+    spec = (T.example2_spec if name == "example2" else T.example1_spec)(n, n)
+    xg, ng = T.flat_pixel_grid(spec, dtype, dev)
+    if name == "example1":
+        return T.make_metric("minkowski"), xg, ng
+    return T.make_metric("kerr_schild", T.KerrSchildParams(full(1.05),
+                                                           full(a)),
+                         rho_min=0.25), xg, ng
+
+
+@pytest.mark.parametrize("case", [
+    ("example2", 200, torch.float32, 0.0), ("example2", 8, torch.float64, 0.0),
+    ("example2", 64, torch.float64, 0.6), ("example1", 64, torch.float32, 0.0),
+    ("grouped", 32, torch.float32, 0.0), ("grouped", 32, torch.float64, 0.3)],
+    ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}-a{c[3]}")
+def test_k8_k9_match_plain_bitwise(case):
+    """K8 against ``pixel_rays_plain`` and K9 against ``pixel_rays_vjp`` on
+    the same CUDA tensors, bit for bit (every ninth ray's cotangent zero);
+    ``pixel_rays`` of a Metric value launches K8, its backward K9."""
+    from raytracegr_jl_tpu_torch.models import camera as C
+    metric, pos, normal = _camera_batch(case)
+    gen = torch.Generator(device=pos.device).manual_seed(4)
+    ct = torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                     device=pos.device)
+    ct[::9] = 0
+    u = C.pixel_rays_cuda(metric, pos, normal)
+    assert bool(torch.isfinite(u).all())
+    assert _bits_equal(u, C.pixel_rays_plain(metric, pos, normal))
+    assert _bits_equal(C.pixel_rays_vjp_cuda(metric, pos, normal, ct),
+                       C.pixel_rays_vjp(metric, pos, normal, ct))
+    before = (C.pixel_rays_cuda.launches, C.pixel_rays_vjp_cuda.launches)
+    M = torch.as_tensor(metric.params.M, dtype=pos.dtype,
+                        device=pos.device).clone().requires_grad_()
+    _, u2 = C.pixel_rays(metric._replace(params=metric.params._replace(M=M)),
+                         pos, normal)
+    (u2 * ct).sum().backward()
+    assert (C.pixel_rays_cuda.launches - before[0],
+            C.pixel_rays_vjp_cuda.launches - before[1]) == (1, 1)
+    assert _bits_equal(u2.detach(), u)
+
+
+def test_graphed_rk4_step_with_k8_k9_matches_eager():
+    """The rk4/200 training step at 200x200 f32 captured as one CUDA graph,
+    the camera's K8 and K9 inside it: the replay's loss and gradients equal
+    the eager step's bitwise, also after M changes in place (K8 and K9 read
+    M by pointer); K8 and K9 are counted in the warm-ups and the capture
+    only."""
+    from raytracegr_jl_tpu_torch.models import camera as C
+    from raytracegr_jl_tpu_torch.step_graph import (WARMUP_PASSES,
+                                                    GraphedStep)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    spec = T.example2_spec(200, 200)
+    cfg = T.default_inverse_cfg(f32, max_steps=200, rk4_dt=0.5, stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, f32, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev), xg,
+            ng)
+    loss_fn = T.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+
+    def params(M=1.05):
+        return T.InverseParams(M, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+    def grads(p):
+        return torch.cat([p.M.grad[None], p.a.grad[None], p.sphere_pos.grad])
+
+    def eager(M):
+        p = params(M)
+        loss = loss_fn(p, xg, ng, target)
+        loss.backward()
+        return loss.detach(), grads(p)
+
+    want, moved = eager(1.05), eager(1.06)
+    pg = params()
+    before = (C.pixel_rays_cuda.launches, C.pixel_rays_vjp_cuda.launches)
+    step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
+    counted = (WARMUP_PASSES + 1, WARMUP_PASSES + 1)
+
+    def replay():
+        for q in pg.parameters():
+            q.grad.zero_()
+        return step.replay()
+
+    assert _bits_equal(replay(), want[0]) and _bits_equal(grads(pg), want[1])
+    with torch.no_grad():
+        pg.M.fill_(1.06)
+    assert _bits_equal(replay(), moved[0])
+    assert _bits_equal(grads(pg), moved[1])
+    assert not _bits_equal(moved[0], want[0])
+    assert (C.pixel_rays_cuda.launches - before[0],
+            C.pixel_rays_vjp_cuda.launches - before[1]) == counted
