@@ -275,8 +275,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 def profile_steps(fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` runs of ``fn()`` (after one): per run,
     the device's busy ms (its kernels, copies and fills summed), its
-    kernels, the K3, K4, K6, K7, K8 and K9 kernels among them, and the
-    host's launch calls (``LAUNCH_CALLS``)."""
+    kernels, the K3, K4, K10, K6, K7, K8 and K9 kernels among them, and
+    the host's launch calls (``LAUNCH_CALLS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -297,6 +297,7 @@ def profile_steps(fn, reps: int = 3) -> dict:
         busy_ms=sum(e.self_device_time_total for e in dev) / 1e3 / reps,
         kernels=sum(e.count for e in dev) / reps,
         k3=count(dev, ("k3_kernel",)), k4=count(dev, ("k4_kernel",)),
+        k10=count(dev, ("k10_kernel",)),
         k6=count(dev, ("k6_kernel",)), k7=count(dev, ("k7_kernel",)),
         k8=count(dev, ("k8_kernel",)), k9=count(dev, ("k9_kernel",)),
         host_launches=sum(e.count for e in avg
@@ -305,19 +306,26 @@ def profile_steps(fn, reps: int = 3) -> dict:
 
 
 @contextlib.contextmanager
-def camera_launches():
-    """K8's and K9's launches within the block: yields a dict whose
-    ``"k8"`` and ``"k9"`` are set when the block ends. A graph's capture
-    launches them once each (its warm-up passes once each more); the
-    profiler's count per replay can miss one of these few-microsecond
-    kernels (seen on the card), so the graphed phases hold the capture's
-    count."""
+def step_launches():
+    """The launches of a training step's kernels within the block (K3, K4,
+    K10, K6, K7, K8, K9, by their wrappers' counters): yields a dict keyed
+    "k3" ... "k9", set when the block ends. A graph's capture launches
+    each once (its warm-up passes once each more), and a replay runs what
+    was captured, so the graphed phases hold these counts. The profiler's
+    counts per replay are printed beside them: in this long process it
+    misses some kernels, most often a replay's first ones (K8, and K3
+    where no eager kernel precedes it), not in a fresh process
+    (``kernel_times.py``)."""
     from raytracegr_jl_tpu_torch.models import camera as cam
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    fns = {"k3": adj.forward_segment_cuda, "k4": adj.backward_cuda,
+           "k10": adj.init_vjp_cuda, "k6": adj.localize_cuda,
+           "k7": adj.localize_vjp_cuda, "k8": cam.pixel_rays_cuda,
+           "k9": cam.pixel_rays_vjp_cuda}
     out = {}
-    before = (cam.pixel_rays_cuda.launches, cam.pixel_rays_vjp_cuda.launches)
+    before = {k: fn.launches for k, fn in fns.items()}
     yield out
-    out["k8"] = cam.pixel_rays_cuda.launches - before[0]
-    out["k9"] = cam.pixel_rays_vjp_cuda.launches - before[1]
+    out.update({k: fn.launches - before[k] for k, fn in fns.items()})
 
 
 def in_turns(fns: dict, reps: int = REPEATS) -> dict:
@@ -561,23 +569,68 @@ def k1_main_call(metric, scene, y0, dt0, integ):
 
 def k3_single_launch() -> bool:
     """Whether the loaded package's K3 runs a whole forward pass in one
-    launch (``forward_segment_cuda(route, ck, args)``) rather than one
+    launch (``forward_segment_cuda(route, ck, ...)``) rather than one
     segment per launch."""
     import inspect
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     return "ck" in inspect.signature(adj.forward_segment_cuda).parameters
 
 
-def k3_forward_ms(route, P0, args):
-    """K3's launches of one forward pass from ``P0``, each between CUDA
-    events, the host's reads outside them: ``(ms summed, checkpoints,
-    used)`` (``used [1 + B]``: n_used, then the rays' end segments). One
-    launch where K3 runs the whole pass, else one per segment (older
-    checkouts; ``used`` is then n_used alone)."""
+def k3_builds_start() -> bool:
+    """Whether the loaded package's K3 builds each ray's initial state in
+    its prologue from the launch states (``forward_segment_cuda(route, ck,
+    y0, dt0, args)``); older checkouts (``kernel_times.py --tree``) take
+    it packed in ``ck[0]``."""
+    import inspect
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
-                     device=P0.device)
-    ck[0] = P0
+    return "y0" in inspect.signature(adj.forward_segment_cuda).parameters
+
+
+def packed_start(route, y0):
+    """The packed initial state ``[34, B]`` of the rays at the launch
+    states ``y0 [8, B]``, each at its own first step: ``init_plain`` where
+    the loaded package has it, else ``make_step_cm``'s init at
+    ``render.initial_dt`` (older checkouts), a grouped route's rays with
+    their groups' parameters."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    plain = route._replace(cuda=False)
+    if hasattr(adj, "init_plain"):
+        return adj.init_plain(plain, y0)
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.render import initial_dt
+    metric, scene = adj.route_rows(plain, y0.shape[1])
+    with torch.no_grad():
+        init, _ = make_step_cm(metric, scene_event_cm(scene), route.cfg)
+        return adj.pack_state(init(y0, initial_dt(metric, y0.t(),
+                                                  route.cfg)))
+
+
+def state_ct(y0, seed: int = 0):
+    """A random cotangent of the packed state ``[34, B]`` of the rays at
+    ``y0 [8, B]``."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    gen = torch.Generator(device=y0.device).manual_seed(seed)
+    return torch.randn((adj.N_PLANES, y0.shape[1]), generator=gen,
+                       dtype=y0.dtype, device=y0.device)
+
+
+def k3_forward_ms(route, y0, args):
+    """K3's launches of one forward pass from the launch states ``y0 [8,
+    B]`` (each ray's own first step), each between CUDA events, the host's
+    reads outside them: ``(ms summed, checkpoints, used)`` (``used [1 +
+    B]``: n_used, then the rays' end segments). One launch where K3 runs
+    the whole pass, else one per segment (older checkouts; ``used`` is
+    then n_used alone); where K3 takes its initial state packed (older
+    checkouts), that state is built before the timed window."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    ck = torch.empty((route.n_seg + 1, adj.N_PLANES, y0.shape[1]),
+                     dtype=y0.dtype, device=y0.device)
+    if k3_builds_start():
+        used, ms = events_call(lambda: adj.forward_segment_cuda(
+            route, ck, y0, None, args))
+        return ms, ck, used
+    ck[0] = packed_start(route, y0)
     if k3_single_launch():
         used, ms = events_call(lambda: adj.forward_segment_cuda(route, ck,
                                                                 args))
@@ -602,26 +655,33 @@ def k4_walk(used):
     return int(used[0])
 
 
-def k3_pass(route, P0, args=None):
-    """K3's one launch from ``P0``: (checkpoints, used), read nothing."""
+def k3_pass(route, y0, args=None):
+    """K3's one launch from the launch states ``y0 [8, B]`` (each ray's
+    own first step): (checkpoints, used), read nothing. Older checkouts'
+    K3 starts from ``packed_start``."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
-                     device=P0.device)
-    ck[0] = P0
-    used = adj.forward_segment_cuda(route, ck,
-                                    args or adj.launch_args(route, P0))
-    return ck, used
+    ck = torch.empty((route.n_seg + 1, adj.N_PLANES, y0.shape[1]),
+                     dtype=y0.dtype, device=y0.device)
+    args = args or adj.launch_args(route, y0)
+    if k3_builds_start():
+        return ck, adj.forward_segment_cuda(route, ck, y0, None, args)
+    ck[0] = packed_start(route, y0)
+    return ck, adj.forward_segment_cuda(route, ck, args)
 
 
-def require_k3_equal(label, route, P0):
-    """K3's one launch against the plain per-segment chain: bitwise on
-    n_used, the end segments and every checkpoint value a reader takes
-    (``adj.read_mask``). Returns (max |d|, kernel's checkpoints and used,
-    plain checkpoints and used)."""
+def require_k3_equal(label, route, y0):
+    """K3's one launch from the launch states ``y0`` against the plain
+    per-segment chain from ``init_plain``: bitwise on the initial state
+    (K3's prologue), n_used, the end segments and every checkpoint value a
+    reader takes (``adj.read_mask``). Returns (max |d|, kernel's
+    checkpoints and used, plain checkpoints and used)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    ck_k, used_k = k3_pass(route, P0)
-    ck_p, used_p = adj.run_segments(route._replace(cuda=False), P0)
+    ck_k, used_k = k3_pass(route, y0)
+    ck_p, used_p = adj.run_segments(route._replace(cuda=False), y0)
     torch.cuda.synchronize()
+    require(bits_equal(ck_k[0], ck_p[0]), f"{label}: K3's initial state "
+            "differs from init_plain (max |d| "
+            f"{max_err(ck_k[0], ck_p[0]):.3e})")
     n_k, n_p = int(used_k[0]), int(used_p[0])
     require(n_k == n_p, f"{label}: K3 ran {n_k} segments, plain {n_p}")
     ends_k, ends_p = used_k[1:], used_p[1:]
@@ -906,14 +966,11 @@ def diagnose_k1(dev, card: str, sizes=(200, 1024)):
 
 def k3_trace(dev):
     """One rk4/200 forward pass of the training path at 200x200 f32
-    (``run_segments``) under the profiler: K3's device kernels, their
+    (``k3_pass``) under the profiler: K3's device kernels, their
     durations and the gaps between them (us), and the pass's wall time."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
-    from raytracegr_jl_tpu_torch.render import initial_dt
     f32 = torch.float32
     integ = rt.default_inverse_cfg(f32, max_steps=200, method="rk4",
                                    rk4_dt=0.5, stop_rho=0.5).integrator
@@ -925,14 +982,12 @@ def k3_trace(dev):
     seg = adj.segment_length(integ, integ.grad_seg_len)
     route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
                       n_seg=integ.max_steps // seg, cuda=True)
-    with torch.no_grad():
-        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-        P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+    y0 = y0.t().contiguous()
     out = {}
 
     def run():
         t0 = time.perf_counter()
-        out["n_used"] = int(adj.run_segments(route, P0)[1][0])
+        out["n_used"] = int(k3_pass(route, y0)[1][0])
         out.setdefault("wall_ms", []).append((time.perf_counter() - t0) * 1e3)
 
     evs = profiled_kernels(run, ("k3_kernel", "k3_close"), reps=1)
@@ -1055,15 +1110,12 @@ VEC_SERIAL_RTOL = 1e-4
 def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N,
                  refine: bool = False):
     """The lensing scene at n x n for each (M, z) start: per start its
-    (route, P0) on the card, and the grouped route over all starts' rays
-    (start-major, one table row per start) with its initial state; with
-    ``refine``, refine_minima on."""
+    (route, launch states [8, B]) on the card, and the grouped route over
+    all starts' rays (start-major, one table row per start) with their
+    launch states; with ``refine``, refine_minima on."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
-    from raytracegr_jl_tpu_torch.render import initial_dt
     integ = rt.default_inverse_cfg(dtype, max_steps=120, method=method,
                                    rk4_dt=0.5, stop_rho=0.5).integrator
     integ = integ._replace(lam_max=60.0, refine_minima=refine)
@@ -1082,15 +1134,13 @@ def inverse_case(dev, dtype, method: str, starts=INV_STARTS, n: int = INV_N,
             sc.pos[0, 3] = z
             x, u = pixel_rays(metric, xg, ng)
             y0 = torch.cat([x, u], -1)
-            init, _ = make_step_cm(metric, scene_event_cm(sc), integ)
-            P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
             singles.append((adj.Route(metric=metric, scene=sc, cfg=integ,
                                       seg_len=seg,
                                       n_seg=integ.max_steps // seg,
-                                      cuda=True), P0))
+                                      cuda=True), y0.t().contiguous()))
             rows.append(adj.flatten_params(metric, sc))
     grouped = singles[0][0]._replace(groups=torch.stack(rows).contiguous())
-    return singles, grouped, torch.cat([P for _, P in singles], dim=1)
+    return singles, grouped, torch.cat([y for _, y in singles], dim=1)
 
 
 def config5_starts(n: int):
@@ -1117,24 +1167,25 @@ K4_ORDER_STARTS = (1, 4, 16)
 
 
 def k4_order_case(dev, case: str, n: int, dtype, max_steps: int, dt: float):
-    """One of K4_ORDER_CASES on the card: (route, P0)."""
+    """One of K4_ORDER_CASES on the card: (route, launch states [8, B],
+    packed start or None). The one-end and every-end batches start from a
+    packed state that K3's prologue does not make (near their span's end,
+    some inactive): K4 walks the plain chain's checkpoints there."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
-    from raytracegr_jl_tpu_torch.render import initial_dt
     integ = rt.default_inverse_cfg(dtype, max_steps=max_steps, method="rk4",
                                    rk4_dt=dt, stop_rho=0.5).integrator
     _, scene, canvas = rt.build(rt.example2_spec(n, n), dtype, dev)
     metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(M=1.05),
                             rho_min=0.25)
     y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    y0 = y0.t().contiguous()
     seg = adj.segment_length(integ, integ.grad_seg_len)
     route = adj.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
                       n_seg=max_steps // seg, cuda=True)
-    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-    with torch.no_grad():
-        P = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
+    if case == "ragged":
+        return route, y0, None
+    P = adj.init_plain(route, y0)
     if case == "one end":
         P[adj.P_LAM] = integ.lam_max - 15 * dt
     elif case == "every end":
@@ -1142,27 +1193,31 @@ def k4_order_case(dev, case: str, n: int, dtype, max_steps: int, dt: float):
         P[adj.P_LAM] = integ.lam_max - (1 + (k * 7) % max_steps).to(
             P.dtype) * dt
         P[adj.P_ACTIVE, ::5] = 0
-    return route, P
+    return route, y0, P
 
 
-def k4_vs_plain(label: str, route, P, seed: int = 5, plain=None):
-    """K3 from ``P`` against its plain chain, then K4 as the wrapper
-    launches it (its work order, then K4 in that order), bitwise equal to
-    ``backward_plain`` on the plain chain's checkpoints. ``plain``:
-    (cotangent, backward_plain's output) of these
-    rays, taken from a larger batch that holds them (rays are
-    independent), in place of the plain chain. Returns (the rays' end
-    segments, max |d|, the plain version's output, the cotangent)."""
+def k4_vs_plain(label: str, route, y0, P=None, seed: int = 5, plain=None):
+    """K3 from the launch states ``y0`` against its plain chain (for a
+    packed start ``P``, the plain chain from ``P`` alone: ``chain_plain``),
+    then K4 as the wrapper launches it (its work order, then K4 in that
+    order) on those checkpoints, bitwise equal to ``k4_plain`` (the walk
+    and the initial state's VJP) on the plain chain's. ``plain``:
+    (cotangent, k4_plain's output) of these rays, taken from a larger
+    batch that holds them (rays are independent), in place of the plain
+    version. Returns (the rays' end segments, max |d|, the plain version's
+    output, the cotangent)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    if plain is None:
-        err, ck, used, ck_p, used_p = require_k3_equal(label, route, P)
-        ct = torch.randn(P.shape, generator=torch.Generator(
-            device=P.device).manual_seed(seed), dtype=P.dtype,
-            device=P.device)
-        want = adj.backward_plain(route._replace(cuda=False), ck_p,
-                                  used_p[1:], ct)
+    if P is not None:
+        ck, used = adj.chain_plain(route._replace(cuda=False), P)
+        err, ck_p, used_p = 0.0, ck, used
+    elif plain is None:
+        err, ck, used, ck_p, used_p = require_k3_equal(label, route, y0)
     else:
-        (ck, used), err = k3_pass(route, P), 0.0
+        (ck, used), err = k3_pass(route, y0), 0.0
+    if plain is None:
+        ct = state_ct(y0, seed)
+        want = adj.k4_plain(route._replace(cuda=False), ck_p, used_p[1:], ct)
+    else:
         ct, want = plain
     ends = used[1:]
     c, p = adj.backward_cuda(route, ck, ends, ct)
@@ -1184,16 +1239,16 @@ def k4_order_slice(dev, card: str) -> float:
     err, lines = 0.0, []
     for case, n, dtype, max_steps, dt in K4_ORDER_CASES:
         label = f"{case} example2 {n}x{n} {str(dtype)[6:]} rk4/{max_steps}"
-        route, P = k4_order_case(dev, case, n, dtype, max_steps, dt)
-        ends, e, _, _ = k4_vs_plain(label, route, P)
+        route, y0, P = k4_order_case(dev, case, n, dtype, max_steps, dt)
+        ends, e, _, _ = k4_vs_plain(label, route, y0, P)
         err = max(err, e)
         require(torch.equal(adj.work_order_cuda(ends, route.n_seg),
                             adj.work_order(ends)),
                 f"{label}: K4's work order differs from the stable sort")
         hist = torch.bincount(ends, minlength=route.n_seg + 1)
         require(bool((hist > 0).all()) if case == "every end" else
-                int(hist[2]) == P.shape[1] if case == "one end" else
-                P.shape[1] % 32 != 0, f"{label}: ends {hist.tolist()}")
+                int(hist[2]) == y0.shape[1] if case == "one end" else
+                y0.shape[1] % 32 != 0, f"{label}: ends {hist.tolist()}")
         lines.append(f"{label}:{hist.tolist()}")
     # The 16 starts' plain version holds the 1 and 4 starts' rays too:
     # their batches are its first 1,024 and 4,096 rays.
@@ -1201,22 +1256,22 @@ def k4_order_slice(dev, card: str) -> float:
     plain = None
     for n in sorted(K4_ORDER_STARTS, reverse=True):
         label = f"grouped config 5 {n} starts"
-        singles, grouped, P0 = inverse_case(dev, torch.float32, "rk4",
+        singles, grouped, y0 = inverse_case(dev, torch.float32, "rk4",
                                             starts=starts[:n])
-        if plain is not None:  # the first P0.shape[1] rays of 16 starts
+        if plain is not None:  # the first y0.shape[1] rays of 16 starts
             ct16, (c16, p16) = plain
-            r = P0.shape[1]
+            r = y0.shape[1]
             plain = (ct16[:, :r].contiguous(), (c16[:, :r], p16[:r]))
-        ends, e, (c, p), ct = k4_vs_plain(label, grouped, P0, plain=plain)
+        ends, e, (c, p), ct = k4_vs_plain(label, grouped, y0, plain=plain)
         plain = plain or (ct, (c, p))
         err = max(err, e)
         require(torch.equal(adj.work_order_cuda(ends, grouped.n_seg),
                             adj.work_order(ends)),
                 f"{label}: K4's work order differs from the stable sort")
         B = singles[0][1].shape[1]
-        for s, (route, P) in enumerate(singles):
+        for s, (route, y) in enumerate(singles):
             rays = slice(s * B, (s + 1) * B)
-            ck_s, used_s = k3_pass(route, P)
+            ck_s, used_s = k3_pass(route, y)
             c_s, p_s = adj.backward_cuda(route, ck_s, used_s[1:],
                                          ct[:, rays].contiguous())
             torch.cuda.synchronize()
@@ -1237,30 +1292,37 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
-def adjoint_work(route, P0, ct, n_used: int) -> dict:
-    """This run's work of K3 and K4 from ``P0`` over ``n_used`` segments:
-    each ray's iterations while active at the plain body's count for one
-    ray (the first group's, on a grouped route), K4 also each accepted
-    step's reverse step at step_vjp's count (for RK4 less its three
-    forward right-hand sides, whose values K4 keeps from the replay); and
-    their bounds (``bound``:
-    K3 reads and writes the state of each segment, K4 reads the
-    checkpoints, the cotangent and writes its two outputs)."""
+def adjoint_work(route, y0, ct, n_used: int) -> dict:
+    """This run's work of K3 and K4 from the launch states ``y0 [8, B]``
+    over ``n_used`` segments: K3's prologue (each ray's initial state,
+    ``init_plain``: k1 = rhs(y0), and for Tsit5 Hairer's first step, one
+    more rhs) and each ray's iterations while active, at the plain
+    version's count for one ray (the first group's, on a grouped route);
+    K4 also each accepted step's reverse step at step_vjp's count (for
+    RK4 less its three forward right-hand sides, whose values K4 keeps
+    from the replay); K10 the initial state's VJP (one rhs_vjp per ray);
+    and their bounds (``bound``: K3 reads y0 and writes the initial state
+    and the state of each segment, K4 reads the checkpoints and the
+    cotangent and writes the initial state's cotangent and the (M, a)
+    cotangents, K10 reads y0, that cotangent's y, k1 and ev_y0 planes and
+    the (M, a) cotangents and writes ct_y0 and the (M, a) cotangents)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
                                                          scene_event_cm)
     plain = route._replace(cuda=False)
-    R = P0.shape[1]
+    R = y0.shape[1]
     with torch.no_grad():
+        P0 = packed_start(route, y0)
         metric, scene = adj.route_rows(plain, R)
         _, body = make_step_cm(metric, scene_event_cm(scene), route.cfg)
-        m1, s1 = (adj.route_rows(plain._replace(groups=route.groups[:1]), 1)
-                  if route.groups is not None else (route.metric,
-                                                    route.scene))
+        first = (plain._replace(groups=route.groups[:1])
+                 if route.groups is not None else plain)
+        m1, s1 = adj.route_rows(first, 1)
         _, body1 = make_step_cm(m1, scene_event_cm(s1), route.cfg)
         st = adj.unpack_state(P0)
         one = lambda t: t[..., :1]  # noqa: E731
         step_flops = count_flops(lambda: body1(type(st)(*map(one, st))))
+        init_flops = count_flops(lambda: packed_start(first, one(y0)))
         p = adj.adj_params(m1, P0.dtype, P0.device)
         tsit5 = route.cfg.method == "tsit5"
         vjp_flops = count_flops(lambda: adj.step_vjp(
@@ -1269,21 +1331,76 @@ def adjoint_work(route, P0, ct, n_used: int) -> dict:
         if not tsit5:  # K4 keeps the replay's stages: no forward rhs
             vjp_flops -= 3 * count_flops(lambda: adj.geodesic_cm(
                 p.metric, one(st.y)))
+        init_vjp_flops = count_flops(lambda: adj.rhs_vjp(
+            p, one(st.y), one(ct[adj.P_K1:adj.P_K1 + 8])))
         iters = accepted = 0
         for _ in range(n_used * route.seg_len):
             iters += int(st.active.sum())
             st, rec = body(st)
             accepted += int(rec.do.sum())
-    size = P0.element_size()
+    size = y0.element_size()
     table = route.groups.numel() * size if route.groups is not None else 0
     return dict(
         iters=iters, accepted=accepted, step_flops=step_flops,
-        vjp_flops=vjp_flops,
-        k3_bound=bound(iters * step_flops,
-                       n_used * 2 * adj.N_PLANES * R * size + table),
+        vjp_flops=vjp_flops, init_flops=init_flops,
+        init_vjp_flops=init_vjp_flops,
+        k3_bound=bound(R * init_flops + iters * step_flops,
+                       8 * R * size + (2 * n_used + 1) * adj.N_PLANES * R
+                       * size + table),
         k4_bound=bound(iters * step_flops + accepted * vjp_flops,
-                       (n_used + 2) * adj.N_PLANES * R * size + R * 2 * size
-                       + table))
+                       (n_used + 2) * adj.N_PLANES * R * size
+                       + R * 2 * size + table),
+        k10_bound=bound(R * init_vjp_flops,
+                        (8 + 24 + 2 + 8 + 2) * R * size + table))
+
+
+# The initial state's VJP (init_vjp, K4's epilogue's plain version)
+# against torch autograd of make_step_cm's init, f64: the two round apart
+# only in the order of their sums.
+INIT_GRAD_RTOL = 1e-12
+
+
+def init_autograd_gap(route, y0, seed: int = 6) -> float:
+    """``init_vjp`` against torch autograd of ``make_step_cm``'s init at
+    the launch states ``y0 [8, B]`` on one random cotangent of every
+    plane, with M and a per ray on a grouped route: the largest relative
+    gap of y0's cotangent (against its largest entry) and of the (M, a)
+    cotangents (per ray against their largest; a shared value's sum
+    against the sum of the per-ray magnitudes). Requires ``init_plain`` to
+    equal the autograd forward bit for bit."""
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (initial_dt,
+                                                         make_step_cm,
+                                                         scene_event_cm)
+    from raytracegr_jl_tpu_torch.ops.metrics import KerrSchildParams
+    plain = route._replace(cuda=False)
+    metric, scene = adj.route_rows(plain, y0.shape[1])
+    as_t = lambda v: torch.as_tensor(  # noqa: E731
+        v, dtype=y0.dtype, device=y0.device).detach().clone()
+    M, a = as_t(metric.params.M).requires_grad_(), \
+        as_t(metric.params.a).requires_grad_()
+    ct = state_ct(y0, seed)
+    yt = y0.clone().requires_grad_()
+    m = metric._replace(params=KerrSchildParams(M, a))
+    with torch.no_grad():
+        dt0 = initial_dt(metric, y0.t(), route.cfg)
+    init, _ = make_step_cm(m, scene_event_cm(scene), route.cfg)
+    P = adj.pack_state(init(yt, dt0))
+    want = torch.autograd.grad((P * ct).sum(), (yt, M, a))
+    got_y, pbar = adj.init_vjp(plain, y0, ct, torch.zeros(
+        (y0.shape[1], 2), dtype=y0.dtype, device=y0.device))
+    require(bits_equal(adj.init_plain(plain, y0), P.detach()),
+            "init_plain differs from make_step_cm's init")
+    gaps = [float((got_y - want[0]).abs().max() / want[0].abs().max())]
+    for k in range(2):
+        got, ref = pbar[:, k], want[1 + k]
+        if ref.dim() == 0:
+            gaps.append(float((got.sum() - ref).abs()
+                              / got.abs().sum().clamp_min(1e-300)))
+        else:
+            gaps.append(float((got - ref).abs().max()
+                              / ref.abs().max().clamp_min(1e-300)))
+    return max(gaps)
 
 
 FIT_NAMES = ("M", "a", "sphere_pos")
@@ -1360,35 +1477,39 @@ def require_grouped_equal(label: str, dev, dtype, method: str,
     per start, ray by ray; all bitwise. Returns (max |d|, segments,
     hits)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    singles, grouped, P0 = inverse_case(dev, dtype, method, refine=refine)
+    singles, grouped, y0 = inverse_case(dev, dtype, method, refine=refine)
     B = singles[0][1].shape[1]
 
     err, ck_k, used_k, ck_p, used_p = require_k3_equal(
-        f"{label} grouped", grouped, P0)
+        f"{label} grouped", grouped, y0)
     n_k = int(used_k[0])
-    gen = torch.Generator(device=dev).manual_seed(1)
-    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
+    ct = state_ct(y0, 1)
     c_k, p_k = adj.backward_cuda(grouped, ck_k, used_k[1:], ct)
-    c_p, p_p = adj.backward_plain(grouped._replace(cuda=False), ck_p,
-                                  used_p[1:], ct)
+    c_p, p_p = adj.k4_plain(grouped._replace(cuda=False), ck_p, used_p[1:],
+                            ct)
     torch.cuda.synchronize()
     err = max(err, max_err(c_k, c_p), max_err(p_k, p_p))
     require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
             f"{label}: grouped K4 not bitwise equal to the grouped plain "
             f"version (max |d| {err:.3e})")
     fin = ck_k[grouped.n_seg]
-    for s, (route, P) in enumerate(singles):
+    for s, (route, y) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
-        ck, used = k3_pass(route, P)
+        ck, used = k3_pass(route, y)
         c, p = adj.backward_cuda(route, ck, used[1:], ct[:, rays])
         torch.cuda.synchronize()
         require(int(used[0]) <= n_k
+                and bits_equal(ck[0], ck_k[0][:, rays])
                 and bits_equal(ck[route.n_seg], fin[:, rays])
                 and bits_equal(c, c_k[:, rays]) and bits_equal(p, p_k[rays]),
                 f"{label}: start {s}: the grouped launch differs from its "
                 "own ungrouped launch")
     hits = int(fin[adj.P_HIT].sum())
     require(hits > 0, f"{label}: no ray hit the sphere")
+    if dtype == torch.float64:
+        gap = init_autograd_gap(grouped, y0)
+        require(gap <= INIT_GRAD_RTOL, f"{label}: the grouped initial "
+                f"state's VJP differs from autograd by {gap:.3e}")
     return err, n_k, hits
 
 
@@ -1409,7 +1530,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     from raytracegr_jl_tpu_torch.step_graph import WARMUP_PASSES
     from raytracegr_jl_tpu_torch.utils import checkpoint
     f32 = torch.float32
-    CAPTURED = WARMUP_PASSES + 1  # K8's, K9's launches as a graph is built
+    CAPTURED = WARMUP_PASSES + 1  # each kernel's launches as a graph is built
 
     # 1. Grouped against plain, and against one launch per start.
     grouped_err = 0.0
@@ -1584,7 +1705,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
                                                        f32, dev), stacked(n))
     graphed_cells = {}
     for name, (loss_fn, make_params) in steps.items():
-        with camera_launches() as cam_n:
+        with step_launches() as cap_n:
             eager, graphed, peak_g = adam_steps(loss_fn, make_params,
                                                 trainable)
         peak_e = eager_peak(eager)
@@ -1597,8 +1718,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
             device_ms=f"{prof['busy_ms']:.4f}",
             idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
             kernels=f"{prof['kernels']:.0f}", k3=prof["k3"], k4=prof["k4"],
-            k6=prof["k6"], k7=prof["k7"], k8=prof["k8"], k9=prof["k9"],
-            k8_k9_captured=(cam_n["k8"], cam_n["k9"]),
+            k10=prof["k10"], k6=prof["k6"], k7=prof["k7"], k8=prof["k8"],
+            k9=prof["k9"],
+            captured=cap_n,
             host_launches=f"{prof['host_launches']:.0f}", syncs=syncs,
             eager_peak_mib=f"{peak_e / 2**20:.1f}",
             graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
@@ -1607,13 +1729,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     require(all(same.values()), f"config 5: a graphed fit differs from the "
             f"eager one: {same}")
     for name, c in graphed_cells.items():
-        require(c["syncs"] == 0 and all(c[k] == 1 for k in (
-                    "k3", "k4", "k6", "k7"))
-                and c["k8_k9_captured"] == (CAPTURED, CAPTURED),
-                f"config 5 {name}: {c['syncs']} host syncs, K3 {c['k3']}, "
-                f"K4 {c['k4']}, K6 {c['k6']} and K7 {c['k7']} per graphed "
-                f"step, K8 and K9 {c['k8_k9_captured']} in the capture and "
-                "its warm-ups")
+        require(c["syncs"] == 0
+                and set(c["captured"].values()) == {CAPTURED},
+                f"config 5 {name}: {c['syncs']} host syncs; launches in the "
+                f"capture and its warm-ups {c['captured']}, not {CAPTURED} "
+                "of each kernel")
 
     # 4. A fit checkpointed after 3 steps, restored and run 3 more, against
     #    6 uninterrupted steps, with a 6-step cosine schedule.
@@ -1643,12 +1763,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     #    them) beside one ungrouped launch per start, their plain versions,
     #    SC_ANY against the fixed scene code, and their bounds.
     t0 = time.perf_counter()
-    singles, grouped, P0 = inverse_case(dev, f32, "rk4")
-    args = adj.launch_args(grouped, P0)
+    singles, grouped, y0 = inverse_case(dev, f32, "rk4")
+    args = adj.launch_args(grouped, y0)
     prm, flags = args
     any_args = (prm, flags[:3] + (SC_ANY,) + flags[4:])
-    ct = torch.randn(P0.shape, generator=torch.Generator(device=dev)
-                     .manual_seed(2), dtype=f32, device=dev)
+    ct = state_ct(y0, 2)
 
     def k3_ms(route, P, a):
         runs = [k3_forward_ms(route, P, a) for _ in range(REPEATS + 1)][1:]
@@ -1659,29 +1778,28 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
             events_ms(lambda: adj.backward_cuda(route, ck, ends, c, a))
             for _ in range(REPEATS))
 
-    g3, ck, used = k3_ms(grouped, P0, args)
+    g3, ck, used = k3_ms(grouped, y0, args)
     n_used = int(used[0])
     g4 = k4_ms(grouped, ck, used[1:], ct, args)
-    g3_any = k3_ms(grouped, P0, any_args)[0]
+    g3_any = k3_ms(grouped, y0, any_args)[0]
     g4_any = k4_ms(grouped, ck, used[1:], ct, any_args)
     B = singles[0][1].shape[1]
     u3 = u4 = u3_any = u4_any = 0.0
-    for s, (route, P) in enumerate(singles):
-        a = adj.launch_args(route, P)
+    for s, (route, y) in enumerate(singles):
+        a = adj.launch_args(route, y)
         a_any = (a[0], a[1][:3] + (SC_ANY,) + a[1][4:])
-        t3, ck_s, used_s = k3_ms(route, P, a)
+        t3, ck_s, used_s = k3_ms(route, y, a)
         u3 += t3
-        u3_any += k3_ms(route, P, a_any)[0]
+        u3_any += k3_ms(route, y, a_any)[0]
         c = ct[:, s * B:(s + 1) * B].contiguous()
         u4 += k4_ms(route, ck_s, used_s[1:], c, a)
         u4_any += k4_ms(route, ck_s, used_s[1:], c, a_any)
     plain = grouped._replace(cuda=False)
-    _, k3_plain_ms = events_call(lambda: adj.run_segments(plain, P0))
-    k4_plain_ms = events_ms(lambda: adj.backward_plain(plain, ck, used[1:],
-                                                       ct))
-    work = adjoint_work(grouped, P0, ct, n_used)
+    _, k3_plain_ms = events_call(lambda: adj.run_segments(plain, y0))
+    k4_plain_ms = events_ms(lambda: adj.k4_plain(plain, ck, used[1:], ct))
+    work = adjoint_work(grouped, y0, ct, n_used)
     k3_bound, k4_bound = work["k3_bound"], work["k4_bound"]
-    R = P0.shape[1]
+    R = y0.shape[1]
     iters, accepted = work["iters"], work["accepted"]
     step_flops, vjp_flops = work["step_flops"], work["vjp_flops"]
     phase("time grouped K3/K4 lensing 32x32 f32 rk4/120 4 starts", t0,
@@ -2209,8 +2327,7 @@ def options_slice(dev, card: str, reset_counts) -> dict:
                                                        example2_spec)
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import (
-        impact_parameter_order, integrate_rays_cm, integrate_rays_cuda,
-        make_step_cm, scene_event_cm)
+        impact_parameter_order, integrate_rays_cm, integrate_rays_cuda)
     from raytracegr_jl_tpu_torch.render import initial_dt
 
     f32, f64 = torch.float32, torch.float64
@@ -2249,18 +2366,13 @@ def options_slice(dev, card: str, reset_counts) -> dict:
             C.chunk_plain(metric, scene, integ, 64, P=first[1][0])))
         for method, steps in (("rk4", 8), ("tsit5", 32)):
             ci = integ._replace(method=method, rk4_dt=2.0, max_steps=steps)
-            d0 = initial_dt(metric, y0, ci)
             route = adj.Route(metric=metric, scene=scene, cfg=ci, seg_len=4,
                               n_seg=steps // 4, cuda=True)
-            init, _ = make_step_cm(metric, scene_event_cm(scene), ci)
-            P0 = adj.pack_state(init(y_cm, d0))
             e3, ck_k, used_k, ck_p, used_p = require_k3_equal(
-                f"refine K3 {dtype} {method}", route, P0)
-            gen = torch.Generator(device=dev).manual_seed(2)
-            ct = torch.randn(P0.shape, generator=gen, dtype=dtype,
-                             device=dev)
+                f"refine K3 {dtype} {method}", route, y_cm)
+            ct = state_ct(y_cm, 2)
             c_k, p_k = adj.backward_cuda(route, ck_k, used_k[1:], ct)
-            c_p, p_p = adj.backward_plain(route, ck_p, used_p[1:], ct)
+            c_p, p_p = adj.k4_plain(route, ck_p, used_p[1:], ct)
             torch.cuda.synchronize()
             e4 = max(max_err(c_k, c_p), max_err(p_k, p_p))
             require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
@@ -2344,19 +2456,17 @@ def options_slice(dev, card: str, reset_counts) -> dict:
 
     def k3_k4_ms(integ, order=None):
         """K3's pass and K4's launch (medians of 5) from the training
-        step's initial state, in ``order`` where given."""
+        step's launch states, in ``order`` where given."""
         seg = adj.segment_length(integ, integ.grad_seg_len)
         route = adj.Route(metric=tmetric, scene=tscene, cfg=integ,
                           seg_len=seg, n_seg=integ.max_steps // seg,
                           cuda=True)
-        with torch.no_grad():
-            yy = ty0 if order is None else ty0[order]
-            init, _ = make_step_cm(tmetric, scene_event_cm(tscene), integ)
-            P0 = adj.pack_state(init(yy.t(), initial_dt(tmetric, yy, integ)))
-        args = adj.launch_args(route, P0)
-        runs = [k3_forward_ms(route, P0, args) for _ in range(REPEATS + 1)]
+        yy = (ty0 if order is None else ty0[order]).t().contiguous()
+        args = adj.launch_args(route, yy)
+        runs = [k3_forward_ms(route, yy, args) for _ in range(REPEATS + 1)]
         _, ck, used = runs[0]
-        ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
+        ct = torch.randn((adj.N_PLANES, yy.shape[1]), generator=gen,
+                         dtype=f32, device=dev)
         k4 = [events_ms(lambda: adj.backward_cuda(route, ck, used[1:], ct,
                                                   args))
               for _ in range(REPEATS + 1)]
@@ -2954,7 +3064,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.step_graph import WARMUP_PASSES, GraphedStep
     f32 = torch.float32
-    CAPTURED = WARMUP_PASSES + 1  # K8's, K9's launches as a graph is built
+    CAPTURED = WARMUP_PASSES + 1  # each kernel's launches as a graph is built
     out = {}
     for label, cfg in cfgs.items():
         t0 = time.perf_counter()
@@ -2982,7 +3092,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        with camera_launches() as cam_n:
+        with step_launches() as cap_n:
             step = GraphedStep(lambda p: loss_fn(p, xg, ng, target), pg)
         torch.cuda.synchronize()
         peak_g = torch.cuda.max_memory_allocated() - base
@@ -3021,9 +3131,10 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
               replay_idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
               replay_device_kernels=f"{prof['kernels']:.0f}",
               k3_per_replay=prof["k3"], k4_per_replay=prof["k4"],
+              k10_per_replay=prof["k10"],
               k6_per_replay=prof["k6"], k7_per_replay=prof["k7"],
               k8_per_replay=prof["k8"], k9_per_replay=prof["k9"],
-              k8_k9_in_warmups_and_capture=(cam_n["k8"], cam_n["k9"]),
+              launches_in_warmups_and_capture=cap_n,
               replay_host_launches=f"{prof['host_launches']:.0f}",
               eager_peak_mib=f"{peak_e / 2**20:.1f}",
               graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}",
@@ -3031,12 +3142,9 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
         require(same and moved, f"{label}: the graphed step differs from "
                 "the eager one")
         require(syncs == 0, f"{label}: {syncs} host syncs in replays")
-        require(all(prof[k] == 1 for k in ("k3", "k4", "k6", "k7"))
-                and cam_n == {"k8": CAPTURED, "k9": CAPTURED},
-                f"{label}: a replay ran K3 {prof['k3']}, K4 {prof['k4']}, K6 "
-                f"{prof['k6']} and K7 {prof['k7']} times, not once each, or "
-                f"the capture and its warm-ups launched K8 and K9 {cam_n}, "
-                f"not {CAPTURED} times each")
+        require(set(cap_n.values()) == {CAPTURED},
+                f"{label}: the capture and its warm-ups launched {cap_n}, "
+                f"not {CAPTURED} of each kernel")
 
     t0 = time.perf_counter()
     fit_cfg = rt.default_inverse_cfg(f32, soft_temp=0.05, stop_rho=0.5)
@@ -3046,7 +3154,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
     same = same_fit(res[True], res[False])
     # One Adam step of that fit, eager and graphed.
     loss_fn = rt.make_loss_fn(spec, fit_target, fit_cfg, 2, f32, dev)
-    with camera_launches() as cam_n:
+    with step_launches() as cap_n:
         eager, graphed, peak_g = adam_steps(loss_fn, init.copy, lr=3e-2)
     peak_e = eager_peak(eager)
     syncs = no_sync(graphed, GRAPH_REPLAYS)
@@ -3068,18 +3176,16 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
           graphed_host_launches=f"{prof['host_launches']:.0f}",
           graphed_device_kernels=f"{prof['kernels']:.0f}",
           k3_per_step=prof["k3"], k4_per_step=prof["k4"],
+          k10_per_step=prof["k10"],
           k6_per_step=prof["k6"], k7_per_step=prof["k7"],
           k8_per_step=prof["k8"], k9_per_step=prof["k9"],
-          k8_k9_in_warmups_and_capture=(cam_n["k8"], cam_n["k9"]),
+          launches_in_warmups_and_capture=cap_n,
           eager_peak_mib=f"{peak_e / 2**20:.1f}",
           graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
     require(same, "the graphed fit differs from the eager one")
-    require(syncs == 0 and all(prof[k] == 1 for k in ("k3", "k4", "k6",
-                                                      "k7"))
-            and cam_n == {"k8": CAPTURED, "k9": CAPTURED},
-            f"fit: {syncs} host syncs, K3 {prof['k3']}, K4 {prof['k4']}, K6 "
-            f"{prof['k6']} and K7 {prof['k7']} per graphed step, K8 and K9 "
-            f"{cam_n} in the capture and its warm-ups")
+    require(syncs == 0 and set(cap_n.values()) == {CAPTURED},
+            f"fit: {syncs} host syncs; launches in the capture and its "
+            f"warm-ups {cap_n}, not {CAPTURED} of each kernel")
     return out
 
 
@@ -3110,9 +3216,6 @@ def final_state(dev, spec_name: str, dtype, method: str, max_steps: int,
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
-    from raytracegr_jl_tpu_torch.render import initial_dt
     integ = rt.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
                                    rk4_dt=100.0 / max_steps,
                                    stop_rho=0.5).integrator
@@ -3131,9 +3234,7 @@ def final_state(dev, spec_name: str, dtype, method: str, max_steps: int,
     with torch.no_grad():
         x, u = pixel_rays(metric, xg, ng)
         y0 = torch.cat([x, u], -1)
-        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-        P0 = adj.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
-        ck, _ = adj.run_segments(route, P0)
+        ck, _ = adj.run_segments(route, y0.t().contiguous())
     return route, ck[route.n_seg].contiguous()
 
 
@@ -3239,9 +3340,9 @@ def localize_slice(dev, card: str) -> dict:
         if dtype == torch.float64:
             gaps[label] = loc_autograd_gap(route, P)
     for method, refine in (("rk4", False), ("tsit5", False), ("rk4", True)):
-        _, grouped, P0 = inverse_case(dev, torch.float32, method,
+        _, grouped, y0 = inverse_case(dev, torch.float32, method,
                                       refine=refine)
-        ck, _ = k3_pass(grouped, P0)
+        ck, _ = k3_pass(grouped, y0)
         P = ck[grouped.n_seg].contiguous()
         label = (f"config 5 grouped 4 starts f32 {method}"
                  + (" refine_minima" if refine else ""))
@@ -3479,7 +3580,8 @@ def main() -> int:
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
                adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda,
                adj.localize_cuda, adj.localize_vjp_cuda, adj.work_order_cuda,
-               camera.pixel_rays_cuda, camera.pixel_rays_vjp_cuda)
+               camera.pixel_rays_cuda, camera.pixel_rays_vjp_cuda,
+               adj.init_vjp_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -3728,7 +3830,8 @@ def main() -> int:
                                       rk4_dt=100.0 / max_steps, stop_rho=0.5)
 
     def ckpt_setup(n, dtype, integ, M=1.05, a=0.0, grad=False):
-        """example2 n x n: (metric, scene, y0, dt0, route, P0)."""
+        """example2 n x n: (metric, scene, y0 [B, 8], dt0, route, the
+        launch states [8, B])."""
         Mt = torch.tensor(M, dtype=dtype, device=dev, requires_grad=grad)
         at = torch.tensor(a, dtype=dtype, device=dev, requires_grad=grad)
         metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(Mt, at),
@@ -3743,16 +3846,13 @@ def main() -> int:
                 Mt.detach(), at.detach()), rho_min=metric.rho_min),
             scene=scene, cfg=integ, seg_len=seg,
             n_seg=integ.max_steps // seg, cuda=True)
-        init, _ = make_step_cm(route.metric, scene_event_cm(scene), integ)
-        with torch.no_grad():
-            P0 = adj.pack_state(init(y0.t(), dt0))
-        return metric, scene, y0, dt0, route, P0
+        return metric, scene, y0, dt0, route, y0.t().contiguous()
 
-    def diff_ct(P, seed=0):
-        """A random cotangent on the planes that carry one."""
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        ct = torch.randn(P.shape, generator=gen, dtype=P.dtype, device=dev)
-        keep = torch.zeros((adj.N_PLANES, 1), dtype=P.dtype, device=dev)
+    def diff_ct(ys, seed=0):
+        """A random cotangent of the packed state of the rays at ``ys``
+        on the planes that carry one."""
+        ct = state_ct(ys, seed)
+        keep = torch.zeros((adj.N_PLANES, 1), dtype=ys.dtype, device=dev)
         for lo in (adj.P_Y, adj.P_K1, adj.P_EV_Y0):
             keep[lo:lo + 8] = 1
         return ct * keep
@@ -3760,43 +3860,53 @@ def main() -> int:
     def compare_adjoint(label, n, dtype, method, max_steps):
         t0 = time.perf_counter()
         integ = train_cfg(dtype, method, max_steps).integrator
-        metric, scene, y0, dt0, route, P0 = ckpt_setup(n, dtype, integ)
+        metric, scene, y0, dt0, route, ys = ckpt_setup(n, dtype, integ)
         k3_err, ck_k, used_k, ck_p, used_p = require_k3_equal(label, route,
-                                                              P0)
+                                                              ys)
         n_k = int(used_k[0])
-        # Every ray at the end of its span (it stops after its first step)
-        # and every third inactive from the start: n_used is 1.
-        P_stop = P0.clone()
-        P_stop[adj.P_LAM] = integ.lam_max
-        P_stop[adj.P_ACTIVE, ::3] = 0
+        # K3 given the first steps (the caller's dt0, initial_dt's) and
+        # taking its own: the same checkpoints.
+        ck_d, used_d = adj.run_segments(route, ys, dt0)
+        mask = adj.read_mask(used_k[1:], route.n_seg)
+        require(torch.equal(used_d, used_k)
+                and bits_equal(ck_d[mask], ck_k[mask]),
+                f"{label}: K3 given dt0 differs from K3 taking its own")
+        # A span of one step: every ray stops in segment 0, n_used is 1.
+        short = route._replace(cfg=integ._replace(lam_max=1e-3))
         err_stop, ck_s, used_s, ck_sp, used_sp = require_k3_equal(
-            f"{label} stopped", route, P_stop)
+            f"{label} one-step span", short, ys)
         n_stop = int(used_s[0])
-        require(n_stop == 1, f"{label}: the stopped batch ran {n_stop} "
+        require(n_stop == 1, f"{label}: the one-step span ran {n_stop} "
                 "segments")
         k3_err = max(k3_err, err_stop)
         with sync_count() as syncs:
-            adj.run_segments(route, P0)
+            adj.run_segments(route, ys)
         require(syncs["n"] == 0, f"{label}: the forward pass synced the host "
                 f"{syncs['n']} times")
-        ct = diff_ct(P0)
+        ct = diff_ct(ys)
         k4_err = 0.0
-        for what, cks in (("", (ck_k, used_k, ck_p, used_p)),
-                          (" stopped", (ck_s, used_s, ck_sp, used_sp))):
+        for what, rt_, cks in (
+                ("", route, (ck_k, used_k, ck_p, used_p)),
+                (" one-step span", short, (ck_s, used_s, ck_sp, used_sp))):
             ck_a, used_a, ck_b, used_b = cks
-            c_k, p_k = adj.backward_cuda(route, ck_a, used_a[1:], ct)
-            c_p, p_p = adj.backward_plain(route, ck_b, used_b[1:], ct)
+            c_k, p_k = adj.backward_cuda(rt_, ck_a, used_a[1:], ct)
+            c_p, p_p = adj.k4_plain(rt_, ck_b, used_b[1:], ct)
             torch.cuda.synchronize()
             k4_err = max(k4_err, float((c_k - c_p).abs().max()),
                          float((p_k - p_p).abs().max()))
             require(torch.equal(c_k, c_p) and torch.equal(p_k, p_p),
                     f"{label}{what}: K4 not bitwise equal (max |d| "
                     f"{k4_err:.3e})")
+        init_gap = (init_autograd_gap(route, ys)
+                    if dtype == torch.float64 else None)
+        require(init_gap is None or init_gap <= INIT_GRAD_RTOL,
+                f"{label}: the initial state's VJP differs from autograd "
+                f"by {init_gap}")
 
         def grads(fn):
-            metric, scene, y0, dt0, _, _ = ckpt_setup(n, dtype, integ,
-                                                      grad=True)
-            res = fn(metric, scene, y0, dt0, integ,
+            metric, scene, y0, _, _, _ = ckpt_setup(n, dtype, integ,
+                                                    grad=True)
+            res = fn(metric, scene, y0, None, integ,
                      seg_len=integ.grad_seg_len)
             loss = (res.y[:, :4] ** 2).sum() * 1e-3
             M, a = metric.params.M, metric.params.a
@@ -3814,6 +3924,8 @@ def main() -> int:
               forward_host_syncs=syncs["n"],
               hits=int(ck_k[route.n_seg, adj.P_HIT].sum()),
               k3_max_abs_err=k3_err, k4_max_abs_err=k4_err,
+              init_vjp_vs_autograd_max_rel_gap=(
+                  "not run (f32)" if init_gap is None else f"{init_gap:.3e}"),
               grad_M_kernel=f"{g_k[0]:.9e}", grad_M_autograd=f"{g_o[0]:.9e}",
               grad_a_kernel=f"{g_k[1]:.9e}", grad_a_autograd=f"{g_o[1]:.9e}",
               grad_max_rel_err=f"{rel:.3e}", rtol=GRAD_RTOL[dtype])
@@ -3877,7 +3989,14 @@ def main() -> int:
             targets[label] = rt.make_ray_render_for_params(
                 spec, cfg, 2, f32, dev)(truth, xg, ng)
         reset_counts()
-        loss, g = loss_and_grads(cfg, targets[label])
+        # The initial state runs in K3's prologue and its VJP in K4's
+        # epilogue: neither the eager init nor the eager first step.
+        with counted_calls(adj, "init_plain") as eager_start, \
+                counted_calls(adj, "make_step_cm") as eager_body, \
+                counted_calls(adj, "initial_dt") as eager_dt, \
+                counted_calls(rt.render, "initial_dt") as render_dt:
+            loss, g = loss_and_grads(cfg, targets[label])
+        eager = eager_start + eager_body + eager_dt + render_dt
         counts = [fn.launches for fn in counted]
         step_launches[label] = counts
         out = {}
@@ -3890,15 +4009,19 @@ def main() -> int:
               k4_launches=counts[2], k6_launches=counts[5],
               k7_launches=counts[6], k4_order_launches=counts[7],
               k8_launches=counts[8], k9_launches=counts[9],
+              k10_launches=counts[10],
+              eager_initial_state_calls=len(eager),
               loss=f"{loss:.9e}",
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
-        require(all(counts[i] == 1 for i in (1, 2, 5, 6, 7, 8, 9)),
+        require(all(counts[i] == 1 for i in (1, 2, 5, 6, 7, 8, 9, 10)),
                 f"{label}: the training step launched K3 {counts[1]}, K4 "
                 f"{counts[2]}, K6 {counts[5]}, K7 {counts[6]}, K4's work "
-                f"order {counts[7]}, K8 {counts[8]} and K9 {counts[9]} "
-                "times, not once each")
+                f"order {counts[7]}, K8 {counts[8]}, K9 {counts[9]} and "
+                f"K10 {counts[10]} times, not once each")
+        require(not eager, f"{label}: the training step ran the eager "
+                f"initial state ({eager})")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
                 f"{label}: non-finite loss or gradients")
         require(rel <= MAIN_GRAD_RTOL and abs(loss - loss_p)
@@ -3927,11 +4050,13 @@ def main() -> int:
           k3_launches=fit_counts[1], k4_launches=fit_counts[2],
           k6_launches=fit_counts[5], k7_launches=fit_counts[6],
           k8_launches=fit_counts[8], k9_launches=fit_counts[9],
+          k10_launches=fit_counts[10],
           losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
           M=f"{float(res.final_params.M.detach()):.9f}",
           max_param_diff_vs_plain=f"{fit_diff:.3e}")
-    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6, 8, 9)),
-            "fit did not launch K3, K4, K6, K7, K8 and K9 once in each step")
+    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6, 8, 9, 10)),
+            "fit did not launch K3, K4, K6, K7, K8, K9 and K10 once in each "
+            "step")
     require(bool(torch.isfinite(res.loss_history).all())
             and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
@@ -3945,26 +4070,22 @@ def main() -> int:
         t0 = time.perf_counter()
         step_ms = cuda_ms(lambda: loss_and_grads(cfg, targets[label]))
         integ = cfg.integrator
-        metric, scene, y0, dt0, route, P0 = ckpt_setup(200, f32, integ)
-        x, u = pixel_rays(metric, xg, ng)
+        metric, scene, _, _, route, _ = ckpt_setup(200, f32, integ)
         with torch.no_grad():
+            x, u = pixel_rays(metric, xg, ng)
             y0 = torch.cat([x, u], -1)
-            dt0 = initial_dt(metric, y0, integ)
-            init, _ = make_step_cm(route.metric, scene_event_cm(scene),
-                                   integ)
-            P0 = adj.pack_state(init(y0.t(), dt0))
+        ys = y0.t().contiguous()
+        args = adj.launch_args(route, ys)
 
-        args = adj.launch_args(route, P0)
-
-        k3_runs = [k3_forward_ms(route, P0, args)
+        k3_runs = [k3_forward_ms(route, ys, args)
                    for _ in range(REPEATS + 1)][1:]
         k3_ms = statistics.median(r[0] for r in k3_runs)
         _, ck, used = k3_runs[0]
         n_used = int(used[0])
         k3_device_ms = sum(b - a for _, a, b in profiled_kernels(
-            lambda: adj.run_segments(route, P0),
+            lambda: adj.run_segments(route, ys),
             ("k3_kernel", "k3_close"))) / 1e3 / REPEATS
-        ct = diff_ct(P0)
+        ct = diff_ct(ys)
         k4_ms = statistics.median(
             events_ms(lambda: adj.backward_cuda(route, ck, used[1:], ct,
                                                 args))
@@ -3980,14 +4101,14 @@ def main() -> int:
         order_sort_ms = cuda_ms(lambda: adj.work_order(ends))
         order_bound = bound(0, ends.numel() * (4 + 8))
         (ck_p, used_p), k3_plain_ms = events_call(
-            lambda: adj.run_segments(route._replace(cuda=False), P0))
+            lambda: adj.run_segments(route._replace(cuda=False), ys))
         mask = adj.read_mask(used_p[1:], route.n_seg)
         require(torch.equal(used, used_p) and torch.equal(
             ck[mask].view(torch.int32), ck_p[mask].view(torch.int32)),
             f"{label}: K3 at 200x200 differs from the plain chain")
         # K4 as the training step launches it (its work order, then K4 in
         # that order) against the plain version on this batch, bitwise.
-        want, k4_plain_ms = events_call(lambda: adj.backward_plain(
+        want, k4_plain_ms = events_call(lambda: adj.k4_plain(
             route._replace(cuda=False), ck, used[1:], ct))
         before = adj.work_order_cuda.launches
         c4, p4 = adj.backward_cuda(route, ck, used[1:], ct, args)
@@ -3999,8 +4120,27 @@ def main() -> int:
                 f"{label}: K4 at 200x200 not bitwise equal to the plain "
                 f"version (max |d| {k4_err:.3e}; work order launched "
                 f"{work_order_cuda_launches} times)")
-        work = adjoint_work(route, P0, ct, n_used)
+        # K10 alone on this batch (the cotangent of the initial state as
+        # it comes from K4: here ct's planes) against its plain version.
+        pb = torch.randn((ys.shape[1], 2), generator=torch.Generator(
+            device=dev).manual_seed(1), dtype=f32, device=dev)
+        want10, k10_plain_ms = events_call(lambda: adj.init_vjp(
+            route._replace(cuda=False), ys, ct, pb))
+        got10 = adj.init_vjp_cuda(route, ck, ct, pb.clone(), args)
+        torch.cuda.synchronize()
+        k10_err = max(max_err(got10[0], want10[0]),
+                      max_err(got10[1], want10[1]))
+        require(bits_equal(got10[0], want10[0])
+                and bits_equal(got10[1], want10[1]),
+                f"{label}: K10 at 200x200 not bitwise equal to init_vjp "
+                f"(max |d| {k10_err:.3e})")
+        pt = pb.clone()  # K10 adds into it in place
+        k10_ms = statistics.median(
+            events_ms(lambda: adj.init_vjp_cuda(route, ck, ct, pt, args))
+            for _ in range(REPEATS))
+        work = adjoint_work(route, ys, ct, n_used)
         k3_bound, k4_bound = work["k3_bound"], work["k4_bound"]
+        k10_bound = work["k10_bound"]
         iters, accepted = work["iters"], work["accepted"]
         step_flops, vjp_flops = work["step_flops"], work["vjp_flops"]
         B = y0.shape[0]
@@ -4008,7 +4148,9 @@ def main() -> int:
             step_ms=step_ms, k3_ms=k3_ms,
             k4_ms=k4_ms, k3_plain_ms=k3_plain_ms, k4_plain_ms=k4_plain_ms,
             k3_bound=k3_bound, k4_bound=k4_bound, order_ms=order_ms,
-            order_sort_ms=order_sort_ms, order_bound=order_bound)
+            order_sort_ms=order_sort_ms, order_bound=order_bound,
+            k10_ms=k10_ms, k10_plain_ms=k10_plain_ms, k10_bound=k10_bound,
+            k10_err=k10_err)
         phase(f"time train step {label} 200x200 f32", t0, card=repr(card),
               step_ms=f"{step_ms:.4f}",
               fwd_bwd_rays_per_s=f"{B / step_ms * 1e3:.1f}",
@@ -4026,7 +4168,12 @@ def main() -> int:
               ray_iterations=iters, accepted=accepted,
               flops_per_step=step_flops, flops_per_step_vjp=vjp_flops,
               k3_bound_ms=f"{k3_bound[0]:.6f}", k3_bound_by=k3_bound[1],
-              k4_bound_ms=f"{k4_bound[0]:.6f}", k4_bound_by=k4_bound[1])
+              k4_bound_ms=f"{k4_bound[0]:.6f}", k4_bound_by=k4_bound[1],
+              k10_ms=f"{k10_ms:.4f}", k10_plain_ms=f"{k10_plain_ms:.4f}",
+              k10_max_abs_err_vs_plain=k10_err,
+              flops_per_ray_init=work["init_flops"],
+              flops_per_ray_init_vjp=work["init_vjp_flops"],
+              k10_bound_ms=f"{k10_bound[0]:.6f}", k10_bound_by=k10_bound[1])
 
     # 9. Where a training step's time goes: torch.profiler over three
     #    rk4/200 steps; the device's busy time is the sum of its kernels.
@@ -4154,6 +4301,20 @@ def main() -> int:
         "bound_ms": main["order_bound"][0],
         "bound_by": main["order_bound"][1],
         "library_ms": main["order_sort_ms"]}, {
+        "name": "K10 init_vjp_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/adjoint.cu",
+        "replaces": "none: XLA's AD of the jitted step's initial state "
+                    "(make_step_cm's init, k1 = rhs(y0)), fused around the "
+                    "pallas_calls (raytracegr_jl_tpu/ops/"
+                    "pallas_adjoint.py:351)",
+        "launches": step_launches["rk4/200"][10],
+        "max_abs_err": max(adj_err, main["k10_err"]),
+        "ms": main["k10_ms"],
+        "plain_ms": main["k10_plain_ms"],
+        "bound_ms": main["k10_bound"][0],
+        "bound_by": main["k10_bound"][1],
+        "library_ms": None}, {
         "name": "K6 localize_cuda",
         "route": "cuda",
         "source": "raytracegr_jl_tpu_torch/csrc/localize.cu",

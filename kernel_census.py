@@ -12,12 +12,16 @@ module whose call it runs in; a backward one to the module whose forward
 created the autograd node it runs for (by the node's sequence number).
 Modules: the camera (``models.camera._Camera``: K8 and K9 on the card;
 in a tree without them, ``grad.pixel_rays`` under autograd), the initial
-step (``render.initial_dt``), the segments (``ops.adjoint._Checkpointed``:
-K3 and K4 on the card), the localization (``ops.adjoint._Localized``: K6
+step (``render.initial_dt``, which the differentiable path no longer
+calls: a tree's count there is 0), the segments
+(``ops.adjoint._Checkpointed``: K3 and K4 on the card, and from the tree
+that has ``init_plain`` also the initial state, K3's prologue and K4's
+epilogue on the card), the localization (``ops.adjoint._Localized``: K6
 and K7 on the card; in a tree without them, ``localize_events_cm`` under
 autograd), the shading (``shade``, ``shade_soft``) and the rest (the
-loss, the dead-ray cutoff, the selections, packing, the camera's
-parameters per ray). The operations of a
+loss, the selections of ``flatten_params`` and ``ray_params``, the
+camera's parameters per ray; in an older tree also the initial state,
+``make_step_cm``'s init, and its autograd). The operations of a
 module that the card runs as kernels are not counted; its kernels are
 named instead. Launch setup that only the card runs (``pack_params``) is
 not seen here.
@@ -125,6 +129,9 @@ def main() -> int:
               "segments": [(adjoint._Checkpointed, "apply")]}
     # The modules that the card runs as kernels, and those kernels.
     on_card = {"segments": "K3, k3_close, K4"}
+    if hasattr(adjoint, "init_plain"):
+        on_card["segments"] = ("K3 (with the initial state), k3_close, K4 "
+                               "(with its VJP)")
     if hasattr(camera, "_Camera"):
         labels["camera"] = [(camera._Camera, "apply")]
         on_card["camera"] = "K8, K9"

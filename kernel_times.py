@@ -86,7 +86,8 @@ from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, adjoint_work,
                         k1_main_call, k1_takes_own_step, k3_forward_ms,
                         k3_pass, k4_walk, kernel_alone_ms, loc_cotangents,
                         profile_steps, profiled_kernels, ptxas_report, require,
-                        sass_report, short_name, summed_ms, timed_calls)
+                        sass_report, short_name, state_ct, summed_ms,
+                        timed_calls)
 
 
 def libraries() -> list:
@@ -224,16 +225,13 @@ def times(out: list, dev, card: str) -> None:
 
 def train_route(dev, method: str, steps: int):
     """The K3/K4 route of the training step at 200x200 f32 (example2,
-    M = 1.05, the bench's configuration ``method/steps``), its initial
-    state and its launch arguments."""
+    M = 1.05, the bench's configuration ``method/steps``), its launch
+    states ``[8, B]`` and its launch arguments."""
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
-    from raytracegr_jl_tpu_torch.render import initial_dt
     f32 = torch.float32
     spec = example2_spec(200, 200)
     integ = rt.default_inverse_cfg(f32, max_steps=steps, method=method,
@@ -250,11 +248,8 @@ def train_route(dev, method: str, steps: int):
                       n_seg=integ.max_steps // seg, cuda=True)
     with torch.no_grad():
         x, u = pixel_rays(metric, xg, ng)
-        y0 = torch.cat([x, u], -1)
-        dt0 = initial_dt(metric, y0, integ)
-        init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-        P0 = adj.pack_state(init(y0.t(), dt0))
-    return route, P0, adj.launch_args(route, P0)
+        ys = torch.cat([x, u], -1).t().contiguous()
+    return route, ys, adj.launch_args(route, ys)
 
 
 def train_times(out: list, dev, card: str) -> None:
@@ -264,7 +259,8 @@ def train_times(out: list, dev, card: str) -> None:
     eager steps, in the capture and in the steps in turns, what it holds
     reserved after them, and the card's memory in use, which also counts
     the CUDA context and the local memory CUDA keeps for the
-    kernels' stacks); K3 summed and alone, K4, K6 and K7."""
+    kernels' stacks); K3 summed and alone, K4, K10 (where the tree has
+    it), K6 and K7."""
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models import camera as cam
@@ -312,19 +308,24 @@ def train_times(out: list, dev, card: str) -> None:
         mem.update(reserved_mib=torch.cuda.memory_reserved(dev) / 2**20,
                    device_used_mib=(total - free) / 2**20)
         prof = profile_steps(graphed)
-        route, P0, args = train_route(dev, method, steps)
+        route, ys, args = train_route(dev, method, steps)
         metric = route.metric
 
-        k3_runs = [k3_forward_ms(route, P0, args)
+        k3_runs = [k3_forward_ms(route, ys, args)
                    for _ in range(REPEATS + 1)][1:]
         _, ck, used = k3_runs[0]
-        gen = torch.Generator(device=dev).manual_seed(0)
-        ct = torch.randn(P0.shape, generator=gen, dtype=f32, device=dev)
+        ct = state_ct(ys)
         walk = k4_walk(used)
         k4_ms = cuda_ms(lambda: adj.backward_cuda(route, ck, walk, ct, args))
-        k3_kernels = profiled_kernels(lambda: adj.run_segments(route, P0),
+        k3_kernels = profiled_kernels(lambda: k3_pass(route, ys, args),
                                       ("k3_kernel", "k3_close"))
         loc = {}
+        if hasattr(adj, "init_vjp_cuda"):
+            pb = torch.zeros((ys.shape[1], 2), dtype=f32, device=dev)
+            k10 = lambda: adj.init_vjp_cuda(  # noqa: E731
+                route, ck, ct, pb, args)
+            loc.update(k10_ms=cuda_ms(k10),
+                       k10_device_ms=kernel_alone_ms(k10, "k10_kernel"))
         if hasattr(cam, "pixel_rays_cuda"):
             ct_u = cam_cotangent(xg)
             k8 = lambda: cam.pixel_rays_cuda(metric, xg, ng)  # noqa: E731
@@ -544,16 +545,14 @@ def k4_times(out: list, dev, card: str) -> None:
             lambda: adj.backward_cuda(route, ck, ends, ct, args),
             "k4_kernel")
 
-    def inputs(route, P0, args, seed):
-        ck, used = k3_pass(route, P0, args)
-        ct = torch.randn(P0.shape, generator=torch.Generator(device=dev)
-                         .manual_seed(seed), dtype=f32, device=dev)
-        return ck, used, used[1:], ct
+    def inputs(route, ys, args, seed):
+        ck, used = k3_pass(route, ys, args)
+        return ck, used, used[1:], state_ct(ys, seed)
 
     for label, method, steps in (("rk4/200", "rk4", 200),
                                  ("tsit5/48", "tsit5", 48)):
-        route, P0, args = train_route(dev, method, steps)
-        ck, used, ends, ct = inputs(route, P0, args, 0)
+        route, ys, args = train_route(dev, method, steps)
+        ck, used, ends, ct = inputs(route, ys, args, 0)
         k4 = lambda: adj.backward_cuda(route, ck, ends, ct, args)  # noqa
         sort = lambda: torch.argsort(ends, descending=True,  # noqa: E731
                                      stable=True)
@@ -587,12 +586,12 @@ def k4_times(out: list, dev, card: str) -> None:
              **rec)
 
     for n in K4_STARTS:
-        singles, grouped, P0 = inverse_case(dev, f32, "rk4",
+        singles, grouped, ys = inverse_case(dev, f32, "rk4",
                                             starts=config5_starts(n))
-        args = adj.launch_args(grouped, P0)
-        ck, used, ends, ct = inputs(grouped, P0, args, 2)
+        args = adj.launch_args(grouped, ys)
+        ck, used, ends, ct = inputs(grouped, ys, args, 2)
         k4 = lambda: adj.backward_cuda(grouped, ck, ends, ct, args)  # noqa
-        work = adjoint_work(grouped, P0, ct, int(used[0]))
+        work = adjoint_work(grouped, ys, ct, int(used[0]))
         rec = dict(rays=ends.shape[0], segments=int(used[0]),
                    seg_len=grouped.seg_len,
                    k4_ms=cuda_ms(k4),
@@ -600,9 +599,9 @@ def k4_times(out: list, dev, card: str) -> None:
                    bound_ms=work["k4_bound"][0], bound_by=work["k4_bound"][1],
                    ray_iterations=work["iters"], accepted=work["accepted"])
         if n == 1:
-            route, P = singles[0]
-            a1 = adj.launch_args(route, P)
-            ck1, _, ends1, ct1 = inputs(route, P, a1, 2)
+            route, y1 = singles[0]
+            a1 = adj.launch_args(route, y1)
+            ck1, _, ends1, ct1 = inputs(route, y1, a1, 2)
             rec["k4_ungrouped_device_ms"] = alone(route, ck1, ends1, ct1, a1)
         emit(out, "k4", card=card, what=f"K4 grouped config 5 {n} starts",
              **rec)

@@ -26,6 +26,12 @@
 // on the kept stages) and of the right-hand side (rhs_vjp). CUDA has no
 // autodiff inside a kernel; the TPU kernel took jax.vjp of the step body
 // (adjoint_common.cuh, shared with K7).
+// The start of the pass is here too: K3's prologue builds each ray's
+// initial state from its launch state y0 (init_state, and initial_step
+// where the caller gives no first step), and K10, launched right after K4,
+// is its VJP back to y0, M and a (the JAX package's init and its AD, which
+// XLA fuses around the two pallas_calls of its jitted step; ops/adjoint.py
+// init_plain and init_vjp).
 // Only y, k1 and ev_y0 carry cotangents: dt_try is detached, so the
 // controller, dt and err_old take none; the masks route cotangents; the
 // detection only decides masks, so object fields get none inside the loop.
@@ -112,7 +118,13 @@ constexpr int MAX_SEG = 32;
 // --------------------------------------------------------------------------
 // The kernels
 // --------------------------------------------------------------------------
-// K3: the whole forward pass in one launch. Ray i walks its segments from
+// K3: the whole forward pass in one launch. Its prologue builds ray i's
+// initial state from its launch state y0 [8, n] (init_state: k1 = rhs(y0),
+// the event record at y0) at the step dt0[i], or with dt0 null at its own
+// initial step (initial_step: rk4_dt, or Hairer's for Tsit5, one more rhs),
+// the plain init_plain's bitwise, and writes it to checkpoint 0; the JAX
+// package's jitted step builds it from the traced parameters and XLA fuses
+// it around _fwd_seg_launch. Then ray i walks its segments from
 // checkpoint 0: while it is active at the start of segment s (s < n_seg), it
 // runs at most seg_len steps and writes checkpoint s + 1 itself; the first s
 // at whose start it is inactive (n_seg if none) is its end segment e_i,
@@ -126,7 +138,8 @@ constexpr int MAX_SEG = 32;
 // (GroupParams); rays_per_group and group_stride are read only then.
 template <typename T, bool KERR, bool TSIT5, int SC, bool GROUPED>
 __global__ void __launch_bounds__(MAX_THREADS)
-k3_kernel(T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
+k3_kernel(const T* __restrict__ y0, const T* __restrict__ dt0,
+          T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
           int n, int r_mode, int n_obj, int npts, int seg_len, int n_seg,
           const T* __restrict__ groups, int rays_per_group,
           int group_stride) {
@@ -137,7 +150,10 @@ k3_kernel(T* __restrict__ ck, int* __restrict__ used, int* __restrict__ ends,
   if (i < n) {
     const size_t stride = static_cast<size_t>(N_PLANES) * n;
     RayState<T> r;
-    load_state(ck, n, i, r);
+    init_state<T, KERR>(p, r_mode, y0, dt0, n, i, r);
+    if (dt0 == nullptr)
+      r.dt = initial_step<T, KERR, TSIT5>(p, r_mode, r.y, r.k1);
+    store_state(ck, n, i, r);
     while (end < n_seg && r.active > T(0)) {
       for (int it = 0; it < seg_len && r.active > T(0); ++it) {
         T dt_try;
@@ -174,12 +190,14 @@ k3_close(T* __restrict__ ck, const int* __restrict__ ends, int n,
   for (int q = 0; q < N_PLANES; ++q) dst[q * n + i] = src[q * n + i];
 }
 
-// K4: thread t walks ray i = order[t] (the wrapper's work order) back from its end segment e_i. Each of its segments is
-// replayed from its checkpoint and each accepted step's record kept in
-// local memory: y and k1 before it and dt_try (REC values), for RK4 also
-// the step's stages k2, k3 and k4 (REC_KEEP values: the reverse sweep then
-// runs no forward rhs), and whether it hit (a bit of `hits`). Then the
-// steps are walked back.
+// K4: thread t walks ray i = order[t] (the wrapper's work order) back from
+// its end segment e_i. Each of its segments is replayed from its checkpoint
+// and each accepted step's record kept in local memory: y and k1 before it
+// and dt_try (REC values), for RK4 also the step's stages k2, k3 and k4
+// (REC_KEEP values: the reverse sweep then runs no forward rhs), and
+// whether it hit (a bit of `hits`). Then the steps are walked back. It
+// writes the cotangents of ck[0]'s y, k1 and ev_y0 planes to ct0, which K10
+// takes on to the launch states.
 constexpr int REC = 17;
 constexpr int REC_KEEP = REC + 24;
 
@@ -288,13 +306,48 @@ k4_kernel(const T* __restrict__ ck, const int* __restrict__ ends,
   pbar[2 * i + 1] = pa;
 }
 
+// K10: the VJP of K3's prologue, one thread per ray, launched right after
+// K4 (ops/adjoint.py init_vjp). The launch state y0 (the y planes of ck[0])
+// is the initial state's y and ev_y0 as it is and reaches its k1 = rhs(y0)
+// through rhs_vjp, so ct_y0 = ct_y + ct_ev_y0 + rhs_vjp's y part, from K4's
+// cotangents of ck[0] (ct0), written to ct_y0 [8, n], and rhs_vjp's (M, a)
+// part is added to the ray's row of pbar. Bound by its loads and stores at
+// a training batch (34 values in, 10 out a ray, ~870 operations). A kernel
+// of its own, not K4's epilogue: folded into K4 it cost K4 0.05-0.13 ms at
+// rk4/200, far beyond its own work (PERF.md).
+template <typename T, bool KERR, bool GROUPED>
+__global__ void __launch_bounds__(MAX_THREADS)
+k10_kernel(const T* __restrict__ ck, const T* __restrict__ ct0,
+           T* __restrict__ ct_y0, T* __restrict__ pbar, int n, int r_mode,
+           const T* __restrict__ groups, int rays_per_group,
+           int group_stride) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  decltype(auto) p = ray_params<T, GROUPED>(groups, rays_per_group,
+                                            group_stride, i);
+  T y0[8], ck1[8], g[8], gM, ga;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    y0[c] = ck[(PL_Y + c) * n + i];
+    ck1[c] = ct0[(PL_K1 + c) * n + i];
+  }
+  rhs_vjp<T, KERR>(p, r_mode, y0, ck1, g, gM, ga);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    ct_y0[c * n + i] =
+        ct0[(PL_Y + c) * n + i] + ct0[(PL_EV_Y0 + c) * n + i] + g[c];
+  pbar[2 * i] = pbar[2 * i] + gM;
+  pbar[2 * i + 1] = pbar[2 * i + 1] + ga;
+}
+
 // K3's pass: used (1 int) zeroed, k3_kernel, then k3_close, all on st.
 // used[0] is n_used (the count of segments the per-segment chain runs),
 // kept on the card: nothing on the path reads it.
 template <typename T>
-int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
-              int kerr, int tsit5, int r_mode, int scene, int n_obj, int npts,
-              int seg_len, int n_seg, const void* groups, int rays_per_group,
+int launch_k3(const void* y0, const void* dt0, void* ck, void* used,
+              void* ends, const void* prm, int n, int kerr, int tsit5,
+              int r_mode, int scene, int n_obj, int npts, int seg_len,
+              int n_seg, const void* groups, int rays_per_group,
               int group_stride, void* stream) {
   if (!launch_ok(FIXED_SCENES, scene, n, n_obj, npts, MAX_THREADS) ||
       !groups_ok(groups, n, n_obj, rays_per_group, group_stride) ||
@@ -302,6 +355,8 @@ int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
+  const T* y = static_cast<const T*>(y0);
+  const T* d = static_cast<const T*>(dt0);
   T* c = static_cast<T*>(ck);
   int* u = static_cast<int*>(used);
   int* e = static_cast<int*>(ends);
@@ -314,8 +369,9 @@ int launch_k3(void* ck, void* used, void* ends, const void* prm, int n,
               RTGR_DISPATCH(ok, T, kerr, tsit5, scene,
                             k3_kernel<T, KERR_, TSIT5_, SC_, GROUPED_>
                             <<<blocks, MAX_THREADS, 0, st>>>(
-                                c, u, e, n, r_mode, n_obj, npts, seg_len,
-                                n_seg, gr, rays_per_group, group_stride)))
+                                y, d, c, u, e, n, r_mode, n_obj, npts,
+                                seg_len, n_seg, gr, rays_per_group,
+                                group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
   });
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -351,6 +407,31 @@ int launch_k4(const void* ck, const void* ends, const void* order,
                                 c, e, o, g, g0, pb, n, r_mode, n_obj, npts,
                                 seg_len, gr, rays_per_group, group_stride)))
     return ok ? cudaGetLastError() : cudaErrorInvalidValue;
+  }));
+}
+
+template <typename T>
+int launch_k10(const void* ck, const void* ct0, void* ct_y0, void* pbar,
+               const void* prm, int n, int kerr, int r_mode,
+               const void* groups, int n_obj, int rays_per_group,
+               int group_stride, void* stream) {
+  if (n < 1 || !groups_ok(groups, n, n_obj, rays_per_group, group_stride))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
+  const T* c = static_cast<const T*>(ck);
+  const T* g0 = static_cast<const T*>(ct0);
+  T* gy = static_cast<T*>(ct_y0);
+  T* pb = static_cast<T*>(pbar);
+  const T* gr = static_cast<const T*>(groups);
+  return static_cast<int>(launch_with_params<T>(prm, st, [&] {
+    RTGR_BOOL(gr != nullptr, GROUPED_,
+              RTGR_BOOL(kerr, KERR_,
+                        k10_kernel<T, KERR_, GROUPED_>
+                        <<<blocks, MAX_THREADS, 0, st>>>(
+                            c, g0, gy, pb, n, r_mode, gr, rays_per_group,
+                            group_stride)))
+    return cudaGetLastError();
   }));
 }
 
@@ -489,25 +570,27 @@ int launch_k4_order(const int* ends, int* counts, long long* order, int n,
 }  // namespace
 
 #if RTGR_F32
-extern "C" int rtgr_k3_f32(void* ck, void* used, void* ends, const void* prm,
-                           int n, int kerr, int tsit5, int r_mode, int scene,
+extern "C" int rtgr_k3_f32(const void* y0, const void* dt0, void* ck,
+                           void* used, void* ends, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len, int n_seg,
                            const void* groups, int rays_per_group,
                            int group_stride, void* stream) {
-  return launch_k3<float>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
-                          n_obj, npts, seg_len, n_seg, groups, rays_per_group,
-                          group_stride, stream);
+  return launch_k3<float>(y0, dt0, ck, used, ends, prm, n, kerr, tsit5,
+                          r_mode, scene, n_obj, npts, seg_len, n_seg, groups,
+                          rays_per_group, group_stride, stream);
 }
 #endif
 
 #if RTGR_F64
-extern "C" int rtgr_k3_f64(void* ck, void* used, void* ends, const void* prm,
-                           int n, int kerr, int tsit5, int r_mode, int scene,
+extern "C" int rtgr_k3_f64(const void* y0, const void* dt0, void* ck,
+                           void* used, void* ends, const void* prm, int n,
+                           int kerr, int tsit5, int r_mode, int scene,
                            int n_obj, int npts, int seg_len, int n_seg,
                            const void* groups, int rays_per_group,
                            int group_stride, void* stream) {
-  return launch_k3<double>(ck, used, ends, prm, n, kerr, tsit5, r_mode, scene,
-                           n_obj, npts, seg_len, n_seg, groups,
+  return launch_k3<double>(y0, dt0, ck, used, ends, prm, n, kerr, tsit5,
+                           r_mode, scene, n_obj, npts, seg_len, n_seg, groups,
                            rays_per_group, group_stride, stream);
 }
 #endif
@@ -537,6 +620,30 @@ extern "C" int rtgr_k4_f64(const void* ck, const void* ends,
   return launch_k4<double>(ck, ends, order, ct, ct0, pbar, prm, n, kerr,
                            tsit5, r_mode, scene, n_obj, npts, seg_len, groups,
                            rays_per_group, group_stride, stream);
+}
+#endif
+
+
+#if RTGR_F32
+extern "C" int rtgr_k10_f32(const void* ck, const void* ct0, void* ct_y0,
+                            void* pbar, const void* prm, int n, int kerr,
+                            int r_mode, const void* groups, int n_obj,
+                            int rays_per_group, int group_stride,
+                            void* stream) {
+  return launch_k10<float>(ck, ct0, ct_y0, pbar, prm, n, kerr, r_mode, groups,
+                           n_obj, rays_per_group, group_stride, stream);
+}
+#endif
+
+#if RTGR_F64
+extern "C" int rtgr_k10_f64(const void* ck, const void* ct0, void* ct_y0,
+                            void* pbar, const void* prm, int n, int kerr,
+                            int r_mode, const void* groups, int n_obj,
+                            int rays_per_group, int group_stride,
+                            void* stream) {
+  return launch_k10<double>(ck, ct0, ct_y0, pbar, prm, n, kerr, r_mode,
+                            groups, n_obj, rays_per_group, group_stride,
+                            stream);
 }
 #endif
 

@@ -7,16 +7,19 @@ Counterpart of raytracegr_jl_tpu/ops/adjoint.py (``integrate_rays_cm_ckpt``)
 and raytracegr_jl_tpu/ops/pallas_adjoint.py (``flatten_params``,
 ``integrate_rays_cm_ckpt_pallas``):
 
-* forward: the ``make_step_cm`` body runs in segments of ``seg_len`` steps,
-  one checkpoint of the 13-field state per segment; each ray's end segment
-  is the first at whose start it is inactive, and every ray's final state
-  lies in the fixed slot ``ck[n_seg]`` (on the card one K3 launch runs
-  every ray through its segments; the plain version stops the batch early
-  once no ray is active);
+* forward: each ray's initial state from its launch state ``y0`` (the
+  ``make_step_cm`` init: k1 = rhs(y0), the event record at y0, and its
+  initial step; K3's prologue), then the body in segments of ``seg_len``
+  steps, one checkpoint of the 13-field state per segment; each ray's end
+  segment is the first at whose start it is inactive, and every ray's
+  final state lies in the fixed slot ``ck[n_seg]`` (on the card one K3
+  launch runs every ray through its segments; the plain version stops the
+  batch early once no ray is active);
 * backward: each ray's segments in reverse from its end segment, each
   replayed from its checkpoint, and the cotangents pushed back through each
   step by a hand-written adjoint (``step_vjp``, ``rhs_vjp``), the same in
-  PyTorch and in K4;
+  PyTorch and in K4, and at last through the initial state back to y0, M
+  and a (``init_vjp``; K10, right after K4);
 * after the loop, the epilogue as one function (``_Localized``): each hit
   ray localized from its event record (``localize_events_cm``), every other
   ray's state as it stands (K6); on backward its hand-written VJP (K7,
@@ -80,7 +83,7 @@ from .geodesic_cm import (OBJ_FIELDS, SC_ANY, SC_REFINE, StepState,
                           _check_options, _interpolants, _object_get,
                           _tsit5_dinterp_cm, bisect_bracket,
                           check_kernel_config, crossing_step, geodesic_cm,
-                          impact_parameter_order, kernel_r_mode,
+                          impact_parameter_order, initial_dt, kernel_r_mode,
                           launch_config, localize_events_cm, make_step_cm,
                           scene_event_cm)
 from .geometry import det_min, sanitize_bounds
@@ -763,6 +766,46 @@ def backward_plain(route: Route, ck: torch.Tensor, ends: torch.Tensor,
     return ct0, torch.stack([pM, pa], dim=1)
 
 
+def init_plain(route: Route, y0: torch.Tensor,
+               dt0: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K3's prologue: the packed initial state ``[34, B]``
+    of the rays at ``y0 [8, B]``, ``make_step_cm``'s init (k1 = rhs(y0),
+    the event record at y0) at the step ``dt0 [B]``, or where it is None
+    at each ray's own initial step (``initial_dt``: ``rk4_dt``, Hairer's
+    for Tsit5); a grouped route's rays with their groups' parameters. Not
+    differentiated: ``init_vjp`` is its reverse mode."""
+    metric, scene = route_rows(route, y0.shape[1])
+    with torch.no_grad():
+        if dt0 is None:
+            dt0 = initial_dt(metric, y0.t(), route.cfg)
+        init, _ = make_step_cm(metric, scene_event_cm(scene), route.cfg)
+        return pack_state(init(y0, dt0))
+
+
+def init_vjp(route: Route, y0: torch.Tensor, ct: torch.Tensor,
+             pbar: torch.Tensor):
+    """Plain version of K10, the reverse mode of ``init_plain``
+    at ``y0 [8, B]``: ``(ct [34, B], pbar [B, 2]) -> (ct_y0 [8, B], pbar
+    [B, 2])``, from the initial state's cotangent and the per-ray (M, a)
+    cotangents that ``backward_plain`` returns. y0 is the state's y and
+    ev_y0 as it is and reaches k1 through ``rhs_vjp``, whose (M, a)
+    cotangents are added to ``pbar``; the sums in K4's order."""
+    metric, _ = route_rows(route, y0.shape[1])
+    p = adj_params(metric, y0.dtype, y0.device)
+    g, gM, ga = rhs_vjp(p, y0, ct[P_K1:P_K1 + 8])
+    ct_y0 = ct[P_Y:P_Y + 8] + ct[P_EV_Y0:P_EV_Y0 + 8] + g
+    return ct_y0, torch.stack([pbar[:, 0] + gM, pbar[:, 1] + ga], dim=1)
+
+
+def k4_plain(route: Route, ck: torch.Tensor, ends: torch.Tensor,
+             ct: torch.Tensor):
+    """Plain version of ``backward_cuda`` (K4, then K10):
+    ``backward_plain``, then ``init_vjp`` at the rays' launch states
+    (``ck[0]``'s y planes): ``(ct_y0 [8, B], pbar [B, 2])``."""
+    return init_vjp(route, ck[0, P_Y:P_Y + 8],
+                    *backward_plain(route, ck, ends, ct))
+
+
 def _check_kernel_inputs(route: Route, t: torch.Tensor) -> None:
     check_kernel_config(route.metric, route.scene, route.cfg)
     if not 0 < route.seg_len <= MAX_SEG:
@@ -803,11 +846,16 @@ def _group_args(route: Route, B: int):
             rays_per_group(route, B), route.groups.shape[1])
 
 
-def forward_segment_cuda(route: Route, ck: torch.Tensor,
+def forward_segment_cuda(route: Route, ck: torch.Tensor, y0: torch.Tensor,
+                         dt0: torch.Tensor | None = None,
                          args=None) -> torch.Tensor:
     """K3: the whole forward pass in one launch, on the card. ``ck`` is
-    the checkpoint buffer ``[n_seg + 1, 34, B]`` with the initial state in
-    ``ck[0]``; each ray runs its segments and writes their checkpoints.
+    the checkpoint buffer ``[n_seg + 1, 34, B]``, ``y0 [8, B]`` the rays'
+    launch states and ``dt0 [B]`` their first steps, or None for each
+    ray's own (``initial_step``, bitwise ``initial_dt``'s). Each ray builds
+    its initial state in the kernel's prologue (``init_plain``'s, bitwise)
+    and writes it to ``ck[0]``, then runs its segments and writes their
+    checkpoints.
     Returns ``used [1 + B]`` (int32, on the card, not read here):
     ``used[0]`` is ``n_used`` and ``used[1 + i]`` ray i's end segment (the
     first at whose start it is inactive, ``n_seg`` if none). The buffer
@@ -825,14 +873,24 @@ def forward_segment_cuda(route: Route, ck: torch.Tensor,
     if ck.dim() != 3 or ck.shape[0] != route.n_seg + 1 or (
             ck.shape[1] != N_PLANES) or not ck.is_contiguous():
         raise ValueError(f"bad checkpoint buffer {tuple(ck.shape)}")
-    prm, flags = args if args is not None else launch_args(route, ck)
     B = ck.shape[2]
+    if (y0.device != ck.device or y0.dtype != ck.dtype
+            or y0.shape != (8, B) or not y0.is_contiguous()):
+        raise ValueError("K3 takes the launch states as a contiguous [8, B] "
+                         "tensor of the checkpoints' dtype and device")
+    if dt0 is not None and (dt0.device != ck.device or dt0.dtype != ck.dtype
+                            or dt0.shape != (B,) or not dt0.is_contiguous()):
+        raise ValueError("K3 takes the first steps as a contiguous [B] "
+                         "tensor of the checkpoints' dtype and device")
+    prm, flags = args if args is not None else launch_args(route, ck)
     used = torch.empty(1 + B, dtype=torch.int32, device=ck.device)
     fn = _lib().rtgr_k3_f32 if ck.dtype == torch.float32 else \
         _lib().rtgr_k3_f64
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(ck.device):
-        rc = fn(ptr(ck), ptr(used), ptr(used[1:]), ptr(prm), B, *flags,
+        rc = fn(ptr(y0), ctypes.c_void_p(None if dt0 is None
+                                         else dt0.data_ptr()),
+                ptr(ck), ptr(used), ptr(used[1:]), ptr(prm), B, *flags,
                 route.seg_len, route.n_seg, *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
@@ -893,14 +951,15 @@ work_order_cuda.launches = 0
 
 def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
                   ct: torch.Tensor, args=None):
-    """K4: the whole backward pass in one launch, one thread per ray; the
-    same contract as ``backward_plain`` (a grouped route's rays with their
-    groups' parameters); ``ends`` K3's end segments on the card
-    (``used[1:]`` of ``forward_segment_cuda``), ``args`` as for K3. Thread
-    t walks ray ``order[t]``, the work order that ``work_order_cuda``
-    makes from ``ends`` first. Adds one to ``backward_cuda.launches`` per
-    launch and its rays to ``backward_cuda.rays`` (where issued, as
-    K3's)."""
+    """K4: the whole walk back in one launch, one thread per ray, then K10
+    (``init_vjp_cuda``) from the initial state to the launch states: the
+    same contract as ``k4_plain`` (``(ct_y0 [8, B], pbar [B, 2])``; a
+    grouped route's rays with their groups' parameters); ``ends`` K3's end
+    segments on the card (``used[1:]`` of ``forward_segment_cuda``),
+    ``args`` as for K3. Thread t walks ray ``order[t]``, the work order
+    that ``work_order_cuda`` makes from ``ends`` first. Adds one to
+    ``backward_cuda.launches`` per K4 launch and its rays to
+    ``backward_cuda.rays`` (where issued, as K3's)."""
     if ck.device.type != "cuda":
         raise ValueError(f"K4 needs CUDA tensors, got {ck.device}")
     B = ck.shape[2]
@@ -911,7 +970,7 @@ def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
     order = work_order_cuda(ends, route.n_seg)
     prm, flags = args if args is not None else launch_args(route, ck)
     ct = ct.contiguous()
-    ct0 = torch.zeros_like(ct)
+    ct0 = torch.empty_like(ct)  # K4 writes the y, k1 and ev_y0 planes
     pbar = torch.empty((B, 2), dtype=ck.dtype, device=ck.device)
     fn = _lib().rtgr_k4_f32 if ck.dtype == torch.float32 else \
         _lib().rtgr_k4_f64
@@ -925,11 +984,47 @@ def backward_cuda(route: Route, ck: torch.Tensor, ends: torch.Tensor,
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     backward_cuda.launches += 1
     backward_cuda.rays += B
-    return ct0, pbar
+    return init_vjp_cuda(route, ck, ct0, pbar, (prm, flags))
 
 
 backward_cuda.launches = 0
 backward_cuda.rays = 0
+
+
+def init_vjp_cuda(route: Route, ck: torch.Tensor, ct0: torch.Tensor,
+                  pbar: torch.Tensor, args=None):
+    """K10: ``init_vjp`` in one launch on the card, one thread per ray
+    (csrc/adjoint.cu k10_kernel), right after K4: from the cotangent of
+    the initial state ``ct0 [34, B]`` (its y, k1 and ev_y0 planes, as K4
+    writes them) and the per-ray (M, a) cotangents ``pbar [B, 2]``, at the
+    launch states in ``ck[0]``'s y planes: ``(ct_y0 [8, B], pbar)``,
+    ``pbar`` updated in place. ``args`` as for K3. Adds one to
+    ``init_vjp_cuda.launches`` per launch (where issued)."""
+    B = ck.shape[2]
+    if (ct0.shape != (N_PLANES, B) or pbar.shape != (B, 2)
+            or not (ct0.is_contiguous() and pbar.is_contiguous())
+            or {ct0.dtype, pbar.dtype} != {ck.dtype}
+            or {ct0.device, pbar.device} != {ck.device}):
+        raise ValueError("K10 takes contiguous [34, B] and [B, 2] "
+                         "cotangents of the checkpoints' dtype and device")
+    prm, flags = args if args is not None else launch_args(route, ck)
+    kerr, _, r_mode, _, n_obj, _ = flags
+    ct_y0 = torch.empty((8, B), dtype=ck.dtype, device=ck.device)
+    fn = _lib().rtgr_k10_f32 if ck.dtype == torch.float32 else \
+        _lib().rtgr_k10_f64
+    table, rpg, stride = _group_args(route, B)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(ck.device):
+        rc = fn(ptr(ck), ptr(ct0), ptr(ct_y0), ptr(pbar), ptr(prm), B, kerr,
+                r_mode, table, n_obj, rpg, stride,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"K10 launch failed: CUDA error {rc}")
+    init_vjp_cuda.launches += 1
+    return ct_y0, pbar
+
+
+init_vjp_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1258,23 +1353,39 @@ def localize_vjp_cuda(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
 localize_vjp_cuda.launches = 0
 
 
-def run_segments(route: Route, P0: torch.Tensor):
-    """The forward loop: ``(checkpoints [n_seg + 1, 34, B], used [1 + B])``
-    with ``used`` as ``forward_segment_cuda`` returns it. Checkpoint s
-    holds the state at the start of segment s for the rays active there,
+def run_segments(route: Route, y0: torch.Tensor,
+                 dt0: torch.Tensor | None = None):
+    """The forward loop from the launch states ``y0 [8, B]`` and first
+    steps ``dt0 [B]`` (None: each ray's own): ``(checkpoints [n_seg + 1,
+    34, B], used [1 + B])`` with ``used`` as ``forward_segment_cuda``
+    returns it. Checkpoint 0 holds every ray's initial state, checkpoint s
+    the state at the start of segment s for the rays active there,
     checkpoint ``n_seg`` every ray's final state. The kernel route is one
-    K3 launch and reads nothing back. The plain route launches one segment
-    at a time and checks for an active ray before each, stopping after a
-    segment that leaves none active (the early exit of the JAX
-    ``_ckpt_fwd``); it then copies the final state into ``ck[n_seg]`` and
-    reads the end segments from its checkpoints (``end_segments``)."""
+    K3 launch (the initial state in its prologue) and reads nothing back;
+    the plain route is ``chain_plain`` from ``init_plain``."""
+    B = y0.shape[1]
+    if not route.cuda:
+        return chain_plain(route, init_plain(route, y0, dt0))
+    ck = torch.empty((route.n_seg + 1, N_PLANES, B), dtype=y0.dtype,
+                     device=y0.device)
+    if B == 0:
+        return ck, torch.zeros(1, dtype=torch.int32, device=y0.device)
+    return ck, forward_segment_cuda(route, ck, y0, dt0,
+                                    launch_args(route, y0))
+
+
+def chain_plain(route: Route, P0: torch.Tensor):
+    """The plain forward loop from a packed initial state ``P0 [34, B]``,
+    returned as ``run_segments`` returns it: one segment at a time, with a
+    check for an active ray before each, stopping after a segment that
+    leaves none active (the early exit of the JAX ``_ckpt_fwd``); then the
+    final state copied into ``ck[n_seg]`` and the end segments read from
+    the checkpoints (``end_segments``). It also takes states that K3's
+    prologue does not make (rays near their span's end, or inactive from
+    the start), for K4's checks on such batches."""
     ck = torch.empty((route.n_seg + 1,) + tuple(P0.shape), dtype=P0.dtype,
                      device=P0.device)
     ck[0] = P0
-    if route.cuda:
-        if P0.shape[1] == 0:
-            return ck, torch.zeros(1, dtype=torch.int32, device=P0.device)
-        return ck, forward_segment_cuda(route, ck, launch_args(route, P0))
     s = 0
     while s < route.n_seg and bool(ck[s, P_ACTIVE].any()):
         ck[s + 1] = forward_segment(route, ck[s])
@@ -1338,23 +1449,30 @@ def sorted_parts(y0: torch.Tensor, n_parts: int) -> SortedParts:
 
 
 class _Checkpointed(torch.autograd.Function):
-    """``(P0 [34, B], pvec [P], route, info, parts) -> final state [34,
-    B]``, with the number of segments run in ``info["n_used"]`` (a 0-d
-    int32 tensor on the state's device, the most of any part); gradients
-    for the y, k1 and ev_y0 planes of P0 and for M, a (pvec[0:2]). The
-    other planes' cotangents are dropped (see the module docstring), and
-    the object fields get none. On a grouped route ``pvec`` is the ``[G,
-    P]`` table and each group's (M, a) cotangent the sum over its rays.
-    ``parts``: None (one pass over the batch as given) or the
-    ``SortedParts`` to run it as."""
+    """``(y0 [8, B], dt0 [B] or None, pvec [P], route, info, parts) ->
+    final state [34, B]``, with the number of segments run in
+    ``info["n_used"]`` (a 0-d int32 tensor on the state's device, the most
+    of any part): the initial state built from the launch states y0 (K3's
+    prologue, ``init_plain``) and the segments run from it. Gradients for
+    y0 and for M, a (pvec[0:2]), through the loop and the initial state
+    (K4 and K10, ``k4_plain``). The final state's other planes'
+    cotangents are dropped (see the module docstring), the first steps
+    take none, and the object fields get none. On a grouped route
+    ``pvec`` is the ``[G, P]`` table and each group's (M, a) cotangent the
+    sum over its rays. ``parts``: None (one pass over the batch as given)
+    or the ``SortedParts`` to run it as."""
 
     @staticmethod
-    def forward(ctx, P0, pvec, route, info, parts):
-        P0 = P0.detach()
+    def forward(ctx, y0, dt0, pvec, route, info, parts):
+        y0 = y0.detach()
+        dt0 = None if dt0 is None else dt0.detach()
         if parts is not None:
-            P0 = P0[:, parts.order]
-        bounds = (0, P0.shape[1]) if parts is None else parts.bounds
-        runs = [run_segments(route, P0[:, lo:hi].contiguous())
+            y0 = y0[:, parts.order]
+            dt0 = None if dt0 is None else dt0[parts.order]
+        bounds = (0, y0.shape[1]) if parts is None else parts.bounds
+        cut = lambda t, lo, hi: (  # noqa: E731
+            None if t is None else t[..., lo:hi].contiguous())
+        runs = [run_segments(route, cut(y0, lo, hi), cut(dt0, lo, hi))
                 for lo, hi in zip(bounds, bounds[1:])]
         info["n_used"] = torch.cat([used[:1] for _, used in runs]).amax()
         ctx.route, ctx.parts, ctx.bounds = route, parts, bounds
@@ -1366,7 +1484,7 @@ class _Checkpointed(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        back = backward_cuda if ctx.route.cuda else backward_plain
+        back = backward_cuda if ctx.route.cuda else k4_plain
         parts, bounds = ctx.parts, ctx.bounds
         if parts is not None:
             ct = ct[:, parts.order]
@@ -1374,16 +1492,16 @@ class _Checkpointed(torch.autograd.Function):
         cks, useds = saved[:len(saved) // 2], saved[len(saved) // 2:]
         res = [back(ctx.route, ck, used[1:], ct[:, lo:hi].contiguous())
                for ck, used, lo, hi in zip(cks, useds, bounds, bounds[1:])]
-        ct0 = torch.cat([c for c, _ in res], dim=1)
+        ct_y0 = torch.cat([c for c, _ in res], dim=1)
         pbar = torch.cat([p for _, p in res], dim=0)
         if parts is not None:  # (M, a) summed in the caller's order
-            ct0, pbar = ct0[:, parts.inverse], pbar[parts.inverse]
+            ct_y0, pbar = ct_y0[:, parts.inverse], pbar[parts.inverse]
         g = torch.zeros(ctx.p_shape, dtype=ct.dtype, device=ct.device)
         if ctx.route.groups is None:
             g[:2] = torch.sum(pbar, dim=0)
         else:
             g[:, :2] = pbar.reshape(ctx.p_shape[0], -1, 2).sum(dim=1)
-        return ct0, g, None, None, None
+        return ct_y0, None, g, None, None, None
 
 
 class _Localized(torch.autograd.Function):
@@ -1440,7 +1558,8 @@ def _first_group(scene: Scene) -> Scene:
 
 
 def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
-               dt0: torch.Tensor, cfg: IntegratorConfig, seg_len, mode: str,
+               dt0: torch.Tensor | None, cfg: IntegratorConfig, seg_len,
+               mode: str,
                groups: int | None = None, sort_parts: int | None = None,
                remat: bool = False,
                autograd_epilogue: bool = False) -> TraceResult:
@@ -1460,13 +1579,17 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
                   cfg=cfg, seg_len=seg, n_seg=cfg.max_steps // seg,
                   cuda=mode == "cuda", groups=table)
     event_fn = scene_event_cm(scene)
-    init, body = make_step_cm(metric, event_fn, cfg)
-    st0 = init(y0.t(), dt0.detach())
     if mode == "autograd":
+        # The initial state under autograd (the oracle of init_vjp).
+        init, body = make_step_cm(metric, event_fn, cfg)
+        if dt0 is None:
+            with torch.no_grad():
+                dt0 = initial_dt(metric, y0, cfg)
+
         def step(s):
             return body(s)[0]
 
-        st, n = st0, 0
+        st, n = init(y0.t(), dt0.detach()), 0
         while n < route.n_seg and bool(st.active.any()):
             for _ in range(seg):
                 st = (checkpoint(step, st, use_reentrant=False) if remat
@@ -1478,7 +1601,8 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
         info = {}
         parts = (None if sort_parts is None
                  else sorted_parts(y0, sort_parts))
-        P = _Checkpointed.apply(pack_state(st0), pvec, route, info, parts)
+        P = _Checkpointed.apply(y0.t(), None if dt0 is None else dt0.detach(),
+                                pvec, route, info, parts)
         n_used = info["n_used"]
         st = unpack_state(P)
     if autograd_epilogue:
@@ -1509,7 +1633,7 @@ def _integrate(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 
 def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
-                            dt0: torch.Tensor, cfg: IntegratorConfig,
+                            dt0: torch.Tensor | None, cfg: IntegratorConfig,
                             seg_len: int | None = None,
                             groups: int | None = None,
                             remat: bool = False,
@@ -1517,7 +1641,8 @@ def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
     """The same forward, with ``torch.autograd`` taping every step of the
     plain body: the differentiable path's ``grad_mode="scan"`` (the JAX
     ``integrate_rays_cm_scan``), and the oracle the hand adjoint of the
-    loop (``step_vjp``, K4) is held against. With ``remat`` each step is
+    loop (``step_vjp``, K4) and of the initial state (``init_vjp``, K10)
+    is held against. With ``remat`` each step is
     rematerialized on backward (``torch.utils.checkpoint``, JAX's
     ``remat=True``), so the tape holds one state per step instead of every
     intermediate; the values and gradients are the same. Step sizes stay
@@ -1537,14 +1662,16 @@ def integrate_rays_autograd(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 
 def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
-                        dt0: torch.Tensor, cfg: IntegratorConfig,
+                        dt0: torch.Tensor | None, cfg: IntegratorConfig,
                         seg_len: int | None = None,
                         groups: int | None = None,
                         sort_parts: int | None = None) -> TraceResult:
     """Differentiable integration, plain version (the JAX
     ``integrate_rays_cm_ckpt``): checkpointed segments of the step body,
-    the hand adjoint on backward. ``y0 [B, 8]``, ``dt0 [B]``; gradients
-    reach y0, M, a and (through the localization) the scene. With
+    the hand adjoint on backward. ``y0 [B, 8]``, ``dt0 [B]`` or None (each
+    ray's own first step, ``initial_dt``); gradients reach y0, M, a and
+    (through the localization) the scene, y0 and M, a also through the
+    initial state (``init_vjp``). With
     ``groups`` G the batch holds G parameter sets, one per group of
     ``B / G`` consecutive rays: M and a per ray (``[B]``) and the scene's
     fields with a leading ray axis where they differ (``pos [B, N, 4]``),
@@ -1558,13 +1685,16 @@ def integrate_rays_ckpt(metric: Metric, scene: Scene, y0: torch.Tensor,
 
 
 def integrate_rays_ckpt_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
-                             dt0: torch.Tensor, cfg: IntegratorConfig,
+                             dt0: torch.Tensor | None,
+                             cfg: IntegratorConfig,
                              seg_len: int | None = None,
                              groups: int | None = None,
                              sort_parts: int | None = None) -> TraceResult:
-    """The same with K3 for each forward segment and one K4 launch on
-    backward (the JAX ``integrate_rays_cm_ckpt_pallas``), a grouped batch
-    in one launch of each. ``sort_parts=1`` launches the batch in
+    """The same with one K3 launch on forward (the initial state in its
+    prologue; with ``dt0=None`` each ray's first step too) and one K4
+    launch on backward, then K10 (the initial state's VJP): the JAX
+    ``integrate_rays_cm_ckpt_pallas``, a grouped batch in one launch of
+    each. ``sort_parts=1`` launches the batch in
     impact-parameter order (the JAX route's ``sort_rays``), with results
     and gradients bitwise those unsorted. Raises for CPU tensors and for
     what the kernels do not take."""

@@ -31,8 +31,8 @@ from ..models.objects import (KIND_DISK, KIND_DISTANCE, KIND_DISTANCE_JVP,
                               object_kinds)
 from .geometry import clamp_det, det_min, sanitize_bounds
 from .integrate import (BMAX_TSIT5, ERR_BIG, HERMITE_ENV, TS_A, TS_BTILDE,
-                        IntegratorConfig, TraceResult, hermite_dinterp,
-                        hermite_interp, tsit5_bi, tsit5_dbi)
+                        IntegratorConfig, TraceResult, hairer_init_dt,
+                        hermite_dinterp, hermite_interp, tsit5_bi, tsit5_dbi)
 from .metrics import (R_AS_WRITTEN, R_TEXTBOOK, Metric, _scalar,
                       clamped_rho2, kerr_schild_radius_partials)
 
@@ -132,6 +132,18 @@ def geodesic_cm(metric: Metric, y: torch.Tensor) -> torch.Tensor:
     udot = [A[0] + (-coef) * kuA] + [-A[a] + coef * k[a] * kuA
                                      for a in (1, 2, 3)]
     return torch.clamp(torch.stack(ul + udot), -rhs_clamp, rhs_clamp)
+
+
+def initial_dt(metric: Metric, y0: torch.Tensor,
+               integ: IntegratorConfig) -> torch.Tensor:
+    """Per-ray first step: ``rk4_dt`` for RK4, else Hairer's heuristic over
+    the component-major right-hand side (``y0 [B, 8]``). K1, K2 and K3 take
+    the same step in their prologues (csrc ``initial_step``)."""
+    if integ.method == "rk4":
+        return torch.full(y0.shape[:1], integ.rk4_dt, dtype=y0.dtype,
+                          device=y0.device)
+    return hairer_init_dt(lambda y: geodesic_cm(metric, y.t()).t(), y0,
+                          integ.rtol, integ.atol, 5, integ.lam_max)
 
 
 # ---------------------------------------------------------------------------

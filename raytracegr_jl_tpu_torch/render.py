@@ -28,12 +28,12 @@ from .models.shading import shade_redshift
 from .ops.adjoint import (FIELD_DIMS, integrate_rays_autograd,
                           integrate_rays_ckpt, integrate_rays_ckpt_cuda,
                           per_ray)
-from .ops.geodesic_cm import (geodesic_cm, integrate_rays_cm,
+from .ops.geodesic_cm import (initial_dt, integrate_rays_cm,
                               integrate_rays_cuda, launch_config)
 from .models.objects import min_distance
 from .ops.geometry import MetricFn, geodesic, sanitize_bounds
-from .ops.integrate import (IntegratorConfig, TraceResult, hairer_init_dt,
-                            integrate_rays, integrate_rays_scan)
+from .ops.integrate import (IntegratorConfig, TraceResult, integrate_rays,
+                            integrate_rays_scan)
 from .ops.metrics import KerrSchildParams, Metric
 
 # The component-major backends, which take a ``Metric`` (and the
@@ -107,17 +107,6 @@ def resolve_backend(cfg: RenderConfig, x: torch.Tensor) -> str:
     return "cuda" if x.device.type == "cuda" else "torch"
 
 
-def initial_dt(metric: Metric, y0: torch.Tensor,
-               integ: IntegratorConfig) -> torch.Tensor:
-    """Per-ray first step: ``rk4_dt`` for RK4, else Hairer's heuristic over
-    the component-major right-hand side."""
-    if integ.method == "rk4":
-        return torch.full(y0.shape[:1], integ.rk4_dt, dtype=y0.dtype,
-                          device=y0.device)
-    return hairer_init_dt(lambda y: geodesic_cm(metric, y.t()).t(), y0,
-                          integ.rtol, integ.atol, 5, integ.lam_max)
-
-
 def _sanitized_rhs(metric: MetricFn):
     """The row-major right-hand side ``[B, 8] -> [B, 8]`` of any metric
     function, its input and output clamped by the dtype's bounds
@@ -173,28 +162,27 @@ def _trace_differentiable(metric: Metric, scene: Scene, y0: torch.Tensor,
     ``MIN_RAYS_PER_GRAD_GROUP`` rays per part, and ignores ``sort_rays``.
     Both leave values and gradients bitwise as they are without them
     (``ops.adjoint.SortedParts``). A multistart batch (``groups``) runs
-    as given."""
+    as given. Each ray takes its own initial step (``dt0=None``): K3's
+    prologue on the kernel route, ``initial_dt`` inside the plain ones."""
     integ = cfg.integrator
-    with torch.no_grad():
-        dt0 = initial_dt(metric, y0, integ)
     mode = integ.grad_mode
     if mode == "auto":
         mode = "ckpt_cuda" if resolve_backend(cfg, y0) == "cuda" else "ckpt"
     seg = integ.grad_seg_len
     if mode == "scan":
-        return integrate_rays_autograd(metric, scene, y0, dt0, integ, seg,
+        return integrate_rays_autograd(metric, scene, y0, None, integ, seg,
                                        groups, remat=True)
     parts = None
     if mode == "ckpt_cuda":
         if integ.sort_rays and groups is None:
             parts = 1
-        return integrate_rays_ckpt_cuda(metric, scene, y0, dt0, integ, seg,
+        return integrate_rays_ckpt_cuda(metric, scene, y0, None, integ, seg,
                                         groups, parts)
     n = integ.grad_groups
     if (n > 1 and groups is None
             and y0.shape[0] >= n * MIN_RAYS_PER_GRAD_GROUP):
         parts = n
-    return integrate_rays_ckpt(metric, scene, y0, dt0, integ, seg, groups,
+    return integrate_rays_ckpt(metric, scene, y0, None, integ, seg, groups,
                                parts)
 
 

@@ -41,12 +41,14 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # (y0, dt0, y, lam, hit, steps, prm: pointers; n, kerr, tsit5, r_mode,
 # scene, max_steps, n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0,
 # dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
-# npts, bisect_iters, budget, init, threads (per block); stream). K3: (ck,
-# used, ends, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts, seg_len, n_seg;
-# groups; rays_per_group, group_stride; stream).
+# npts, bisect_iters, budget, init, threads (per block); stream). K3: (y0,
+# dt0 (or null), ck, used, ends, prm; n, kerr, tsit5, r_mode, scene, n_obj,
+# npts, seg_len, n_seg; groups; rays_per_group, group_stride; stream).
 # K4: (ck, ends, order, ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene,
-# n_obj, npts, seg_len; groups; rays_per_group, group_stride; stream). K4's
-# work order: (ends, counts, order; n, bins; stream).
+# n_obj, npts, seg_len; groups; rays_per_group, group_stride; stream). K10:
+# (ck, ct0, ct_y0, pbar, prm; n, kerr, r_mode; groups; n_obj,
+# rays_per_group, group_stride; stream). K4's work order: (ends, counts,
+# order; n, bins; stream).
 # K6: (P, y, lam, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts,
 # bisect_iters; groups; rays_per_group, group_stride; stream). K7: (P, ct_y,
 # ct_lam, ct_P, pbar, prm; the ints of K6; groups; rays_per_group,
@@ -63,10 +65,12 @@ _SIGNATURES = {
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
     "compaction": {name: [_P] * 7 + [_I] * 11 + [_P]
                    for name in ("rtgr_k2_f32", "rtgr_k2_f64")},
-    "adjoint": {**{name: [_P] * 4 + [_I] * 9 + [_P, _I, _I, _P]
+    "adjoint": {**{name: [_P] * 6 + [_I] * 9 + [_P, _I, _I, _P]
                    for name in ("rtgr_k3_f32", "rtgr_k3_f64")},
                 **{name: [_P] * 7 + [_I] * 8 + [_P, _I, _I, _P]
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")},
+                **{name: [_P] * 5 + [_I] * 3 + [_P, _I, _I, _I, _P]
+                   for name in ("rtgr_k10_f32", "rtgr_k10_f64")},
                 "rtgr_k4_order": [_P] * 3 + [_I] * 2 + [_P],
                 **{name: [_P] for name in ("rtgr_fence_f32",
                                            "rtgr_fence_f64")}},

@@ -38,8 +38,6 @@ from raytracegr_jl_tpu.ops import pallas_adjoint as jpa  # noqa: E402
 from raytracegr_jl_tpu.ops import pallas_geodesic as jpg  # noqa: E402
 import raytracegr_jl_tpu_torch as T  # noqa: E402
 from raytracegr_jl_tpu_torch.ops import adjoint as A  # noqa: E402
-from raytracegr_jl_tpu_torch.ops import geodesic_cm as G  # noqa: E402
-from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 F64 = torch.float64
@@ -60,9 +58,7 @@ def port_state(spec_name, method, steps):
     seg = A.segment_length(cfg, None)
     route = A.Route(metric=metric, scene=scene, cfg=cfg, seg_len=seg,
                     n_seg=cfg.max_steps // seg, cuda=False)
-    init, _ = G.make_step_cm(metric, G.scene_event_cm(scene), cfg)
-    ck, _ = A.run_segments(route, A.pack_state(
-        init(y0.t(), initial_dt(metric, y0, cfg))))
+    ck, _ = A.run_segments(route, y0.t())
     return spec, route, ck[route.n_seg].contiguous()
 
 

@@ -119,10 +119,8 @@ def test_forward_segment_matches_jax_step_body(method):
     if method == "rk4":
         route = A.Route(metric=tm, scene=scene, cfg=cfg, seg_len=2,
                          n_seg=3, cuda=False)
-        init, _ = make_step_cm(tm, scene_event_cm(scene), cfg)
-        P0 = A.pack_state(init(torch.from_numpy(y0.T.copy()),
-                               torch.from_numpy(dt0)))
-        ck, used = A.run_segments(route, P0)
+        ck, used = A.run_segments(route, torch.from_numpy(y0.T.copy()),
+                                  torch.from_numpy(dt0))
         assert int(used[0]) == 3
         _compare_states(A.unpack_state(ck[route.n_seg]), states[6])
 
@@ -240,7 +238,9 @@ def test_hand_adjoint_matches_autograd_per_ray():
         M.detach(), at.detach()), rho_min=RHO_MIN)
     route = A.Route(metric=plain_tm, scene=scene, cfg=cfg, seg_len=4,
                      n_seg=2, cuda=False)
-    ck, used = A.run_segments(route, P0.detach())
+    ck, used = A.run_segments(route, torch.from_numpy(y0.T.copy()),
+                              torch.from_numpy(dt0))
+    assert torch.equal(ck[0], P0.detach())
     ct0, pbar = A.backward_plain(route, ck, used[1:], ct)
     np.testing.assert_allclose(ct0.numpy(), (gP0 * keep).numpy(),
                                rtol=1e-10, atol=1e-12)

@@ -68,8 +68,6 @@ def test_cuda_backend_render_matches_torch_backend():
 
 def _ckpt_case(n, dtype, method, max_steps, refine=False, rk4_dt=None):
     from raytracegr_jl_tpu_torch.ops import adjoint as A
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
     cfg = T.default_inverse_cfg(dtype, max_steps=max_steps, method=method,
                                 rk4_dt=rk4_dt or 100.0 / max_steps,
                                 stop_rho=0.5)
@@ -83,8 +81,14 @@ def _ckpt_case(n, dtype, method, max_steps, refine=False, rk4_dt=None):
     seg = A.segment_length(integ, integ.grad_seg_len)
     route = A.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
                     n_seg=max_steps // seg, cuda=True)
-    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-    return A, route, A.pack_state(init(y0.t(), dt0)), (scene, y0, dt0, integ)
+    return A, route, y0.t().contiguous(), (scene, y0, dt0, integ)
+
+
+def _state_ct(A, y0, gen=None):
+    """A random cotangent of the packed state ``[34, B]`` of the rays at
+    ``y0 [8, B]``."""
+    return torch.randn((A.N_PLANES, y0.shape[1]), generator=gen,
+                       dtype=y0.dtype, device=y0.device)
 
 
 CKPT_CASES = [(32, torch.float32, "rk4", 40), (32, torch.float32, "tsit5", 16),
@@ -104,16 +108,17 @@ def _read_equal(A, route, ck, used, ck_p, used_p):
 
 @pytest.mark.parametrize("n,dtype,method,max_steps", CKPT_CASES)
 def test_k3_k4_match_plain_bitwise(n, dtype, method, max_steps):
-    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
+    A, route, y0, _ = _ckpt_case(n, dtype, method, max_steps)
     before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
-    ck, used = A.run_segments(route, P0)
-    ck_p, used_p = A.run_segments(route._replace(cuda=False), P0)
+    ck, used = A.run_segments(route, y0)
+    ck_p, used_p = A.run_segments(route._replace(cuda=False), y0)
     torch.cuda.synchronize()
     assert A.forward_segment_cuda.launches == before[0] + 1
     assert _read_equal(A, route, ck, used, ck_p, used_p)
-    ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
+    assert torch.equal(ck[0], A.init_plain(route, y0))
+    ct = _state_ct(A, y0)
     c, p = A.backward_cuda(route, ck, used[1:], ct)
-    c_p, p_p = A.backward_plain(route, ck_p, used_p[1:], ct)
+    c_p, p_p = A.k4_plain(route, ck_p, used_p[1:], ct)
     torch.cuda.synchronize()
     assert A.backward_cuda.launches == before[1] + 1
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
@@ -166,6 +171,68 @@ def test_train_step_launches_k3_and_k4():
                                 p.sphere_pos.grad]))
     assert bool(torch.isfinite(grads[0]).all())
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+
+
+def test_train_step_runs_no_eager_initial_state():
+    """On the card the training step's initial state is K3's prologue and
+    its VJP K10, launched with each K4: neither ``init_plain``,
+    ``make_step_cm``'s init nor ``initial_dt`` runs, ungrouped or grouped
+    (a vectorized multistart of two starts)."""
+    from raytracegr_jl_tpu_torch import render
+    from raytracegr_jl_tpu_torch.ops import adjoint as A
+    dev = torch.device("cuda")
+    spec = T.example2_spec(16, 16)
+    cfg = T.default_inverse_cfg(torch.float32, max_steps=48, method="tsit5",
+                                stop_rho=0.5)
+    xg, ng = T.flat_pixel_grid(spec, torch.float32, dev)
+    truth = T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, device=dev)(
+            truth, xg, ng)
+    calls = []
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (A, "init_plain"), (A, "make_step_cm"), (A, "initial_dt"),
+        (render, "initial_dt"))]
+    for m, n, fn in saved:
+        setattr(m, n, lambda *a, _n=n, _f=fn, **k: calls.append(_n)
+                or _f(*a, **k))
+    before = (A.forward_segment_cuda.launches, A.backward_cuda.launches,
+              A.init_vjp_cuda.launches)
+    try:
+        p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], device=dev)
+        T.make_ray_loss_fn(spec, cfg, device=dev)(p, xg, ng,
+                                                 target).backward()
+        tgt = T.make_render_for_params(spec, cfg, 2, torch.float32, dev)(
+            truth).detach()
+        T.fit_multistart(spec, tgt, [p.copy(), p.copy()], cfg, steps=1,
+                         sphere_index=2, dtype=torch.float32, device=dev,
+                         graph=False)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    assert not calls
+    assert A.forward_segment_cuda.launches > before[0]
+    assert A.backward_cuda.launches - before[1] == (
+        A.init_vjp_cuda.launches - before[2]) > 0
+
+
+@pytest.mark.parametrize("method", ["rk4", "tsit5"])
+def test_init_vjp_matches_autograd_on_the_card(method):
+    """``init_plain`` bitwise to ``make_step_cm``'s init and ``init_vjp``
+    within 1e-12 of torch autograd of it on the card at f64, ungrouped and
+    grouped (tests/test_torch_init_vjp.py's cases); K4 and K10
+    (``backward_cuda``) are held to ``k4_plain``, which ends with
+    ``init_vjp``, bitwise elsewhere."""
+    from test_torch_init_vjp import RTOL, init_case, init_gaps
+    for name, a, grouped in (("kerr_schild", 0.8, False),
+                             ("kerr_schild", None, True),
+                             ("minkowski", 0.0, False)):
+        route, y0, M, at = init_case(name, a, grouped, method,
+                                     device="cuda")
+        gaps = init_gaps(route, y0, M, at)
+        assert gaps["equal"], (name, grouped)
+        for k in ("y0", "M", "a"):
+            assert gaps[k] <= RTOL, (name, grouped, k, gaps)
 
 
 K2_CASES = [(T.accretion_disk_spec(32, 32), torch.float32, TOL32),
@@ -263,14 +330,15 @@ def test_k2_gate_on_matches_gate_off():
                                      (32, torch.float64)])
 def test_k4_tsit5_matches_plain_bitwise(n, dtype):
     """K4's Tsit5 adjoint (its stages unrolled at compile time) at the
-    training path's configuration (tsit5/48), against backward_plain on the
-    same checkpoints."""
-    A, route, P0, _ = _ckpt_case(n, dtype, "tsit5", 48)
-    ck, used = A.run_segments(route, P0)
-    gen = torch.Generator(device=P0.device).manual_seed(1)
-    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
+    training path's configuration (tsit5/48), against its plain version
+    (``k4_plain``: the walk and the initial state's VJP) on the same
+    checkpoints."""
+    A, route, y0, _ = _ckpt_case(n, dtype, "tsit5", 48)
+    ck, used = A.run_segments(route, y0)
+    gen = torch.Generator(device=y0.device).manual_seed(1)
+    ct = _state_ct(A, y0, gen)
     c, p = A.backward_cuda(route, ck, used[1:], ct)
-    c_p, p_p = A.backward_plain(route, ck, used[1:], ct)
+    c_p, p_p = A.k4_plain(route, ck, used[1:], ct)
     torch.cuda.synchronize()
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
 
@@ -299,19 +367,19 @@ def test_gate_on_matches_gate_off_k1_k3_k4(dtype, method, max_steps):
         assert torch.equal(getattr(on, f), getattr(off, f)), f
         assert torch.equal(getattr(on, f), getattr(plain, f)), f
 
-    A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps)
+    A, route, y0, _ = _ckpt_case(32, dtype, method, max_steps)
     g_route = route._replace(cfg=route.cfg._replace(event_gate=True))
-    ck_on, used_on = A.run_segments(g_route, P0)
-    ck_off, used_off = A.run_segments(route, P0)
-    ck_p, used_p = A.run_segments(g_route._replace(cuda=False), P0)
+    ck_on, used_on = A.run_segments(g_route, y0)
+    ck_off, used_off = A.run_segments(route, y0)
+    ck_p, used_p = A.run_segments(g_route._replace(cuda=False), y0)
     assert torch.equal(used_on, used_off)
     assert _read_equal(A, route, ck_on, used_on, ck_p, used_p)
     assert _read_equal(A, route, ck_off, used_off, ck_p, used_p)
     gen = torch.Generator(device=dev).manual_seed(2)
-    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=dev)
+    ct = _state_ct(A, y0, gen)
     c_on, p_on = A.backward_cuda(g_route, ck_on, used_on[1:], ct)
     c_off, p_off = A.backward_cuda(route, ck_off, used_off[1:], ct)
-    c_p, p_p = A.backward_plain(g_route, ck_p, used_p[1:], ct)
+    c_p, p_p = A.k4_plain(g_route, ck_p, used_p[1:], ct)
     torch.cuda.synchronize()
     assert torch.equal(c_on, c_off) and torch.equal(p_on, p_off)
     assert torch.equal(c_on, c_p) and torch.equal(p_on, p_p)
@@ -355,18 +423,17 @@ def test_k3_and_k4_on_two_streams_keep_their_parameters():
     and the same with K4 first: each result equals the same launch run
     alone (the library serializes the launches of all its kernels across
     streams, not each kernel's alone)."""
-    A, route, P0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
+    A, route, y0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
     heavy = route._replace(metric=route.metric._replace(
         params=route.metric.params._replace(M=1.3)))
-    ck_ref, used_ref = A.run_segments(route, P0)
-    gen = torch.Generator(device=P0.device).manual_seed(4)
-    ct = torch.randn(P0.shape, generator=gen, dtype=P0.dtype,
-                     device=P0.device)
+    ck_ref, used_ref = A.run_segments(route, y0)
+    gen = torch.Generator(device=y0.device).manual_seed(4)
+    ct = _state_ct(A, y0, gen)
     want = A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
     torch.cuda.synchronize()
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     with torch.cuda.stream(s1):
-        ck, used = A.run_segments(route, P0)
+        ck, used = A.run_segments(route, y0)
     with torch.cuda.stream(s2):
         got = [A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
                for _ in range(3)]
@@ -378,7 +445,7 @@ def test_k3_and_k4_on_two_streams_keep_their_parameters():
     with torch.cuda.stream(s1):
         c, p = A.backward_cuda(heavy, ck_ref, used_ref[1:], ct)
     with torch.cuda.stream(s2):
-        runs = [A.run_segments(route, P0) for _ in range(2)]
+        runs = [A.run_segments(route, y0) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(c, want[0]) and torch.equal(p, want[1])
     for ck, used in runs:
@@ -468,38 +535,38 @@ def test_render_launches_once_without_host_syncs():
 @pytest.mark.parametrize("method,max_steps", [("rk4", 200), ("tsit5", 48)])
 def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
     """K3's single launch against the plain per-segment chain at the
-    training configurations: n_used, the end segments and every value a
-    reader takes, bitwise; a batch where every ray stops in segment 0 (and
-    every third is inactive from the start); no host sync in a pass; two
-    launches equal."""
+    training configurations: its initial state (built in its prologue,
+    with each ray's own first step or the one given), n_used, the end
+    segments and every value a reader takes, bitwise; a batch where every
+    ray stops in segment 0 (a span of one step); no host sync in a pass;
+    two launches equal."""
     import warnings
     n = 48 if dtype == torch.float32 else 24
-    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps)
-    P_stop = P0.clone()
-    P_stop[A.P_LAM] = route.cfg.lam_max
-    P_stop[A.P_ACTIVE, ::3] = 0
-    for P, stopped in ((P0, False), (P_stop, True)):
-        ck = torch.empty((route.n_seg + 1,) + tuple(P.shape), dtype=dtype,
-                         device=P.device)
-        ck[0] = P
+    A, route, y0, (_, _, dt0, _) = _ckpt_case(n, dtype, method, max_steps)
+    short = route._replace(cfg=route.cfg._replace(lam_max=1e-3))
+    for rt, dt, stopped in ((route, None, False), (route, dt0, False),
+                            (short, None, True)):
+        ck = torch.empty((rt.n_seg + 1, A.N_PLANES, y0.shape[1]),
+                         dtype=dtype, device=y0.device)
         before = A.forward_segment_cuda.launches
-        used = A.forward_segment_cuda(route, ck)
+        used = A.forward_segment_cuda(rt, ck, y0, dt)
         assert A.forward_segment_cuda.launches == before + 1
         n_used = int(used[0])
-        ck_p, used_p = A.run_segments(route._replace(cuda=False), P)
+        ck_p, used_p = A.run_segments(rt._replace(cuda=False), y0, dt)
         n_p = int(used_p[0])
-        assert _read_equal(A, route, ck, used, ck_p, used_p)
-        assert torch.equal(used[1:], A.end_segments(ck_p, n_p, route.n_seg))
-        assert n_used == A.used_segments(used[1:], route.n_seg)
+        assert _read_equal(A, rt, ck, used, ck_p, used_p)
+        assert torch.equal(ck[0], A.init_plain(rt, y0))
+        assert torch.equal(used[1:], A.end_segments(ck_p, n_p, rt.n_seg))
+        assert n_used == A.used_segments(used[1:], rt.n_seg)
         if stopped:
             assert n_used == 1
-        ck2, used2 = A.run_segments(route, P)
-        assert _read_equal(A, route, ck2, used2, ck_p, used_p)
+        ck2, used2 = A.run_segments(rt, y0, dt)
+        assert _read_equal(A, rt, ck2, used2, ck_p, used_p)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            A.run_segments(route, P0)
+            A.run_segments(route, y0)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught
@@ -510,12 +577,10 @@ def test_k3_one_launch_matches_the_chain(method, max_steps, dtype):
 def _lensing_grouped(dtype, method, starts, n=16, refine=False):
     """The lensing scene at n x n for each (M, z) start, RK4/120 or
     Tsit5/400 (at f64's tolerance 120 Tsit5 steps do not reach the
-    sphere): per start (route, P0) on the card, and the grouped route over
-    all starts' rays with its initial state."""
+    sphere): per start (route, launch states [8, B]) on the card, and
+    the grouped route over all starts' rays with their launch states."""
     from raytracegr_jl_tpu_torch.models.camera import pixel_rays
     from raytracegr_jl_tpu_torch.ops import adjoint as A
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
     dev = torch.device("cuda")
     integ = T.default_inverse_cfg(
         dtype, max_steps=120 if method == "rk4" else 400, method=method,
@@ -535,14 +600,12 @@ def _lensing_grouped(dtype, method, starts, n=16, refine=False):
         sc.pos[0, 3] = z
         x, u = pixel_rays(metric, xg, ng)
         y0 = torch.cat([x, u], -1)
-        init, _ = make_step_cm(metric, scene_event_cm(sc), integ)
-        P0 = A.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
         singles.append((A.Route(metric=metric, scene=sc, cfg=integ,
                                 seg_len=seg, n_seg=integ.max_steps // seg,
-                                cuda=True), P0))
+                                cuda=True), y0.t().contiguous()))
         rows.append(A.flatten_params(metric, sc))
     grouped = singles[0][0]._replace(groups=torch.stack(rows).contiguous())
-    return A, singles, grouped, torch.cat([P for _, P in singles], dim=1)
+    return A, singles, grouped, torch.cat([y for _, y in singles], dim=1)
 
 
 @pytest.mark.parametrize("dtype,method", [
@@ -557,47 +620,57 @@ def test_grouped_k3_k4_match_grouped_plain_bitwise(dtype, method):
 
 def _check_grouped_k3_k4(dtype, method, refine):
     starts = [(0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1)]
-    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts,
+    A, singles, grouped, y0 = _lensing_grouped(dtype, method, starts,
                                                refine=refine)
     before = (A.forward_segment_cuda.launches, A.backward_cuda.launches)
-    ck, used = A.run_segments(grouped, P0)
-    ck_p, used_p = A.run_segments(grouped._replace(cuda=False), P0)
+    ck, used = A.run_segments(grouped, y0)
+    ck_p, used_p = A.run_segments(grouped._replace(cuda=False), y0)
     torch.cuda.synchronize()
     assert A.forward_segment_cuda.launches == before[0] + 1
     assert _read_equal(A, grouped, ck, used, ck_p, used_p)
     fin = ck[grouped.n_seg]
     assert bool(fin[A.P_HIT].any())
-    gen = torch.Generator(device=P0.device).manual_seed(3)
-    ct = torch.randn(P0.shape, generator=gen, dtype=dtype, device=P0.device)
+    gen = torch.Generator(device=y0.device).manual_seed(3)
+    ct = _state_ct(A, y0, gen)
     c, p = A.backward_cuda(grouped, ck, used[1:], ct)
-    c_p, p_p = A.backward_plain(grouped._replace(cuda=False), ck_p,
-                                used_p[1:], ct)
+    c_p, p_p = A.k4_plain(grouped._replace(cuda=False), ck_p, used_p[1:],
+                          ct)
     torch.cuda.synchronize()
     assert A.backward_cuda.launches == before[1] + 1
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
     B = singles[0][1].shape[1]
-    for s, (route, P) in enumerate(singles):
+    for s, (route, y) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
-        ck_s, used_s = A.run_segments(route, P)
+        ck_s, used_s = A.run_segments(route, y)
         c_s, p_s = A.backward_cuda(route, ck_s, used_s[1:],
                                    ct[:, rays].contiguous())
         torch.cuda.synchronize()
+        assert torch.equal(ck_s[0], ck[0][:, rays])
         assert torch.equal(ck_s[route.n_seg], fin[:, rays])
         assert torch.equal(c_s, c[:, rays]) and torch.equal(p_s, p[rays])
 
 
-def _k4_matches_plain(A, route, P, seed=5):
-    """K3 from ``P`` against its plain chain, then K4 as the wrapper
-    launches it (one launch of the work order's kernels, then K4 in that
-    order), bitwise equal to ``backward_plain`` on the plain chain's
-    checkpoints. Returns the rays' end segments and K4's output."""
-    ck, used = A.run_segments(route, P)
-    ck_p, used_p = A.run_segments(route._replace(cuda=False), P)
-    torch.cuda.synchronize()
-    assert _read_equal(A, route, ck, used, ck_p, used_p)
-    gen = torch.Generator(device=P.device).manual_seed(seed)
-    ct = torch.randn(P.shape, generator=gen, dtype=P.dtype, device=P.device)
-    want = A.backward_plain(route._replace(cuda=False), ck_p, used_p[1:], ct)
+def _k4_matches_plain(A, route, y0=None, P=None, seed=5):
+    """K3 from the launch states ``y0`` against its plain chain, or, for a
+    packed start ``P`` that K3's prologue does not make (rays near their
+    span's end, or inactive from the start), the plain chain from ``P``
+    alone (``chain_plain``); then K4 as the wrapper launches it (one
+    launch of the work order's kernels, then K4 in that order) on those
+    checkpoints, bitwise equal to ``k4_plain`` on the plain chain's.
+    Returns the rays' end segments and K4's output."""
+    plain = route._replace(cuda=False)
+    if P is None:
+        ck, used = A.run_segments(route, y0)
+        ck_p, used_p = A.run_segments(plain, y0)
+        torch.cuda.synchronize()
+        assert _read_equal(A, route, ck, used, ck_p, used_p)
+    else:
+        ck_p, used_p = A.chain_plain(plain, P)
+        ck, used = ck_p, used_p
+        y0 = P[A.P_Y:A.P_Y + 8]
+    gen = torch.Generator(device=y0.device).manual_seed(seed)
+    ct = _state_ct(A, y0, gen)
+    want = A.k4_plain(plain, ck_p, used_p[1:], ct)
     ends = used[1:]
     before = (A.work_order_cuda.launches, A.backward_cuda.launches)
     got = A.backward_cuda(route, ck, ends, ct)
@@ -613,8 +686,8 @@ def test_k4_training_batch_matches_plain_bitwise(method, max_steps):
     """K4 on the training step's batch (example2 200x200 f32, 40,000 rays,
     the bench's rk4/200 and tsit5/48) in the work order the wrapper makes,
     bitwise equal to the plain version."""
-    A, route, P, _ = _ckpt_case(200, torch.float32, method, max_steps)
-    ends, _ = _k4_matches_plain(A, route, P)
+    A, route, y0, _ = _ckpt_case(200, torch.float32, method, max_steps)
+    ends, _ = _k4_matches_plain(A, route, y0)
     assert ends.shape == (40_000,) and int(torch.unique(ends).numel()) > 1
 
 
@@ -652,9 +725,12 @@ K4_ORDER_CASES = [("ragged", 15, torch.float32, 120, 0.2),
 
 @pytest.mark.parametrize("case,n,dtype,max_steps,dt", K4_ORDER_CASES)
 def test_k4_work_order_matches_plain_bitwise(case, n, dtype, max_steps, dt):
-    A, route, P, (_, _, _, integ) = _ckpt_case(n, dtype, "rk4", max_steps,
-                                               rk4_dt=dt)
-    B = P.shape[1]
+    A, route, y0, (_, _, _, integ) = _ckpt_case(n, dtype, "rk4", max_steps,
+                                                rk4_dt=dt)
+    B = y0.shape[1]
+    P = None
+    if case != "ragged":  # K4 from the plain chain of a packed start
+        P = A.init_plain(route, y0)
     if case == "one end":
         P[A.P_LAM] = integ.lam_max - 15 * dt
     elif case == "every end":
@@ -662,7 +738,7 @@ def test_k4_work_order_matches_plain_bitwise(case, n, dtype, max_steps, dt):
         P[A.P_LAM] = integ.lam_max - (1 + (k * 7) % max_steps).to(
             P.dtype) * dt
         P[A.P_ACTIVE, ::5] = 0
-    ends, _ = _k4_matches_plain(A, route, P)
+    ends, _ = _k4_matches_plain(A, route, y0, P)
     hist = torch.bincount(ends, minlength=route.n_seg + 1)
     if case == "ragged":
         assert B % 32 and int((hist > 0).sum()) > 2
@@ -684,16 +760,15 @@ def test_grouped_k4_work_order_matches_plain_bitwise(starts):
     version, and each start's rays to its own ungrouped
     launch. In work order a warp may hold rays of several starts, so each
     ray must read its own group's row (the permuted index)."""
-    A, singles, grouped, P0 = _lensing_grouped(
+    A, singles, grouped, y0 = _lensing_grouped(
         torch.float32, "rk4", CONFIG5_STARTS[:starts], n=32)
-    _, (c, p) = _k4_matches_plain(A, grouped, P0)
-    gen = torch.Generator(device=P0.device).manual_seed(5)
-    ct = torch.randn(P0.shape, generator=gen, dtype=P0.dtype,
-                     device=P0.device)
+    _, (c, p) = _k4_matches_plain(A, grouped, y0)
+    gen = torch.Generator(device=y0.device).manual_seed(5)
+    ct = _state_ct(A, y0, gen)
     B = singles[0][1].shape[1]
-    for s, (route, P) in enumerate(singles):
+    for s, (route, y) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
-        ck_s, used_s = A.run_segments(route, P)
+        ck_s, used_s = A.run_segments(route, y)
         c_s, p_s = A.backward_cuda(route, ck_s, used_s[1:],
                                    ct[:, rays].contiguous())
         torch.cuda.synchronize()
@@ -810,13 +885,13 @@ def test_k2_refine_matches_plain_bitwise(dtype):
 def test_k3_k4_refine_match_plain_bitwise(method, max_steps, dtype):
     """K3 (one launch, k3_close) and K4 with refine_minima: K4's replay
     makes K3's refined decisions."""
-    A, route, P0, _ = _ckpt_case(32, dtype, method, max_steps, refine=True)
-    ck, used = A.run_segments(route, P0)
-    ck_p, used_p = A.run_segments(route._replace(cuda=False), P0)
+    A, route, y0, _ = _ckpt_case(32, dtype, method, max_steps, refine=True)
+    ck, used = A.run_segments(route, y0)
+    ck_p, used_p = A.run_segments(route._replace(cuda=False), y0)
     assert _read_equal(A, route, ck, used, ck_p, used_p)
-    ct = torch.randn(P0.shape, dtype=dtype, device=P0.device)
+    ct = _state_ct(A, y0)
     c, p = A.backward_cuda(route, ck, used[1:], ct)
-    c_p, p_p = A.backward_plain(route, ck_p, used_p[1:], ct)
+    c_p, p_p = A.k4_plain(route, ck_p, used_p[1:], ct)
     assert torch.equal(c, c_p) and torch.equal(p, p_p)
 
 
@@ -1185,9 +1260,10 @@ def test_graphed_replay_after_a_float_mass_sweep():
 # K6 and K7: the localization epilogue and its VJP
 # ---------------------------------------------------------------------------
 
-def _final(A, route, P0):
-    """K3's pass from P0: every ray's final packed state [34, B]."""
-    ck, _ = A.run_segments(route, P0)
+def _final(A, route, y0):
+    """K3's pass from the launch states y0: every ray's final packed state
+    [34, B]."""
+    ck, _ = A.run_segments(route, y0)
     return ck[route.n_seg].contiguous()
 
 
@@ -1231,8 +1307,8 @@ def test_k6_k7_match_plain_bitwise(n, dtype, method, max_steps, refine):
     """K6 and K7 on K3's final states (example2, f32 and f64, RK4 and
     Tsit5, with and without refine_minima, whose SC_REFINE code K6 and K7
     launch as SC_ANY) against their plain versions: bitwise."""
-    A, route, P0, _ = _ckpt_case(n, dtype, method, max_steps, refine=refine)
-    _check_k6_k7(A, route, _final(A, route, P0))
+    A, route, y0, _ = _ckpt_case(n, dtype, method, max_steps, refine=refine)
+    _check_k6_k7(A, route, _final(A, route, y0))
 
 
 @pytest.mark.parametrize("dtype,method", [(torch.float32, "rk4"),
@@ -1240,8 +1316,6 @@ def test_k6_k7_match_plain_bitwise(n, dtype, method, max_steps, refine):
 def test_k6_k7_minkowski_match_plain_bitwise(dtype, method):
     """The same in flat space (example1: no M and a cotangents)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as A
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,
-                                                         scene_event_cm)
     integ = T.default_inverse_cfg(dtype, max_steps=40, method=method,
                                   rk4_dt=2.5, stop_rho=0.5).integrator
     metric, scene, canvas = T.build(T.example1_spec(32, 32), dtype,
@@ -1250,9 +1324,7 @@ def test_k6_k7_minkowski_match_plain_bitwise(dtype, method):
     seg = A.segment_length(integ, integ.grad_seg_len)
     route = A.Route(metric=metric, scene=scene, cfg=integ, seg_len=seg,
                     n_seg=integ.max_steps // seg, cuda=True)
-    init, _ = make_step_cm(metric, scene_event_cm(scene), integ)
-    P = _final(A, route, A.pack_state(init(y0.t(),
-                                           initial_dt(metric, y0, integ))))
+    P = _final(A, route, y0.t().contiguous())
     _, _, _, p = _check_k6_k7(A, route, P)
     assert not bool(p[:2].any())
 
@@ -1265,8 +1337,8 @@ def test_grouped_k6_k7_match_plain_and_each_start(dtype, method):
     grouped plain versions (bitwise), and each start's rays against that
     start's own ungrouped launches (bitwise, per ray)."""
     starts = [(0.5, 0.0), (0.53, 0.03), (0.47, -0.05), (0.51, 0.1)]
-    A, singles, grouped, P0 = _lensing_grouped(dtype, method, starts)
-    P = _final(A, grouped, P0)
+    A, singles, grouped, y0 = _lensing_grouped(dtype, method, starts)
+    P = _final(A, grouped, y0)
     y, lam, c, p = _check_k6_k7(A, grouped, P)
     ct_y, ct_lam = _loc_cotangents(P)
     B = singles[0][1].shape[1]
@@ -1290,8 +1362,8 @@ def test_k7_matches_autograd_f64():
                                                          localize_events_cm,
                                                          scene_event_cm)
     for method, steps in (("rk4", 40), ("tsit5", 200)):
-        A, route, P0, _ = _ckpt_case(32, torch.float64, method, steps)
-        P = _final(A, route, P0)
+        A, route, y0, _ = _ckpt_case(32, torch.float64, method, steps)
+        P = _final(A, route, y0)
         ct_y, ct_lam = _loc_cotangents(P)
         c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam)
         pv = A.flatten_params(route.metric, route.scene).detach()
@@ -1327,8 +1399,8 @@ def test_k6_k7_under_capture_and_on_two_streams():
     and launched on two streams without a sync, K6 after a long K3 pass
     and K7 with another mass, each equals its launch run alone (the
     library serializes all its kernels' launches across streams)."""
-    A, route, P0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
-    P = _final(A, route, P0)
+    A, route, y0, _ = _ckpt_case(128, torch.float32, "rk4", 200)
+    P = _final(A, route, y0)
     ct_y, ct_lam = _loc_cotangents(P)
     args = A.localize_args(route, P)
     y_e, lam_e = A.localize_cuda(route, P, args)
@@ -1358,7 +1430,7 @@ def test_k6_k7_under_capture_and_on_two_streams():
     torch.cuda.synchronize()
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     with torch.cuda.stream(s1):
-        A.run_segments(route, P0)
+        A.run_segments(route, y0)
         got_6 = A.localize_cuda(route, P)
     with torch.cuda.stream(s2):
         got_7 = [A.localize_vjp_cuda(heavy, P, ct_y, ct_lam)

@@ -24,9 +24,6 @@ import raytracegr_jl_tpu_torch as T  # noqa: E402
 from raytracegr_jl_tpu.models import scenes as j_scenes  # noqa: E402
 from raytracegr_jl_tpu_torch.models.camera import pixel_rays  # noqa: E402
 from raytracegr_jl_tpu_torch.ops import adjoint as A  # noqa: E402
-from raytracegr_jl_tpu_torch.ops.geodesic_cm import (make_step_cm,  # noqa: E402
-                                                     scene_event_cm)
-from raytracegr_jl_tpu_torch.render import initial_dt  # noqa: E402
 from raytracegr_jl_tpu_torch.utils import checkpoint  # noqa: E402
 
 
@@ -202,9 +199,9 @@ def test_checkpoint_restores_structure_and_device(tmp_path):
 
 def _grouped_case(starts, n=8):
     """The lensing scene at n x n, f64, RK4 (60 steps of 1, to the
-    sphere and past it), for each (M, z) start: the per-start initial
-    states and routes, and the grouped route over all starts' rays
-    (start-major) with its initial state."""
+    sphere and past it), for each (M, z) start: the per-start routes and
+    launch states ``[8, B]``, and the grouped route over all starts' rays
+    (start-major) with its launch states."""
     spec = T.lensing_inverse_spec(n, n)
     cfg = T.default_inverse_cfg(F64, max_steps=60, rk4_dt=1.0,
                                 stop_rho=0.5)
@@ -221,40 +218,43 @@ def _grouped_case(starts, n=8):
         sc.pos[0, 3] = z
         x, u = pixel_rays(metric, xg, ng)
         y0 = torch.cat([x, u], -1)
-        dt0 = initial_dt(metric, y0, integ)
-        init, _ = make_step_cm(metric, scene_event_cm(sc), integ)
-        P0 = A.pack_state(init(y0.t(), dt0))
         route = A.Route(metric=metric, scene=sc, cfg=integ, seg_len=seg,
                         n_seg=integ.max_steps // seg, cuda=False)
-        singles.append((route, P0))
+        singles.append((route, y0.t()))
         rows.append(A.flatten_params(metric, sc))
     route0 = singles[0][0]
     grouped = route0._replace(groups=torch.stack(rows))
-    return singles, grouped, torch.cat([P0 for _, P0 in singles], dim=1)
+    return singles, grouped, torch.cat([y0 for _, y0 in singles], dim=1)
 
 
 def test_grouped_plain_k3_k4_equal_single_runs():
     """The grouped plain K3 and K4 over two starts of different (M, z)
     against each start's own plain run, ray by ray, bit for bit: the
     final state, the initial state's cotangent and the per-ray (M, a)
-    cotangents."""
-    singles, grouped, P0 = _grouped_case([(0.5, 0.0), (0.53, 0.3)])
+    cotangents, and K4's whole plain version (with the initial state's
+    VJP: the launch states' cotangent)."""
+    singles, grouped, y0 = _grouped_case([(0.5, 0.0), (0.53, 0.3)])
     B = singles[0][1].shape[1]
-    ck_g, used_g = A.run_segments(grouped, P0)
-    ct = torch.randn(P0.shape, generator=torch.Generator().manual_seed(0),
-                     dtype=F64)
+    ck_g, used_g = A.run_segments(grouped, y0)
+    ct = torch.randn((A.N_PLANES, y0.shape[1]),
+                     generator=torch.Generator().manual_seed(0), dtype=F64)
     ct0_g, pbar_g = A.backward_plain(grouped, ck_g, used_g[1:], ct)
+    cty_g, pbar4_g = A.k4_plain(grouped, ck_g, used_g[1:], ct)
     fin_g = ck_g[grouped.n_seg]
     assert bool(fin_g[A.P_HIT].any())
-    for k, (route, P) in enumerate(singles):
+    for k, (route, y) in enumerate(singles):
         rays = slice(k * B, (k + 1) * B)
-        ck, used = A.run_segments(route, P)
+        ck, used = A.run_segments(route, y)
         assert int(used[0]) <= int(used_g[0])
         assert torch.equal(used_g[1:][rays], used[1:])
+        assert torch.equal(ck_g[0][:, rays], ck[0])
         assert torch.equal(fin_g[:, rays], ck[route.n_seg])
         ct0, pbar = A.backward_plain(route, ck, used[1:], ct[:, rays])
         assert torch.equal(ct0_g[:, rays], ct0)
         assert torch.equal(pbar_g[rays], pbar)
+        cty, pbar4 = A.k4_plain(route, ck, used[1:], ct[:, rays])
+        assert torch.equal(cty_g[:, rays], cty)
+        assert torch.equal(pbar4_g[rays], pbar4)
     # The starts differ: so do their final states.
     assert not torch.equal(fin_g[:, :B], fin_g[:, B:])
 

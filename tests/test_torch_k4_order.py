@@ -77,7 +77,7 @@ def test_plain_k4_in_work_order_gives_each_ray_its_values():
     P0 = A.pack_state(init(y0.t(), initial_dt(metric, y0, integ)))
     k = torch.arange(P0.shape[1])
     P0[A.P_LAM] = integ.lam_max - (1 + (k * 7) % 60).to(f64) * 0.25
-    ck, used = A.run_segments(route, P0)
+    ck, used = A.chain_plain(route, P0)
     ends = used[1:]
     assert int((torch.bincount(ends) > 0).sum()) >= 3  # several walks
     ct = torch.from_numpy(np.random.default_rng(3).standard_normal(

@@ -157,8 +157,7 @@ def _chain(method, max_steps):
     seg = A.segment_length(cfg, cfg.grad_seg_len)
     route = A.Route(metric=metric, scene=scene, cfg=cfg, seg_len=seg,
                     n_seg=max_steps // seg, cuda=False)
-    init, _ = G.make_step_cm(metric, G.scene_event_cm(scene), cfg)
-    return route, A.pack_state(init(y0.t(), initial_dt(metric, y0, cfg)))
+    return route, y0.t().contiguous()
 
 
 @pytest.mark.parametrize("method,max_steps", [("rk4", 20), ("tsit5", 48)])
@@ -168,13 +167,13 @@ def test_used_segments_rule_matches_the_chain(method, max_steps):
     ray alone, since a ray's segments depend on its own state only; their
     largest equals the count of the chain on the whole batch, and the end
     segments read from the batch's checkpoints equal the rays' own."""
-    route, P0 = _chain(method, max_steps)
-    ck, used = A.run_segments(route, P0)
+    route, y0 = _chain(method, max_steps)
+    ck, used = A.run_segments(route, y0)
     n_used = int(used[0])
     ends = A.end_segments(ck, n_used, route.n_seg)
     assert torch.equal(ends, used[1:])
-    alone = torch.tensor([int(A.run_segments(route, P0[:, i:i + 1])[1][0])
-                          for i in range(P0.shape[1])], dtype=torch.int32)
+    alone = torch.tensor([int(A.run_segments(route, y0[:, i:i + 1])[1][0])
+                          for i in range(y0.shape[1])], dtype=torch.int32)
     assert torch.equal(ends, alone)
     assert A.used_segments(alone, route.n_seg) == n_used
     assert 0 < int(alone.min()) and n_used <= route.n_seg

@@ -74,9 +74,7 @@ def _final_state(name: str, method: str, dtype, steps: int, n: int = 8):
     seg = A.segment_length(cfg, None)
     route = A.Route(metric=metric, scene=scene, cfg=cfg, seg_len=seg,
                     n_seg=cfg.max_steps // seg, cuda=False)
-    init, _ = G.make_step_cm(metric, G.scene_event_cm(scene), cfg)
-    ck, _ = A.run_segments(route, A.pack_state(init(
-        y0.t(), initial_dt(metric, y0, cfg))))
+    ck, _ = A.run_segments(route, y0.t())
     return route, ck[route.n_seg].contiguous()
 
 
@@ -89,7 +87,7 @@ def _grouped_state(method: str, dtype, n: int = 8):
     spec = T.lensing_inverse_spec(n, n)
     _, scene, _ = T.build(spec, dtype, "cpu")
     xg, ng = T.flat_pixel_grid(spec, dtype, "cpu")
-    starts, rows, P0 = [], [], []
+    starts, rows, y0s = [], [], []
     for M, z in ((0.5, 0.0), (0.55, 0.3)):
         metric = T.make_metric("kerr_schild", T.KerrSchildParams(
             torch.tensor(M, dtype=dtype), torch.tensor(0.0, dtype=dtype)),
@@ -98,15 +96,14 @@ def _grouped_state(method: str, dtype, n: int = 8):
         sc.pos[0, 3] = z
         x, u = pixel_rays(metric, xg, ng)
         y0 = torch.cat([x, u], -1)
-        init, _ = G.make_step_cm(metric, G.scene_event_cm(sc), cfg)
-        P0.append(A.pack_state(init(y0.t(), initial_dt(metric, y0, cfg))))
+        y0s.append(y0.t())
         rows.append(A.flatten_params(metric, sc))
         starts.append((metric, sc))
     seg = A.segment_length(cfg, None)
     route = A.Route(metric=starts[0][0], scene=starts[0][1], cfg=cfg,
                     seg_len=seg, n_seg=cfg.max_steps // seg, cuda=False,
                     groups=torch.stack(rows).contiguous())
-    ck, _ = A.run_segments(route, torch.cat(P0, dim=1))
+    ck, _ = A.run_segments(route, torch.cat(y0s, dim=1))
     return route, ck[route.n_seg].contiguous()
 
 

@@ -41,9 +41,10 @@ REF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def _chain(stopped: bool):
     """example2 8x8 f64 rk4/20 (dt 2.5, capture-stop 0.5) in 5 segments of
     4 steps, where the rays end in segments 1, 2 and 3 and the chain runs
-    3: the route and the initial packed state; ``stopped``: every ray at
-    the end of its span and every third inactive from the start, as
-    chip_smoke.py's stopped batch."""
+    3: the route, the launch states ``[8, B]`` and the initial packed
+    state; ``stopped``: every ray at the end of its span and every third
+    inactive from the start (a state that K3's prologue does not make:
+    ``chain_plain`` starts from it)."""
     cfg = T.default_inverse_cfg(F64, max_steps=20, method="rk4", rk4_dt=2.5,
                                 stop_rho=0.5).integrator
     _, scene, canvas = T.build(T.example2_spec(8, 8), F64, "cpu")
@@ -52,12 +53,12 @@ def _chain(stopped: bool):
     y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
     route = A.Route(metric=metric, scene=scene, cfg=cfg, seg_len=4,
                     n_seg=5, cuda=False)
-    init, _ = G.make_step_cm(metric, G.scene_event_cm(scene), cfg)
-    P0 = A.pack_state(init(y0.t(), initial_dt(metric, y0, cfg)))
+    y0 = y0.t().contiguous()
+    P0 = A.init_plain(route, y0)
     if stopped:
         P0[A.P_LAM] = cfg.lam_max
         P0[A.P_ACTIVE, ::3] = 0
-    return route, P0
+    return route, y0, P0
 
 
 def _early_exit(route, P0, ct):
@@ -112,10 +113,12 @@ def test_static_contract_equals_early_exit_bitwise(stopped):
     chain's final state, segment count and backward pass: bit for bit. A
     checkpoint past a ray's end is never read: filled with NaN there, the
     backward pass gives the same bits."""
-    route, P0 = _chain(stopped)
+    route, y0, P0 = _chain(stopped)
     ct = torch.from_numpy(np.random.default_rng(4).normal(
         size=tuple(P0.shape)))
-    ck, used = A.run_segments(route, P0)
+    ck, used = (A.chain_plain(route, P0) if stopped
+                else A.run_segments(route, y0))
+    assert torch.equal(_bits(ck[0]), _bits(P0))
     fin, n_used, ct0_ref, pbar_ref = _early_exit(route, P0, ct)
     assert used.dtype == torch.int32 and used.shape == (1 + P0.shape[1],)
     assert int(used[0]) == n_used
@@ -211,8 +214,8 @@ def test_n_iters_is_a_tensor(mode):
     """``TraceResult.n_iters`` is a 0-d int32 tensor on the batch's device
     (JAX's device array), equal to the former int: the segments the chain
     runs times their length."""
-    route, P0 = _chain(False)
-    _, used = A.run_segments(route, P0)
+    route, y0, _ = _chain(False)
+    _, used = A.run_segments(route, y0)
     cfg = route.cfg
     _, scene, canvas = T.build(T.example2_spec(8, 8), F64, "cpu")
     y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
