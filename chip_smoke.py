@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card: builds the kernels from
 raytracegr_jl_tpu_torch/csrc (K1; K3, K4 and, in libraries of their own,
-K6 and K7 and the camera's K8 and K9 of the training path; K2 of the
-compacted render; K5, its fused shading; one build per library, in
+K6 and K7 and the camera's K8 and K9 of the training path, and the
+reference shading's K11 and K12 of the render and the training path; K2
+of the compacted render; K5, its fused shading; one build per library, in
 parallel) and prints each
 kernel's registers and spills, checks each against its plain PyTorch
 version (K1 also taking its own initial step, K3's one launch against the
@@ -10,7 +11,9 @@ training batches and K4's work-order kernels against the stable sort, the groupe
 multistart against theirs and against one launch per start, K6 and K7 on
 K3's final states, and K7 against torch.autograd of the plain epilogue, K8
 and K9 on the training batches, shared and grouped, and K9 against
-torch.autograd of the plain camera) and
+torch.autograd of the plain camera, K11 and K12 hard and soft on K1's end
+states, shared, per ray and grouped, and their plain VJPs against
+torch.autograd of the plain shading) and
 K1 against the committed golden images, drives the forward render and the
 training path (one pixel-loss step for two configurations, three Adam
 steps) of the
@@ -80,7 +83,7 @@ GRAD_RTOL = {torch.float64: 1e-10, torch.float32: 2e-3}
 # PyTorch code, so they should agree exactly; the bar allows f32 rounding.
 MAIN_GRAD_RTOL = 1e-5
 LIBRARIES = ("geodesic", "adjoint", "localize", "compaction", "shading",
-             "camera")
+             "camera", "objects")
 # The accretion disk's step census at 1024x1024, a=0.8, f32, as the JAX
 # package recorded it (BASELINE.md:61): a property of the workload.
 JAX_DISK_CENSUS = "total 659.2M accepted ray-steps, p50 21, p99 15,451"
@@ -160,7 +163,8 @@ def events_ms(fn) -> float:
 # Floating-point arithmetic that the plain versions run, per output element.
 _FLOP_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "pow",
              "reciprocal", "abs", "maximum", "minimum", "clamp", "clamp_min",
-             "clamp_max", "cos", "exp", "sum", "atan2", "acos", "remainder"}
+             "clamp_max", "cos", "exp", "sum", "atan2", "acos", "remainder",
+             "sin", "log", "sigmoid"}
 # Contractions (einsum's batched products): two operations per term.
 _FLOP_PRODUCTS = {"bmm", "mm", "mv", "dot"}
 
@@ -275,7 +279,8 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 def profile_steps(fn, reps: int = 3) -> dict:
     """torch.profiler over ``reps`` runs of ``fn()`` (after one): per run,
     the device's busy ms (its kernels, copies and fills summed), its
-    kernels, the K3, K4, K10, K6, K7, K8 and K9 kernels among them, and
+    kernels, the K3, K4, K10, K6, K7, K8, K9, K11 and K12 kernels among
+    them, and
     the host's launch calls (``LAUNCH_CALLS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -300,6 +305,7 @@ def profile_steps(fn, reps: int = 3) -> dict:
         k10=count(dev, ("k10_kernel",)),
         k6=count(dev, ("k6_kernel",)), k7=count(dev, ("k7_kernel",)),
         k8=count(dev, ("k8_kernel",)), k9=count(dev, ("k9_kernel",)),
+        k11=count(dev, ("k11_kernel",)), k12=count(dev, ("k12_kernel",)),
         host_launches=sum(e.count for e in avg
                           if e.device_type == DeviceType.CPU
                           and e.key in LAUNCH_CALLS) / reps)
@@ -308,8 +314,8 @@ def profile_steps(fn, reps: int = 3) -> dict:
 @contextlib.contextmanager
 def step_launches():
     """The launches of a training step's kernels within the block (K3, K4,
-    K10, K6, K7, K8, K9, by their wrappers' counters): yields a dict keyed
-    "k3" ... "k9", set when the block ends. A graph's capture launches
+    K10, K6, K7, K8, K9, K11, K12, by their wrappers' counters): yields a
+    dict keyed "k3" ... "k12", set when the block ends. A graph's capture launches
     each once (its warm-up passes once each more), and a replay runs what
     was captured, so the graphed phases hold these counts. The profiler's
     counts per replay are printed beside them: in this long process it
@@ -317,11 +323,13 @@ def step_launches():
     where no eager kernel precedes it), not in a fresh process
     (``kernel_times.py``)."""
     from raytracegr_jl_tpu_torch.models import camera as cam
+    from raytracegr_jl_tpu_torch.models import objects
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     fns = {"k3": adj.forward_segment_cuda, "k4": adj.backward_cuda,
            "k10": adj.init_vjp_cuda, "k6": adj.localize_cuda,
            "k7": adj.localize_vjp_cuda, "k8": cam.pixel_rays_cuda,
-           "k9": cam.pixel_rays_vjp_cuda}
+           "k9": cam.pixel_rays_vjp_cuda, "k11": objects.shade_cuda,
+           "k12": objects.shade_vjp_cuda}
     out = {}
     before = {k: fn.launches for k, fn in fns.items()}
     yield out
@@ -1525,6 +1533,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     K3 and K4 entries of the kernels line."""
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models import camera as cam
+    from raytracegr_jl_tpu_torch.models import objects
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     from raytracegr_jl_tpu_torch.ops.geodesic_cm import SC_ANY
     from raytracegr_jl_tpu_torch.step_graph import WARMUP_PASSES
@@ -1567,6 +1576,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
     k3n, k4n = adj.forward_segment_cuda.launches, adj.backward_cuda.launches
     k6n, k7n = adj.localize_cuda.launches, adj.localize_vjp_cuda.launches
     k8n, k9n = cam.pixel_rays_cuda.launches, cam.pixel_rays_vjp_cuda.launches
+    k11n, k12n = objects.shade_cuda.launches, objects.shade_vjp_cuda.launches
     m = float(res.params.M.detach())
     z = float(res.params.sphere_pos.detach()[3])
     hist = res.loss_history.tolist()
@@ -1578,10 +1588,11 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
           losses=[f"{v:.4e}" for v in hist[::6]],
           ms_per_step=f"{fit_ms:.3f}", k3_launches=k3n, k4_launches=k4n,
           k6_launches=k6n, k7_launches=k7n, k8_launches=k8n,
-          k9_launches=k9n)
-    require(k3n == k4n == k6n == k7n == k8n == k9n == INV_STEPS,
-            f"config 5: {k3n} K3, {k4n} K4, {k6n} K6, {k7n} K7, {k8n} K8 "
-            f"and {k9n} K9 launches in {INV_STEPS} steps")
+          k9_launches=k9n, k11_launches=k11n, k12_launches=k12n)
+    require(k3n == k4n == k6n == k7n == k8n == k9n == k11n == k12n
+            == INV_STEPS, f"config 5: {k3n} K3, {k4n} K4, {k6n} K6, {k7n} "
+            f"K7, {k8n} K8, {k9n} K9, {k11n} K11 and {k12n} K12 launches in "
+            f"{INV_STEPS} steps")
     require(abs(m - 0.5) / 0.5 < 0.01 and abs(z) < 0.01,
             f"config 5 not recovered: M {m}, z {z}")
     require(float(res.params.a.detach()) == 0.0, "config 5: the spin moved")
@@ -1609,7 +1620,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
                        adj.backward_cuda.launches, adj.localize_cuda.launches,
                        adj.localize_vjp_cuda.launches,
                        cam.pixel_rays_cuda.launches,
-                       cam.pixel_rays_vjp_cuda.launches), starts
+                       cam.pixel_rays_vjp_cuda.launches,
+                       objects.shade_cuda.launches,
+                       objects.shade_vjp_cuda.launches), starts
 
     vec, _, main_counts, starts = timed_fit(4, True, 10)
     ser, _, ser_counts, _ = timed_fit(4, False, 10)
@@ -1622,9 +1635,9 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
 
     scale = float(ser.loss_history.abs().max())
     rel = float((vec.loss_history - ser.loss_history).abs().max()) / scale
-    require(main_counts == (10,) * 6, f"vectorized fit of 4 starts "
-            f"launched K3, K4, K6, K7, K8 and K9 {main_counts} times in 10 "
-            "steps")
+    require(main_counts == (10,) * 8, f"vectorized fit of 4 starts "
+            f"launched K3, K4, K6, K7, K8, K9, K11 and K12 {main_counts} "
+            "times in 10 steps")
     require(picked(vec) == picked(ser) and len(picked(vec)) == 1,
             f"vectorized picked start {picked(vec)}, serial {picked(ser)}")
     require(rel <= VEC_SERIAL_RTOL, f"vectorized and serial loss histories "
@@ -1636,13 +1649,15 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
         step_ms[(n, vectorized)] = statistics.median(r[1] for r in runs)
         per_step[(n, vectorized)] = [c / 5 for c in runs[-1][2]]
     for n in (1, 4, 16):
-        require(per_step[(n, True)] == [1.0] * 6, f"vectorized N={n}: "
-                f"{per_step[(n, True)]} K3/K4/K6/K7/K8/K9 launches per step")
+        require(per_step[(n, True)] == [1.0] * 8, f"vectorized N={n}: "
+                f"{per_step[(n, True)]} K3/K4/K6/K7/K8/K9/K11/K12 launches "
+                "per step")
     phase("main path vectorized multistart lensing 32x32 f32", t0,
           card=repr(card), starts=4, steps=10,
           k3_launches=main_counts[0], k4_launches=main_counts[1],
           k6_launches=main_counts[2], k7_launches=main_counts[3],
           k8_launches=main_counts[4], k9_launches=main_counts[5],
+          k11_launches=main_counts[6], k12_launches=main_counts[7],
           serial_k3_launches=ser_counts[0], picked=picked(vec),
           picked_serial=picked(ser), loss_hist_rel_diff=f"{rel:.3e}",
           bar=VEC_SERIAL_RTOL,
@@ -1719,7 +1734,7 @@ def inverse_slice(dev, card: str, reset_counts) -> list:
             idle_share=f"{max(0.0, 1 - prof['busy_ms'] / ms['graphed']):.4f}",
             kernels=f"{prof['kernels']:.0f}", k3=prof["k3"], k4=prof["k4"],
             k10=prof["k10"], k6=prof["k6"], k7=prof["k7"], k8=prof["k8"],
-            k9=prof["k9"],
+            k9=prof["k9"], k11=prof["k11"], k12=prof["k12"],
             captured=cap_n,
             host_launches=f"{prof['host_launches']:.0f}", syncs=syncs,
             eager_peak_mib=f"{peak_e / 2**20:.1f}",
@@ -2902,12 +2917,11 @@ def rowmajor_slice(dev, card: str) -> dict:
         integrator=rt.IntegratorConfig(rtol=RTOL_F32, atol=RTOL_F32,
                                        max_steps=20_000),
         backend="rowmajor"))
+    # One render, timed and counted: the route is host-bound plain torch
+    # (~80-110 ms an iteration), not a main path.
     r0 = reads()
-    fn(canvas.pos, canvas.normal)
+    ms200 = events_ms(lambda: fn(canvas.pos, canvas.normal))
     reads200 = reads() - r0
-    ms200 = statistics.median(events_ms(lambda: fn(canvas.pos,
-                                                   canvas.normal))
-                              for _ in range(3))
     phase("time rowmajor render 200x200 f32", t0, card=repr(card),
           render_ms=f"{ms200:.1f}", host_reads=reads200,
           render_ms_64x64_f64=f"{ms64:.1f}")
@@ -3134,6 +3148,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
               k10_per_replay=prof["k10"],
               k6_per_replay=prof["k6"], k7_per_replay=prof["k7"],
               k8_per_replay=prof["k8"], k9_per_replay=prof["k9"],
+              k11_per_replay=prof["k11"], k12_per_replay=prof["k12"],
               launches_in_warmups_and_capture=cap_n,
               replay_host_launches=f"{prof['host_launches']:.0f}",
               eager_peak_mib=f"{peak_e / 2**20:.1f}",
@@ -3179,6 +3194,7 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
           k10_per_step=prof["k10"],
           k6_per_step=prof["k6"], k7_per_step=prof["k7"],
           k8_per_step=prof["k8"], k9_per_step=prof["k9"],
+          k11_per_step=prof["k11"], k12_per_step=prof["k12"],
           launches_in_warmups_and_capture=cap_n,
           eager_peak_mib=f"{peak_e / 2**20:.1f}",
           graphed_capture_peak_mib=f"{peak_g / 2**20:.1f}")
@@ -3556,6 +3572,241 @@ def camera_slice(dev, card: str) -> dict:
                 k9_plain_ms=k9_plain_ms, k8_bound=b8, k9_bound=b9)
 
 
+# K11 and K12 (the reference shading and its VJP) against their plain
+# versions, bitwise, and the plain VJPs against torch.autograd of the plain
+# forward at f64: each output's largest gap over its largest magnitude, on
+# the rays where autograd's is finite (it forms 0 x inf at the poles and on
+# the axis, where the VJPs give no cotangent; tests/test_torch_shade_vjp.py's
+# measure).
+SHADE_GRAD_RTOL = 1e-12
+SHADE_STARTS = 4
+SHADE_TEMP = 0.05
+
+
+def shade_end_states(dev, spec, dtype, integ):
+    """K1's end states ``[B, 8]`` of a spec's canvas, and its scene."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    metric, scene, canvas = rt.build(spec, dtype, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    return scene, integrate_rays_cuda(metric, scene, y0, None, integ).y
+
+
+def shade_cases(dev, dtype):
+    """(label, scene, x, temp, freq) of K11/K12's check at ``dtype``:
+    example2 at 200x200 (K1's end states, f32 Tsit5 at eps^(3/4)) as the
+    flagship render holds them (shared fields, x in K1's [B, 8] rows) and
+    as the training path does (pos per ray, x in the [8, B] planes), hard
+    and soft; config 5's lensing scene at 4 starts of 32x32 (each start's
+    sphere per ray, soft at frequency 2); the accretion disk at 64x64
+    (every field per ray, each ray's r_in, r_out and half its own), hard
+    and soft."""
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops.adjoint import per_ray
+    name = str(dtype)[6:]
+    tol = float(torch.finfo(dtype).eps) ** 0.75
+    integ = rt.IntegratorConfig(rtol=tol, atol=tol, max_steps=20_000)
+    scene, y = shade_end_states(dev, rt.example2_spec(200, 200), dtype,
+                                integ)
+    B = y.shape[0]
+    planes = y.t().contiguous().t()
+    train = scene._replace(pos=per_ray(scene.pos[None], B))
+    cases = []
+    for temp, freq, mode in ((None, 12.0, "hard"),
+                             (SHADE_TEMP, 12.0, "soft")):
+        cases += [(f"render example2 200x200 {name} {mode}", scene,
+                   y[:, :4], temp, freq),
+                  (f"train example2 200x200 {name} {mode}", train,
+                   planes[:, :4], temp, freq)]
+    scene, y = shade_end_states(dev, rt.lensing_inverse_spec(INV_N, INV_N),
+                                dtype, rt.IntegratorConfig(
+                                    method="rk4", rk4_dt=0.5, max_steps=120,
+                                    lam_max=60.0, stop_rho=0.5))
+    B = y.shape[0]
+    z = torch.tensor([0.02 * (k - 1.5) for k in range(SHADE_STARTS)],
+                     dtype=dtype, device=dev)
+    pos = scene.pos.expand(SHADE_STARTS, -1, -1).clone()
+    pos[:, 0, 3] = z
+    planes = y.repeat(SHADE_STARTS, 1).t().contiguous().t()
+    cases.append((f"config 5 grouped {SHADE_STARTS} starts {name} soft",
+                  scene._replace(pos=per_ray(pos, B)), planes[:, :4],
+                  SHADE_TEMP, 2.0))
+    scene, y = shade_end_states(dev, rt.accretion_disk_spec(64, 64), dtype,
+                                rt.IntegratorConfig(rtol=tol, atol=tol,
+                                                    max_steps=400,
+                                                    stop_rho=1.0))
+    B = y.shape[0]
+    ramp = 1 + 1e-3 * torch.arange(B, dtype=dtype, device=dev)[:, None] / B
+    disk = scene._replace(**{
+        f: (getattr(scene, f)[None] * (ramp[..., None] if f == "pos"
+                                        else ramp)).contiguous()
+        for f in ("pos", "radius", "time", "r_in", "r_out", "half")})
+    for temp, mode in ((None, "hard"), (SHADE_TEMP, "soft")):
+        cases.append((f"disk 64x64 {name} {mode}", disk, y[:, :4], temp,
+                      12.0))
+    return cases
+
+
+def shade_cotangent(x: torch.Tensor, seed: int = 5) -> torch.Tensor:
+    """A seeded cotangent of the colour, every ninth ray's zero."""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    ct = torch.randn((x.shape[0], 3), generator=gen, dtype=x.dtype,
+                     device=x.device)
+    ct[::9] = 0
+    return ct
+
+
+def shade_plain(scene, x, temp, freq):
+    from raytracegr_jl_tpu_torch.models import objects as O
+    if temp is None:
+        return O.shade(scene, x)
+    return O.shade_soft(scene, x, temp=temp, color_freq=freq)
+
+
+def shade_plain_vjp(scene, x, ct, temp, freq):
+    from raytracegr_jl_tpu_torch.models import objects as O
+    if temp is None:
+        return O.shade_vjp(scene, x, ct)
+    return O.shade_soft_vjp(scene, x, ct, temp=temp, color_freq=freq)
+
+
+def shade_autograd_gap(scene, x, ct, temp, freq, got) -> tuple:
+    """The plain VJP's outputs ``got`` against torch.autograd of the plain
+    forward, x and every field a leaf per ray: the largest gap of an output
+    over its largest magnitude, on the rays where autograd's cotangents
+    are all finite; and the count of the other rays."""
+    from raytracegr_jl_tpu_torch.models.objects import (FIELD_DIMS,
+                                                        SHADE_FIELDS)
+    B = x.shape[0]
+    xl = x.detach().clone().requires_grad_()
+    leaves = {}
+    for f in SHADE_FIELDS:
+        v = getattr(scene, f).detach()
+        if v.dim() == FIELD_DIMS.get(f, 1):
+            v = v.expand((B,) + tuple(v.shape))
+        leaves[f] = v.contiguous().requires_grad_()
+    out = shade_plain(scene._replace(**leaves), xl, temp, freq)
+    want = torch.autograd.grad((out * ct).sum(), [xl, *leaves.values()],
+                               allow_unused=True)
+    ct_x, cts = got
+    pairs = [(ct_x, want[0])] + [(cts[f], w) for f, w in
+                                 zip(SHADE_FIELDS, want[1:])]
+    pairs = [(g, torch.zeros_like(g) if w is None else w) for g, w in pairs]
+    finite = torch.ones(B, dtype=torch.bool, device=x.device)
+    for _, w in pairs:
+        finite &= torch.isfinite(w.reshape(B, -1)).all(-1)
+    gap = 0.0
+    for g, w in pairs:
+        g, w = g.reshape(B, -1)[finite], w.reshape(B, -1)[finite]
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        if scale > 0:
+            gap = max(gap, float((g - w).abs().max()) / scale)
+    return gap, int((~finite).sum())
+
+
+def shade_slice(dev, card: str) -> dict:
+    """K11 and K12 against their plain versions on the card, bitwise, at
+    f32 and f64 (``shade_cases``), the plain VJPs against torch.autograd
+    at f64; then each kernel's time alone (100 launches replayed in one
+    graph, and the profiler) and in events, its plain version's, and its
+    bound, on the flagship render's, the training path's and config 5's
+    batches at f32. Returns the numbers for the kernels' JSON line."""
+    from raytracegr_jl_tpu_torch.models import objects as O
+    t0 = time.perf_counter()
+    err, gaps, skipped, n_cases = 0.0, {}, {}, 0
+    for dtype in (torch.float32, torch.float64):
+        for label, scene, x, temp, freq in shade_cases(dev, dtype):
+            n_cases += 1
+            ct = shade_cotangent(x)
+            rgb_k = O.shade_cuda(scene, x, temp=temp, color_freq=freq)
+            rgb_p = shade_plain(scene, x, temp, freq)
+            got_k = O.shade_vjp_cuda(scene, x, ct, temp=temp,
+                                     color_freq=freq)
+            got_p = shade_plain_vjp(scene, x, ct, temp, freq)
+            torch.cuda.synchronize()
+            outs = [(got_k[0], got_p[0])] + [(got_k[1][f], got_p[1][f])
+                                             for f in O.SHADE_FIELDS]
+            e = max([max_err(rgb_k, rgb_p)]
+                    + [max_err(a, b) for a, b in outs])
+            err = max(err, e)
+            require(bool(torch.isfinite(rgb_k).all()),
+                    f"{label}: rgb not finite")
+            require(bits_equal(rgb_k, rgb_p), f"{label}: K11 not bitwise "
+                    f"equal to the plain shading (max |d| {e:.3e})")
+            require(all(bits_equal(a, b) for a, b in outs),
+                    f"{label}: K12 not bitwise equal to the plain VJP "
+                    f"(max |d| {e:.3e})")
+            if dtype == torch.float64:
+                gaps[label], skipped[label] = shade_autograd_gap(
+                    scene, x, ct, temp, freq, got_p)
+    gap = max(gaps.values())
+    phase("K11/K12 vs plain and autograd", t0, cases=n_cases,
+          max_abs_err=err, k12_vs_autograd_max_rel_gap=f"{gap:.3e}",
+          per_case={k: f"{v:.3e}" for k, v in gaps.items()},
+          rays_autograd_not_finite=skipped, rtol=SHADE_GRAD_RTOL)
+    require(gap <= SHADE_GRAD_RTOL, f"the plain shading VJPs differ from "
+            f"autograd by {gap:.3e}")
+
+    # Times and bounds at f32: in events (the wrapper's call), 100
+    # launches in one graph and from the profiler (None where it misses
+    # them). Work: the plain version's operations on one ray, times the
+    # rays; bytes: x and the fields read once (a shared field once, a
+    # per-ray one per ray), rgb (K11) or the cotangent, ct_x and the
+    # fields' cotangents the path asks for (K12) written.
+    cases = {c[0]: c for c in shade_cases(dev, torch.float32)}
+    out = {}
+    for key, label, wanted in (
+            ("render", "render example2 200x200 float32 hard", ()),
+            ("train", "train example2 200x200 float32 hard", ("pos",)),
+            ("config5", f"config 5 grouped {SHADE_STARTS} starts float32 "
+             "soft", ("pos",))):
+        t0 = time.perf_counter()
+        _, scene, x, temp, freq = cases[label]
+        ct = shade_cotangent(x)
+        k11 = lambda: O.shade_cuda(  # noqa: E731
+            scene, x, temp=temp, color_freq=freq)
+        k12 = lambda: O.shade_vjp_cuda(  # noqa: E731
+            scene, x, ct, temp=temp, color_freq=freq, fields=wanted)
+        rec = dict(k11_ms=cuda_ms(k11), k12_ms=cuda_ms(k12),
+                   k11_graphed_ms=graph_ms(k11), k12_graphed_ms=graph_ms(k12),
+                   k11_device_ms=kernel_alone_ms(k11, "k11_kernel"),
+                   k12_device_ms=kernel_alone_ms(k12, "k12_kernel"),
+                   k11_plain_ms=cuda_ms(lambda: shade_plain(scene, x, temp,
+                                                            freq)),
+                   k12_plain_ms=cuda_ms(lambda: shade_plain_vjp(
+                       scene, x, ct, temp, freq)))
+        with torch.no_grad():
+            one = scene._replace(**{
+                f: getattr(scene, f)[:1] for f in O.SHADE_FIELDS
+                if getattr(scene, f).dim() > O.FIELD_DIMS.get(f, 1)})
+            f11 = count_flops(lambda: shade_plain(one, x[:1], temp, freq))
+            f12 = count_flops(lambda: shade_plain_vjp(one, x[:1], ct[:1],
+                                                      temp, freq))
+        B, w, n = x.shape[0], x.element_size(), scene.kind.shape[0]
+        fields = sum(getattr(scene, f).numel() for f in O.SHADE_FIELDS)
+        outs = sum(B * n * (4 if f == "pos" else 1) for f in wanted)
+        rec["k11_bound"] = bound(B * f11, (B * (4 + 3) + fields) * w)
+        rec["k12_bound"] = bound(B * f12, (B * (4 + 3 + 4) + fields + outs)
+                                 * w)
+        out[key] = rec
+        phase(f"time K11/K12 {label}", t0, card=repr(card), rays=B,
+              k11_ms=f"{rec['k11_ms']:.4f}",
+              k11_graphed_ms=f"{rec['k11_graphed_ms']:.5f}",
+              k11_device_ms=rec["k11_device_ms"],
+              k11_plain_ms=f"{rec['k11_plain_ms']:.4f}",
+              k12_ms=f"{rec['k12_ms']:.4f}",
+              k12_graphed_ms=f"{rec['k12_graphed_ms']:.5f}",
+              k12_device_ms=rec["k12_device_ms"],
+              k12_plain_ms=f"{rec['k12_plain_ms']:.4f}",
+              flops_per_ray_k11=f11, flops_per_ray_k12=f12,
+              k11_bound_ms=f"{rec['k11_bound'][0]:.6f}",
+              k11_bound_by=rec["k11_bound"][1],
+              k12_bound_ms=f"{rec['k12_bound'][0]:.6f}",
+              k12_bound_by=rec["k12_bound"][1])
+    out["err"] = err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3574,14 +3825,15 @@ def main() -> int:
     from raytracegr_jl_tpu_torch.utils import cuda_build
 
     from raytracegr_jl_tpu_torch import compaction
-    from raytracegr_jl_tpu_torch.models import camera
+    from raytracegr_jl_tpu_torch.models import camera, objects
     from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
 
     counted = (integrate_rays_cuda, adj.forward_segment_cuda,
                adj.backward_cuda, compaction.chunk_cuda, shade_redshift_cuda,
                adj.localize_cuda, adj.localize_vjp_cuda, adj.work_order_cuda,
                camera.pixel_rays_cuda, camera.pixel_rays_vjp_cuda,
-               adj.init_vjp_cuda)
+               adj.init_vjp_cuda, objects.shade_cuda,
+               objects.shade_vjp_cuda)
 
     def reset_counts():
         for fn in counted:
@@ -3734,8 +3986,11 @@ def main() -> int:
         reset_counts()
         rgb = fn(canvas.pos, canvas.normal)
         launches = integrate_rays_cuda.launches
+        k11_render = objects.shade_cuda.launches
     torch.cuda.synchronize()
     require(launches == 1, f"the main path launched K1 {launches} times")
+    require(k11_render == 1, f"the main path launched K11 {k11_render} "
+            "times")
     require(not eager_init, "the main path ran the eager initial step")
     require(syncs["n"] == 0, f"the main path synced the host {syncs['n']} "
             "times")
@@ -3746,7 +4001,7 @@ def main() -> int:
     rgb_plain = plain_fn(canvas.pos, canvas.normal)
     within = frac_within_2lsb(rgb, rgb_plain)
     phase("main path example2 200x200 f32", t0, k1_launches=launches,
-          eager_initial_steps=len(eager_init), host_syncs=syncs["n"],
+          k11_launches=k11_render, eager_initial_steps=len(eager_init), host_syncs=syncs["n"],
           pixels_within_2lsb_of_plain=f"{within:.6f}")
     require(within >= MIN_PIXELS_WITHIN_2LSB, "main path disagrees with plain")
     main_err = max(
@@ -3953,6 +4208,10 @@ def main() -> int:
     #     against autograd; their times and bounds.
     cam = camera_slice(dev, card)
 
+    # 6d. K11 and K12 (the shading) against their plain versions and the
+    #     plain VJPs against autograd; their times and bounds.
+    shd = shade_slice(dev, card)
+
     # 7. The training main path, counted: one pixel-loss step (loss and
     #    backward) of make_ray_loss_fn at 200x200 f32 for each bench
     #    configuration, then three Adam steps of inverse.fit; each against
@@ -4009,17 +4268,20 @@ def main() -> int:
               k4_launches=counts[2], k6_launches=counts[5],
               k7_launches=counts[6], k4_order_launches=counts[7],
               k8_launches=counts[8], k9_launches=counts[9],
-              k10_launches=counts[10],
+              k10_launches=counts[10], k11_launches=counts[11],
+              k12_launches=counts[12],
               eager_initial_state_calls=len(eager),
               loss=f"{loss:.9e}",
               loss_plain=f"{loss_p:.9e}",
               grads=[f"{v:.6e}" for v in g.tolist()],
               grad_max_rel_diff_vs_plain=f"{rel:.3e}")
-        require(all(counts[i] == 1 for i in (1, 2, 5, 6, 7, 8, 9, 10)),
+        require(all(counts[i] == 1 for i in (1, 2, 5, 6, 7, 8, 9, 10, 11,
+                                             12)),
                 f"{label}: the training step launched K3 {counts[1]}, K4 "
                 f"{counts[2]}, K6 {counts[5]}, K7 {counts[6]}, K4's work "
-                f"order {counts[7]}, K8 {counts[8]}, K9 {counts[9]} and "
-                f"K10 {counts[10]} times, not once each")
+                f"order {counts[7]}, K8 {counts[8]}, K9 {counts[9]}, K10 "
+                f"{counts[10]}, K11 {counts[11]} and K12 {counts[12]} "
+                "times, not once each")
         require(not eager, f"{label}: the training step ran the eager "
                 f"initial state ({eager})")
         require(np.isfinite(loss) and bool(torch.isfinite(g).all()),
@@ -4050,13 +4312,14 @@ def main() -> int:
           k3_launches=fit_counts[1], k4_launches=fit_counts[2],
           k6_launches=fit_counts[5], k7_launches=fit_counts[6],
           k8_launches=fit_counts[8], k9_launches=fit_counts[9],
-          k10_launches=fit_counts[10],
+          k10_launches=fit_counts[10], k11_launches=fit_counts[11],
+          k12_launches=fit_counts[12],
           losses=[f"{v:.6e}" for v in res.loss_history.tolist()],
           M=f"{float(res.final_params.M.detach()):.9f}",
           max_param_diff_vs_plain=f"{fit_diff:.3e}")
-    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6, 8, 9, 10)),
-            "fit did not launch K3, K4, K6, K7, K8, K9 and K10 once in each "
-            "step")
+    require(all(fit_counts[i] == 3 for i in (1, 2, 5, 6, 8, 9, 10, 11, 12)),
+            "fit did not launch K3, K4, K6, K7, K8, K9, K10, K11 and K12 "
+            "once in each step")
     require(bool(torch.isfinite(res.loss_history).all())
             and all(np.isfinite(fin)), "fit: non-finite loss or parameters")
     require(fit_diff <= MAIN_GRAD_RTOL * max(fin),
@@ -4362,6 +4625,32 @@ def main() -> int:
         "plain_ms": cam["k9_plain_ms"],
         "bound_ms": cam["k9_bound"][0],
         "bound_by": cam["k9_bound"][1],
+        "library_ms": None}, {
+        "name": "K11 shade_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/objects.cu",
+        "replaces": "none: XLA's fusion of the shading around the "
+                    "pallas_calls (raytracegr_jl_tpu/models/objects.py:300 "
+                    "shade_lanes, :376 shade_soft)",
+        "launches": step_launches["rk4/200"][11],
+        "max_abs_err": shd["err"],
+        "ms": shd["train"]["k11_ms"],
+        "plain_ms": shd["train"]["k11_plain_ms"],
+        "bound_ms": shd["train"]["k11_bound"][0],
+        "bound_by": shd["train"]["k11_bound"][1],
+        "library_ms": None}, {
+        "name": "K12 shade_vjp_cuda",
+        "route": "cuda",
+        "source": "raytracegr_jl_tpu_torch/csrc/objects.cu",
+        "replaces": "none: XLA's AD of the shading in the jitted step "
+                    "(raytracegr_jl_tpu/models/objects.py:300 shade_lanes, "
+                    ":376 shade_soft)",
+        "launches": step_launches["rk4/200"][12],
+        "max_abs_err": shd["err"],
+        "ms": shd["train"]["k12_ms"],
+        "plain_ms": shd["train"]["k12_plain_ms"],
+        "bound_ms": shd["train"]["k12_bound"][0],
+        "bound_by": shd["train"]["k12_bound"][1],
         "library_ms": None}] + disk_entries + inverse_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,7 +18,9 @@ calls: a tree's count there is 0), the segments
 that has ``init_plain`` also the initial state, K3's prologue and K4's
 epilogue on the card), the localization (``ops.adjoint._Localized``: K6
 and K7 on the card; in a tree without them, ``localize_events_cm`` under
-autograd), the shading (``shade``, ``shade_soft``) and the rest (the
+autograd), the shading (``models.objects._Shaded``: K11 and K12 on the
+card; in a tree without them, ``shade`` and ``shade_soft`` under
+autograd) and the rest (the
 loss, the selections of ``flatten_params`` and ``ray_params``, the
 camera's parameters per ray; in an older tree also the initial state,
 ``make_step_cm``'s init, and its autograd). The operations of a
@@ -119,7 +121,7 @@ def main() -> int:
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch import grad, render
-    from raytracegr_jl_tpu_torch.models import camera
+    from raytracegr_jl_tpu_torch.models import camera, objects
     from raytracegr_jl_tpu_torch.ops import adjoint
     if os.path.dirname(os.path.dirname(os.path.abspath(rt.__file__))) != tree:
         raise RuntimeError("the package did not load from the tree given")
@@ -137,6 +139,9 @@ def main() -> int:
         on_card["camera"] = "K8, K9"
     else:
         labels["camera"] = [(grad, "pixel_rays")]
+    if hasattr(objects, "_Shaded"):
+        labels["shading"] = [(objects._Shaded, "apply")]
+        on_card["shading"] = "K11, K12"
     if hasattr(adjoint, "_Localized"):
         labels["localization"] = [(adjoint._Localized, "apply")]
         on_card["localization"] = "K6, K7"

@@ -8,7 +8,9 @@ versions can be compared in one run on one card.
     python3 kernel_times.py diagnose-k1 [--tree DIR] [--out FILE]
     python3 kernel_times.py k4 [--tree DIR] [--out FILE]
     python3 kernel_times.py k4-kernel [--tree DIR] [--out FILE]
-    python3 kernel_times.py sass [--tree DIR] [--out FILE]
+    python3 kernel_times.py sass [--tree DIR] [--libs A,B] [--out FILE]
+    python3 kernel_times.py shade [--tree DIR] [--out FILE]
+    python3 kernel_times.py digests [--tree DIR] [--out FILE]
     python3 kernel_times.py compare-images A.images.pt B.images.pt
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
@@ -48,11 +50,21 @@ starts' losses, their gap, and the pixels that differ and that flip
 (``compare_images``), which tell a loss that moved by rounding from one
 that moved because a few pixels crossed an edge.
 
-``sass``: for every kernel of the tree's three libraries, its ``ptxas
--v`` line (registers, stack, spills) and its static SASS: the count of
-instructions and a digest of their text, so that two trees' builds of a
-kernel can be told identical or not (the ungrouped K3 and K4 of a tree
-with grouped variants against the parent's).
+``sass``: for every kernel of the tree's libraries (those of ``--libs
+a,b`` where it is given), its ``ptxas -v`` line (registers, stack,
+spills) and its static SASS: the count of instructions and a digest of
+their text, so that two trees' builds of a kernel can be told identical or
+not (the ungrouped K3 and K4 of a tree with grouped variants against the
+parent's; K5 against the parent's after its code moved into a header).
+
+``shade``: the 200x200 render (K1, the render, K11 alone where the tree
+has it), then the training steps (with K11 and K12 alone where the tree
+has them) and config 5's Adam steps as ``times`` gives them; builds only
+the libraries those run.
+
+``digests``: the flagship render's image (200x200 f32) and K5's colours
+on K1's end states of the disk (256x256, f32 and f64) as digests of their
+bytes, to hold two trees' outputs bitwise to each other.
 
 ``diagnose``: chip_smoke.py's diagnosis of the tree's kernels: the
 ``ptxas -v`` lines of every kernel, the static SASS instruction mix of
@@ -90,12 +102,17 @@ from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, adjoint_work,
                         timed_calls)
 
 
+# The libraries named by --libs (all where None).
+ONLY = None
+
+
 def libraries() -> list:
     """The libraries of chip_smoke.py's list whose source the tree has (an
-    older tree lacks the later ones)."""
+    older tree lacks the later ones), those of --libs where it is given."""
     from raytracegr_jl_tpu_torch.utils import cuda_build as cb
     return [n for n in LIBRARIES
-            if os.path.exists(os.path.join(cb.CSRC, f"{n}.cu"))]
+            if os.path.exists(os.path.join(cb.CSRC, f"{n}.cu"))
+            and (ONLY is None or n in ONLY)]
 
 
 def emit(out: list, kind: str, **fields) -> None:
@@ -162,13 +179,8 @@ def diagnose_k1_times(out: list, dev, card: str) -> None:
 
 def times(out: list, dev, card: str) -> None:
     import torch
-    import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch import compaction as C
-    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
-    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
-    from raytracegr_jl_tpu_torch.render import initial_dt
 
-    f32 = torch.float32
     # The disk: the compacted render, K2 per chunk (summed, and the last).
     cfg, metric, scene, canvas, y0, dt0 = disk_setup(dev)
     integ = cfg.integrator
@@ -195,13 +207,28 @@ def times(out: list, dev, card: str) -> None:
          k2_ms_per_chunk=[statistics.median(r[i] for r in runs)
                           for i in range(len(runs[0]))])
 
-    # K1 on example2 (the bench configuration): the kernel alone (profiler;
-    # given dt0, and taking its own initial step where it can), the call as
-    # render_fn makes it, the call given dt0 with its launch set up anew,
-    # and the render.
+    render_times(out, dev, card, (200, 1024))
+    train_times(out, dev, card)
+    config5_times(out, dev, card)
+
+
+def render_times(out: list, dev, card: str, sizes) -> None:
+    """K1 on example2 (the bench configuration) at each size: the kernel
+    alone (profiler; given dt0, and taking its own initial step where it
+    can), the call as render_fn makes it, the call given dt0 with its
+    launch set up anew, and the render; K11 alone on K1's end states where
+    the tree has it."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models import objects
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    from raytracegr_jl_tpu_torch.render import initial_dt
+
+    f32 = torch.float32
     bench = rt.IntegratorConfig(method="tsit5", rtol=RTOL_F32, atol=RTOL_F32,
                                 max_steps=20_000)
-    for n in (200, 1024):
+    for n in sizes:
         metric, scene, canvas = build(example2_spec(n, n), f32, dev)
         y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
         dt0 = initial_dt(metric, y0, bench)
@@ -217,10 +244,12 @@ def times(out: list, dev, card: str) -> None:
         if k1_takes_own_step():
             rec["k1_kernel_own_step_ms"] = kernel_alone_ms(
                 k1_entry(metric, scene, bench, y0, None), "k1_kernel")
+        if hasattr(objects, "shade_cuda"):
+            x = integrate_rays_cuda(metric, scene, y0, None, bench).y[:, :4]
+            k11 = lambda: objects.shade_cuda(scene, x)  # noqa: E731
+            rec.update(k11_ms=cuda_ms(k11),
+                       k11_device_ms=kernel_alone_ms(k11, "k11_kernel"))
         emit(out, "time", card=card, what=f"K1 example2 {n}x{n} f32", **rec)
-
-    train_times(out, dev, card)
-    config5_times(out, dev, card)
 
 
 def train_route(dev, method: str, steps: int):
@@ -264,6 +293,7 @@ def train_times(out: list, dev, card: str) -> None:
     import torch
     import raytracegr_jl_tpu_torch as rt
     from raytracegr_jl_tpu_torch.models import camera as cam
+    from raytracegr_jl_tpu_torch.models import objects
     from raytracegr_jl_tpu_torch.models.scenes import example2_spec
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     f32 = torch.float32
@@ -334,6 +364,17 @@ def train_times(out: list, dev, card: str) -> None:
             loc.update(k8_ms=cuda_ms(k8), k9_ms=cuda_ms(k9),
                        k8_device_ms=kernel_alone_ms(k8, "k8_kernel"),
                        k9_device_ms=kernel_alone_ms(k9, "k9_kernel"))
+        if hasattr(objects, "shade_cuda"):
+            x = ck[route.n_seg][:4].t()
+            sc = route.scene._replace(pos=adj.per_ray(route.scene.pos[None],
+                                                      x.shape[0]))
+            ct_rgb = torch.ones((x.shape[0], 3), dtype=f32, device=dev)
+            k11 = lambda: objects.shade_cuda(sc, x)  # noqa: E731
+            k12 = lambda: objects.shade_vjp_cuda(  # noqa: E731
+                sc, x, ct_rgb, fields=("pos",))
+            loc.update(k11_ms=cuda_ms(k11), k12_ms=cuda_ms(k12),
+                       k11_device_ms=kernel_alone_ms(k11, "k11_kernel"),
+                       k12_device_ms=kernel_alone_ms(k12, "k12_kernel"))
         if hasattr(adj, "localize_cuda"):
             P = ck[route.n_seg].contiguous()
             ct_y, ct_lam = loc_cotangents(P)
@@ -349,7 +390,8 @@ def train_times(out: list, dev, card: str) -> None:
              graphed_step_ms=turns["graphed"],
              replay_device_ms=prof["busy_ms"],
              replay_kernels=prof["kernels"],
-             replay_k8_k9=(prof["k8"], prof["k9"]), loss_hex=loss_hex,
+             replay_k8_k9=(prof["k8"], prof["k9"]),
+             replay_k11_k12=(prof["k11"], prof["k12"]), loss_hex=loss_hex,
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
              / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms,
@@ -489,6 +531,7 @@ def config5_times(out: list, dev, card: str) -> None:
              graphed_device_ms=prof["busy_ms"],
              graphed_kernels=prof["kernels"],
              graphed_k8_k9=(prof["k8"], prof["k9"]),
+             graphed_k11_k12=(prof["k11"], prof["k12"]),
              loss_hex=[float(v).hex() for v in losses])
 
 
@@ -615,6 +658,57 @@ def k4_mode(out: list, dev, card: str) -> None:
     config5_times(out, dev, card)
 
 
+SHADE_LIBRARIES = ("geodesic", "adjoint", "localize", "camera", "objects")
+
+
+def shade_mode(out: list, dev, card: str) -> None:
+    """``shade``: the 200x200 render (``render_times``), then the training
+    steps and config 5's Adam steps as ``times`` gives them (without the
+    disk and the 1024x1024 render)."""
+    render_times(out, dev, card, (200,))
+    train_times(out, dev, card)
+    config5_times(out, dev, card)
+
+
+DIGEST_LIBRARIES = ("geodesic", "shading", "objects")
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def digests(out: list, dev, card: str) -> None:
+    """``digests``: the outputs of the forward paths on fixed inputs as
+    digests of their bytes, so that two trees' runs can be held bitwise to
+    each other: the flagship render at 200x200 f32 (``render_fn``: K1, then
+    the tree's shading) and K5 on K1's end states of the disk at 256x256,
+    f32 and f64 (K1's end states' digest beside it)."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
+    from raytracegr_jl_tpu_torch.models.scenes import build, example2_spec
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import integrate_rays_cuda
+    f32 = torch.float32
+    metric, scene, canvas = build(example2_spec(200, 200), f32, dev)
+    rgb = rt.render_fn(metric, scene, rt.RenderConfig(
+        integrator=rt.IntegratorConfig(rtol=RTOL_F32, atol=RTOL_F32,
+                                       max_steps=20_000)))(canvas.pos,
+                                                           canvas.normal)
+    emit(out, "digest", card=card, what="render example2 200x200 f32",
+         rgb=digest(rgb))
+    for dtype in (f32, torch.float64):
+        metric, scene, canvas = build(rt.accretion_disk_spec(256, 256),
+                                      dtype, dev)
+        tol = float(torch.finfo(dtype).eps) ** 0.75
+        y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+        y = integrate_rays_cuda(metric, scene, y0, None, rt.IntegratorConfig(
+            rtol=tol, atol=tol, max_steps=2000, stop_rho=1.0)).y
+        emit(out, "digest", card=card,
+             what=f"K5 disk 256x256 {str(dtype)[6:]}", y=digest(y),
+             rgb=digest(shade_redshift_cuda(metric, scene, y0, y)))
+
+
 def graphed_step(loss_fn, make_params):
     """A replay of ``loss_fn``'s loss and backward captured as one CUDA
     graph over ``make_params()`` (the tree's step_graph.GraphedStep), with
@@ -634,12 +728,17 @@ def graphed_step(loss_fn, make_params):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("compare-images", "diagnose",
-                                     "diagnose-k1", "k4", "k4-kernel",
-                                     "sass", "times"))
+                                     "diagnose-k1", "digests", "k4",
+                                     "k4-kernel", "sass", "shade", "times"))
     ap.add_argument("images", nargs="*", help="compare-images: A B")
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--libs", default=None,
+                    help="sass: only these libraries (comma-separated)")
     ns = ap.parse_args()
+    global ONLY
+    if ns.libs:
+        ONLY = set(ns.libs.split(","))
     if ns.mode == "compare-images":
         require(len(ns.images) == 2, "compare-images takes two files")
         compare_images(*ns.images)
@@ -671,8 +770,10 @@ def main() -> int:
             errors.append(f"{name}: {e}")
 
     names = [n for n in libraries()
-             if not ns.mode.startswith("k4") or n in K4_LIBRARIES
-             and (ns.mode == "k4" or n == "adjoint")]
+             if (n in SHADE_LIBRARIES if ns.mode == "shade" else
+                 n in DIGEST_LIBRARIES if ns.mode == "digests" else
+                 not ns.mode.startswith("k4") or n in K4_LIBRARIES
+                 and (ns.mode == "k4" or n == "adjoint"))]
     threads = [threading.Thread(target=build_one, args=(n,)) for n in names]
     for t in threads:
         t.start()
@@ -684,7 +785,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
      "k4": k4_mode, "k4-kernel": k4_times, "sass": sass_digests,
-     "times": times}[ns.mode](out, dev, card)
+     "shade": shade_mode, "times": times,
+     "digests": digests}[ns.mode](out, dev, card)
     emit(out, "done", tree=tree, mode=ns.mode,
          seconds=time.perf_counter() - t0)
     if ns.out:

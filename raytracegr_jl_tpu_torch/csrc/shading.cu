@@ -13,9 +13,10 @@
 // geodesic_common.cuh, the kernels' scene event), the nearest object (the
 // earliest index on ties) and whether it lies within hit_dmin; that
 // object's base colour (sphere: the 12x12 latitude/longitude checker; plane:
-// green; disk: radial and azimuthal checker), the metric at the hit and at
-// the launch point (Kerr-Schild g = eta + f k k as ops/metrics.py
-// kerr_schild writes it, or Minkowski), the camera observer's frequency
+// green; disk: radial and azimuthal checker; the nearest-object loop
+// and the colour are objects_common.cuh's, shared with K11), the metric
+// at the hit and at the launch point (Kerr-Schild g = eta + f k k as
+// ops/metrics.py kerr_schild writes it, or Minkowski), the camera observer's frequency
 // (the normalised raised time covector, from the closed-form inverse's
 // first column, ops/geometry.py inv4_column0; these device functions are
 // csrc/camera_common.cuh's, shared with K8 and K9), the emitter's 4-velocity (Keplerian
@@ -34,6 +35,7 @@
 // the same way).
 
 #include "camera_common.cuh"
+#include "objects_common.cuh"
 
 namespace {
 
@@ -45,14 +47,6 @@ __device__ __forceinline__ void normalize_timelike(const T g[4][4], T* v) {
   const T s = sqrt(nmax(n2, T(1e-6)));
 #pragma unroll
   for (int a = 0; a < 4; ++a) v[a] = v[a] / s;
-}
-
-// torch.remainder(v, 1): fmod, moved into [0, 1).
-template <typename T>
-__device__ __forceinline__ T wave(T v) {
-  T m = fmod(v, T(1));
-  if (m != T(0) && m < T(0)) m = m + T(1);
-  return m;
 }
 
 template <typename T, bool KERR>
@@ -71,41 +65,19 @@ k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
     x0[c] = y0[8 * i + c];
     k0[c] = y0[8 * i + 4 + c];
   }
-  // The nearest object (torch.argmin: the earliest index, NaN first).
-  T dmin = object_distance(p, 0, p.kind[0], x);
-  int o = 0;
-  for (int j = 1; j < n_obj; ++j) {
-    const T d = object_distance(p, j, p.kind[j], x);
-    if (dmin == dmin && (d < dmin || d != d)) {
-      dmin = d;
-      o = j;
-    }
-  }
+  // The nearest object and its base colour (objects_common.cuh, shared
+  // with K11).
+  T dmin;
+  const int o = nearest_object(
+      n_obj, [&](int j) { return object_distance(p, j, p.kind[j], x); },
+      dmin);
   T out[3] = {T(0), T(0), T(0)};
   if (dmin < hit_dmin) {
     const T* ob = &p.obj[o * OBJ_STRIDE];
     const int kind = p.kind[o];
-    // Base colour (models/objects.py colors).
     const T xx = x[1] - ob[0], yy = x[2] - ob[1], zz = x[3] - ob[2];
-    const T inv_pi = T(1) / T(3.14159265358979323846);
-    const T phi = atan2(yy, xx);
     T base[3];
-    if (kind == KIND_SPHERE) {
-      const T r = sqrt(xx * xx + yy * yy + zz * zz);
-      const T safe_r = r == T(0) ? T(1) : r;
-      const T theta = acos(clip(zz / safe_r, T(-1), T(1)));
-      base[0] = wave(T(12) * theta * inv_pi);
-      base[1] = wave(T(12) * phi * inv_pi);
-      base[2] = T(1);
-    } else if (kind == KIND_PLANE) {
-      base[0] = T(0);
-      base[1] = T(0.5);
-      base[2] = T(0);
-    } else {
-      base[0] = wave(sqrt(xx * xx + yy * yy));
-      base[1] = wave(T(6) * phi * inv_pi);
-      base[2] = T(0.9);
-    }
+    base_colour<T, false>(kind, xx, yy, zz, T(12), base);
     // The emitter's 4-velocity in the metric at the hit.
     T g[4][4], u[4];
     metric_at<T, KERR>(p.cfg[P_M], p.cfg[P_A], p.cfg[P_EPS2],

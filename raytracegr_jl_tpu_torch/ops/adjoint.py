@@ -77,8 +77,8 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.objects import (KIND_DISTANCE_JVP, KIND_PLANE, KIND_SPHERE,
-                              Scene, object_kinds)
+from ..models.objects import (FIELD_DIMS, KIND_DISTANCE_JVP, KIND_PLANE,
+                              KIND_SPHERE, Scene, object_kinds)
 from .geodesic_cm import (OBJ_FIELDS, SC_ANY, SC_REFINE, StepState,
                           _check_options, _interpolants, _object_get,
                           _tsit5_dinterp_cm, bisect_bracket,
@@ -1544,9 +1544,6 @@ def _detached(scene: Scene) -> Scene:
     its host copy of the kinds) as it is."""
     return scene._replace(**{f: getattr(scene, f).detach()
                              for f in Scene._fields if f != "kind"})
-
-
-FIELD_DIMS = {"pos": 2, "vel": 2}
 
 
 def _first_group(scene: Scene) -> Scene:

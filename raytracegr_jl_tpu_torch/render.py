@@ -12,9 +12,12 @@ right-hand side by automatic differentiation of the metric
 (ops/geometry.py) and
 the row-major integrator of ops/integrate.py, plain torch on every
 device. Shading is the
-reference's hard shading, ``shade_soft`` when ``soft_temp`` is set, or the
-gravitational-redshift shading of models/shading.py with
-``shading="redshift"``. The compacted forward render is in compaction.py."""
+reference's hard shading, ``shade_soft`` when ``soft_temp`` is set (on the
+component-major backends one function with a hand-written reverse,
+``shade_reference``: K11 and K12 on CUDA tensors; the row-major backend
+takes autograd of the plain forward), or the gravitational-redshift
+shading of models/shading.py with ``shading="redshift"``. The compacted
+forward render is in compaction.py."""
 
 from __future__ import annotations
 
@@ -23,14 +26,13 @@ from typing import NamedTuple
 import torch
 
 from .models.camera import Canvas
-from .models.objects import Scene, shade, shade_soft
+from .models.objects import Scene, shade, shade_reference, shade_soft
 from .models.shading import shade_redshift
-from .ops.adjoint import (FIELD_DIMS, integrate_rays_autograd,
-                          integrate_rays_ckpt, integrate_rays_ckpt_cuda,
-                          per_ray)
+from .ops.adjoint import (integrate_rays_autograd, integrate_rays_ckpt,
+                          integrate_rays_ckpt_cuda, per_ray)
 from .ops.geodesic_cm import (initial_dt, integrate_rays_cm,
                               integrate_rays_cuda, launch_config)
-from .models.objects import min_distance
+from .models.objects import FIELD_DIMS, min_distance
 from .ops.geometry import MetricFn, geodesic, sanitize_bounds
 from .ops.integrate import (IntegratorConfig, TraceResult, integrate_rays,
                             integrate_rays_scan)
@@ -229,7 +231,9 @@ def _shade(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
            y: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """The end states' colours ``[B, 3]``; ``y0`` the launch states (the
     redshift shading's camera frequency; M = a = 0 for a metric function
-    without ``params``)."""
+    without ``params``). The reference shading of a component-major
+    backend goes through ``shade_reference`` (K11 and K12 on CUDA
+    tensors)."""
     if cfg.shading == "redshift":
         p = getattr(metric, "params", KerrSchildParams(M=0.0, a=0.0))
         return shade_redshift(metric, scene, y0, y, p.M, p.a, cfg.hit_dmin,
@@ -242,7 +246,10 @@ def _shade(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
         f: per_ray(v[None], B) for f, v in scene._asdict().items()
         if f != "kind" and v.requires_grad
         and v.dim() == FIELD_DIMS.get(f, 1)})
-    if cfg.soft_temp is not None:
-        return shade_soft(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
-                          color_freq=cfg.soft_freq)
-    return shade(scene, y[..., :4], cfg.hit_dmin)
+    if cfg.backend == ROWMAJOR:
+        if cfg.soft_temp is not None:
+            return shade_soft(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
+                              color_freq=cfg.soft_freq)
+        return shade(scene, y[..., :4], cfg.hit_dmin)
+    return shade_reference(scene, y[..., :4], cfg.hit_dmin, cfg.soft_temp,
+                           cfg.soft_freq)

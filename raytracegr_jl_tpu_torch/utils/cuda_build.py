@@ -34,10 +34,10 @@ F32_FLAGS = NVCC_FLAGS + ("-DRTGR_F32=1",)
 F64_FLAGS = NVCC_FLAGS + ("-rdc=true", "-DRTGR_F64=1")
 POW_FLAGS = _COMMON + ("-rdc=true", "--fmad=true")
 LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
-# The C entry points, each returning a cudaError_t. Every one but K8's and
-# K9's takes the packed parameter block (prm: ops/geodesic_cm.py
-# pack_params), copies it into the library's constant memory on the stream
-# and launches there. K1:
+# The C entry points, each returning a cudaError_t. Every one but K8's,
+# K9's, K11's and K12's takes the packed parameter block (prm:
+# ops/geodesic_cm.py pack_params), copies it into the library's constant
+# memory on the stream and launches there. K1:
 # (y0, dt0, y, lam, hit, steps, prm: pointers; n, kerr, tsit5, r_mode,
 # scene, max_steps, n_obj, npts, bisect_iters: ints; stream). K2: (P_in, y0,
 # dt0, P_out, y_fin, lam_fin, prm; n, kerr, tsit5, r_mode, scene, n_obj,
@@ -58,8 +58,14 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
 # K8, K9 (no parameter block: M and a by pointer): (pos, normal, M, a, u;
 # n, M's stride, a's stride, kerr, r_mode; eps2, eps2 / 2, det_min:
-# doubles; stream), K9 with the cotangent after a and pbar for u.
+# doubles; stream), K9 with the cotangent after a and pbar for u. K11
+# (no parameter block: the scene's fields by pointer): (x, pos, radius,
+# time, r_in, r_out, half, rgb; n, x's two strides, the per-ray mask,
+# n_obj, soft; the kinds (unsigned 64 bits); hit_dmin, temp, freq:
+# doubles; stream), K12 with the cotangent, ct_x and the six fields'
+# cotangents (or nulls) in place of rgb.
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
@@ -86,6 +92,10 @@ _SIGNATURES = {
                   for name in ("rtgr_k8_f32", "rtgr_k8_f64")},
                **{name: [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P]
                   for name in ("rtgr_k9_f32", "rtgr_k9_f64")}},
+    "objects": {**{name: [_P] * 8 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
+                   for name in ("rtgr_k11_f32", "rtgr_k11_f64")},
+                **{name: [_P] * 15 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
+                   for name in ("rtgr_k12_f32", "rtgr_k12_f64")}},
 }
 
 _lock = threading.Lock()

@@ -1578,3 +1578,196 @@ def test_graphed_rk4_step_with_k8_k9_matches_eager():
     assert not _bits_equal(moved[0], want[0])
     assert (C.pixel_rays_cuda.launches - before[0],
             C.pixel_rays_vjp_cuda.launches - before[1]) == counted
+
+
+def _shade_case(case):
+    """(scene, x, temp, freq) of a K11/K12 case on the card: K1's end
+    states of example2 at 32x32 (shared fields, x in K1's [B, 8] rows; or
+    pos per ray and x in the training path's [8, B] planes), config 5's
+    lensing scene at 4 starts of 16x16 (each start's sphere per ray, soft
+    at frequency 2), or the accretion disk at 24x24 (every field per ray)."""
+    from raytracegr_jl_tpu_torch.ops.adjoint import per_ray
+    name, dtype, mode = case
+    dev = torch.device("cuda")
+    tol = float(torch.finfo(dtype).eps) ** 0.75
+    temp = 0.05 if mode == "soft" else None
+    spec, integ = {
+        "example2": (T.example2_spec(32, 32), T.IntegratorConfig(
+            rtol=tol, atol=tol, max_steps=20_000)),
+        "planes": (T.example2_spec(32, 32), T.IntegratorConfig(
+            rtol=tol, atol=tol, max_steps=20_000)),
+        "grouped": (T.lensing_inverse_spec(16, 16), T.IntegratorConfig(
+            method="rk4", rk4_dt=0.5, max_steps=120, lam_max=60.0,
+            stop_rho=0.5)),
+        "disk": (T.accretion_disk_spec(24, 24), T.IntegratorConfig(
+            rtol=tol, atol=tol, max_steps=400, stop_rho=1.0))}[name]
+    metric, scene, canvas = T.build(spec, dtype, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    y = integrate_rays_cuda(metric, scene, y0, None, integ).y
+    B = y.shape[0]
+    if name == "example2":
+        return scene, y[:, :4], temp, 12.0
+    if name == "planes":
+        return (scene._replace(pos=per_ray(scene.pos[None], B)),
+                y.t().contiguous().t()[:, :4], temp, 12.0)
+    if name == "grouped":
+        pos = scene.pos.expand(4, -1, -1).clone()
+        pos[:, 0, 3] = torch.tensor([-0.03, -0.01, 0.01, 0.03], dtype=dtype,
+                                    device=dev)
+        return (scene._replace(pos=per_ray(pos, B)),
+                y.repeat(4, 1).t().contiguous().t()[:, :4], temp, 2.0)
+    ramp = 1 + 1e-3 * torch.arange(B, dtype=dtype, device=dev)[:, None] / B
+    return scene._replace(**{
+        f: (getattr(scene, f)[None] * (ramp[..., None] if f == "pos"
+                                        else ramp)).contiguous()
+        for f in ("pos", "radius", "time", "r_in", "r_out", "half")}), \
+        y[:, :4], temp, 12.0
+
+
+@pytest.mark.parametrize("case", [
+    (name, dtype, mode)
+    for name in ("example2", "planes", "grouped", "disk")
+    for dtype in (torch.float32, torch.float64)
+    for mode in ("hard", "soft") if not (name == "grouped" and mode == "hard")],
+    ids=lambda c: f"{c[0]}-{str(c[1])[6:]}-{c[2]}")
+def test_k11_k12_match_plain_bitwise(case):
+    """K11 against ``shade`` / ``shade_soft`` and K12 against
+    ``shade_vjp`` / ``shade_soft_vjp`` on the same CUDA tensors, bit for
+    bit, every field's per-ray cotangent (every ninth ray's cotangent
+    zero, whose outputs are exact zeros); a field left out is not
+    written."""
+    from raytracegr_jl_tpu_torch.models import objects as O
+    scene, x, temp, freq = _shade_case(case)
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    ct = torch.randn((x.shape[0], 3), generator=gen, dtype=x.dtype,
+                     device=x.device)
+    ct[::9] = 0
+    before = (O.shade_cuda.launches, O.shade_vjp_cuda.launches)
+    rgb = O.shade_cuda(scene, x, temp=temp, color_freq=freq)
+    got = O.shade_vjp_cuda(scene, x, ct, temp=temp, color_freq=freq)
+    only = O.shade_vjp_cuda(scene, x, ct, temp=temp, color_freq=freq,
+                            fields=("radius",))
+    torch.cuda.synchronize()
+    assert (O.shade_cuda.launches - before[0],
+            O.shade_vjp_cuda.launches - before[1]) == (1, 2)
+    if temp is None:
+        want_rgb, want = O.shade(scene, x), O.shade_vjp(scene, x, ct)
+    else:
+        want_rgb = O.shade_soft(scene, x, temp=temp, color_freq=freq)
+        want = O.shade_soft_vjp(scene, x, ct, temp=temp, color_freq=freq)
+    assert bool(torch.isfinite(rgb).all())
+    assert _bits_equal(rgb, want_rgb)
+    assert _bits_equal(got[0], want[0])
+    for f in O.SHADE_FIELDS:
+        assert _bits_equal(got[1][f], want[1][f]), f
+    assert _bits_equal(only[0], want[0]) and list(only[1]) == ["radius"]
+    assert _bits_equal(only[1]["radius"], want[1]["radius"])
+    assert not got[0][::9].any()
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_train_step_shades_through_k11_k12(soft, monkeypatch):
+    """One training step at example2 16x16 f64 rk4/40 on the card: the
+    shading launches K11 once and K12 once; the loss equals the one with
+    the plain shading under autograd bitwise and the gradients agree
+    within 1e-10."""
+    from raytracegr_jl_tpu_torch import render
+    from raytracegr_jl_tpu_torch.models import objects as O
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    spec = T.example2_spec(16, 16)
+    cfg = T.default_inverse_cfg(f64, max_steps=40, rk4_dt=2.5, stop_rho=0.5,
+                                soft_temp=0.05 if soft else None)
+    xg, ng = T.flat_pixel_grid(spec, f64, dev)
+    with torch.no_grad():
+        target = T.make_ray_render_for_params(spec, cfg, 2, f64, dev)(
+            T.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f64, dev), xg,
+            ng)
+
+    def step():
+        p = T.InverseParams(1.05, 0.0, [0.0, 4.0, 0.1, 0.0], f64, dev)
+        loss = T.make_ray_loss_fn(spec, cfg, 2, f64, dev)(p, xg, ng, target)
+        loss.backward()
+        return loss.detach(), torch.cat([p.M.grad[None], p.a.grad[None],
+                                         p.sphere_pos.grad])
+
+    before = (O.shade_cuda.launches, O.shade_vjp_cuda.launches)
+    loss, g = step()
+    assert (O.shade_cuda.launches - before[0],
+            O.shade_vjp_cuda.launches - before[1]) == (1, 1)
+
+    def plain(scene, x, hit_dmin, temp, freq):
+        if temp is None:
+            return O.shade(scene, x, hit_dmin)
+        return O.shade_soft(scene, x, hit_dmin, temp, color_freq=freq)
+
+    monkeypatch.setattr(render, "shade_reference", plain)
+    loss_p, g_p = step()
+    assert _bits_equal(loss, loss_p)
+    assert float((g - g_p).abs().max()) <= 1e-10 * float(g_p.abs().max())
+
+
+def test_render_shades_through_k11():
+    """render_fn on the card shades with one K11 launch, bitwise the plain
+    ``shade`` of K1's end states."""
+    from raytracegr_jl_tpu_torch.models import objects as O
+    metric, scene, canvas = T.build(T.example2_spec(24, 24), torch.float32,
+                                    torch.device("cuda"))
+    cfg = T.RenderConfig(integrator=T.IntegratorConfig(
+        rtol=TOL32, atol=TOL32, max_steps=20_000))
+    before = O.shade_cuda.launches
+    rgb = T.render_fn(metric, scene, cfg)(canvas.pos, canvas.normal)
+    assert O.shade_cuda.launches == before + 1
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    y = integrate_rays_cuda(metric, scene, y0, None, cfg.integrator).y
+    assert _bits_equal(rgb.reshape(-1, 3), O.shade(scene, y[:, :4]))
+
+
+def test_graphed_config5_multistart_with_k11_k12_matches_eager():
+    """Config 5's vectorized multistart (4 starts at 16x16, soft shading)
+    captured as one CUDA graph: the replay's losses and gradients equal
+    the eager step's bitwise, also after the poses change in place (K11
+    and K12 read the per-ray fields by pointer); K11 and K12 are counted
+    in the warm-ups and the capture only."""
+    from raytracegr_jl_tpu_torch.models import objects as O
+    from raytracegr_jl_tpu_torch.step_graph import (WARMUP_PASSES,
+                                                    GraphedStep)
+    spec, cfg, target, _ = _config5(16)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    loss_fn = T.make_multistart_loss_fn(spec, target, cfg, 0, f32, dev)
+
+    def params(dz=0.0):
+        return T.InverseParams(
+            torch.tensor([0.53, 0.47, 0.5, 0.51]), torch.zeros(4),
+            torch.tensor([[0.0, 5.0, 12.0, 0.03 + dz], [0.0, 5.0, 12.0, -0.04],
+                          [0.0, 5.0, 12.0, 0.0], [0.0, 5.0, 12.0, 0.01]]),
+            f32, dev)
+
+    def grads(p):
+        return torch.cat([p.M.grad, p.a.grad, p.sphere_pos.grad.reshape(-1)])
+
+    def eager(dz=0.0):
+        p = params(dz)
+        loss = loss_fn(p).sum()
+        loss.backward()
+        return loss.detach(), grads(p)
+
+    want, moved = eager(), eager(0.01)
+    pg = params()
+    before = (O.shade_cuda.launches, O.shade_vjp_cuda.launches)
+    step = GraphedStep(lambda p: loss_fn(p).sum(), pg)
+
+    def replay():
+        for q in pg.parameters():
+            q.grad.zero_()
+        return step.replay()
+
+    assert _bits_equal(replay(), want[0]) and _bits_equal(grads(pg), want[1])
+    with torch.no_grad():
+        pg.sphere_pos.copy_(params(0.01).sphere_pos)
+    assert _bits_equal(replay(), moved[0])
+    assert _bits_equal(grads(pg), moved[1])
+    assert not _bits_equal(moved[0], want[0])
+    assert (O.shade_cuda.launches - before[0],
+            O.shade_vjp_cuda.launches - before[1]) == (WARMUP_PASSES + 1,) * 2
