@@ -3208,6 +3208,11 @@ def graph_train_slice(dev, card: str, cfgs: dict, targets: dict, spec, xg,
 # K6 and K7 (the localization epilogue and its VJP) against their plain
 # versions, bitwise, and K7 against torch.autograd of the plain epilogue.
 LOC_GRAD_RTOL = 1e-12
+# K6's bisection counts held to the plain bisection besides the default 40,
+# with the record K7 reads at each, on these cases' final states.
+LOC_BISECT = (0, 1, 39)
+LOC_BISECT_CASES = ("example2 200x200 f32 rk4/200",
+                    "example2 200x200 f64 tsit5/48")
 LOC_CASES = (  # (label, spec, dtype, method, max_steps, refine)
     ("example2 200x200 f32 rk4/200", "example2", torch.float32, "rk4", 200,
      False),
@@ -3266,22 +3271,31 @@ def loc_cotangents(P: torch.Tensor, seed: int = 3):
 
 
 def require_loc_equal(label: str, route, P) -> float:
-    """K6 against localize_plain and K7 against localize_vjp on the same
-    CUDA tensors, bit for bit; returns the largest |difference| (0)."""
+    """K6 against localize_plain (its results, and its record on the hit
+    rays: K6 writes no other) and K7, given K6's record, against
+    localize_vjp given the plain record and against localize_vjp's replay,
+    on the same CUDA tensors, bit for bit; returns the largest |difference|
+    (0)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     plain = route._replace(cuda=False)
-    y_k, lam_k = adj.localize_cuda(route, P)
-    y_p, lam_p = adj.localize_plain(plain, P)
+    y_k, lam_k, rec_k = adj.localize_cuda(route, P)
+    y_p, lam_p, rec_p = adj.localize_plain(plain, P)
     ct_y, ct_lam = loc_cotangents(P)
-    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam)
-    c_p, p_p = adj.localize_vjp(plain, P, ct_y, ct_lam)
+    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam, rec_k)
+    c_p, p_p = adj.localize_vjp(plain, P, ct_y, ct_lam, rec_p)
+    c_r, p_r = adj.localize_vjp(plain, P, ct_y, ct_lam)
     torch.cuda.synchronize()
-    err = max(max_err(y_k, y_p), max_err(lam_k, lam_p), max_err(c_k, c_p),
-              max_err(p_k, p_p))
-    require(bits_equal(y_k, y_p) and bits_equal(lam_k, lam_p),
+    hit = P[adj.P_HIT] > 0
+    rec_k, rec_p = rec_k[:, hit], rec_p[:, hit]
+    err = max(max_err(y_k, y_p), max_err(lam_k, lam_p),
+              max_err(rec_k, rec_p), max_err(c_k, c_p), max_err(p_k, p_p),
+              max_err(c_k, c_r), max_err(p_k, p_r))
+    require(bits_equal(y_k, y_p) and bits_equal(lam_k, lam_p)
+            and bits_equal(rec_k, rec_p),
             f"{label}: K6 not bitwise equal to its plain version "
             f"(max |d| {err:.3e})")
-    require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p),
+    require(bits_equal(c_k, c_p) and bits_equal(p_k, p_p)
+            and bits_equal(c_k, c_r) and bits_equal(p_k, p_r),
             f"{label}: K7 not bitwise equal to localize_vjp "
             f"(max |d| {err:.3e})")
     return err
@@ -3325,7 +3339,8 @@ def loc_autograd_gap(route, P) -> float:
     its per-ray cotangents' magnitudes, the scale of the sum's rounding)."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
     ct_y, ct_lam = loc_cotangents(P)
-    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam)
+    rec = adj.localize_cuda(route, P)[2]
+    c_k, p_k = adj.localize_vjp_cuda(route, P, ct_y, ct_lam, rec)
     g_P, g_p = localize_autograd(route, P, ct_y, ct_lam)
     gap = 0.0
     for lo in (adj.P_Y, adj.P_EV_Y0):
@@ -3340,13 +3355,15 @@ def loc_autograd_gap(route, P) -> float:
 def localize_slice(dev, card: str) -> dict:
     """K6 and K7 against their plain versions on the card, bitwise, on the
     final states of the training configurations at 200x200 (f32 and f64,
-    rk4/200 and tsit5/48; example1's flat space; refine_minima) and of
-    config 5's grouped batch at 4 starts (f32, rk4 and tsit5, and
-    refine_minima); K7 against torch.autograd of the plain epilogue at f64;
-    then each kernel's time, its plain version's and its bound on the main
-    path's final state (rk4/200 f32). Returns the numbers for the kernels'
+    rk4/200 and tsit5/48; example1's flat space; refine_minima; other
+    bisection counts, LOC_BISECT) and of config 5's grouped
+    batch at 4 starts (f32, rk4 and tsit5, and refine_minima); K7 against
+    torch.autograd of the plain epilogue at f64; then each kernel's time,
+    its plain version's and its bound on the main path's final state
+    (rk4/200 f32), and the pair's. Returns the numbers for the kernels'
     JSON line."""
     from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     err, gaps, hits = 0.0, {}, {}
     for label, spec_name, dtype, method, steps, refine in LOC_CASES:
@@ -3355,6 +3372,11 @@ def localize_slice(dev, card: str) -> dict:
         err = max(err, require_loc_equal(label, route, P))
         if dtype == torch.float64:
             gaps[label] = loc_autograd_gap(route, P)
+        if label in LOC_BISECT_CASES:
+            for iters in LOC_BISECT:
+                err = max(err, require_loc_equal(
+                    f"{label} bisect_iters {iters}", route._replace(
+                        cfg=route.cfg._replace(bisect_iters=iters)), P))
     for method, refine in (("rk4", False), ("tsit5", False), ("rk4", True)):
         _, grouped, y0 = inverse_case(dev, torch.float32, method,
                                       refine=refine)
@@ -3377,26 +3399,33 @@ def localize_slice(dev, card: str) -> dict:
     # Times and bounds on the main path's final state. Work of this run:
     # K6 localizes each hit ray (the plain epilogue's count for one ray);
     # K7 walks back each hit ray with a non-zero cotangent (localize_vjp's
-    # count for one ray). Bytes: K6 reads 22 planes and writes 9; K7 reads
-    # 14 planes and 9 of cotangents, writes 34 planes and 2 + 8 N rows.
+    # count for one ray given the record: no replay). Bytes: K6 reads 22
+    # planes and writes 9, and the record's R (57 Tsit5, 49 RK4) for each
+    # hit ray; K7 reads 14 planes and 9 of cotangents, and the record for
+    # each live ray, and writes 34 planes and 2 + 8 N rows.
     t0 = time.perf_counter()
     out = {}
+    regs = {k: f"{r} registers, {st}/{ld} B spilled"
+            for k, r, _, st, ld in ptxas_report(cuda_build.build_log(
+                "localize")) if k.startswith(("k6_kernel<float, true",
+                                              "k7_kernel<float, true"))}
     for label, method, steps in (("rk4/200", "rk4", 200),
                                  ("tsit5/48", "tsit5", 48)):
         route, P = final_state(dev, "example2", torch.float32, method, steps)
         plain = route._replace(cuda=False)
         ct_y, ct_lam = loc_cotangents(P)
         args = adj.localize_args(route, P)
-        k6_ms = cuda_ms(lambda: adj.localize_cuda(route, P, args))
-        k7_ms = cuda_ms(lambda: adj.localize_vjp_cuda(route, P, ct_y, ct_lam,
-                                                      args))
-        k6_dev = kernel_alone_ms(lambda: adj.localize_cuda(route, P, args),
-                                 "k6_kernel")
-        k7_dev = kernel_alone_ms(lambda: adj.localize_vjp_cuda(
-            route, P, ct_y, ct_lam, args), "k7_kernel")
+        rec = adj.localize_cuda(route, P, args)[2]
+        rec_p = adj.localize_plain(plain, P)[2]
+        k6 = lambda: adj.localize_cuda(route, P, args)  # noqa: E731
+        k7 = lambda: adj.localize_vjp_cuda(  # noqa: E731
+            route, P, ct_y, ct_lam, rec, args)
+        k6_ms, k7_ms = cuda_ms(k6), cuda_ms(k7)
+        k6_dev = kernel_alone_ms(k6, "k6_kernel")
+        k7_dev = kernel_alone_ms(k7, "k7_kernel")
         k6_plain_ms = cuda_ms(lambda: adj.localize_plain(plain, P))
         k7_plain_ms = cuda_ms(lambda: adj.localize_vjp(plain, P, ct_y,
-                                                       ct_lam))
+                                                       ct_lam, rec_p))
         hit = P[adj.P_HIT] > 0
         live = hit & ((ct_y != 0).any(0) | (ct_lam != 0))
         j = int(torch.nonzero(live)[0])
@@ -3404,21 +3433,26 @@ def localize_slice(dev, card: str) -> dict:
         with torch.no_grad():
             f6 = count_flops(lambda: adj.localize_plain(plain, one(P)))
             f7 = count_flops(lambda: adj.localize_vjp(
-                plain, one(P), one(ct_y), one(ct_lam)))
+                plain, one(P), one(ct_y), one(ct_lam), one(rec_p)))
         B, n_par = P.shape[1], 2 + 8 * route.scene.n_objects
+        R = rec.shape[0]
         n_hit, n_live = int(hit.sum()), int(live.sum())
-        b6 = bound(n_hit * f6, B * (22 + 9) * 4)
-        b7 = bound(n_live * f7, B * (14 + 9 + adj.N_PLANES + n_par) * 4)
+        b6 = bound(n_hit * f6, (B * (22 + 9) + n_hit * R) * 4)
+        b7 = bound(n_live * f7,
+                   (B * (14 + 9 + adj.N_PLANES + n_par) + n_live * R) * 4)
+        pair_dev = (None if None in (k6_dev, k7_dev) else k6_dev + k7_dev)
         out[label] = dict(k6_ms=k6_ms, k7_ms=k7_ms, k6_plain_ms=k6_plain_ms,
                           k7_plain_ms=k7_plain_ms, k6_bound=b6, k7_bound=b7)
         phase(f"time K6/K7 {label} 200x200 f32", t0, card=repr(card),
-              hits=n_hit, live=n_live, k6_ms=f"{k6_ms:.4f}",
-              k6_device_ms=k6_dev, k7_device_ms=k7_dev,
+              hits=n_hit, live=n_live, record_planes=R,
+              k6_ms=f"{k6_ms:.4f}", k6_device_ms=k6_dev,
+              k7_device_ms=k7_dev, pair_device_ms=pair_dev,
               k6_plain_ms=f"{k6_plain_ms:.4f}", k7_ms=f"{k7_ms:.4f}",
               k7_plain_ms=f"{k7_plain_ms:.4f}",
               flops_per_localization=f6, flops_per_vjp=f7,
               k6_bound_ms=f"{b6[0]:.6f}", k6_bound_by=b6[1],
-              k7_bound_ms=f"{b7[0]:.6f}", k7_bound_by=b7[1])
+              k7_bound_ms=f"{b7[0]:.6f}", k7_bound_by=b7[1],
+              pair_bound_ms=f"{b6[0] + b7[0]:.6f}", registers=regs)
     out["err"] = err
     return out
 

@@ -10,6 +10,7 @@ versions can be compared in one run on one card.
     python3 kernel_times.py k4-kernel [--tree DIR] [--out FILE]
     python3 kernel_times.py sass [--tree DIR] [--libs A,B] [--out FILE]
     python3 kernel_times.py shade [--tree DIR] [--out FILE]
+    python3 kernel_times.py localize [--tree DIR] [--out FILE]
     python3 kernel_times.py digests [--tree DIR] [--out FILE]
     python3 kernel_times.py compare-images A.images.pt B.images.pt
 
@@ -24,11 +25,11 @@ rk4/200 and tsit5/48 training steps at 200x200 f32, and K8 and K9 (the
 camera) where the tree has them; those steps end to
 end, eager and as a graph replay in turns, with the replay's device ms,
 kernels and K8/K9 launches (profiler), the eager step's loss to the last
-bit and the
+bit and a digest of its gradients, and the
 memory the steps take; and an
 Adam step of config 5 (32x32 f32) at 1, 4 and 16 starts, eager and
 graphed in turns, with the graphed step's device ms and kernels and each
-start's first loss to the last bit.
+start's first loss to the last bit and a digest of the first gradients.
 
 ``k4``: K4's diagnosis (``k4_times``: its f32 RK4 kernels' ptxas lines
 and SASS mix; K4 alone at rk4/200 and tsit5/48 on the training batch, on
@@ -61,6 +62,14 @@ parent's; K5 against the parent's after its code moved into a header).
 has it), then the training steps (with K11 and K12 alone where the tree
 has them) and config 5's Adam steps as ``times`` gives them; builds only
 the libraries those run.
+
+``localize``: K6 and K7 alone (profiler, medians of 5) on the final
+states of the rk4/200 and tsit5/48 training batches at 200x200 f32 (all
+40,000 rays and their first 33,792, 264 blocks of 128: two an SM) and of
+config 5's grouped batch at 1, 4 and 16 starts (32x32 f32 rk4/120), with
+digests of their outputs, so that two trees' kernels can be held bitwise
+to each other, and the localize library's ptxas lines. Builds only the
+libraries those run (adjoint, localize, camera).
 
 ``digests``: the flagship render's image (200x200 f32) and K5's colours
 on K1's end states of the disk (256x256, f32 and f64) as digests of their
@@ -318,17 +327,20 @@ def train_times(out: list, dev, card: str) -> None:
                 render=render(params(), xg, ng)[None].cpu(),
                 target=target.cpu())
 
-        def step():
+        def step(keep=None):
             p = params()
             loss = loss_fn(p, xg, ng, target)
             loss.backward()
+            if keep is not None:
+                keep.append(p)
             return loss
 
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         step_ms = cuda_ms(step)
-        loss_hex = float(step().detach()).hex()
+        kept = []
+        loss_hex = float(step(kept).detach()).hex()
         mem = {"eager_peak_mib": peak_mib(dev)}
         graphed = graphed_step(lambda q: loss_fn(q, xg, ng, target), params)
         mem["capture_peak_mib"] = peak_mib(dev)
@@ -378,10 +390,7 @@ def train_times(out: list, dev, card: str) -> None:
         if hasattr(adj, "localize_cuda"):
             P = ck[route.n_seg].contiguous()
             ct_y, ct_lam = loc_cotangents(P)
-            largs = adj.localize_args(route, P)
-            k6 = lambda: adj.localize_cuda(route, P, largs)  # noqa: E731
-            k7 = lambda: adj.localize_vjp_cuda(  # noqa: E731
-                route, P, ct_y, ct_lam, largs)
+            k6, k7 = loc_calls(route, P, ct_y, ct_lam)
             loc.update(k6_ms=cuda_ms(k6), k7_ms=cuda_ms(k7),
                        k6_device_ms=kernel_alone_ms(k6, "k6_kernel"),
                        k7_device_ms=kernel_alone_ms(k7, "k7_kernel"))
@@ -392,10 +401,74 @@ def train_times(out: list, dev, card: str) -> None:
              replay_kernels=prof["kernels"],
              replay_k8_k9=(prof["k8"], prof["k9"]),
              replay_k11_k12=(prof["k11"], prof["k12"]), loss_hex=loss_hex,
+             grad_digest=grad_digest(kept[0]),
              k3_ms_all_segments=statistics.median(r[0] for r in k3_runs),
              k3_device_ms_per_pass=sum(b - a for _, a, b in k3_kernels)
              / 1e3 / REPEATS, segments=int(used[0]), k4_ms=k4_ms,
              memory=mem, **loc)
+
+
+def loc_calls(route, P, ct_y, ct_lam):
+    """The tree's K6 and K7 on the final state ``P`` as two calls, K7 given
+    K6's record where the tree's K6 keeps one (older trees' K7 replays)."""
+    import inspect
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    args = adj.localize_args(route, P)
+    k6 = lambda: adj.localize_cuda(route, P, args)  # noqa: E731
+    if "rec" not in inspect.signature(adj.localize_vjp_cuda).parameters:
+        return k6, lambda: adj.localize_vjp_cuda(route, P, ct_y, ct_lam,
+                                                 args)
+    rec = k6()[2]
+    return k6, lambda: adj.localize_vjp_cuda(route, P, ct_y, ct_lam, rec,
+                                             args)
+
+
+# K6 and K7 on a full wave: 264 blocks of 128 threads, two an SM.
+LOC_WAVE = 264 * 128
+LOC_LIBRARIES = ("adjoint", "localize", "camera")
+
+
+def localize_times(out: list, dev, card: str) -> None:
+    """``localize``: the localize library's ptxas lines; K6 and K7 alone
+    (profiler) on the training batches' final states, whole and cut to
+    ``LOC_WAVE`` rays, and on config 5's at 1, 4 and 16 starts; the
+    digests of their outputs (K6's y and lam, K7's ct_P and pbar)."""
+    import torch
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    for kern, regs, stack, st, ld in ptxas_report(cb.build_log("localize")):
+        emit(out, "ptxas", library="localize", kernel=kern, registers=regs,
+             stack_bytes=stack, spill_stores=st, spill_loads=ld)
+    cases = []
+    for label, method, steps in (("rk4/200", "rk4", 200),
+                                 ("tsit5/48", "tsit5", 48)):
+        route, ys, args = train_route(dev, method, steps)
+        ck, _ = k3_pass(route, ys, args)
+        P = ck[route.n_seg].contiguous()
+        cases.append((f"train {label} 200x200 f32", route, P))
+        cases.append((f"train {label} 200x200 f32 first {LOC_WAVE} rays",
+                      route, P[:, :LOC_WAVE].contiguous()))
+    for n in (1, 4, 16):
+        _, grouped, y0 = inverse_case(dev, torch.float32, "rk4",
+                                      starts=config5_starts(n))
+        ck, _ = k3_pass(grouped, y0)
+        cases.append((f"config 5 {n} starts rk4/120 32x32 f32", grouped,
+                      ck[grouped.n_seg].contiguous()))
+    for what, route, P in cases:
+        ct_y, ct_lam = loc_cotangents(P)
+        k6, k7 = loc_calls(route, P, ct_y, ct_lam)
+        y, lam = k6()[:2]
+        ct_P, pbar = k7()
+        hit = P[adj.P_HIT] > 0
+        live = hit & ((ct_y != 0).any(0) | (ct_lam != 0))
+        k6_ms = kernel_alone_ms(k6, "k6_kernel")
+        k7_ms = kernel_alone_ms(k7, "k7_kernel")
+        emit(out, "localize", card=card, what=what, rays=P.shape[1],
+             hits=int(hit.sum()), live=int(live.sum()),
+             k6_device_ms=k6_ms, k7_device_ms=k7_ms,
+             pair_device_ms=None if None in (k6_ms, k7_ms) else k6_ms + k7_ms,
+             k6_digest=digest(torch.cat([y, lam[None]])),
+             k7_digest=digest(torch.cat([ct_P, pbar])))
 
 
 # The images behind the steps' losses (``times``): each training
@@ -523,6 +596,8 @@ def config5_times(out: list, dev, card: str) -> None:
                     device=dev)
         with torch.no_grad():
             losses = loss_fn(make()).reshape(-1).tolist()
+        q = make()
+        loss_fn(q).sum().backward()
         eager, graphed, _ = adam_steps(loss_fn, make, trainable)
         turns = in_turns({"eager": eager, "graphed": graphed})
         prof = profile_steps(graphed)
@@ -532,7 +607,8 @@ def config5_times(out: list, dev, card: str) -> None:
              graphed_kernels=prof["kernels"],
              graphed_k8_k9=(prof["k8"], prof["k9"]),
              graphed_k11_k12=(prof["k11"], prof["k12"]),
-             loss_hex=[float(v).hex() for v in losses])
+             loss_hex=[float(v).hex() for v in losses],
+             grad_digest=grad_digest(q))
 
 
 # K4's diagnosis: the training batch cut to a quarter and a half (every
@@ -678,6 +754,13 @@ def digest(t) -> str:
                           ).hexdigest()[:16]
 
 
+def grad_digest(p) -> str:
+    """The digest of the gradients of the parameters ``p`` (M, a, the
+    sphere's position) after one eager loss and backward."""
+    import torch
+    return digest(torch.cat([q.grad.reshape(-1) for q in p.parameters()]))
+
+
 def digests(out: list, dev, card: str) -> None:
     """``digests``: the outputs of the forward paths on fixed inputs as
     digests of their bytes, so that two trees' runs can be held bitwise to
@@ -729,7 +812,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("compare-images", "diagnose",
                                      "diagnose-k1", "digests", "k4",
-                                     "k4-kernel", "sass", "shade", "times"))
+                                     "k4-kernel", "localize", "sass", "shade",
+                                     "times"))
     ap.add_argument("images", nargs="*", help="compare-images: A B")
     ap.add_argument("--tree", default=".", help="the checkout to measure")
     ap.add_argument("--out", default=None, help="also write the lines here")
@@ -772,6 +856,7 @@ def main() -> int:
     names = [n for n in libraries()
              if (n in SHADE_LIBRARIES if ns.mode == "shade" else
                  n in DIGEST_LIBRARIES if ns.mode == "digests" else
+                 n in LOC_LIBRARIES if ns.mode == "localize" else
                  not ns.mode.startswith("k4") or n in K4_LIBRARIES
                  and (ns.mode == "k4" or n == "adjoint"))]
     threads = [threading.Thread(target=build_one, args=(n,)) for n in names]
@@ -784,7 +869,8 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
     {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
-     "k4": k4_mode, "k4-kernel": k4_times, "sass": sass_digests,
+     "k4": k4_mode, "k4-kernel": k4_times, "localize": localize_times,
+     "sass": sass_digests,
      "shade": shade_mode, "times": times,
      "digests": digests}[ns.mode](out, dev, card)
     emit(out, "done", tree=tree, mode=ns.mode,

@@ -385,10 +385,11 @@ __device__ __forceinline__ void rhs_vjp(const PP& p, int r_mode,
   for (int c = 0; c < 4; ++c) cty[4 + c] = ub[c] * w_in[4 + c];
 }
 
-// y + dt * sum_{j <= ROW} TS_A[ROW][j] k_j, as tsit5_step adds.
-template <int ROW, typename T>
-__device__ __forceinline__ void stage_input(const T* y, T dt,
-                                            const T (*ks)[8], T* z) {
+// y + dt * sum_{j <= ROW} TS_A[ROW][j] k_j, as tsit5_step adds; ks[j][c]
+// the stages (an array, or K7's view of K6's record).
+template <int ROW, typename T, typename KS>
+__device__ __forceinline__ void stage_input(const T* y, T dt, const KS& ks,
+                                            T* z) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     T acc = T(ts_a(ROW, 0)) * ks[0][c];
@@ -401,11 +402,11 @@ __device__ __forceinline__ void stage_input(const T* y, T dt,
 // One stage of the Tsit5 step's reverse sweep (step_vjp's loop over m, from
 // 5 down to 1): the cotangent kb[M] of stage M pulled back through the RHS
 // at that stage's input, into y's cotangent, (M, a) and the earlier stages.
-template <int M, typename T, bool KERR, typename PP>
+template <int M, typename T, bool KERR, typename PP, typename KS>
 __device__ __forceinline__ void back_stage(const PP& p, int r_mode,
-                                           const T* y, T dt,
-                                           const T (*ks)[8], T (*kb)[8],
-                                           T* yb, T& gM, T& ga) {
+                                           const T* y, T dt, const KS& ks,
+                                           T (*kb)[8], T* yb, T& gM,
+                                           T& ga) {
   T z[8], g[8], sb[8], dM, da;
   stage_input<M - 1>(y, dt, ks, z);
   rhs_vjp<T, KERR>(p, r_mode, z, kb[M], g, dM, da);
@@ -482,19 +483,51 @@ __device__ __forceinline__ void rk4_vjp(const PP& p, int r_mode, const T* y,
   }
 }
 
+// The Tsit5 step's reverse sweep (step_vjp's Tsit5 branch) given its
+// stages ks[j][c], k1..k6: step_vjp computes them first; K7 reads them from
+// K6's record. CTKS: decltype(nullptr) for none (K4), or ctks(j, c), the cotangent
+// of stage j itself, added where the sweep starts (K7: the dense output
+// reads the stages; step_vjp's ct_ks).
+template <typename T, bool KERR, typename PP, typename KS, typename CTKS>
+__device__ __forceinline__ void tsit5_vjp(const PP& p, int r_mode,
+                                          const T* y, const KS& ks, T dt,
+                                          const T* cty, const T* ctk, T* yb,
+                                          T* k1b, T& gM, T& ga,
+                                          const CTKS& ctks) {
+  T g[8], z[8];
+  stage_input<5>(y, dt, ks, z);
+  rhs_vjp<T, KERR>(p, r_mode, z, ctk, g, gM, ga);
+  T kb[6][8], sb[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const T b = cty[c] + g[c];
+    yb[c] = b;
+    sb[c] = dt * b;
+  }
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      kb[j][c] = T(ts_a(5, j)) * sb[c];
+      if constexpr (!std::is_same<CTKS, decltype(nullptr)>::value)
+        kb[j][c] = kb[j][c] + ctks(j, c);
+    }
+  back_stage<5, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+  back_stage<4, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+  back_stage<3, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+  back_stage<2, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+  back_stage<1, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) k1b[c] = kb[0][c];
+}
+
 // Reverse mode of one accepted step (ops/adjoint.py step_vjp):
 // (ct of y_new, ct of k_last) -> (ct of y, ct of k1, ct of M, ct of a).
-// INJECT (Tsit5, K7): ctks holds cotangents of the stages k1..k6
-// themselves, added where the reverse sweep starts (step_vjp's ct_ks);
-// K4's instantiations leave it out.
-template <typename T, bool KERR, bool TSIT5, bool INJECT = false,
-          typename PP>
+template <typename T, bool KERR, bool TSIT5, typename PP>
 __device__ __forceinline__ void step_vjp(const PP& p, int r_mode,
                                          const T* y, const T* k1, T dt,
                                          const T* cty, const T* ctk, T* yb,
-                                         T* k1b, T& gM, T& ga,
-                                         const T (*ctks)[8] = nullptr) {
-  T g[8], dM, da;
+                                         T* k1b, T& gM, T& ga) {
   if constexpr (TSIT5) {
     T ks[6][8], z[8];
 #pragma unroll
@@ -509,29 +542,8 @@ __device__ __forceinline__ void step_vjp(const PP& p, int r_mode,
     rhs<T, KERR>(p, r_mode, z, ks[4]);
     stage_input<4>(y, dt, ks, z);
     rhs<T, KERR>(p, r_mode, z, ks[5]);
-    stage_input<5>(y, dt, ks, z);
-    rhs_vjp<T, KERR>(p, r_mode, z, ctk, g, gM, ga);
-    T kb[6][8], sb[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const T b = cty[c] + g[c];
-      yb[c] = b;
-      sb[c] = dt * b;
-    }
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        kb[j][c] = T(ts_a(5, j)) * sb[c];
-        if constexpr (INJECT) kb[j][c] = kb[j][c] + ctks[j][c];
-      }
-    back_stage<5, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
-    back_stage<4, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
-    back_stage<3, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
-    back_stage<2, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
-    back_stage<1, T, KERR>(p, r_mode, y, dt, ks, kb, yb, gM, ga);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) k1b[c] = kb[0][c];
+    tsit5_vjp<T, KERR>(p, r_mode, y, ks, dt, cty, ctk, yb, k1b, gM, ga,
+                       nullptr);
   } else {
     T z[8], k2[8], k3[8], k4[8];
 #pragma unroll

@@ -740,20 +740,44 @@ struct StepData {
   T dt;
 };
 
+// Tsit5's dense output at theta on the first ROWS components, from the
+// stages ks[j][c] (k1..k7): a step's own, or any array-like view of them
+// (K7 reads them from K6's record).
+template <int ROWS, typename T, typename KS>
+__device__ __forceinline__ void tsit5_interp(const T* y0, const KS& ks, T dt,
+                                             T th, T* out) {
+  T b[7];
+  tsit5_bi(th, b);
+#pragma unroll
+  for (int c = 0; c < ROWS; ++c) {
+    T acc = b[0] * ks[0][c];
+#pragma unroll
+    for (int j = 1; j < 7; ++j) acc = acc + b[j] * ks[j][c];
+    out[c] = y0[c] + dt * acc;
+  }
+}
+
+// Its derivative in theta, likewise.
+template <int ROWS, typename T, typename KS>
+__device__ __forceinline__ void tsit5_dinterp(const KS& ks, T dt, T th,
+                                              T* out) {
+  T db[7];
+  tsit5_dbi(th, db);
+#pragma unroll
+  for (int c = 0; c < ROWS; ++c) {
+    T acc = db[0] * ks[0][c];
+#pragma unroll
+    for (int j = 1; j < 7; ++j) acc = acc + db[j] * ks[j][c];
+    out[c] = dt * acc;
+  }
+}
+
 // Dense output at theta on the first ROWS components.
 template <typename T, bool TSIT5, int ROWS>
 __device__ __forceinline__ void interp(const StepData<T, TSIT5>& s, T th,
                                        T* out) {
   if constexpr (TSIT5) {
-    T b[7];
-    tsit5_bi(th, b);
-#pragma unroll
-    for (int c = 0; c < ROWS; ++c) {
-      T acc = b[0] * s.k[0][c];
-#pragma unroll
-      for (int j = 1; j < 7; ++j) acc = acc + b[j] * s.k[j][c];
-      out[c] = s.y0[c] + s.dt * acc;
-    }
+    tsit5_interp<ROWS>(s.y0, s.k, s.dt, th, out);
   } else {
     const T dt = s.dt;
 #pragma unroll
@@ -771,15 +795,7 @@ template <typename T, bool TSIT5, int ROWS = 4>
 __device__ __forceinline__ void dinterp(const StepData<T, TSIT5>& s, T th,
                                         T* out) {
   if constexpr (TSIT5) {
-    T db[7];
-    tsit5_dbi(th, db);
-#pragma unroll
-    for (int c = 0; c < ROWS; ++c) {
-      T acc = db[0] * s.k[0][c];
-#pragma unroll
-      for (int j = 1; j < 7; ++j) acc = acc + db[j] * s.k[j][c];
-      out[c] = s.dt * acc;
-    }
+    tsit5_dinterp<ROWS>(s.k, s.dt, th, out);
   } else {
     const T dt = s.dt;
 #pragma unroll

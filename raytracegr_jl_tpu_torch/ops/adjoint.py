@@ -81,8 +81,7 @@ from ..models.objects import (FIELD_DIMS, KIND_DISTANCE_JVP, KIND_PLANE,
                               KIND_SPHERE, Scene, object_kinds)
 from .geodesic_cm import (OBJ_FIELDS, SC_ANY, SC_REFINE, StepState,
                           _check_options, _interpolants, _object_get,
-                          _tsit5_dinterp_cm, bisect_bracket,
-                          check_kernel_config, crossing_step, geodesic_cm,
+                          _tsit5_dinterp_cm, check_kernel_config, geodesic_cm,
                           impact_parameter_order, initial_dt, kernel_r_mode,
                           launch_config, localize_events_cm, make_step_cm,
                           scene_event_cm)
@@ -598,19 +597,23 @@ def _stage_input(y, dt, ks, row):
     return y + dt * acc
 
 
-def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k, ct_ks=None):
+def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k, ct_ks=None,
+             ks=None):
     """Reverse mode of one accepted step ``(y, k1) -> (y_new, k_last)`` at
     the (detached) step ``dt``: ``(ct_y_new, ct_k_last) -> (ct_y, ct_k1,
-    ct_M [B], ct_a [B])``. The stages are recomputed from ``(y, k1, dt)``.
-    The error estimate feeds only the controller and the masks, so it
-    takes no cotangent. ``ct_ks`` (Tsit5 only): cotangents of the stages
-    k1..k6 themselves, which a reader of the dense output adds (the
-    localization's VJP), injected where the reverse sweep starts."""
+    ct_M [B], ct_a [B])``. The stages are recomputed from ``(y, k1, dt)``,
+    unless ``ks`` holds them as the forward step computed them (Tsit5's
+    k1..k7, RK4's k1..k4: the localization's record), bit for bit the ones
+    recomputed. The error estimate feeds only the controller and the
+    masks, so it takes no cotangent. ``ct_ks`` (Tsit5 only): cotangents of
+    the stages k1..k6 themselves, which a reader of the dense output adds
+    (the localization's VJP), injected where the reverse sweep starts."""
     rhs = lambda s: geodesic_cm(p.metric, s)  # noqa: E731
     if tsit5:
-        ks = [k1]
-        for row in range(5):
-            ks.append(rhs(_stage_input(y, dt, ks, row)))
+        if ks is None:
+            ks = [k1]
+            for row in range(5):
+                ks.append(rhs(_stage_input(y, dt, ks, row)))
         y5 = _stage_input(y, dt, ks, 5)
         g, gM, ga = rhs_vjp(p, y5, ct_k)
         b = ct_y + g
@@ -630,12 +633,15 @@ def step_vjp(p: AdjParams, tsit5: bool, y, k1, dt, ct_y, ct_k, ct_ks=None):
         return yb, kb[0], gM, ga
     if ct_ks is not None:
         raise ValueError("stage cotangents are injected on Tsit5 only")
+    if ks is None:
+        k2 = rhs(y + 0.5 * dt * k1)
+        k3 = rhs(y + 0.5 * dt * k2)
+        k4 = rhs(y + dt * k3)
+    else:
+        k2, k3, k4 = ks[1:4]
     z2 = y + 0.5 * dt * k1
-    k2 = rhs(z2)
     z3 = y + 0.5 * dt * k2
-    k3 = rhs(z3)
     z4 = y + dt * k3
-    k4 = rhs(z4)
     dt6 = dt / dt.new_tensor(6.0)
     y1 = y + dt6 * (k1 + 2 * k2 + 2 * k3 + k4)
     g, gM, ga = rhs_vjp(p, y1, ct_k)
@@ -1032,11 +1038,13 @@ init_vjp_cuda.launches = 0
 #
 # After the loop every ray's result is read from its final state: a hit
 # ray's localized from its event record (``localize_events_cm``), any
-# other's as it stands. K6 computes it in one launch; K7 pushes the
+# other's as it stands. K6 computes it in one launch and keeps a record of
+# each hit ray's bisection end and crossing-step stages; K7 reads that
+# record (it replays neither the step nor the bisection) and pushes the
 # cotangents of ``(y, lam)`` back to the final state's ``y`` and ``ev_y0``
-# planes and to every parameter the epilogue reads: M and a (the replayed
-# crossing step) and the objects' fields (the event). The plain versions
-# below hold the arithmetic the kernels repeat, in their order.
+# planes and to every parameter the epilogue reads: M and a (the crossing
+# step) and the objects' fields (the event). The plain versions below hold
+# the arithmetic the kernels repeat, in their order.
 #
 # The VJP follows torch autograd of the plain epilogue: the interpolation
 # of y* at theta*; theta* through the clamps (torch's gradient is inclusive
@@ -1049,18 +1057,38 @@ init_vjp_cuda.launches = 0
 # The bracket, ev_dt and the masks take none.
 # ---------------------------------------------------------------------------
 
+# The localization record that K6 keeps for K7 (csrc/localize.cu REC_*),
+# ``[rec_planes, B]``: theta0, the bisection's end (plane REC_TH0), then the
+# crossing step's stages from plane REC_K, 8 planes each: Tsit5's k1..k7;
+# RK4's k1..k4, f(y1) and y1. Only a hit ray's column is read: the plain
+# version writes zeros in any other, K6 leaves it unwritten.
+REC_TH0, REC_K = 0, 1
+
+
+def rec_planes(tsit5: bool) -> int:
+    """The record's planes: 57 for Tsit5, 49 for RK4."""
+    return REC_K + 8 * (7 if tsit5 else 6)
+
+
 def localize_plain(route: Route, P: torch.Tensor):
-    """Plain version of K6: ``(y [8, B], lam [B])`` from the packed final
-    state ``[34, B]``: every ray localized (``localize_events_cm``, as the
-    JAX package's epilogue), then a hit ray's result selected, any other
-    ray's y and lam as they stand. A grouped route's rays read their
-    group's parameters."""
+    """Plain version of K6: ``(y [8, B], lam [B], rec [R, B])`` from the
+    packed final state ``[34, B]``: every ray localized (the steps of
+    ``localize_events_cm``, as the JAX package's epilogue: the crossing
+    step, the bisection, the polish and the interpolation), then a hit
+    ray's result selected, any other ray's y and lam as they stand; ``rec``
+    the record of each hit ray's bisection end and stages (``REC_*``),
+    which ``localize_vjp`` reads instead of replaying them. A grouped
+    route's rays read their group's parameters."""
     metric, scene = route_rows(route, P.shape[1])
     st = unpack_state(P)
-    th, ys = localize_events_cm(metric, scene_event_cm(scene), route.cfg,
-                                st.ev_y0, st.ev_dt, st.ev_lo, st.ev_hi)
+    th, ys, th0, (y1, _, k_last, ks, stages) = localize_events_cm(
+        metric, scene_event_cm(scene), route.cfg, st.ev_y0, st.ev_dt,
+        st.ev_lo, st.ev_hi, keep=True)
+    rec = torch.cat([th0[None], *stages]
+                    + ([] if ks is not None else [k_last, y1]))
     return (torch.where(st.hit, ys, st.y),
-            torch.where(st.hit, st.ev_lam + th * st.ev_dt, st.lam))
+            torch.where(st.hit, st.ev_lam + th * st.ev_dt, st.lam),
+            torch.where(st.hit, rec, torch.zeros_like(rec)))
 
 
 def _incl(x, lo, hi):
@@ -1182,7 +1210,7 @@ def _hermite_vjp(th, dt, ct, dct):
 
 
 def localize_vjp(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
-                 ct_lam: torch.Tensor):
+                 ct_lam: torch.Tensor, rec: torch.Tensor | None = None):
     """Plain version of K7, the reverse mode of ``localize_plain`` after the
     dead-ray cutoff: ``(P [34, B], ct_y [8, B], ct_lam [B]) -> (ct_P [34,
     B], pbar [2 + 8 N, B])``. ``ct_P`` holds the cotangent of the ``y``
@@ -1191,7 +1219,10 @@ def localize_vjp(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
     per-ray cotangents of ``flatten_params``' entries (M, a, then 8 fields
     per object), which the caller sums over the batch or per group. A ray
     whose cotangents are all zero, or that did not hit, takes zeros here
-    without its step being replayed, as in K7."""
+    without its step being replayed, as in K7. With ``rec``, the record of
+    ``localize_plain`` or K6, the bisection's end and the stages are read
+    from it, as K7 reads them; without, they are replayed (the crossing
+    step, the bisection, ``step_vjp``'s stages), bit for bit the same."""
     B = P.shape[1]
     metric, scene = route_rows(route, B)
     cfg = route.cfg
@@ -1206,10 +1237,22 @@ def localize_vjp(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
     # -- forward (localize_events_cm), keeping what the reverse reads --
     p = adj_params(metric, P.dtype, P.device)
     y0, dt = st.ev_y0, st.ev_dt
-    y1, k1, k_last, ks = crossing_step(metric, cfg, y0, dt)
-    interp, dinterp = _interpolants(y0, y1, k1, k_last, dt, ks, 4)
     event_fn = scene_event_cm(scene)
-    th0 = bisect_bracket(event_fn, interp, cfg, st.ev_lo, st.ev_hi)
+    kept = None
+    if rec is None:
+        _, _, th0, (y1, k1, k_last, ks, _) = localize_events_cm(
+            metric, event_fn, cfg, y0, dt, st.ev_lo, st.ev_hi, keep=True)
+    else:
+        kept = [rec[REC_K + 8 * j:REC_K + 8 * j + 8]
+                for j in range(7 if tsit5 else 4)]
+        k1 = kept[0]
+        if tsit5:
+            y1, k_last, ks = None, kept[6], tuple(kept)
+        else:
+            y1, k_last, ks = (rec[REC_K + 40:REC_K + 48],
+                              rec[REC_K + 32:REC_K + 40], None)
+        th0 = rec[REC_TH0]
+    interp, dinterp = _interpolants(y0, y1, k1, k_last, dt, ks, 4)
     x, dx = interp(th0), dinterp(th0)
     val, dval = event_fn.jvp(x, dx)
     ok = torch.abs(dval) > 1e-3 * (1.0 + torch.abs(val))
@@ -1245,14 +1288,15 @@ def localize_vjp(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
                                    kj[4:]]))
         ct_y0 = torch.cat([ct_y[:4] + ct_x, ct_y[4:]])
         yb, ct_k1, gM, ga = step_vjp(p, True, y0, k1, dt, torch.zeros_like(y0),
-                                     ct_k[6], ct_ks=ct_k[:6])
+                                     ct_k[6], ct_ks=ct_k[:6], ks=kept)
     else:
         a8, b8, f08, f18 = _hermite_vjp(th, dt, ct_y, None)
         a4, b4, f04, f14 = _hermite_vjp(th0, dt, ct_x, ct_dx)
         top = lambda u8, u4: torch.cat([u8[:4] + u4, u8[4:]])  # noqa: E731
         ct_y0, ct_y1 = top(a8, a4), top(b8, b4)
         ct_f0, ct_f1 = top(f08, f04), top(f18, f14)
-        yb, k1b, gM, ga = step_vjp(p, False, y0, k1, dt, ct_y1, ct_f1)
+        yb, k1b, gM, ga = step_vjp(p, False, y0, k1, dt, ct_y1, ct_f1,
+                                   ks=kept)
         ct_k1 = ct_f0 + k1b
     g, dM, da = rhs_vjp(p, y0, ct_k1)
     ct_ev = ct_y0 + yb + g
@@ -1272,7 +1316,8 @@ def localize_args(route: Route, P: torch.Tensor):
     """K6's and K7's parameter block on the card and their int flags (those
     of ``launch_config`` for the localize library, SC_REFINE launched as
     SC_ANY: the localization has no trisection, so the two would compile to
-    the same kernel; then the bisection count), built once per pass."""
+    the same kernel; then the bisection count, which K7 does not take),
+    built once per pass."""
     if P.device.type != "cuda":
         raise ValueError(f"K6 and K7 need CUDA tensors, got {P.device}")
     if P.dim() != 2 or P.shape[0] != N_PLANES or not P.is_contiguous():
@@ -1292,44 +1337,53 @@ def _loc_lib():
 
 def localize_cuda(route: Route, P: torch.Tensor, args=None):
     """K6: ``localize_plain`` in one launch on the card, one thread per ray
-    (csrc/localize.cu k6_kernel): ``(y [8, B], lam [B])`` from the packed
-    final state ``P [34, B]``, a grouped route's rays with their groups'
-    parameters. ``args`` from ``localize_args`` (built here if not given).
-    Reads nothing back. Adds one to ``localize_cuda.launches`` per launch
-    (where it is issued, as K3's)."""
+    (csrc/localize.cu k6_kernel): ``(y [8, B], lam [B], rec [R, B])`` from
+    the packed final state ``P [34, B]``, a grouped route's rays with their
+    groups' parameters; ``rec`` the record K7 reads. ``args`` from
+    ``localize_args`` (built here if not given). Reads nothing back. Adds
+    one to ``localize_cuda.launches`` per launch (where it is issued, as
+    K3's)."""
     prm, flags = args if args is not None else localize_args(route, P)
     B = P.shape[1]
     y = torch.empty((8, B), dtype=P.dtype, device=P.device)
     lam = torch.empty(B, dtype=P.dtype, device=P.device)
+    rec = torch.empty((rec_planes(route.cfg.method == "tsit5"), B),
+                      dtype=P.dtype, device=P.device)
     if B == 0:
-        return y, lam
+        return y, lam, rec
     fn = _loc_lib().rtgr_k6_f32 if P.dtype == torch.float32 else \
         _loc_lib().rtgr_k6_f64
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(P.device):
-        rc = fn(ptr(P), ptr(y), ptr(lam), ptr(prm), B, *flags,
+        rc = fn(ptr(P), ptr(y), ptr(lam), ptr(rec), ptr(prm), B, *flags,
                 *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {rc}")
     localize_cuda.launches += 1
-    return y, lam
+    return y, lam, rec
 
 
 localize_cuda.launches = 0
 
 
 def localize_vjp_cuda(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
-                      ct_lam: torch.Tensor, args=None):
-    """K7: ``localize_vjp`` in one launch on the card, one thread per ray
-    (csrc/localize.cu k7_kernel), the same contract; every plane of
-    ``ct_P`` and every row of ``pbar`` written by the kernel. Adds one to
-    ``localize_vjp_cuda.launches`` per launch (where issued)."""
+                      ct_lam: torch.Tensor, rec: torch.Tensor, args=None):
+    """K7: ``localize_vjp`` with K6's record ``rec`` in one launch on the
+    card, one thread per ray (csrc/localize.cu k7_kernel), the same
+    contract; every plane of ``ct_P`` and every row of ``pbar`` written by
+    the kernel. Adds one to ``localize_vjp_cuda.launches`` per launch
+    (where issued)."""
     prm, flags = args if args is not None else localize_args(route, P)
     B = P.shape[1]
     if ct_y.shape != (8, B) or ct_lam.shape != (B,):
         raise ValueError(f"bad cotangents {tuple(ct_y.shape)}, "
                          f"{tuple(ct_lam.shape)} for {B} rays")
+    if (rec.shape != (rec_planes(route.cfg.method == "tsit5"), B)
+            or rec.dtype != P.dtype or rec.device != P.device
+            or not rec.is_contiguous()):
+        raise ValueError(f"bad record {tuple(rec.shape)} {rec.dtype} for "
+                         f"{B} rays")
     ct_y = ct_y.to(P.dtype).contiguous()
     ct_lam = ct_lam.to(P.dtype).contiguous()
     n_par = 2 + 8 * route.scene.n_objects
@@ -1341,8 +1395,8 @@ def localize_vjp_cuda(route: Route, P: torch.Tensor, ct_y: torch.Tensor,
         _loc_lib().rtgr_k7_f64
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(P.device):
-        rc = fn(ptr(P), ptr(ct_y), ptr(ct_lam), ptr(ct_P), ptr(pbar),
-                ptr(prm), B, *flags, *_group_args(route, B),
+        rc = fn(ptr(P), ptr(rec), ptr(ct_y), ptr(ct_lam), ptr(ct_P),
+                ptr(pbar), ptr(prm), B, *flags[:-1], *_group_args(route, B),
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K7 launch failed: CUDA error {rc}")
@@ -1508,7 +1562,9 @@ class _Localized(torch.autograd.Function):
     """``(P [34, B], rows, route) -> (y [8, B], lam [B])``: the loop's
     result from its packed final state (K6 on the kernel route,
     ``localize_plain`` on the plain one), with the hand-written VJP on
-    backward (K7, ``localize_vjp``): gradients for P's y and ev_y0 planes
+    backward (K7, ``localize_vjp``), which reads the forward's record
+    (saved for backward, ``rec_planes`` x B values, ~9 MB at 40,000 f32
+    Tsit5 rays) instead of replaying it: gradients for P's y and ev_y0 planes
     (which ``_Checkpointed`` hands to K4) and, per ray, for the parameters
     the epilogue reads, ``rows`` (``ray_params``: the values the route
     holds). Autograd sums the per-ray cotangents into the caller's tensors
@@ -1521,21 +1577,22 @@ class _Localized(torch.autograd.Function):
         P = P.detach().contiguous()
         if route.cuda:
             ctx.args = localize_args(route, P)
-            y, lam = localize_cuda(route, P, ctx.args)
+            y, lam, rec = localize_cuda(route, P, ctx.args)
         else:
-            y, lam = localize_plain(route, P)
+            y, lam, rec = localize_plain(route, P)
         ctx.route = route
-        ctx.save_for_backward(P)
+        ctx.save_for_backward(P, rec)
         return y, lam
 
     @staticmethod
     def backward(ctx, ct_y, ct_lam):
-        (P,) = ctx.saved_tensors
+        P, rec = ctx.saved_tensors
         route = ctx.route
         if route.cuda:
-            ct_P, pbar = localize_vjp_cuda(route, P, ct_y, ct_lam, ctx.args)
+            ct_P, pbar = localize_vjp_cuda(route, P, ct_y, ct_lam, rec,
+                                           ctx.args)
         else:
-            ct_P, pbar = localize_vjp(route, P, ct_y, ct_lam)
+            ct_P, pbar = localize_vjp(route, P, ct_y, ct_lam, rec)
         return ct_P, pbar, None
 
 

@@ -268,13 +268,19 @@ def _tsit5_step_cm(f, y, dt, k1):
     return y5, err, k7, (k1, k2, k3, k4, k5, k6, k7)
 
 
-def _rk4_step_cm(f, y, dt, k1):
+def _rk4_stages_cm(f, y, dt, k1):
+    """RK4 stage sweep: y [8, B], dt [B] -> (y1, (k1, k2, k3, k4))."""
     k2 = f(y + 0.5 * dt * k1)
     k3 = f(y + 0.5 * dt * k2)
     k4 = f(y + dt * k3)
     # A tensor divisor keeps this a true division on CUDA as well; it is
     # filled on the device (no copy from the host).
     y1 = y + (dt / torch.full_like(dt, 6.0)) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y1, (k1, k2, k3, k4)
+
+
+def _rk4_step_cm(f, y, dt, k1):
+    y1, _ = _rk4_stages_cm(f, y, dt, k1)
     return y1, None, f(y1), None
 
 
@@ -399,15 +405,18 @@ def newton_polish(event_fn, interp, dinterp, th0):
     return torch.clamp(th0 - torch.clamp(delta, -1.0, 1.0), 0.0, 1.0)
 
 
-def crossing_step(metric: Metric, cfg: IntegratorConfig, ev_y0, ev_dt):
+def crossing_stages(metric: Metric, cfg: IntegratorConfig, ev_y0, ev_dt):
     """Each ray's recorded crossing step replayed from its event record
-    (FSAL: k1 = rhs(ev_y0)): ``(y1, k1, k_last, ks)``, ``ks`` the Tsit5
-    stages or None (RK4)."""
+    (FSAL: k1 = rhs(ev_y0)): ``(y1, k1, k_last, ks, stages)``, ``ks`` the
+    Tsit5 stages or None (RK4), ``stages`` the step's stages either way
+    (Tsit5's k1..k7, RK4's k1..k4)."""
     rhs = lambda s: geodesic_cm(metric, s)  # noqa: E731
     k1 = rhs(ev_y0)
-    step = _tsit5_step_cm if cfg.method == "tsit5" else _rk4_step_cm
-    y1, _, k_last, ks = step(rhs, ev_y0, ev_dt, k1)
-    return y1, k1, k_last, ks
+    if cfg.method == "tsit5":
+        y1, _, k_last, ks = _tsit5_step_cm(rhs, ev_y0, ev_dt, k1)
+        return y1, k1, k_last, ks, ks
+    y1, stages = _rk4_stages_cm(rhs, ev_y0, ev_dt, k1)
+    return y1, k1, rhs(y1), None, stages
 
 
 def bisect_bracket(event_fn, interp, cfg: IntegratorConfig, lo, hi):
@@ -423,15 +432,20 @@ def bisect_bracket(event_fn, interp, cfg: IntegratorConfig, lo, hi):
 
 
 def localize_events_cm(metric: Metric, event_fn, cfg: IntegratorConfig,
-                       ev_y0, ev_dt, ev_lo, ev_hi):
+                       ev_y0, ev_dt, ev_lo, ev_hi, keep: bool = False):
     """Replay each ray's recorded crossing step (FSAL: k1 = rhs(ev_y0)),
     bisect the bracket on the dense output, Newton-polish it and
-    interpolate: ``(th_star [B], y_star [8, B])``."""
-    y1, k1, k_last, ks = crossing_step(metric, cfg, ev_y0, ev_dt)
+    interpolate: ``(th_star [B], y_star [8, B])``. With ``keep``, also the
+    bisection's end and the step, which the localization's VJP reads:
+    ``(th_star, y_star, th0, crossing_stages(...))``."""
+    crossing = crossing_stages(metric, cfg, ev_y0, ev_dt)
+    y1, k1, k_last, ks, _ = crossing
     interp, dinterp = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 4)
     hi = bisect_bracket(event_fn, interp, cfg, ev_lo, ev_hi)
     th_star = newton_polish(event_fn, interp, dinterp, hi)
     interp8, _ = _interpolants(ev_y0, y1, k1, k_last, ev_dt, ks, 8)
+    if keep:
+        return th_star, interp8(th_star), hi, crossing
     return th_star, interp8(th_star)
 
 

@@ -49,11 +49,11 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # (ck, ct0, ct_y0, pbar, prm; n, kerr, r_mode; groups; n_obj,
 # rays_per_group, group_stride; stream). K4's work order: (ends, counts,
 # order; n, bins; stream).
-# K6: (P, y, lam, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts,
-# bisect_iters; groups; rays_per_group, group_stride; stream). K7: (P, ct_y,
-# ct_lam, ct_P, pbar, prm; the ints of K6; groups; rays_per_group,
-# group_stride; stream). groups is the group table of a grouped launch, or
-# null. The adjoint and localize libraries' fence around a graph replay:
+# K6: (P, y, lam, rec, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts,
+# bisect_iters; groups; rays_per_group, group_stride; stream). K7: (P, rec,
+# ct_y, ct_lam, ct_P, pbar, prm; the ints of K6 but bisect_iters; groups;
+# rays_per_group, group_stride; stream). groups is the group table of a
+# grouped launch, or null. The adjoint and localize libraries' fence around a graph replay:
 # (stream). K5: (y0, y, vel, rgb, prm;
 # n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
 # K8, K9 (no parameter block: M and a by pointer): (pos, normal, M, a, u;
@@ -80,9 +80,9 @@ _SIGNATURES = {
                 "rtgr_k4_order": [_P] * 3 + [_I] * 2 + [_P],
                 **{name: [_P] for name in ("rtgr_fence_f32",
                                            "rtgr_fence_f64")}},
-    "localize": {**{name: [_P] * 4 + [_I] * 8 + [_P, _I, _I, _P]
+    "localize": {**{name: [_P] * 5 + [_I] * 8 + [_P, _I, _I, _P]
                     for name in ("rtgr_k6_f32", "rtgr_k6_f64")},
-                 **{name: [_P] * 6 + [_I] * 8 + [_P, _I, _I, _P]
+                 **{name: [_P] * 7 + [_I] * 7 + [_P, _I, _I, _P]
                     for name in ("rtgr_k7_f32", "rtgr_k7_f64")},
                  **{name: [_P] for name in ("rtgr_fence_f32",
                                             "rtgr_fence_f64")}},

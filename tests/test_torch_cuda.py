@@ -1280,20 +1280,27 @@ def _loc_cotangents(P, seed=3):
 
 def _check_k6_k7(A, route, P):
     """K6 and K7 against localize_plain and localize_vjp on the same CUDA
-    tensors, bit for bit, each launched once; returns K7's outputs."""
+    tensors, bit for bit (K6's record too, on the hit rays: K6 writes no
+    other; K7 given K6's record against the plain VJP given the plain
+    record and against its replay), each launched once; returns K6's and
+    K7's outputs."""
     plain = route._replace(cuda=False)
     before = (A.localize_cuda.launches, A.localize_vjp_cuda.launches)
-    y, lam = A.localize_cuda(route, P)
+    y, lam, rec = A.localize_cuda(route, P)
     ct_y, ct_lam = _loc_cotangents(P)
-    c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam)
+    c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam, rec)
     torch.cuda.synchronize()
     assert (A.localize_cuda.launches - before[0],
             A.localize_vjp_cuda.launches - before[1]) == (1, 1)
-    y_p, lam_p = A.localize_plain(plain, P)
-    c_p, p_p = A.localize_vjp(plain, P, ct_y, ct_lam)
-    assert bool((P[A.P_HIT] > 0).any())
+    y_p, lam_p, rec_p = A.localize_plain(plain, P)
+    c_p, p_p = A.localize_vjp(plain, P, ct_y, ct_lam, rec_p)
+    c_r, p_r = A.localize_vjp(plain, P, ct_y, ct_lam)
+    hit = P[A.P_HIT] > 0
+    assert bool(hit.any())
     assert _bits_equal(y, y_p) and _bits_equal(lam, lam_p)
+    assert _bits_equal(rec[:, hit], rec_p[:, hit])
     assert _bits_equal(c, c_p) and _bits_equal(p, p_p)
+    assert _bits_equal(c, c_r) and _bits_equal(p, p_r)
     return y, lam, c, p
 
 
@@ -1309,6 +1316,19 @@ def test_k6_k7_match_plain_bitwise(n, dtype, method, max_steps, refine):
     launch as SC_ANY) against their plain versions: bitwise."""
     A, route, y0, _ = _ckpt_case(n, dtype, method, max_steps, refine=refine)
     _check_k6_k7(A, route, _final(A, route, y0))
+
+
+@pytest.mark.parametrize("dtype,method", [(torch.float32, "tsit5"),
+                                          (torch.float64, "rk4")])
+@pytest.mark.parametrize("iters", [0, 1, 39, 40])
+def test_k6_bisection_counts_match_plain_bitwise(dtype, method, iters):
+    """At 0, 1, 39 and 40 bisections K6's results and record, and K7's
+    from that record, equal the plain versions' bit for bit."""
+    A, route, y0, _ = _ckpt_case(16, dtype, method, 200 if method ==
+                                 "tsit5" else 40)
+    P = _final(A, route, y0)
+    route = route._replace(cfg=route.cfg._replace(bisect_iters=iters))
+    _check_k6_k7(A, route, P)
 
 
 @pytest.mark.parametrize("dtype,method", [(torch.float32, "rk4"),
@@ -1345,9 +1365,9 @@ def test_grouped_k6_k7_match_plain_and_each_start(dtype, method):
     for s, (route, _) in enumerate(singles):
         rays = slice(s * B, (s + 1) * B)
         Ps = P[:, rays].contiguous()
-        ys, lams = A.localize_cuda(route, Ps)
+        ys, lams, recs = A.localize_cuda(route, Ps)
         cs, ps = A.localize_vjp_cuda(route, Ps, ct_y[:, rays].contiguous(),
-                                     ct_lam[rays].contiguous())
+                                     ct_lam[rays].contiguous(), recs)
         torch.cuda.synchronize()
         assert _bits_equal(ys, y[:, rays]) and _bits_equal(lams, lam[rays])
         assert _bits_equal(cs, c[:, rays]) and _bits_equal(ps, p[:, rays])
@@ -1365,7 +1385,8 @@ def test_k7_matches_autograd_f64():
         A, route, y0, _ = _ckpt_case(32, torch.float64, method, steps)
         P = _final(A, route, y0)
         ct_y, ct_lam = _loc_cotangents(P)
-        c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam)
+        rec = A.localize_cuda(route, P)[2]
+        c, p = A.localize_vjp_cuda(route, P, ct_y, ct_lam, rec)
         pv = A.flatten_params(route.metric, route.scene).detach()
         pv.requires_grad_()
         Pl = P.clone().requires_grad_()
@@ -1403,41 +1424,45 @@ def test_k6_k7_under_capture_and_on_two_streams():
     P = _final(A, route, y0)
     ct_y, ct_lam = _loc_cotangents(P)
     args = A.localize_args(route, P)
-    y_e, lam_e = A.localize_cuda(route, P, args)
-    c_e, p_e = A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+    y_e, lam_e, rec_e = A.localize_cuda(route, P, args)
+    c_e, p_e = A.localize_vjp_cuda(route, P, ct_y, ct_lam, rec_e, args)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        A.localize_cuda(route, P, args)
-        A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+        rec_s = A.localize_cuda(route, P, args)[2]
+        A.localize_vjp_cuda(route, P, ct_y, ct_lam, rec_s, args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        y_g, lam_g = A.localize_cuda(route, P, args)
-        c_g, p_g = A.localize_vjp_cuda(route, P, ct_y, ct_lam, args)
+        y_g, lam_g, rec_g = A.localize_cuda(route, P, args)
+        c_g, p_g = A.localize_vjp_cuda(route, P, ct_y, ct_lam, rec_g, args)
     from raytracegr_jl_tpu_torch.step_graph import _params_fence
     stream = torch.cuda.current_stream()
     _params_fence(torch.float32, stream)
     graph.replay()
     _params_fence(torch.float32, stream)
     torch.cuda.synchronize()
+    hit = P[A.P_HIT] > 0
     assert _bits_equal(y_g, y_e) and _bits_equal(lam_g, lam_e)
+    assert _bits_equal(rec_g[:, hit], rec_e[:, hit])
     assert _bits_equal(c_g, c_e) and _bits_equal(p_g, p_e)
 
     heavy = route._replace(metric=route.metric._replace(
         params=route.metric.params._replace(M=1.3)))
-    want_h = A.localize_vjp_cuda(heavy, P, ct_y, ct_lam)
+    rec_h = A.localize_cuda(heavy, P)[2]
+    want_h = A.localize_vjp_cuda(heavy, P, ct_y, ct_lam, rec_h)
     torch.cuda.synchronize()
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     with torch.cuda.stream(s1):
         A.run_segments(route, y0)
         got_6 = A.localize_cuda(route, P)
     with torch.cuda.stream(s2):
-        got_7 = [A.localize_vjp_cuda(heavy, P, ct_y, ct_lam)
+        got_7 = [A.localize_vjp_cuda(heavy, P, ct_y, ct_lam, rec_h)
                  for _ in range(3)]
     torch.cuda.synchronize()
     assert not _bits_equal(want_h[1], p_e)
     assert _bits_equal(got_6[0], y_e) and _bits_equal(got_6[1], lam_e)
+    assert _bits_equal(got_6[2][:, hit], rec_e[:, hit])
     for c, p in got_7:
         assert _bits_equal(c, want_h[0]) and _bits_equal(p, want_h[1])
 

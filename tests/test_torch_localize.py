@@ -11,7 +11,8 @@ hand-written VJP (``localize_vjp``, K7's plain version), on the CPU.
   clipped by the inner and by the outer clamp, one exactly on the outer
   bound (torch's clamp passes the gradient there), and one with ``ok``
   false; rays that did not hit, alive, dead and escaped.
-* ``localize_vjp`` against the JAX package's VJP of the same epilogue
+* ``localize_vjp`` (on ``localize_plain``'s record, as K7 runs it, and by
+  its replay) against the JAX package's VJP of the same epilogue
   (``jax.vjp`` of its ``localize_events_cm``), from values committed in
   tests/torch_localize_ref.npz (written by tests/make_torch_localize_ref.py),
   so that this file runs no JAX program.
@@ -229,13 +230,16 @@ def test_localize_vjp_matches_autograd(case):
     """The hand VJP against torch autograd of the plain epilogue, and the
     plain forward equal to the epilogue's values bit for bit; every case
     has hit rays, and zeros go where the cutoff and the selection put
-    them."""
+    them. The VJP reads the forward's record, as K7 does, and equals its
+    replay route."""
     route, P = CASES[case]()
     ct_y, ct_lam = _cotangents(P)
-    y, lam = A.localize_plain(route, P)
+    y, lam, rec = A.localize_plain(route, P)
     y_r, lam_r, g_P, g_t = _autograd(route, P, ct_y, ct_lam)
     assert torch.equal(y, y_r) and torch.equal(lam, lam_r)
-    ct_P, pbar = A.localize_vjp(route, P, ct_y, ct_lam)
+    ct_P, pbar = A.localize_vjp(route, P, ct_y, ct_lam, rec)
+    replay = A.localize_vjp(route, P, ct_y, ct_lam)
+    assert torch.equal(ct_P, replay[0]) and torch.equal(pbar, replay[1])
     hit = P[A.P_HIT] > 0
     assert bool(hit.any())
     _assert_vjp_close(route, ct_P, pbar, g_P, g_t, RTOL[P.dtype])
@@ -263,7 +267,8 @@ def test_synthetic_records_reach_the_polish_corners(method):
     st = A.unpack_state(P)
     metric, scene = route.metric, route.scene
     cfg = route.cfg
-    y1, k1, k_last, ks = G.crossing_step(metric, cfg, st.ev_y0, st.ev_dt)
+    y1, k1, k_last, ks, _ = G.crossing_stages(metric, cfg, st.ev_y0,
+                                              st.ev_dt)
     interp, dinterp = G._interpolants(st.ev_y0, y1, k1, k_last, st.ev_dt,
                                       ks, 4)
     event = G.scene_event_cm(scene)
@@ -305,14 +310,15 @@ def test_localize_vjp_matches_jax(jax_ref, case):
                     n_seg=cfg.max_steps // seg, cuda=False)
     P = r["P"]
     assert torch.equal(A.flatten_params(metric, scene), r["pvec"])
-    y, lam = A.localize_plain(route, P)
+    y, lam, rec = A.localize_plain(route, P)
     torch.testing.assert_close(y, r["y"], rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(lam, r["lam"], rtol=1e-12, atol=1e-12)
-    ct_P, pbar = A.localize_vjp(route, P, r["ct_y"], r["ct_lam"])
     g_P = torch.zeros_like(P)
     g_P[A.P_Y:A.P_Y + 8] = r["g_y"]
     g_P[A.P_EV_Y0:A.P_EV_Y0 + 8] = r["g_ev"]
-    _assert_vjp_close(route, ct_P, pbar, g_P, r["g_p"][None], JAX_RTOL)
+    for kept in (rec, None):  # K7's route on the record, and the replay
+        ct_P, pbar = A.localize_vjp(route, P, r["ct_y"], r["ct_lam"], kept)
+        _assert_vjp_close(route, ct_P, pbar, g_P, r["g_p"][None], JAX_RTOL)
 
 
 def _loss_grads(method: str, grouped: bool, autograd: bool):
