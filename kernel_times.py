@@ -12,6 +12,7 @@ versions can be compared in one run on one card.
     python3 kernel_times.py shade [--tree DIR] [--out FILE]
     python3 kernel_times.py localize [--tree DIR] [--out FILE]
     python3 kernel_times.py digests [--tree DIR] [--out FILE]
+    python3 kernel_times.py k5 [--tree DIR] [--out FILE]
     python3 kernel_times.py compare-images A.images.pt B.images.pt
 
 ``times``: medians of 5, with CUDA events, of the kernels and paths at the
@@ -75,6 +76,27 @@ libraries those run (adjoint, localize, camera).
 on K1's end states of the disk (256x256, f32 and f64) as digests of their
 bytes, to hold two trees' outputs bitwise to each other.
 
+``k5``: K5 and the disk render, then K4's work order (``k5_times``,
+``order_times``): K5 alone (profiler, medians of 5) on the 1024x1024 f32
+disk's end states as the render holds them, as contiguous rows, in the
+impact-parameter order, and on batches of its hit rays only and of its
+misses only (each replicated to the image's size); a copy over the same
+bytes (the card's floor); the wrapper's call in events; the share of hit
+rays and of warps that mix hits and misses or the objects' kinds, in the
+caller's and the sorted order; K5's ptxas lines and static SASS mix; the
+compacted render (``make_compact_renderer``) by default and with
+``fast_epilogue``; the digest of K5's colours and, where the tree's
+redshift shading is bitwise (its plain version's sums written left to
+right), K5 against it. The work order on the rk4/200 and tsit5/48
+training batches' ends (40,000 rays), their first 20,000 (a rank of the
+sharded W = 2 step), config 5's grouped batches at 1, 4 and 16 starts and
+1,048,576 random ends: the device time summed over its kernels and from
+its first kernel's start to its last one's end (profiler), the call in
+events, the stable ``torch.argsort`` beside it, equality with it, and its
+bytes bound. Builds only the libraries these run; ``--libs
+compaction,shading,camera`` times K5 alone, ``--libs adjoint,camera`` the
+work order alone.
+
 ``diagnose``: chip_smoke.py's diagnosis of the tree's kernels: the
 ``ptxas -v`` lines of every kernel, the static SASS instruction mix of
 K2's resumed and K4's f32 Kerr-Schild Tsit5 kernels ("not measured" where
@@ -100,8 +122,8 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, REPEATS, RTOL_F32, adam_steps, adjoint_work,
-                        cam_cotangent, config5_starts, cuda_ms, cuda_tool,
+from chip_smoke import (LIBRARIES, PEAK_BYTES, REPEATS, RTOL_F32, adam_steps,
+                        adjoint_work, cam_cotangent, config5_starts, cuda_ms, cuda_tool,
                         demangle, diagnose_k1, diagnose_tail, disk_setup,
                         in_turns, instruction_mix, inverse_case, k1_entry,
                         k1_main_call, k1_takes_own_step, k3_forward_ms,
@@ -792,6 +814,165 @@ def digests(out: list, dev, card: str) -> None:
              rgb=digest(shade_redshift_cuda(metric, scene, y0, y)))
 
 
+K5_LIBRARIES = ("compaction", "shading", "camera", "adjoint")
+
+
+def warp_mix(flags, order=None):
+    """The share of warps (32 rays in launch order) whose ``flags`` (ints;
+    a negative one is not counted) are not all alike."""
+    import torch
+    f = (flags if order is None else flags[order]).to(torch.int64)
+    f = torch.nn.functional.pad(f, (0, -f.numel() % 32),
+                                value=-1).reshape(-1, 32)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(f >= 0, f, big).min(1).values
+    hi = f.max(1).values
+    return float(((hi >= 0) & (lo != hi)).double().mean())
+
+
+def k5_times(out: list, dev, card: str) -> None:
+    """``k5``'s K5 half: see the module's docstring."""
+    import torch
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch.models import shading as S
+    from raytracegr_jl_tpu_torch.models.objects import distances
+    from raytracegr_jl_tpu_torch.ops.geodesic_cm import (
+        impact_parameter_order, pack_params)
+    from raytracegr_jl_tpu_torch.ops.integrate import IntegratorConfig
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    for kern, regs, stack, st, ld in ptxas_report(cb.build_log("shading")):
+        emit(out, "ptxas", library="shading", kernel=kern, registers=regs,
+             stack_bytes=stack, spill_stores=st, spill_loads=ld)
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        emit(out, "sass", library="shading", mix="not measured (no cuobjdump)")
+    else:
+        sass = subprocess.run([tool, "-sass", cb._paths("shading")[1]],
+                              capture_output=True, text=True).stdout
+        for kern, counts in instruction_mix(sass, "k5_kernel<float").items():
+            emit(out, "sass", library="shading", kernel=kern, mix=counts)
+    cfg, metric, scene, canvas, y0, _ = disk_setup(dev)
+    res = C.trace_batch_compacted(metric, scene, y0, None, cfg.integrator)
+    y = res.y
+    rows = y.contiguous()
+    B = y.shape[0]
+    prm = pack_params(metric, scene, IntegratorConfig(), y.dtype, dev)
+
+    def k5(a0, a):
+        return lambda: S.shade_redshift_cuda(metric, scene, a0, a,
+                                             cfg.hit_dmin, cfg.beaming,
+                                             cfg.exposure, prm)
+
+    with torch.no_grad():
+        d = distances(scene, rows[:, :4])
+        hit = d.min(-1).values < cfg.hit_dmin
+        kind = torch.where(hit, scene.kind[d.argmin(-1)].to(torch.int64), -1)
+    order, _ = impact_parameter_order(y0)
+    hits = torch.nonzero(hit).flatten()
+    misses = torch.nonzero(~hit).flatten()
+    rep = lambda idx: idx.repeat(-(-B // idx.numel()))[:B]  # noqa: E731
+    cases = {"render": (y0, y), "rows": (y0, rows),
+             "sorted": (y0[order], rows[order])}
+    if hits.numel():
+        cases["hits only"] = (y0[rep(hits)], rows[rep(hits)])
+    if misses.numel():
+        cases["misses only"] = (y0[rep(misses)], rows[rep(misses)])
+    alone = {k: kernel_alone_ms(k5(*v), "k5_kernel") for k, v in
+             cases.items()}
+    floor = lambda a0, a: lambda: torch.add(a[:, :3], a0[:, :3])  # noqa
+    floors = {k: sum(b - a for _, a, b in profiled_kernels(
+        floor(*cases[k]), ("",))) / 1e3 / REPEATS for k in ("render", "rows")}
+    rgb = k5(y0, y)()
+    rec = dict(rays=B, hit_share=float(hit.double().mean()),
+               warps_mixing_hits_caller=warp_mix(hit),
+               warps_mixing_hits_sorted=warp_mix(hit, order),
+               warps_mixing_kinds_caller=warp_mix(kind),
+               warps_mixing_kinds_sorted=warp_mix(kind, order),
+               k5_device_ms=alone, copy_floor_device_ms=floors,
+               k5_call_ms=cuda_ms(k5(y0, y)), rgb=digest(rgb),
+               bytes=B * (8 + 8 + 3) * 4)
+    if "_contract" in vars(S):  # the plain sums in K5's order
+        want = S.shade_redshift(metric, scene, y0, y, metric.params.M,
+                                metric.params.a, cfg.hit_dmin, cfg.beaming,
+                                cfg.exposure)
+        rec["bitwise_vs_plain"] = bool(torch.equal(
+            rgb.view(torch.int32), want.view(torch.int32)))
+    emit(out, "k5", card=card, what="K5 disk 1024x1024 f32", **rec)
+    render = C.make_compact_renderer(metric, scene, cfg)
+    fast = C.make_compact_renderer(metric, scene, cfg, fast_epilogue=True)
+    img, img_f = render(canvas).rgb, fast(canvas).rgb
+    turns = {"default": [], "fast_epilogue": []}
+    for r in range(REPEATS):
+        for key in (("default", "fast_epilogue") if r % 2 else
+                    ("fast_epilogue", "default")):
+            fn = render if key == "default" else fast
+            turns[key].append(cuda_ms(lambda: fn(canvas), repeats=1))
+    emit(out, "k5", card=card, what="disk render 1024x1024 f32",
+         render_ms={k: statistics.median(v) for k, v in turns.items()},
+         render_ms_all=turns, image=digest(img),
+         fast_epilogue_image=digest(img_f),
+         images_equal=bool(torch.equal(img, img_f)))
+
+
+def order_times(out: list, dev, card: str) -> None:
+    """``k5``'s work-order half: see the module's docstring."""
+    import torch
+    from raytracegr_jl_tpu_torch.ops import adjoint as adj
+    batches = []
+    for label, method, steps in (("rk4/200", "rk4", 200),
+                                 ("tsit5/48", "tsit5", 48)):
+        route, ys, args = train_route(dev, method, steps)
+        ends = k3_pass(route, ys, args)[1][1:].contiguous()
+        batches.append((f"train {label}", ends, route.n_seg))
+        if method == "rk4":
+            batches.append(("sharded W = 2 rank 0 rk4/200",
+                            ends[:ends.shape[0] // 2].contiguous(),
+                            route.n_seg))
+            batches.append(("rk4/200 x26", ends.repeat(26), route.n_seg))
+    for n in K4_STARTS:
+        _, grouped, ys = inverse_case(dev, torch.float32, "rk4",
+                                      starts=config5_starts(n))
+        ends = k3_pass(grouped, ys, adj.launch_args(grouped, ys))[1][1:]
+        batches.append((f"config 5 {n} starts", ends.contiguous(),
+                        grouped.n_seg))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    batches.append(("random 1048576", torch.randint(
+        0, 26, (1 << 20,), generator=gen, device=dev, dtype=torch.int32), 25))
+    for label, ends, n_seg in batches:
+        call = lambda: adj.work_order_cuda(ends, n_seg)  # noqa: E731
+        sort = lambda: adj.work_order(ends)  # noqa: E731
+        # The kernels of REPEATS calls (the parent tree's order is three):
+        # the profiler may miss one, so the device time is the mean over
+        # the calls it saw, and the span (first start to last end of a
+        # call) only where it saw them all.
+        evs = profiled_kernels(call, ("k4_order",))
+        per = 3 if any("scatter" in e[0] for e in evs) else 1
+        runs = [evs[i:i + per] for i in range(0, len(evs), per)]
+        emit(out, "order", card=card, what=f"K4 work order {label}",
+             rays=ends.shape[0], bins=n_seg + 1,
+             equal_to_stable_sort=bool(torch.equal(call(), sort())),
+             kernels_per_call=per, kernels_seen=len(evs),
+             device_ms=(sum(b - a for _, a, b in evs) / 1e3
+                        / (len(evs) / per) if evs else None),
+             span_ms=(statistics.median((r[-1][2] - r[0][1]) / 1e3
+                                        for r in runs)
+                      if len(evs) == per * REPEATS else None),
+             call_ms=cuda_ms(call),
+             argsort_device_ms=sum(b - a for _, a, b in profiled_kernels(
+                 sort, ("",))) / 1e3 / REPEATS,
+             bound_ms=ends.shape[0] * (4 + 8) / PEAK_BYTES * 1e3)
+
+
+def k5_mode(out: list, dev, card: str) -> None:
+    """``k5``: K5 and the disk render, then K4's work order (each where
+    ``--libs`` leaves its library: shading, adjoint)."""
+    libs = libraries()
+    if "shading" in libs:
+        k5_times(out, dev, card)
+    if "adjoint" in libs:
+        order_times(out, dev, card)
+
+
 def graphed_step(loss_fn, make_params):
     """A replay of ``loss_fn``'s loss and backward captured as one CUDA
     graph over ``make_params()`` (the tree's step_graph.GraphedStep), with
@@ -811,7 +992,7 @@ def graphed_step(loss_fn, make_params):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", choices=("compare-images", "diagnose",
-                                     "diagnose-k1", "digests", "k4",
+                                     "diagnose-k1", "digests", "k4", "k5",
                                      "k4-kernel", "localize", "sass", "shade",
                                      "times"))
     ap.add_argument("images", nargs="*", help="compare-images: A B")
@@ -857,6 +1038,7 @@ def main() -> int:
              if (n in SHADE_LIBRARIES if ns.mode == "shade" else
                  n in DIGEST_LIBRARIES if ns.mode == "digests" else
                  n in LOC_LIBRARIES if ns.mode == "localize" else
+                 n in K5_LIBRARIES if ns.mode == "k5" else
                  not ns.mode.startswith("k4") or n in K4_LIBRARIES
                  and (ns.mode == "k4" or n == "adjoint"))]
     threads = [threading.Thread(target=build_one, args=(n,)) for n in names]
@@ -869,7 +1051,8 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
     {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
-     "k4": k4_mode, "k4-kernel": k4_times, "localize": localize_times,
+     "k4": k4_mode, "k4-kernel": k4_times, "k5": k5_mode,
+     "localize": localize_times,
      "sass": sass_digests,
      "shade": shade_mode, "times": times,
      "digests": digests}[ns.mode](out, dev, card)

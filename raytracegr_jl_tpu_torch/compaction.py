@@ -23,9 +23,9 @@ the end. Results equal the single launch's (``integrate_rays_cuda``, or
 
 On the card the first chunk takes each ray's initial step itself (K2's
 prologue, as K1's; bit for bit the plain ``initial_dt``), so the render
-runs no eager initial step. ``fast_epilogue`` shades through K5
-(csrc/shading.cu), the counterpart of the JAX package's jitted shading
-epilogue: within a few ulps of the eager shading, not bitwise.
+runs no eager initial step, and the redshift shading is one K5 launch
+(csrc/shading.cu, bitwise the plain shading, as ``render_fn`` shades), the
+counterpart of the JAX package's jitted shading epilogue.
 
 Not ported: the JAX launcher cache and ``interpret`` (nothing is compiled
 per shape here, and a CUDA kernel has no interpreter) and the TPU row
@@ -40,12 +40,11 @@ import torch
 
 from .models.camera import Canvas
 from .models.objects import Scene
-from .models.shading import shade_redshift_cuda
 from .ops.adjoint import (N_PLANES, P_ACTIVE, P_HIT, P_STEPS, pack_state,
                           unpack_state)
 from .ops.geodesic_cm import (MAX_THREADS, _check_options,
                               impact_parameter_order, launch_config,
-                              localized, make_step_cm, pack_params, run_body,
+                              localized, make_step_cm, run_body,
                               scene_event_cm)
 from .ops.integrate import IntegratorConfig, TraceResult
 from .ops.metrics import Metric
@@ -254,37 +253,23 @@ def trace_batch_compacted(metric: Metric, scene: Scene, y0: torch.Tensor,
 def make_compact_renderer(metric: Metric, scene: Scene, cfg: RenderConfig, *,
                           first_chunk: int = 64, fast_epilogue: bool = False):
     """A reusable ``canvas -> canvas with rgb`` compacted render: the initial
-    step, ``trace_batch_compacted`` and the shading of ``cfg``, so the image
-    equals ``render_fn``'s bitwise. K2 runs where ``cfg.backend`` resolves
-    to ``"cuda"`` (CUDA tensors unless ``backend="torch"``), and its first
-    chunk takes the initial step; the plain version elsewhere, after an
-    eager ``initial_dt``. The shading is eager by default.
+    step, ``trace_batch_compacted`` and the shading of ``cfg``
+    (``render._shade``), so the image equals ``render_fn``'s bitwise. K2
+    runs where ``cfg.backend`` resolves to ``"cuda"`` (CUDA tensors unless
+    ``backend="torch"``), and its first chunk takes the initial step; the
+    plain version elsewhere, after an eager ``initial_dt``. On the CUDA
+    backend the redshift shading is one K5 launch, its parameter block
+    built once per device and dtype and kept (where M and a are floats).
 
-    ``fast_epilogue=True`` (the JAX option that fuses the epilogue): on the
-    CUDA backend the redshift shading runs as one K5 launch
-    (``shade_redshift_cuda``), within a few ulps of the eager shading but
-    not bitwise (a checker boundary may fall between the two). The
-    reference shading, and any shading on the torch backend, stay eager,
-    so there the option changes nothing."""
+    ``fast_epilogue`` (the JAX option that fuses the epilogue) changes
+    nothing here: the port's first chunk already takes its own initial
+    step and the shading on the card is already one kernel, so both values
+    give the same image."""
     _check(cfg)
     integ = cfg.integrator
     params = metric.params
     keep = not any(isinstance(v, torch.Tensor) for v in (params.M, params.a))
-    blocks = {}
-
-    def shade(y0, y, backend):
-        if not (fast_epilogue and backend == "cuda"
-                and cfg.shading == "redshift"):
-            return _shade(metric, scene, y0, y, cfg)
-        key = (y.device, y.dtype)
-        prm = blocks.get(key)
-        if prm is None:
-            prm = pack_params(metric, scene, IntegratorConfig(), y.dtype,
-                              y.device)
-            if keep:
-                blocks[key] = prm
-        return shade_redshift_cuda(metric, scene, y0, y, cfg.hit_dmin,
-                                   cfg.beaming, cfg.exposure, prm)
+    blocks = {} if keep else None
 
     def render(canvas: Canvas) -> Canvas:
         ni, nj = canvas.shape
@@ -293,7 +278,7 @@ def make_compact_renderer(metric: Metric, scene: Scene, cfg: RenderConfig, *,
         dt0 = None if backend == "cuda" else initial_dt(metric, y0, integ)
         res = trace_batch_compacted(metric, scene, y0, dt0, integ,
                                     first_chunk=first_chunk, backend=backend)
-        rgb = shade(y0, res.y, backend)
+        rgb = _shade(metric, scene, y0, res.y, cfg, blocks)
         return canvas._replace(rgb=rgb.reshape(ni, nj, 3))
 
     return render

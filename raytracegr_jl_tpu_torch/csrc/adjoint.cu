@@ -102,7 +102,11 @@
 
 #include <climits>
 
+#include <cooperative_groups.h>
+
 #include "adjoint_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -437,132 +441,176 @@ int launch_k10(const void* ck, const void* ct0, void* ct_y0, void* pbar,
 
 // K4's work order (ops/adjoint.py work_order_cuda): the rays by end
 // segment, largest first, and in index order within one end segment: a
-// stable counting sort over the n_seg + 1 end segments in three small
-// launches, in place of a general sort. k4_order_count counts each tile of
-// ORDER_TILE rays' ends per bin (bin n_seg - e, so the largest end is bin
-// 0); k4_order_scan turns the counts, bin-major and tile-minor, into each
-// (bin, tile)'s first place in the order; k4_order_scatter writes each
-// ray's index at its place, a tile's rays in index order: within a warp by
-// lane (__match_any_sync groups the lanes of one bin), the warps one after
-// the other. Deterministic: no atomic decides a place. Only the f32 half
-// of the library compiles them (they take no working type).
+// stable counting sort over the n_seg + 1 end segments (bin n_seg - e, so
+// the largest end is bin 0), in one launch of one thread block cluster of
+// ORDER_CTAS blocks on as many SMs. Replaces no TPU kernel (the TPU kernel
+// walks its rays in pixel order). Bound: 4 bytes read and 8 written a ray,
+// ~0.15 us at 40,000 rays, so what sets its time is latency: the launch,
+// the loads, the barriers and each warp's chain of rounds. Hence one
+// launch, in which each warp owns a contiguous segment of the rays
+// (segment s = block rank x warps + warp), 32 rays a round
+// (__match_any_sync groups a round's lanes of one bin: a pixel-order
+// batch's neighbours mostly share their end):
+//   1. each warp counts its segment's bins into its own row of shared
+//      memory (a group's first lane adds its size), keeping up to
+//      ORDER_BATCH rounds of ends in registers for step 3, and adds its row
+//      into the block's totals (shared atomics: sums, which no order
+//      changes); cluster barrier;
+//   2. a warp per bin reads the bin's count in every block through
+//      distributed shared memory (a lane per block): the count in the
+//      lower-ranked blocks, and in the cluster; each row becomes its warp's
+//      first place within the bin (a lane per row, a warp-wide scan); then
+//      one warp scans the cluster's counts over the bins: each bin's first
+//      place;
+//   3. each warp walks its segment again and writes each ray's index at its
+//      place, a round's lanes of one bin by lane (their rank in the group),
+//      the rounds in order.
+// Deterministic: no atomic decides a place. Only the f32 half of the
+// library compiles it (it takes no working type).
 #if RTGR_F32
-constexpr int ORDER_TILE = 1024;
-constexpr int ORDER_THREADS = 256;
-constexpr int ORDER_SCAN_THREADS = 1024;
+constexpr int ORDER_CTAS = 8;  // the blocks of the cluster (portable size)
+constexpr int ORDER_BATCH = 8;
 
 __device__ __forceinline__ int order_bin(int e, int bins) {
   return bins - 1 - min(max(e, 0), bins - 1);
 }
 
-__global__ void __launch_bounds__(ORDER_THREADS)
-k4_order_count(const int* __restrict__ ends, int* __restrict__ counts, int n,
-               int bins) {
-  extern __shared__ int hist[];
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) hist[b] = 0;
-  __syncthreads();
-  const int base = blockIdx.x * ORDER_TILE;
-  for (int k = threadIdx.x; k < ORDER_TILE && base + k < n; k += blockDim.x)
-    atomicAdd(&hist[order_bin(ends[base + k], bins)], 1);
-  __syncthreads();
-  for (int b = threadIdx.x; b < bins; b += blockDim.x)
-    counts[b * gridDim.x + blockIdx.x] = hist[b];
-}
-
-// One block: the exclusive prefix sum of counts[0 .. m) in place.
-__global__ void __launch_bounds__(ORDER_SCAN_THREADS)
-k4_order_scan(int* __restrict__ counts, int m) {
-  __shared__ int warp_sums[ORDER_SCAN_THREADS / 32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < m; base += blockDim.x) {
-    const int k = base + threadIdx.x;
-    const int v = k < m ? counts[k] : 0;
-    int x = v;  // inclusive within the warp
+// The inclusive sum of v over the lanes up to this one.
+__device__ __forceinline__ int warp_inclusive(int v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sums[lane] = w;  // inclusive over the warps
-    }
-    __syncthreads();
-    const int excl = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (k < m) counts[k] = excl;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = excl + v;
-    __syncthreads();
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
   }
+  return v;
 }
 
-__global__ void __launch_bounds__(ORDER_THREADS)
-k4_order_scatter(const int* __restrict__ ends,
-                 const int* __restrict__ first, long long* __restrict__ order,
-                 int n, int bins) {
-  extern __shared__ int next[];  // per bin, this tile's next place
-  for (int b = threadIdx.x; b < bins; b += blockDim.x)
-    next[b] = first[b * gridDim.x + blockIdx.x];
-  __syncthreads();
+// Shared memory: rows [warps][bins] (a warp's counts, then its places
+// within the bins), totals [bins] (the block's counts, read by the
+// cluster), first [bins] (the cluster's counts, then each bin's first
+// place).
+__global__ void __cluster_dims__(ORDER_CTAS, 1, 1) __launch_bounds__(1024)
+k4_order_kernel(const int* __restrict__ ends, long long* __restrict__ order,
+                int n, int bins) {
+  extern __shared__ int smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int base = blockIdx.x * ORDER_TILE;
-  for (int round = 0; round < ORDER_TILE; round += blockDim.x) {
-    const int k = base + round + threadIdx.x;
-    const int b = k < n ? order_bin(ends[k], bins) : -1;
-    const unsigned same = __match_any_sync(0xffffffffu, b);
-    const int rank = __popc(same & ((1u << lane) - 1u));
-    for (int w = 0; w < ORDER_THREADS / 32; ++w) {
-      int place = 0;
-      if (warp == w && b >= 0) place = next[b] + rank;
+  int* row = smem + warp * bins;
+  int* totals = smem + warps * bins;
+  int* first = totals + bins;
+  for (int b = lane; b < bins; b += 32) row[b] = 0;
+  for (int b = threadIdx.x; b < bins; b += blockDim.x) totals[b] = 0;
+  // This warp's segment [lo, hi), whole rounds of 32.
+  const int segs = ORDER_CTAS * warps;
+  const int len = ((n + segs - 1) / segs + 31) / 32 * 32;
+  const int lo = min(n, (rank * warps + warp) * len);
+  const int hi = min(n, lo + len);
+  const bool one_batch = hi - lo <= 32 * ORDER_BATCH;
+  const unsigned below = (1u << lane) - 1u;
+  __syncthreads();
+
+  // 1. Count.
+  int bin[ORDER_BATCH];
+  for (int b0 = lo; b0 < hi; b0 += 32 * ORDER_BATCH) {
+#pragma unroll
+    for (int r = 0; r < ORDER_BATCH; ++r) {
+      const int k = b0 + 32 * r + lane;
+      bin[r] = k < hi ? order_bin(__ldg(ends + k), bins) : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER_BATCH; ++r) {
+      if (b0 + 32 * r >= hi) break;
+      const unsigned same = __match_any_sync(0xffffffffu, bin[r]);
+      if (bin[r] >= 0 && (same & below) == 0) row[bin[r]] += __popc(same);
       __syncwarp();
-      if (warp == w && b >= 0) {
-        order[place] = k;
-        if (rank == 0) next[b] += __popc(same);
-      }
-      __syncthreads();
     }
   }
+  for (int b = lane; b < bins; b += 32)
+    if (row[b]) atomicAdd(&totals[b], row[b]);
+  cluster.sync();
+
+  // 2. A warp per bin: its count in each block (a lane per block), this
+  //    block's start within the bin, the cluster's count; each row's first
+  //    place within the bin (a lane per row).
+  for (int b = warp; b < bins; b += warps) {
+    const int c = lane < ORDER_CTAS ? cluster.map_shared_rank(totals, lane)[b]
+                                    : 0;
+    const int upto = warp_inclusive(c);
+    const int before = __shfl_sync(0xffffffffu, upto - c, rank);
+    if (lane == 31) first[b] = upto;
+    const int v = lane < warps ? smem[lane * bins + b] : 0;
+    if (lane < warps) smem[lane * bins + b] = before + warp_inclusive(v) - v;
+  }
+  // The other blocks' reads of totals are done once all have arrived here;
+  // the wait is at the end, before any block's shared memory goes away.
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+  __syncthreads();
+  if (warp == 0) {  // the exclusive scan of first over the bins
+    int carry = 0;
+    for (int b0 = 0; b0 < bins; b0 += 32) {
+      const int k = b0 + lane;
+      const int v = k < bins ? first[k] : 0;
+      const int x = warp_inclusive(v);
+      if (k < bins) first[k] = carry + x - v;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
+  __syncthreads();
+
+  // 3. Scatter.
+  for (int b0 = lo; b0 < hi; b0 += 32 * ORDER_BATCH) {
+    if (!one_batch) {
+#pragma unroll
+      for (int r = 0; r < ORDER_BATCH; ++r) {
+        const int k = b0 + 32 * r + lane;
+        bin[r] = k < hi ? order_bin(__ldg(ends + k), bins) : -1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ORDER_BATCH; ++r) {
+      if (b0 + 32 * r >= hi) break;
+      const int b = bin[r];
+      const unsigned same = __match_any_sync(0xffffffffu, b);
+      if (b >= 0)
+        order[first[b] + row[b] + __popc(same & below)] = b0 + 32 * r + lane;
+      __syncwarp();
+      if (b >= 0 && (same & below) == 0) row[b] += __popc(same);
+      __syncwarp();
+    }
+  }
+  asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
-// The three launches on st; counts holds bins * ceil(n / ORDER_TILE) ints.
-int launch_k4_order(const int* ends, int* counts, long long* order, int n,
-                    int bins, cudaStream_t st) {
-  static int optin[MAX_DEVICES];
+// The launch on st: one cluster of ORDER_CTAS blocks of 32 warps where the
+// bins leave room for their rows in shared memory, fewer where they do not.
+int launch_k4_order(const int* ends, long long* order, int n, int bins,
+                    cudaStream_t st) {
+  // Dynamic shared memory up to the opt-in limit less 1 KB.
+  static int limit[MAX_DEVICES];
   int dev;
   cudaError_t err = current_device(dev);
-  if (err == cudaSuccess && optin[dev] == 0) {
+  if (err == cudaSuccess && limit[dev] == 0) {
+    int optin = 0;
     err = cudaDeviceGetAttribute(
-        &optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(k4_order_count,
+      err = cudaFuncSetAttribute(k4_order_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin[dev]);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(k4_order_scatter,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin[dev]);
-    if (err != cudaSuccess) optin[dev] = 0;
+                                 optin - 1024);
+    if (err == cudaSuccess) limit[dev] = optin - 1024;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = sizeof(int) * static_cast<size_t>(bins);
-  const int tiles = (n + ORDER_TILE - 1) / ORDER_TILE;
-  if (n < 1 || bins < 1 || bytes > static_cast<size_t>(optin[dev]) ||
-      static_cast<long long>(bins) * tiles > INT_MAX)
+  if (n < 1 || bins < 1 || n > INT_MAX - 32 * 1024 * ORDER_CTAS)
     return static_cast<int>(cudaErrorInvalidValue);
-  k4_order_count<<<tiles, ORDER_THREADS, bytes, st>>>(ends, counts, n, bins);
-  k4_order_scan<<<1, ORDER_SCAN_THREADS, 0, st>>>(counts, bins * tiles);
-  k4_order_scatter<<<tiles, ORDER_THREADS, bytes, st>>>(ends, counts, order,
-                                                       n, bins);
+  const long long room = limit[dev] / 4 / bins - 2;
+  const int warps = static_cast<int>(min(32LL, room));
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(int) * static_cast<size_t>(bins) * (warps + 2);
+  k4_order_kernel<<<ORDER_CTAS, 32 * warps, bytes, st>>>(ends, order, n,
+                                                         bins);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -649,10 +697,9 @@ extern "C" int rtgr_k10_f64(const void* ck, const void* ct0, void* ct_y0,
 
 
 #if RTGR_F32
-extern "C" int rtgr_k4_order(const void* ends, void* counts, void* order,
-                             int n, int bins, void* stream) {
+extern "C" int rtgr_k4_order(const void* ends, void* order, int n,
+                             int bins, void* stream) {
   return launch_k4_order(static_cast<const int*>(ends),
-                         static_cast<int*>(counts),
                          static_cast<long long*>(order), n, bins,
                          static_cast<cudaStream_t>(stream));
 }

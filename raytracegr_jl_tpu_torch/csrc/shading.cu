@@ -7,7 +7,13 @@
 // shading). The plain PyTorch version is models/shading.py shade_redshift,
 // ~100 elementwise launches over [B, N, 4, 4] intermediates; this kernel
 // reads each ray's launch state y0 and end state y (16 values) and writes
-// its colour (3), so it is bound by those bytes, not by its arithmetic.
+// its colour (3). Its bound is those bytes, but a hit ray's ~20 IEEE
+// divisions, ~8 square roots, two metrics, atan2, acos and pow (under
+// --fmad=false, as the plain version rounds) take longer: on the 1024x1024
+// disk a miss costs what a copy of its bytes costs and a hit ~1.6 times
+// that, so the hit path's instructions set the time. Shading in the
+// impact-parameter order was slower (its warps mix the disk and the sky),
+// as were staged stores and fewer registers (spills).
 //
 // Per ray: the objects' signed distances (object_distance of
 // geodesic_common.cuh, the kernels' scene event), the nearest object (the
@@ -27,12 +33,16 @@
 //
 // Rounding: each operation is written as the plain version evaluates it on
 // the card (a python-scalar divisor is a multiplication by its reciprocal,
-// torch.remainder is fmod plus a sign fix), built with --fmad=false. The
-// contractions (einsum) add in an order of their own, so the result agrees
-// with the plain version to a few ulps, not bitwise; where a checker
-// boundary falls between the two, a channel moves by up to a whole
-// checker step (the JAX package's fused epilogue moves ~2% of its pixels
-// the same way).
+// torch.remainder is fmod plus a sign fix, the contractions u^a g_ab v^b
+// are models/camera.py quad's left-to-right sums, the f64 pow is
+// csrc/pow64.cu's), built with --fmad=false, so the colours equal the
+// plain version's bit for bit.
+//
+// Layout: y0 is read as [B, 8] rows; y as rows too or, where PLANES, as
+// the compacted render holds it: [8, B] planes transposed, plane c at
+// y + c * ps, so that the wrapper copies nothing and each warp's reads of a
+// plane are contiguous. Every load is issued first, so that their latencies
+// overlap (a miss needs only its position: 4% of the disk's rays).
 
 #include "camera_common.cuh"
 #include "objects_common.cuh"
@@ -49,9 +59,9 @@ __device__ __forceinline__ void normalize_timelike(const T g[4][4], T* v) {
   for (int a = 0; a < 4; ++a) v[a] = v[a] / s;
 }
 
-template <typename T, bool KERR>
+template <typename T, bool KERR, bool PLANES>
 __global__ void __launch_bounds__(MAX_THREADS)
-k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
+k5_kernel(const T* __restrict__ y0, const T* __restrict__ y, long long ps,
           const T* __restrict__ vel, T* __restrict__ rgb, int n, int r_mode,
           int n_obj, T hit_dmin, T beaming, T exposure) {
   const Params<T>& p = cparams<T>();
@@ -60,8 +70,8 @@ k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
   T x[4], k[4], x0[4], k0[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    x[c] = y[8 * i + c];
-    k[c] = y[8 * i + 4 + c];
+    x[c] = PLANES ? y[c * ps + i] : y[8 * i + c];
+    k[c] = PLANES ? y[(4 + c) * ps + i] : y[8 * i + 4 + c];
     x0[c] = y0[8 * i + c];
     k0[c] = y0[8 * i + 4 + c];
   }
@@ -113,21 +123,21 @@ k5_kernel(const T* __restrict__ y0, const T* __restrict__ y,
 }
 
 template <typename T>
-int launch_k5(const void* y0, const void* y, const void* vel, void* rgb,
-              const void* prm, int n, int kerr, int r_mode, int n_obj,
-              double hit_dmin, double beaming, double exposure,
+int launch_k5(const void* y0, const void* y, long long ps, const void* vel,
+              void* rgb, const void* prm, int n, int kerr, int r_mode,
+              int n_obj, double hit_dmin, double beaming, double exposure,
               void* stream) {
   if (n < 1 || n_obj < 1 || n_obj > MAX_OBJ)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   return static_cast<int>(launch_with_params<T>(prm, st, [&] {
-    RTGR_BOOL(kerr, KERR_,
-              k5_kernel<T, KERR_><<<blocks, MAX_THREADS, 0, st>>>(
-                  static_cast<const T*>(y0), static_cast<const T*>(y),
+    RTGR_BOOL(kerr, KERR_, RTGR_BOOL(ps > 0, PLANES_,
+              k5_kernel<T, KERR_, PLANES_><<<blocks, MAX_THREADS, 0, st>>>(
+                  static_cast<const T*>(y0), static_cast<const T*>(y), ps,
                   static_cast<const T*>(vel), static_cast<T*>(rgb), n, r_mode,
                   n_obj, static_cast<T>(hit_dmin), static_cast<T>(beaming),
-                  static_cast<T>(exposure)))
+                  static_cast<T>(exposure))))
     return cudaGetLastError();
   }));
 }
@@ -135,21 +145,21 @@ int launch_k5(const void* y0, const void* y, const void* vel, void* rgb,
 }  // namespace
 
 #if RTGR_F32
-extern "C" int rtgr_k5_f32(const void* y0, const void* y, const void* vel,
-                           void* rgb, const void* prm, int n, int kerr,
-                           int r_mode, int n_obj, double hit_dmin,
+extern "C" int rtgr_k5_f32(const void* y0, const void* y, long long ps,
+                           const void* vel, void* rgb, const void* prm, int n,
+                           int kerr, int r_mode, int n_obj, double hit_dmin,
                            double beaming, double exposure, void* stream) {
-  return launch_k5<float>(y0, y, vel, rgb, prm, n, kerr, r_mode, n_obj,
+  return launch_k5<float>(y0, y, ps, vel, rgb, prm, n, kerr, r_mode, n_obj,
                           hit_dmin, beaming, exposure, stream);
 }
 #endif
 
 #if RTGR_F64
-extern "C" int rtgr_k5_f64(const void* y0, const void* y, const void* vel,
-                           void* rgb, const void* prm, int n, int kerr,
-                           int r_mode, int n_obj, double hit_dmin,
+extern "C" int rtgr_k5_f64(const void* y0, const void* y, long long ps,
+                           const void* vel, void* rgb, const void* prm, int n,
+                           int kerr, int r_mode, int n_obj, double hit_dmin,
                            double beaming, double exposure, void* stream) {
-  return launch_k5<double>(y0, y, vel, rgb, prm, n, kerr, r_mode, n_obj,
-                           hit_dmin, beaming, exposure, stream);
+  return launch_k5<double>(y0, y, ps, vel, rgb, prm, n, kerr, r_mode, n_obj,
+                          hit_dmin, beaming, exposure, stream);
 }
 #endif

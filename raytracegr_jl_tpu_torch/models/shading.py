@@ -10,10 +10,14 @@ stored ``vel``. Both are normalised with the local metric. A hit's base
 colour is scaled by ``g ** beaming`` (I_obs = g^4 I_emit for bolometric
 intensity), a miss is black.
 
-Plain PyTorch with ``einsum`` over the trailing object and coordinate axes,
-batched over rays and differentiable by autograd (``shade_redshift``), and
-K5 (csrc/shading.cu), the same shading as one CUDA kernel, one thread per
-ray, for the forward render's ``fast_epilogue`` (``shade_redshift_cuda``).
+Plain PyTorch batched over rays and differentiable by autograd
+(``shade_redshift``), its contractions ``u^a g_ab v^b`` written out as
+left-to-right sums (``models.camera.quad``: on the card ``torch.einsum``
+is a batched GEMM that adds in an order of its own), and K5
+(csrc/shading.cu), the same shading as one CUDA kernel, bitwise equal to
+the plain version (``shade_redshift_cuda``). The forward renders shade
+through K5 on the card (``render._shade``); a differentiable render, the
+plain backends and CPU tensors take the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..ops.geodesic_cm import (PARAMS_BYTES, check_kernel_config,
 from ..ops.geometry import inv4
 from ..ops.integrate import IntegratorConfig
 from ..ops.metrics import Metric, _scalar
+from .camera import quad
 from .objects import KIND_DISK, Scene, colors, distances
 
 # Floor for squared norms before sqrt and division. Inside the photon sphere
@@ -36,9 +41,23 @@ from .objects import KIND_DISK, Scene, colors, distances
 _NORM2_FLOOR = 1e-6
 
 
+def _entries(g: torch.Tensor):
+    """The entries ``g[a][b]`` of ``[..., 4, 4]`` matrices, for ``quad``."""
+    return [[g[..., a, b] for b in range(4)] for a in range(4)]
+
+
+def _contract(u: torch.Tensor, g: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """``u^a g_ab v^b`` of ``[..., 4]``, ``[..., 4, 4]``, ``[..., 4]``
+    (broadcast), summed left to right as ``quad`` (csrc/camera_common.cuh
+    quad)."""
+    return quad([u[..., c] for c in range(4)], _entries(g),
+                [v[..., c] for c in range(4)])
+
+
 def normalize_timelike(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u = v / sqrt(max(-g_ab v^a v^b, floor)): unit timelike 4-velocity."""
-    n2 = -torch.einsum("...a,...ab,...b->...", v, g, v)
+    n2 = -_contract(v, g, v)
     return v / torch.sqrt(torch.clamp_min(n2, _NORM2_FLOOR))[..., None]
 
 
@@ -78,7 +97,7 @@ def camera_frequency(metric: Metric, y0: torch.Tensor) -> torch.Tensor:
     x0, k0 = y0[..., :4], y0[..., 4:]
     g = metric(x0)
     that = normalize_timelike(g, inv4(g)[..., :, 0])
-    return -torch.einsum("...a,...ab,...b->...", that, g, k0)
+    return -_contract(that, g, k0)
 
 
 def g_factors(metric: Metric, scene: Scene, y0: torch.Tensor, y: torch.Tensor,
@@ -90,7 +109,7 @@ def g_factors(metric: Metric, scene: Scene, y0: torch.Tensor, y: torch.Tensor,
     u_emit = emitter_velocities(metric, scene, x, M, a)  # [..., N, 4]
     # The traced k is past-pointing (backward ray tracing) and the emitter
     # u future-pointing, so the emitted frequency -g(u, -k) is +g(u, k).
-    w_emit = torch.einsum("...na,...nab,...b->...n", u_emit, g_hit, k)
+    w_emit = _contract(u_emit, g_hit, k[..., None, :])
     w_obs = camera_frequency(metric, y0)
     # Positive for every physical hit; the floor guards dead-ray garbage.
     w_emit = torch.clamp_min(w_emit, 1e-3)
@@ -121,10 +140,12 @@ def shade_redshift_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
                         beaming: float = 4.0, exposure: float = 1.0,
                         prm: torch.Tensor | None = None) -> torch.Tensor:
     """K5: ``shade_redshift`` of ``[B, 8]`` launch and end states on the
-    card, one launch, with the metric's M and a (tensors or floats). Not
-    differentiable. Agrees with the plain version to a few ulps, not
-    bitwise: its contractions add in their own order, and a checker
-    boundary may fall between the two. ``prm``: the packed parameter block
+    card, one launch, with the metric's M and a (tensors or floats),
+    bitwise equal to the plain version. Not differentiable: the states are
+    read as data (``render._shade`` routes a differentiable render to the
+    plain version). ``y`` is read as the caller holds it where it is
+    ``[B, 8]`` rows (K1's) or ``[8, B]`` planes transposed (the compacted
+    render's), with no copy. ``prm``: the packed parameter block
     (``ops.geodesic_cm.pack_params`` of ``metric`` and ``scene`` on the
     states' device and dtype), built here if not given. Raises for CPU
     tensors, a failed build or launch, and scenes the kernels do not take.
@@ -149,13 +170,18 @@ def shade_redshift_cuda(metric: Metric, scene: Scene, y0: torch.Tensor,
     rgb = torch.empty((B, 3), dtype=y.dtype, device=y.device)
     if B == 0:
         return rgb
-    y0, y = y0.detach().contiguous(), y.detach().contiguous()
+    # y as the caller holds it where it is rows or the transposed planes
+    # of the compacted render (plane stride ps), else copied into rows.
+    y0, y = y0.detach().contiguous(), y.detach()
+    ps = y.stride(1) if y.stride(0) == 1 and y.stride(1) >= B else 0
+    if not ps:
+        y = y.contiguous()
     vel = scene.vel.detach().to(y.dtype).contiguous()
     lib = cuda_build.load("shading")
     fn = lib.rtgr_k5_f32 if y.dtype == torch.float32 else lib.rtgr_k5_f64
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(y.device):
-        rc = fn(ptr(y0), ptr(y), ptr(vel), ptr(rgb), ptr(prm), B,
+        rc = fn(ptr(y0), ptr(y), ps, ptr(vel), ptr(rgb), ptr(prm), B,
                 int(metric.name == "kerr_schild"), kernel_r_mode(metric),
                 len(kinds), float(hit_dmin), float(beaming), float(exposure),
                 ctypes.c_void_p(torch.cuda.current_stream(y.device)

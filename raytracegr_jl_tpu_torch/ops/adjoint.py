@@ -921,30 +921,23 @@ def work_order(ends: torch.Tensor) -> torch.Tensor:
     return torch.argsort(ends, descending=True, stable=True)
 
 
-# Rays per tile of work_order_cuda's counting sort (csrc/adjoint.cu
-# ORDER_TILE).
-ORDER_TILE = 1024
-
-
 def work_order_cuda(ends: torch.Tensor, n_seg: int) -> torch.Tensor:
     """K4's work order on the card: ``work_order(ends)``'s permutation
     (int64 ``[B]``), from a stable counting sort over the ``n_seg + 1`` end
-    segments in three small kernels of the adjoint library (csrc/adjoint.cu
-    k4_order_*) in place of a general sort. Reads nothing back, so a CUDA
-    graph can hold it. Adds one to ``work_order_cuda.launches`` per
-    launch."""
+    segments in one launch of the adjoint library (csrc/adjoint.cu
+    k4_order_kernel, one cluster of thread blocks) in place of a general
+    sort. Reads nothing back, so a CUDA graph can hold it. Adds one to
+    ``work_order_cuda.launches`` per launch."""
     if (ends.device.type != "cuda" or ends.dtype != torch.int32
             or ends.dim() != 1 or not ends.is_contiguous()):
         raise ValueError("the work order takes the end segments as a "
                          "contiguous int32 [B] tensor on the card")
     B = ends.shape[0]
-    counts = torch.empty((n_seg + 1) * -(-B // ORDER_TILE),
-                         dtype=torch.int32, device=ends.device)
     order = torch.empty(B, dtype=torch.int64, device=ends.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(ends.device):
         rc = _lib().rtgr_k4_order(
-            ptr(ends), ptr(counts), ptr(order), B, n_seg + 1,
+            ptr(ends), ptr(order), B, n_seg + 1,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"K4's work order failed: CUDA error {rc}")

@@ -16,8 +16,9 @@ reference's hard shading, ``shade_soft`` when ``soft_temp`` is set (on the
 component-major backends one function with a hand-written reverse,
 ``shade_reference``: K11 and K12 on CUDA tensors; the row-major backend
 takes autograd of the plain forward), or the gravitational-redshift
-shading of models/shading.py with ``shading="redshift"``. The compacted
-forward render is in compaction.py."""
+shading of models/shading.py with ``shading="redshift"`` (K5 in a forward
+render on the CUDA backend, the plain version under autograd elsewhere).
+The compacted forward render is in compaction.py."""
 
 from __future__ import annotations
 
@@ -27,11 +28,11 @@ import torch
 
 from .models.camera import Canvas
 from .models.objects import Scene, shade, shade_reference, shade_soft
-from .models.shading import shade_redshift
+from .models.shading import shade_redshift, shade_redshift_cuda
 from .ops.adjoint import (integrate_rays_autograd, integrate_rays_ckpt,
                           integrate_rays_ckpt_cuda, per_ray)
 from .ops.geodesic_cm import (initial_dt, integrate_rays_cm,
-                              integrate_rays_cuda, launch_config)
+                              integrate_rays_cuda, launch_config, pack_params)
 from .models.objects import FIELD_DIMS, min_distance
 from .ops.geometry import MetricFn, geodesic, sanitize_bounds
 from .ops.integrate import (IntegratorConfig, TraceResult, integrate_rays,
@@ -201,15 +202,17 @@ def trace_rays(metric: Metric | MetricFn, scene: Scene, canvas: Canvas,
 def render_fn(metric: Metric | MetricFn, scene: Scene, cfg: RenderConfig,
               groups: int | None = None):
     """``(pos, normal) -> rgb`` closure over a fixed scene and config. On
-    the CUDA backend K1's launch setup is built at the first call for each
-    device and dtype and kept (no read from the card); where M or a is a
-    tensor, whose value the caller may change between calls, it is built
-    anew for each call. ``groups``: the rays form that many groups, each
-    with its own parameters (``trace_batch``)."""
+    the CUDA backend K1's launch setup and K5's parameter block are built
+    at the first call for each device and dtype and kept (no read from the
+    card); where M or a is a tensor, whose value the caller may change
+    between calls, they are built anew for each call. ``groups``: the rays
+    form that many groups, each with its own parameters
+    (``trace_batch``)."""
     _check(cfg, metric)
     keep = cfg.backend != ROWMAJOR and not cfg.differentiable and not any(
         isinstance(v, torch.Tensor) for v in metric.params)
     launches = {}
+    blocks = {} if keep else None
 
     def fn(pos: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
         flat = torch.cat([pos, normal], dim=-1).reshape(-1, 8)
@@ -221,20 +224,47 @@ def render_fn(metric: Metric | MetricFn, scene: Scene, cfg: RenderConfig,
                                               flat, "geodesic")
             launch = launches[key]
         res = trace_batch(metric, scene, flat, cfg, launch, groups)
-        return _shade(metric, scene, flat, res.y, cfg).reshape(
+        return _shade(metric, scene, flat, res.y, cfg, blocks).reshape(
             pos.shape[:-1] + (3,))
 
     return fn
 
 
+def _redshift_on_card(metric: Metric | MetricFn, scene: Scene,
+                      y0: torch.Tensor, y: torch.Tensor,
+                      cfg: RenderConfig) -> bool:
+    """Whether the redshift shading runs as K5: a forward render on the
+    CUDA backend of a component-major metric, no input of the shading
+    requiring a gradient (K5 is not differentiable; every other render
+    takes the plain version under autograd)."""
+    if (cfg.differentiable or cfg.backend == ROWMAJOR
+            or resolve_backend(cfg, y) != "cuda"):
+        return False
+    inputs = (y0, y, *getattr(metric, "params", ()), *scene)
+    return not any(isinstance(t, torch.Tensor) and t.requires_grad
+                   for t in inputs)
+
+
 def _shade(metric: Metric | MetricFn, scene: Scene, y0: torch.Tensor,
-           y: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+           y: torch.Tensor, cfg: RenderConfig,
+           blocks: dict | None = None) -> torch.Tensor:
     """The end states' colours ``[B, 3]``; ``y0`` the launch states (the
     redshift shading's camera frequency; M = a = 0 for a metric function
-    without ``params``). The reference shading of a component-major
-    backend goes through ``shade_reference`` (K11 and K12 on CUDA
-    tensors)."""
+    without ``params``). The redshift shading of a forward render on the
+    CUDA backend is one K5 launch (``shade_redshift_cuda``, bitwise the
+    plain version), with its parameter block kept in ``blocks`` per device
+    and dtype where the caller keeps one (None: built for this call). The
+    reference shading of a component-major backend goes through
+    ``shade_reference`` (K11 and K12 on CUDA tensors)."""
     if cfg.shading == "redshift":
+        if _redshift_on_card(metric, scene, y0, y, cfg):
+            key = (y.device, y.dtype)
+            if blocks is not None and key not in blocks:
+                blocks[key] = pack_params(metric, scene, IntegratorConfig(),
+                                          y.dtype, y.device)
+            return shade_redshift_cuda(
+                metric, scene, y0, y, cfg.hit_dmin, cfg.beaming,
+                cfg.exposure, None if blocks is None else blocks[key])
         p = getattr(metric, "params", KerrSchildParams(M=0.0, a=0.0))
         return shade_redshift(metric, scene, y0, y, p.M, p.a, cfg.hit_dmin,
                               cfg.beaming, cfg.exposure)

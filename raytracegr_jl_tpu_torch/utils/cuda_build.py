@@ -47,15 +47,16 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # K4: (ck, ends, order, ct, ct0, pbar, prm; n, kerr, tsit5, r_mode, scene,
 # n_obj, npts, seg_len; groups; rays_per_group, group_stride; stream). K10:
 # (ck, ct0, ct_y0, pbar, prm; n, kerr, r_mode; groups; n_obj,
-# rays_per_group, group_stride; stream). K4's work order: (ends, counts,
-# order; n, bins; stream).
+# rays_per_group, group_stride; stream). K4's work order: (ends, order; n,
+# bins; stream).
 # K6: (P, y, lam, rec, prm; n, kerr, tsit5, r_mode, scene, n_obj, npts,
 # bisect_iters; groups; rays_per_group, group_stride; stream). K7: (P, rec,
 # ct_y, ct_lam, ct_P, pbar, prm; the ints of K6 but bisect_iters; groups;
 # rays_per_group, group_stride; stream). groups is the group table of a
 # grouped launch, or null. The adjoint and localize libraries' fence around a graph replay:
-# (stream). K5: (y0, y, vel, rgb, prm;
-# n, kerr, r_mode, n_obj; hit_dmin, beaming, exposure: doubles; stream).
+# (stream). K5: (y0, y, y's plane stride
+# (long long; 0 for rows), vel, rgb, prm; n, kerr, r_mode, n_obj; hit_dmin,
+# beaming, exposure: doubles; stream).
 # K8, K9 (no parameter block: M and a by pointer): (pos, normal, M, a, u;
 # n, M's stride, a's stride, kerr, r_mode; eps2, eps2 / 2, det_min:
 # doubles; stream), K9 with the cotangent after a and pbar for u. K11
@@ -77,7 +78,7 @@ _SIGNATURES = {
                    for name in ("rtgr_k4_f32", "rtgr_k4_f64")},
                 **{name: [_P] * 5 + [_I] * 3 + [_P, _I, _I, _I, _P]
                    for name in ("rtgr_k10_f32", "rtgr_k10_f64")},
-                "rtgr_k4_order": [_P] * 3 + [_I] * 2 + [_P],
+                "rtgr_k4_order": [_P] * 2 + [_I] * 2 + [_P],
                 **{name: [_P] for name in ("rtgr_fence_f32",
                                            "rtgr_fence_f64")}},
     "localize": {**{name: [_P] * 5 + [_I] * 8 + [_P, _I, _I, _P]
@@ -86,7 +87,8 @@ _SIGNATURES = {
                     for name in ("rtgr_k7_f32", "rtgr_k7_f64")},
                  **{name: [_P] for name in ("rtgr_fence_f32",
                                             "rtgr_fence_f64")}},
-    "shading": {name: [_P] * 5 + [_I] * 4 + [_D] * 3 + [_P]
+    "shading": {name: [_P, _P, ctypes.c_longlong] + [_P] * 3 + [_I] * 4
+                + [_D] * 3 + [_P]
                 for name in ("rtgr_k5_f32", "rtgr_k5_f64")},
     "camera": {**{name: [_P] * 5 + [_I] * 5 + [_D] * 3 + [_P]
                   for name in ("rtgr_k8_f32", "rtgr_k8_f64")},

@@ -693,10 +693,16 @@ def test_k4_training_batch_matches_plain_bitwise(method, max_steps):
 
 @pytest.mark.parametrize("n,bins,kind", [
     (40_000, 21, "random"), (4_096, 9, "one end"), (1_027, 9, "random"),
-    (16_384, 1_251, "random"), (3_000, 5, "sorted"), (1, 3, "random")])
+    (16_384, 1_251, "random"), (3_000, 5, "sorted"), (1, 3, "random"),
+    (1, 1, "random"), (1_023, 26, "random"), (1_025, 7, "random"),
+    (16_384, 26, "random"), (20_000, 26, "random"),
+    (1_048_576, 26, "random"), (1_048_576, 7, "sorted"),
+    (40_000, 1, "random")])
 def test_work_order_kernel_matches_the_stable_sort(n, bins, kind):
-    """The counting sort's order (K4's, three small kernels) equals
-    ``work_order``'s stable sort of the ends, largest first, exactly."""
+    """The counting sort's order (K4's, one launch of one cluster) equals
+    ``work_order``'s stable sort of the ends, largest first, exactly: from
+    one ray to 1,048,576, one bin (every ray with the same end) to 1,251,
+    every end (random), all rays at one end, ends already sorted."""
     from raytracegr_jl_tpu_torch.ops import adjoint as A
     gen = torch.Generator(device="cuda").manual_seed(n)
     ends = torch.randint(0, bins, (n,), generator=gen, device="cuda",
@@ -929,35 +935,114 @@ def test_k2_own_initial_step_matches_plain_bitwise(dtype, method):
         assert torch.equal(getattr(own, f), getattr(given, f)), f
 
 
+def _k5_case(scene_kind, dtype):
+    """K5's inputs: ``(metric, scene, y0, y)``, the launch states and K1's
+    end states (rows), or for the disk the compacted trace's (transposed
+    planes). "disk": a 32x32 accretion disk (the Keplerian branch);
+    "sphere": example2 at 32x32 with its sphere moving (a stored ``vel``:
+    the non-disk branch, with the time-plane); "minkowski": example1 at
+    32x32, its small sphere moving."""
+    dev = torch.device("cuda")
+    tol = TOL32 if dtype == torch.float32 else 1e-8
+    integ = T.IntegratorConfig(rtol=tol, atol=tol, max_steps=2000,
+                               stop_rho=1.0, sort_rays=True)
+    spec = {"disk": T.accretion_disk_spec, "sphere": T.example2_spec,
+            "minkowski": T.example1_spec}[scene_kind](32, 32)
+    metric, scene, canvas = T.build(spec, dtype, dev)
+    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
+    if scene_kind == "disk":
+        y = T.trace_batch_compacted(metric, scene, y0, None, integ).y
+    else:
+        vel = scene.vel.clone()
+        vel[2] = torch.tensor([1.0, 0.0, 0.3, 0.2], dtype=dtype)
+        scene = scene._replace(vel=vel)
+        y = integrate_rays_cuda(metric, scene, y0, None, integ).y
+    return metric, scene, y0, y
+
+
+@pytest.mark.parametrize("scene_kind", ["disk", "sphere", "minkowski"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_k5_within_its_envelope(dtype):
-    """K5 against shade_redshift on a traced 32x32 disk: no hit/miss flip,
-    at most 2% of pixels beyond 1e-6; make_compact_renderer with
-    fast_epilogue launches it once and renders the same image."""
-    from raytracegr_jl_tpu_torch import compaction as C
+def test_k5_matches_plain_bitwise(dtype, scene_kind):
+    """K5 against shade_redshift on the same CUDA tensors, every bit of
+    every colour: the states as the render holds them (strided) and as
+    contiguous rows; some rays lit and, on the disk, some black."""
     from raytracegr_jl_tpu_torch.models.shading import (shade_redshift,
                                                         shade_redshift_cuda)
-    tol = TOL32 if dtype == torch.float32 else 1e-8
-    cfg = T.RenderConfig(integrator=T.IntegratorConfig(
-        rtol=tol, atol=tol, max_steps=2000, stop_rho=1.0, sort_rays=True),
-        shading="redshift")
-    metric, scene, canvas = T.build(T.accretion_disk_spec(32, 32), dtype,
-                                    torch.device("cuda"))
-    y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
-    res = T.trace_batch_compacted(metric, scene, y0, None, cfg.integrator)
+    metric, scene, y0, y = _k5_case(scene_kind, dtype)
+    want = shade_redshift(metric, scene, y0, y, metric.params.M,
+                          metric.params.a)
     before = shade_redshift_cuda.launches
-    k = shade_redshift_cuda(metric, scene, y0, res.y)
-    assert shade_redshift_cuda.launches == before + 1
-    p = shade_redshift(metric, scene, y0, res.y, metric.params.M,
-                       metric.params.a)
-    hit_k, hit_p = k.abs().sum(1) > 0, p.abs().sum(1) > 0
-    assert int((hit_k != hit_p).sum()) == 0
-    assert float(((k - p).abs().max(1).values > 1e-6).double().mean()) \
-        <= 0.02
-    img = C.make_compact_renderer(metric, scene, cfg,
-                                  fast_epilogue=True)(canvas).rgb
+    got = shade_redshift_cuda(metric, scene, y0, y)
+    rows = shade_redshift_cuda(metric, scene, y0, y.contiguous())
+    torch.cuda.synchronize()
     assert shade_redshift_cuda.launches == before + 2
-    assert torch.equal(img.reshape(-1, 3), k)
+    assert _bits_equal(got, want) and _bits_equal(rows, want)
+    lit = want.abs().sum(1) > 0
+    assert int(lit.sum()) > 0
+    assert scene_kind != "disk" or int((~lit).sum()) > 0
+
+
+def test_redshift_renders_shade_through_k5_once():
+    """render_fn and the default make_compact_renderer shade a redshift
+    render through one K5 launch each and no eager shading, with no host
+    sync in render_fn once its launch setup and K5's block are kept, and
+    give the same image bitwise (fast_epilogue too); a differentiable
+    redshift render on the card takes the plain shading under autograd and
+    gets a finite gradient of M, with no K5 launch."""
+    import warnings
+
+    from raytracegr_jl_tpu_torch import compaction as C
+    from raytracegr_jl_tpu_torch import render
+    from raytracegr_jl_tpu_torch.models.shading import shade_redshift_cuda
+    dev = torch.device("cuda")
+    metric, scene, canvas = T.build(T.accretion_disk_spec(32, 32),
+                                    torch.float32, dev)
+    cfg = T.RenderConfig(integrator=T.IntegratorConfig(
+        rtol=TOL32, atol=TOL32, max_steps=2000, stop_rho=1.0,
+        sort_rays=True), shading="redshift")
+    fn = T.render_fn(metric, scene, cfg)
+    fn(canvas.pos, canvas.normal)
+    torch.cuda.synchronize()
+    eager = []
+    orig = render.shade_redshift
+    render.shade_redshift = lambda *a, **k: eager.append(1) or orig(*a, **k)
+    try:
+        before = (integrate_rays_cuda.launches, shade_redshift_cuda.launches)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                img = fn(canvas.pos, canvas.normal)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert (integrate_rays_cuda.launches - before[0],
+                shade_redshift_cuda.launches - before[1]) == (1, 1)
+        assert not [w for w in caught if "synchronizing cuda operation"
+                    in str(w.message).lower()]
+        images = []
+        for fast in (False, True):
+            before = shade_redshift_cuda.launches
+            images.append(C.make_compact_renderer(
+                metric, scene, cfg, fast_epilogue=fast)(canvas).rgb)
+            assert shade_redshift_cuda.launches == before + 1
+    finally:
+        render.shade_redshift = orig
+    assert not eager
+    assert _bits_equal(images[0], img) and _bits_equal(images[1], img)
+    assert float(img.max()) > 0.0
+
+    M = torch.tensor(1.0, dtype=torch.float32, device=dev,
+                     requires_grad=True)
+    dmetric = T.make_metric("kerr_schild", T.KerrSchildParams(
+        M, metric.params.a), r_formula=metric.r_formula,
+        rho_min=metric.rho_min)
+    dcfg = cfg._replace(differentiable=True, integrator=cfg.integrator
+                        ._replace(max_steps=200, sort_rays=False))
+    before = shade_redshift_cuda.launches
+    rgb = T.render_fn(dmetric, scene, dcfg)(canvas.pos, canvas.normal)
+    rgb.sum().backward()
+    assert shade_redshift_cuda.launches == before
+    assert bool(torch.isfinite(M.grad)) and float(M.grad) != 0.0
 
 
 @pytest.mark.parametrize("method,max_steps", [("rk4", 40), ("tsit5", 16)])

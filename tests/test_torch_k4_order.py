@@ -2,8 +2,8 @@
 largest first, a stable sort; the plain version of the card's counting
 sort); the plain version of K4 (``backward_plain``) run in work order,
 which gives each ray the values it gets in pixel order, bit for bit
-(example2 6x6, f64); and the constant the wrapper shares with the CUDA
-source. The kernels themselves run on the card
+(example2 6x6, f64); and the work order's C entry point against the
+wrapper's signature. The kernels themselves run on the card
 (tests/test_torch_cuda.py)."""
 
 import numpy as np
@@ -90,13 +90,23 @@ def test_plain_k4_in_work_order_gives_each_ray_its_values():
 
 
 def test_k4_constants_match_the_cuda_source():
-    """The work order's tile names csrc/adjoint.cu's."""
+    """The work order's C entry point (csrc/adjoint.cu rtgr_k4_order, one
+    launch) takes the arguments of its ctypes signature: the end segments
+    and the order (pointers), the rays and the bins, the stream."""
+    import ctypes
     import os
+    import re
 
     from raytracegr_jl_tpu_torch.utils import cuda_build
 
     with open(os.path.join(cuda_build.CSRC, "adjoint.cu")) as f:
-        assert f"constexpr int ORDER_TILE = {A.ORDER_TILE};" in f.read()
+        src = f.read()
+    m = re.search(r'extern "C" int rtgr_k4_order\(([^)]*)\)', src)
+    assert m is not None
+    kinds = [ctypes.c_int if a.split()[0] == "int" else ctypes.c_void_p
+             for a in m.group(1).split(",")]
+    assert kinds == cuda_build._SIGNATURES["adjoint"]["rtgr_k4_order"]
+    assert "counts" not in m.group(1)
 
 
 def test_work_order_kernel_refuses_cpu_tensors():

@@ -10,7 +10,8 @@ render, on the CPU at f64 (the plain K3/K4 and K2 versions run here):
 * ``grad_mode="scan"`` (autograd through every rematerialized step)
   agrees with the hand adjoint of ``"ckpt"`` to rtol 1e-12;
 * ``fast_epilogue`` renders the disk on the CPU bitwise as the default
-  (it only changes the shading on the card, through K5), and the
+  (it changes nothing, on the card either: every forward redshift render
+  there shades through K5), and the
   compacted trace with ``dt0=None`` equals it with the eager initial step.
 
 RK4 throughout the bitwise checks: the plain Tsit5 controller's pow on the

@@ -6,8 +6,11 @@ The states are random ones (positions outside the hole, random momenta)
 and the end states of a 16x16 accretion-disk trace through the port's
 plain integrator, with the camera rays as launch states. Tolerance: 1e-12
 relative to each output's largest magnitude. The two libraries share the
-expression trees; they differ in the order of einsum's sums and, for the
-colours, in atan2/acos by a few ulp (tests/test_torch_render.py)."""
+expression trees; they differ in the order of the contractions' sums (the
+port's are left to right, K5's order) and, for the colours, in atan2/acos
+by a few ulp (tests/test_torch_render.py). The contractions' order itself
+is held bitwise, at f32 and f64, to a reference written out term by
+term."""
 
 import numpy as np
 import pytest
@@ -103,6 +106,73 @@ def test_shading_functions_match_jax(states, fn):
         t = ts.keplerian_velocity(tm(ty[:, :4]), ty[:, :4],
                                   torch.zeros(4, dtype=torch.float64), M, A)
     _close(t.numpy(), j)
+
+
+def _contract_lr(u, g, v):
+    """u^a g_ab v^b of [B, 4], [B, 4, 4] (or [4, 4]), [B, 4], term by term:
+    each inner sum over b left to right, then the outer one over a (K5's
+    order, csrc/camera_common.cuh quad)."""
+    acc = None
+    for a in range(4):
+        gv = g[..., a, 0] * v[:, 0]
+        for b in range(1, 4):
+            gv = gv + g[..., a, b] * v[:, b]
+        acc = u[:, a] * gv if acc is None else acc + u[:, a] * gv
+    return acc
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_contractions_sum_left_to_right(states, dtype):
+    """normalize_timelike, camera_frequency and g_factors on the seeded
+    states equal a reference that writes each contraction out term by term
+    (inner sums over b left to right, then over a), bit for bit: the order
+    K5 adds in, so that the kernel can equal the plain version."""
+    from raytracegr_jl_tpu_torch.ops.geometry import inv4_column0
+    y0n, yn, scene = states
+    _, tm = _metrics()
+    y0 = torch.from_numpy(y0n).to(dtype)
+    y = torch.from_numpy(yn).to(dtype)
+    scene = scene._replace(**{f: v.to(dtype) for f, v in
+                              scene._asdict().items() if f != "kind"})
+    floor = ts._NORM2_FLOOR
+
+    def normalize(g, v):
+        n2 = -_contract_lr(v, g, v)
+        return v / torch.sqrt(torch.clamp_min(n2, floor))[:, None]
+
+    x0, k0 = y0[:, :4], y0[:, 4:]
+    g0 = tm(x0)
+    t = torch.stack(inv4_column0([[g0[:, a, b] for b in range(4)]
+                                  for a in range(4)]), -1)
+    w_obs = -_contract_lr(normalize(g0, t), g0, k0)
+    assert torch.equal(_bits(ts.camera_frequency(tm, y0)), _bits(w_obs))
+
+    x, k = y[:, :4], y[:, 4:]
+    g = tm(x)
+    v = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(x.shape[0], 4))).to(dtype)
+    v[:, 0] = 3.0
+    assert torch.equal(_bits(ts.normalize_timelike(g, v)),
+                       _bits(normalize(g, v)))
+
+    u = ts.emitter_velocities(tm, scene, x, M, A)  # [B, N, 4]
+    w_emit = torch.stack([_contract_lr(u[:, j], g, k)
+                          for j in range(u.shape[1])], -1)
+    want = w_obs[:, None] / torch.clamp_min(w_emit, 1e-3)
+    assert torch.equal(_bits(ts.g_factors(tm, scene, y0, y, M, A)),
+                       _bits(want))
+    kepler = ts.keplerian_velocity(g[:, None], x[:, None],
+                                   scene.pos[1], M, A)[:, 0]
+    rel = x[:, 1:] - scene.pos[1, 1:]
+    rho = torch.sqrt(torch.clamp_min(rel[:, 0] ** 2 + rel[:, 1] ** 2, floor))
+    omega = M ** 0.5 / (rho * torch.sqrt(rho) + A * M ** 0.5)
+    vk = torch.stack([torch.ones_like(omega), -omega * rel[:, 1],
+                      omega * rel[:, 0], torch.zeros_like(omega)], -1)
+    assert torch.equal(_bits(kepler), _bits(normalize(g, vk)))
 
 
 def _trace_one(metric, scene, pos, normal, **ikw):
