@@ -247,6 +247,35 @@ def counted_calls(module, name: str):
 
 
 @contextlib.contextmanager
+def kept_calls(module, name: str):
+    """Within the block, each call of ``module.<name>`` keeps its
+    ``(args, kwargs, result)`` in the list it yields; the function's
+    launch count carries over to the wrapper and back (reset the counts
+    before the block: a reset inside it misses the wrapper's)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def kept(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    kept.launches = orig.launches
+    setattr(module, name, kept)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+        orig.launches = kept.launches
+
+
+def records_kept(calls) -> list:
+    """Whether each kept call of K11's wrapper (``shade_cuda``) returned a
+    record."""
+    return [out[1] is not None for _, _, out in calls]
+
+
+@contextlib.contextmanager
 def sync_count():
     """Counts the host syncs that PyTorch's CUDA sync debug mode reports
     inside the block (a read of a tensor on the card, a blocking copy):
@@ -1164,17 +1193,17 @@ def config5_starts(n: int):
                  for k in range(n))
 
 
-# K4's work-order cases (tests/test_torch_cuda.py's): example2 RK4 at n x n,
-# max_steps steps of dt. "ragged": 225 rays, a multiple of no block size,
-# at config 5's segments of 15; "one end": every ray 15 steps from the end
-# of its span, which none reaches a surface in, so all end in segment 2;
-# "every end": spans cut at 1 to max_steps steps and every fifth ray
-# inactive from the start, so that the ends cover every segment. Then
-# grouped config 5 (32x32 a start) at 1, 4 and 16 starts.
+# K4's work-order cases (tests/test_torch_cuda.py's, whose f64 "every end"
+# this run leaves to those tests and to the f64 "K3/K4 vs plain" phases):
+# example2 RK4 at n x n, max_steps steps of dt. "ragged": 225 rays, a
+# multiple of no block size, at config 5's segments of 15; "one end": every
+# ray 15 steps from the end of its span, which none reaches a surface in, so
+# all end in segment 2; "every end": spans cut at 1 to max_steps steps and
+# every fifth ray inactive from the start, so that the ends cover every
+# segment. Then grouped config 5 (32x32 a start) at 1, 4 and 16 starts.
 K4_ORDER_CASES = (("ragged", 15, torch.float32, 120, 0.2),
                   ("one end", 16, torch.float32, 100, 0.1),
-                  ("every end", 16, torch.float32, 100, 0.1),
-                  ("every end", 16, torch.float64, 100, 0.1))
+                  ("every end", 16, torch.float32, 100, 0.1))
 K4_ORDER_STARTS = (1, 4, 16)
 # Up to this many starts the grouped K4 is held to its plain version too.
 K4_PLAIN_STARTS = 4
@@ -3625,9 +3654,13 @@ def camera_slice(dev, card: str) -> dict:
         for label, metric, pos, normal in camera_cases(dev, dtype):
             n_cases += 1
             ct = cam_cotangent(pos)
+            # The training path's cotangent of u: a view of the gradient of
+            # its [8, B] planes, which K9 reads through its strides.
+            ct_planes = torch.cat([pos, ct], -1).t().contiguous().t()[:, 4:]
             u_k = cam.pixel_rays_cuda(metric, pos, normal)
             u_p = cam.pixel_rays_plain(metric, pos, normal)
             p_k = cam.pixel_rays_vjp_cuda(metric, pos, normal, ct)
+            p_s = cam.pixel_rays_vjp_cuda(metric, pos, normal, ct_planes)
             p_p = cam.pixel_rays_vjp(metric, pos, normal, ct)
             torch.cuda.synchronize()
             e = max(max_err(u_k, u_p), max_err(p_k, p_p))
@@ -3635,8 +3668,10 @@ def camera_slice(dev, card: str) -> dict:
             require(bool(torch.isfinite(u_k).all()), f"{label}: u not finite")
             require(bits_equal(u_k, u_p), f"{label}: K8 not bitwise equal to "
                     f"pixel_rays_plain (max |d| {e:.3e})")
-            require(bits_equal(p_k, p_p), f"{label}: K9 not bitwise equal to "
-                    f"pixel_rays_vjp (max |d| {e:.3e})")
+            require(bits_equal(p_k, p_p) and bits_equal(p_s, p_p),
+                    f"{label}: K9 (its cotangent contiguous or a view of the "
+                    f"planes) not bitwise equal to pixel_rays_vjp (max |d| "
+                    f"{e:.3e})")
             if dtype == torch.float64:
                 gaps[label] = cam_autograd_gap(metric, pos, normal, ct)
     gap = max(gaps.values())
@@ -3655,7 +3690,9 @@ def camera_slice(dev, card: str) -> dict:
     # the cotangent and writes (M_bar, a_bar), per ray.
     t0 = time.perf_counter()
     label, metric, pos, normal = camera_cases(dev, torch.float32)[0]
-    ct = cam_cotangent(pos)
+    # As the training path hands K9 its cotangent: a view of the planes'
+    # gradient.
+    ct = torch.cat([pos, cam_cotangent(pos)], -1).t().contiguous().t()[:, 4:]
     k8 = lambda: cam.pixel_rays_cuda(metric, pos, normal)  # noqa: E731
     k9 = lambda: cam.pixel_rays_vjp_cuda(  # noqa: E731
         metric, pos, normal, ct)
@@ -3777,11 +3814,19 @@ def shade_plain(scene, x, temp, freq):
     return O.shade_soft(scene, x, temp=temp, color_freq=freq)
 
 
-def shade_plain_vjp(scene, x, ct, temp, freq):
+def shade_plain_vjp(scene, x, ct, temp, freq, rec=None):
     from raytracegr_jl_tpu_torch.models import objects as O
     if temp is None:
-        return O.shade_vjp(scene, x, ct)
+        return O.shade_vjp(scene, x, ct, rec=rec)
     return O.shade_soft_vjp(scene, x, ct, temp=temp, color_freq=freq)
+
+
+def shade_keeping_record(scene, x, temp, freq):
+    """K11 keeping its record where the shading is hard (as the training
+    path runs it): ``(rgb, rec)``, rec None where soft (no record)."""
+    from raytracegr_jl_tpu_torch.models import objects as O
+    return O.shade_cuda(scene, x, color_freq=freq, temp=temp,
+                        record=temp is None)
 
 
 def shade_autograd_gap(scene, x, ct, temp, freq, got) -> tuple:
@@ -3832,24 +3877,33 @@ def shade_slice(dev, card: str) -> dict:
         for label, scene, x, temp, freq in shade_cases(dev, dtype):
             n_cases += 1
             ct = shade_cotangent(x)
-            rgb_k = O.shade_cuda(scene, x, temp=temp, color_freq=freq)
+            rgb_k, none = O.shade_cuda(scene, x, temp=temp,
+                                       color_freq=freq)
+            require(none is None, f"{label}: K11 kept a record unasked")
+            rgb_r, rec = shade_keeping_record(scene, x, temp, freq)
             rgb_p = shade_plain(scene, x, temp, freq)
             got_k = O.shade_vjp_cuda(scene, x, ct, temp=temp,
-                                     color_freq=freq)
+                                     color_freq=freq, rec=rec)
             got_p = shade_plain_vjp(scene, x, ct, temp, freq)
+            got_r = shade_plain_vjp(scene, x, ct, temp, freq, rec)
             torch.cuda.synchronize()
-            outs = [(got_k[0], got_p[0])] + [(got_k[1][f], got_p[1][f])
-                                             for f in O.SHADE_FIELDS]
+            outs = [(got_k[0], got_p[0]), (got_r[0], got_p[0])] + [
+                pair for f in O.SHADE_FIELDS
+                for pair in ((got_k[1][f], got_p[1][f]),
+                             (got_r[1][f], got_p[1][f]))]
             e = max([max_err(rgb_k, rgb_p)]
                     + [max_err(a, b) for a, b in outs])
             err = max(err, e)
             require(bool(torch.isfinite(rgb_k).all()),
                     f"{label}: rgb not finite")
-            require(bits_equal(rgb_k, rgb_p), f"{label}: K11 not bitwise "
-                    f"equal to the plain shading (max |d| {e:.3e})")
-            require(all(bits_equal(a, b) for a, b in outs),
-                    f"{label}: K12 not bitwise equal to the plain VJP "
+            require(bits_equal(rgb_k, rgb_p) and bits_equal(rgb_r, rgb_p),
+                    f"{label}: K11 not bitwise equal to the plain shading "
                     f"(max |d| {e:.3e})")
+            require(rec is None or torch.equal(rec, O.shade_record(scene, x)),
+                    f"{label}: K11's record differs from shade_record")
+            require(all(bits_equal(a, b) for a, b in outs),
+                    f"{label}: K12, or the plain VJP given the record, not "
+                    f"bitwise equal to the plain VJP (max |d| {e:.3e})")
             if dtype == torch.float64:
                 gaps[label], skipped[label] = shade_autograd_gap(
                     scene, x, ct, temp, freq, got_p)
@@ -3861,13 +3915,44 @@ def shade_slice(dev, card: str) -> dict:
     require(gap <= SHADE_GRAD_RTOL, f"the plain shading VJPs differ from "
             f"autograd by {gap:.3e}")
 
+    # K11's record is a tensor of its own call: K11 keeping it and K12
+    # reading it on two streams at once, each stream with its own end
+    # positions (the training batch and the same rays reversed), equal
+    # the same launches run alone. (The f32 cases serve the times below.)
+    t0 = time.perf_counter()
+    cases = {c[0]: c for c in shade_cases(dev, torch.float32)}
+    _, scene, x, _, _ = cases["train example2 200x200 float32 hard"]
+    ct = shade_cotangent(x)
+
+    def shade_pair(xs):
+        rgb, rec = O.shade_cuda(scene, xs, record=True)
+        return (rgb, rec, O.shade_vjp_cuda(scene, xs, ct, fields=("pos",),
+                                           rec=rec)[0])
+
+    inputs = (x, x.flip(0))
+    want = [shade_pair(xs) for xs in inputs]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    got = ([], [])
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[j].append(shade_pair(inputs[j]))
+    torch.cuda.synchronize()
+    apart = all(torch.equal(a, b) for j in (0, 1) for run in got[j]
+                for a, b in zip(run, want[j]))
+    phase("K11/K12 records on two streams", t0, runs=6,
+          records_differ=not torch.equal(want[0][1], want[1][1]),
+          equal_to_alone=apart)
+    require(apart, "K11/K12 on two streams differ from their launches alone")
+
     # Times and bounds at f32: in events (the wrapper's call), 100
     # launches in one graph and from the profiler (None where it misses
     # them). Work: the plain version's operations on one ray, times the
     # rays; bytes: x and the fields read once (a shared field once, a
     # per-ray one per ray), rgb (K11) or the cotangent, ct_x and the
     # fields' cotangents the path asks for (K12) written.
-    cases = {c[0]: c for c in shade_cases(dev, torch.float32)}
     out = {}
     for key, label, wanted in (
             ("render", "render example2 200x200 float32 hard", ()),
@@ -3877,10 +3962,14 @@ def shade_slice(dev, card: str) -> dict:
         t0 = time.perf_counter()
         _, scene, x, temp, freq = cases[label]
         ct = shade_cotangent(x)
+        # The training path's K11 keeps its record (hard), the render's
+        # none; K12 reads it.
+        kept = key != "render" and temp is None
+        srec = shade_keeping_record(scene, x, temp, freq)[1]
         k11 = lambda: O.shade_cuda(  # noqa: E731
-            scene, x, temp=temp, color_freq=freq)
+            scene, x, temp=temp, color_freq=freq, record=kept)
         k12 = lambda: O.shade_vjp_cuda(  # noqa: E731
-            scene, x, ct, temp=temp, color_freq=freq, fields=wanted)
+            scene, x, ct, temp=temp, color_freq=freq, fields=wanted, rec=srec)
         rec = dict(k11_ms=cuda_ms(k11), k12_ms=cuda_ms(k12),
                    k11_graphed_ms=graph_ms(k11), k12_graphed_ms=graph_ms(k12),
                    k11_device_ms=kernel_alone_ms(k11, "k11_kernel"),
@@ -3888,20 +3977,33 @@ def shade_slice(dev, card: str) -> dict:
                    k11_plain_ms=cuda_ms(lambda: shade_plain(scene, x, temp,
                                                             freq)),
                    k12_plain_ms=cuda_ms(lambda: shade_plain_vjp(
-                       scene, x, ct, temp, freq)))
+                       scene, x, ct, temp, freq, srec)))
         with torch.no_grad():
             one = scene._replace(**{
                 f: getattr(scene, f)[:1] for f in O.SHADE_FIELDS
                 if getattr(scene, f).dim() > O.FIELD_DIMS.get(f, 1)})
             f11 = count_flops(lambda: shade_plain(one, x[:1], temp, freq))
-            f12 = count_flops(lambda: shade_plain_vjp(one, x[:1], ct[:1],
-                                                      temp, freq))
+            f12 = count_flops(lambda: shade_plain_vjp(
+                one, x[:1], ct[:1], temp, freq,
+                None if srec is None else srec[:1]))
         B, w, n = x.shape[0], x.element_size(), scene.kind.shape[0]
         fields = sum(getattr(scene, f).numel() for f in O.SHADE_FIELDS)
         outs = sum(B * n * (4 if f == "pos" else 1) for f in wanted)
-        rec["k11_bound"] = bound(B * f11, (B * (4 + 3) + fields) * w)
-        rec["k12_bound"] = bound(B * f12, (B * (4 + 3 + 4) + fields + outs)
-                                 * w)
+        # The record: a byte a ray, written by K11 and read by K12. Given
+        # it, K12 reads of the fields only the pos row of the object a ray
+        # hit, where its cotangent is not zero: one row per such ray where
+        # pos is per ray, each object's row once where it is shared.
+        rec_bytes, k12_fields = 0, fields
+        if srec is not None:
+            rec_bytes = B
+            live = (srec >= 0) & (ct != 0).any(-1)
+            per_ray_pos = scene.pos.dim() > O.FIELD_DIMS.get("pos", 1)
+            k12_fields = 4 * (int(live.sum()) if per_ray_pos else
+                              int(torch.unique(srec[live]).numel()))
+        rec["k11_bound"] = bound(B * f11, (B * (4 + 3) + fields) * w
+                                 + (rec_bytes if kept else 0))
+        rec["k12_bound"] = bound(B * f12, (B * (4 + 3 + 4) + k12_fields
+                                           + outs) * w + rec_bytes)
         out[key] = rec
         phase(f"time K11/K12 {label}", t0, card=repr(card), rays=B,
               k11_ms=f"{rec['k11_ms']:.4f}",
@@ -4095,13 +4197,16 @@ def main() -> int:
     fn = rt.render_fn(metric, scene, bench_cfg)
     fn(canvas.pos, canvas.normal)  # builds the launch setup once
     torch.cuda.synchronize()
+    reset_counts()
     with counted_calls(rt.render, "initial_dt") as eager_init, \
+            kept_calls(objects, "shade_cuda") as k11_calls, \
             sync_count() as syncs:
-        reset_counts()
         rgb = fn(canvas.pos, canvas.normal)
         launches = integrate_rays_cuda.launches
         k11_render = objects.shade_cuda.launches
     torch.cuda.synchronize()
+    require(records_kept(k11_calls) == [False], "the render's K11 kept "
+            "a record")
     require(launches == 1, f"the main path launched K1 {launches} times")
     require(k11_render == 1, f"the main path launched K11 {k11_render} "
             "times")
@@ -4367,9 +4472,13 @@ def main() -> int:
         with counted_calls(adj, "init_plain") as eager_start, \
                 counted_calls(adj, "make_step_cm") as eager_body, \
                 counted_calls(adj, "initial_dt") as eager_dt, \
-                counted_calls(rt.render, "initial_dt") as render_dt:
+                counted_calls(rt.render, "initial_dt") as render_dt, \
+                kept_calls(objects, "shade_cuda") as k11_calls:
             loss, g = loss_and_grads(cfg, targets[label])
         eager = eager_start + eager_body + eager_dt + render_dt
+        # K11 keeps its record for K12.
+        require(records_kept(k11_calls) == [True], f"{label}: K11 kept "
+                f"records {records_kept(k11_calls)}")
         counts = [fn.launches for fn in counted]
         step_launches[label] = counts
         out = {}

@@ -9,7 +9,8 @@ versions can be compared in one run on one card.
     python3 kernel_times.py k4 [--tree DIR] [--out FILE]
     python3 kernel_times.py k4-kernel [--tree DIR] [--out FILE]
     python3 kernel_times.py sass [--tree DIR] [--libs A,B] [--out FILE]
-    python3 kernel_times.py shade [--tree DIR] [--out FILE]
+    python3 kernel_times.py shade [--tree DIR] [--alone] [--out FILE]
+    python3 kernel_times.py camera [--tree DIR] [--alone] [--out FILE]
     python3 kernel_times.py localize [--tree DIR] [--out FILE]
     python3 kernel_times.py digests [--tree DIR] [--out FILE]
     python3 kernel_times.py k5 [--tree DIR] [--out FILE]
@@ -59,10 +60,25 @@ their text, so that two trees' builds of a kernel can be told identical or
 not (the ungrouped K3 and K4 of a tree with grouped variants against the
 parent's; K5 against the parent's after its code moved into a header).
 
-``shade``: the 200x200 render (K1, the render, K11 alone where the tree
-has it), then the training steps (with K11 and K12 alone where the tree
-has them) and config 5's Adam steps as ``times`` gives them; builds only
-the libraries those run.
+``shade``: K11 and K12 alone (``shade_times``: on the training batch,
+K12 also on misses only and with a zero cotangent, beside a copy over its
+bytes and the launch floor; on config 5's batches at 1, 4 and 16 starts;
+alone and per launch in a graph of 100; each tree's K11 keeping its
+record and K12 reading it where the tree has one), then the 200x200
+render (K1, the render, K11 alone where the tree has it), the training
+steps (with K11 and K12 alone where the tree has them) and config 5's
+Adam steps as ``times`` gives them; builds only the libraries those run.
+``--alone``: the kernels alone only (builds geodesic, camera, objects).
+
+``camera``: K8 and K9 alone and per launch in a graph of 100 on the
+training batch and config 5's at 1, 4 and 16 starts, beside the launch
+floor (a one-element fill), with digests of their outputs; the camera
+library's ptxas lines and the SASS mix of K8 and K9 (K8's is the forward
+the parent's K9 recomputes); then K9's and K12's calls in the rk4/200
+training step: the kernels each call launches and their device time,
+its tensors' strides, and in a graphed replay the kernel's time and the
+kernel just before it (``replay_calls``). ``--alone``: the kernels
+alone only.
 
 ``localize``: K6 and K7 alone (profiler, medians of 5) on the final
 states of the rk4/200 and tsit5/48 training batches at 200x200 f32 (all
@@ -122,15 +138,17 @@ import sys
 import threading
 import time
 
-from chip_smoke import (LIBRARIES, PEAK_BYTES, REPEATS, RTOL_F32, adam_steps,
-                        adjoint_work, cam_cotangent, config5_starts, cuda_ms, cuda_tool,
-                        demangle, diagnose_k1, diagnose_tail, disk_setup,
+from chip_smoke import (INV_N, LIBRARIES, PEAK_BYTES, REPEATS, RTOL_F32,
+                        adam_steps, adjoint_work, cam_cotangent, camera_cases,
+                        config5_starts, cuda_ms, cuda_tool, demangle,
+                        diagnose_k1, diagnose_tail, disk_setup, graph_ms,
                         in_turns, instruction_mix, inverse_case, k1_entry,
                         k1_main_call, k1_takes_own_step, k3_forward_ms,
-                        k3_pass, k4_walk, kernel_alone_ms, loc_cotangents,
-                        profile_steps, profiled_kernels, ptxas_report, require,
-                        sass_report, short_name, state_ct, summed_ms,
-                        timed_calls)
+                        k3_pass, k4_walk, kept_calls, kernel_alone_ms,
+                        loc_cotangents, profile_steps, profiled_kernels,
+                        ptxas_report, require, sass_report, shade_cases,
+                        shade_cotangent, shade_end_states, short_name,
+                        state_ct, summed_ms, timed_calls)
 
 
 # The libraries named by --libs (all where None).
@@ -403,9 +421,11 @@ def train_times(out: list, dev, card: str) -> None:
             sc = route.scene._replace(pos=adj.per_ray(route.scene.pos[None],
                                                       x.shape[0]))
             ct_rgb = torch.ones((x.shape[0], 3), dtype=f32, device=dev)
+            kw = ({"rec": objects.shade_cuda(sc, x, record=True)[1]}
+                  if takes_record(objects.shade_vjp_cuda) else {})
             k11 = lambda: objects.shade_cuda(sc, x)  # noqa: E731
             k12 = lambda: objects.shade_vjp_cuda(  # noqa: E731
-                sc, x, ct_rgb, fields=("pos",))
+                sc, x, ct_rgb, fields=("pos",), **kw)
             loc.update(k11_ms=cuda_ms(k11), k12_ms=cuda_ms(k12),
                        k11_device_ms=kernel_alone_ms(k11, "k11_kernel"),
                        k12_device_ms=kernel_alone_ms(k12, "k12_kernel"))
@@ -757,12 +777,251 @@ def k4_mode(out: list, dev, card: str) -> None:
 
 
 SHADE_LIBRARIES = ("geodesic", "adjoint", "localize", "camera", "objects")
+# The libraries of ``--alone`` (the kernels alone on K1's end states).
+ALONE_LIBRARIES = ("geodesic", "camera", "objects")
+# --alone: the camera and shade modes time the kernels alone and stop.
+ALONE = False
+
+
+def takes_record(fn) -> bool:
+    """Whether a tree's K12 wrapper takes K11's record."""
+    import inspect
+    return "rec" in inspect.signature(fn).parameters
+
+
+def floor_times(out: list, dev, card: str) -> None:
+    """The floor no kernel's launch beats: a one-element fill, alone
+    (profiler) and per launch in a graph of 100 launches."""
+    import torch
+    one = torch.zeros(1, device=dev)
+    fill = lambda: one.zero_()  # noqa: E731
+    emit(out, "floor", card=card, what="one-element fill",
+         graphed_ms=graph_ms(fill), device_ms=kernel_alone_ms(fill, ""))
+
+
+def sass_sections(out: list, lib: str, kernels) -> None:
+    """A library's ptxas lines and the static SASS mix of the kernels whose
+    names start with one of ``kernels``."""
+    from raytracegr_jl_tpu_torch.utils import cuda_build as cb
+    for kern, regs, stack, st, ld in ptxas_report(cb.build_log(lib)):
+        emit(out, "ptxas", library=lib, kernel=kern, registers=regs,
+             stack_bytes=stack, spill_stores=st, spill_loads=ld)
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        emit(out, "sass", library=lib, mix="not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", cb._paths(lib)[1]],
+                          capture_output=True, text=True).stdout
+    for wanted in kernels:
+        for kern, counts in instruction_mix(sass, wanted).items():
+            emit(out, "sass", library=lib, kernel=kern, mix=counts)
+
+
+def cam_batches(dev):
+    """(label, metric, pos, normal) of K8/K9 at f32: the training batch
+    (example2 200x200, chip_smoke's first camera case) and config 5's at
+    1, 4 and 16 starts as its steps hold them (M and a one value at one
+    start, one per ray beyond)."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    f32 = torch.float32
+    out = [camera_cases(dev, f32)[0]]
+    xg, ng = rt.flat_pixel_grid(rt.lensing_inverse_spec(INV_N, INV_N), f32,
+                                dev)
+    B = xg.shape[0]
+    for n in K4_STARTS:
+        Ms = torch.tensor([M for M, _ in config5_starts(n)], dtype=f32,
+                          device=dev)
+        M = Ms[0] if n == 1 else Ms.repeat_interleave(B)
+        metric = rt.make_metric("kerr_schild", rt.KerrSchildParams(
+            M, torch.zeros_like(M)), r_formula="textbook", rho_min=0.25)
+        out.append((f"config 5 {n} starts", metric, xg.repeat(n, 1),
+                    ng.repeat(n, 1)))
+    return out
+
+
+def camera_times(out: list, dev, card: str) -> None:
+    """``camera``: the launch floor; K8 and K9 alone (profiler) and per
+    launch in a graph of 100 on the training batch and config 5's at 1, 4
+    and 16 starts, K9 also given its cotangent as a view of [8, B] planes
+    (its call, with any copy the tree makes), with digests of their
+    outputs; the camera library's ptxas lines and the SASS mix of its f32
+    Kerr-Schild kernels (K8's is the forward that K9 recomputes); then
+    (unless --alone) K9's and K12's calls in the rk4/200 training step
+    (``replay_calls``)."""
+    import torch
+    from raytracegr_jl_tpu_torch.models import camera as cam
+    floor_times(out, dev, card)
+    for label, metric, pos, normal in cam_batches(dev):
+        ct = cam_cotangent(pos)
+        # The cotangent as the training path holds it: a view of the
+        # planes' gradient (a tree whose K9 reads it contiguous copies it).
+        planes = torch.cat([pos, ct], -1).t().contiguous().t()[:, 4:]
+        k8 = lambda: cam.pixel_rays_cuda(metric, pos, normal)  # noqa: E731
+        k9 = lambda: cam.pixel_rays_vjp_cuda(  # noqa: E731
+            metric, pos, normal, ct)
+        k9p = lambda: cam.pixel_rays_vjp_cuda(  # noqa: E731
+            metric, pos, normal, planes)
+        emit(out, "camera", card=card, what=f"K8/K9 {label} f32",
+             rays=pos.shape[0],
+             k8_device_ms=kernel_alone_ms(k8, "k8_kernel"),
+             k8_graphed_ms=graph_ms(k8),
+             k9_device_ms=kernel_alone_ms(k9, "k9_kernel"),
+             k9_graphed_ms=graph_ms(k9),
+             k9_planes_device_ms=kernel_alone_ms(k9p, "k9_kernel"),
+             k9_planes_call_graphed_ms=graph_ms(k9p), u=digest(k8()),
+             pbar=digest(k9()), pbar_planes=digest(k9p()))
+    sass_sections(out, "camera", ("k8_kernel<float, true",
+                                  "k9_kernel<float, true"))
+    if not ALONE:
+        replay_calls(out, dev, card)
+
+
+def replay_calls(out: list, dev, card: str) -> None:
+    """K9's and K12's wrappers in the rk4/200 training step (200x200
+    f32): each call as the eager step makes it (its arguments kept), the
+    kernels it launches, their device ms and the strides of its tensors;
+    and in a graphed replay of the step, the kernel's device ms and the
+    kernel that runs just before it."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.models import camera as cam
+    from raytracegr_jl_tpu_torch.models import objects
+    from raytracegr_jl_tpu_torch.models.scenes import example2_spec
+    f32 = torch.float32
+    spec = example2_spec(200, 200)
+    cfg = rt.default_inverse_cfg(f32, max_steps=200, method="rk4",
+                                 rk4_dt=0.5, stop_rho=0.5)
+    xg, ng = rt.flat_pixel_grid(spec, f32, dev)
+    with torch.no_grad():
+        target = rt.make_ray_render_for_params(spec, cfg, 2, f32, dev)(
+            rt.InverseParams(1.0, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev), xg,
+            ng)
+    loss_fn = rt.make_ray_loss_fn(spec, cfg, 2, f32, dev)
+
+    def params():
+        return rt.InverseParams(1.05, 0.0, [0.0, 4.0, 0.0, 0.0], f32, dev)
+
+    names = ((cam, "pixel_rays_vjp_cuda", "k9_kernel"),
+             (objects, "shade_vjp_cuda", "k12_kernel"))
+    with kept_calls(cam, names[0][1]) as k9s, \
+            kept_calls(objects, names[1][1]) as k12s:
+        loss_fn(params(), xg, ng, target).backward()
+    torch.cuda.synchronize()
+    evs = profiled_kernels(graphed_step(
+        lambda q: loss_fn(q, xg, ng, target), params), ("",), reps=3)
+    for (mod, fn, kern), calls in zip(names, (k9s, k12s)):
+        args, kw, _ = calls[0]
+        mine = profiled_kernels(
+            lambda: getattr(mod, fn)(*args, **kw), ("",))  # noqa: B023
+        at = [i for i, e in enumerate(evs) if kern in e[0]]
+        emit(out, "replay", card=card, what=f"{fn} in the rk4/200 step",
+             strides=[list(t.stride()) for t in args
+                      if isinstance(t, torch.Tensor)],
+             call_kernels=sorted({e[0][:80] for e in mine}),
+             call_kernels_per_call=len(mine) / REPEATS,
+             call_device_ms=sum(b - a for _, a, b in mine) / 1e3 / REPEATS,
+             replay_kernel_ms=(statistics.median(
+                 (evs[i][2] - evs[i][1]) / 1e3 for i in at) if at else None),
+             replay_seen=len(at),
+             replay_before=sorted({evs[i - 1][0][:80] for i in at if i}),
+             replay_before_ms=(statistics.median(
+                 (evs[i - 1][2] - evs[i - 1][1]) / 1e3 for i in at if i)
+                 if any(at) else None))
+
+
+def shade_config5(dev, n: int):
+    """Config 5's shading batch at ``n`` starts (f32, soft at frequency
+    2): K1's end states of the lensing scene repeated per start, as
+    ``[8, B]`` planes, each start's sphere per ray."""
+    import torch
+    import raytracegr_jl_tpu_torch as rt
+    from raytracegr_jl_tpu_torch.ops.adjoint import per_ray
+    f32 = torch.float32
+    scene, y = shade_end_states(dev, rt.lensing_inverse_spec(INV_N, INV_N),
+                                f32, rt.IntegratorConfig(
+                                    method="rk4", rk4_dt=0.5, max_steps=120,
+                                    lam_max=60.0, stop_rho=0.5))
+    B = y.shape[0]
+    pos = scene.pos.expand(n, -1, -1).clone()
+    pos[:, 0, 3] = torch.tensor([z for _, z in config5_starts(n)],
+                                dtype=f32, device=dev)
+    planes = y.repeat(n, 1).t().contiguous().t()
+    return scene._replace(pos=per_ray(pos, B)), planes[:, :4]
+
+
+def shade_times(out: list, dev, card: str) -> None:
+    """``shade``'s kernels alone: the launch floor; on the training batch
+    (chip_smoke's "train example2 200x200 float32 hard": K1's end states
+    as [8, B] planes, the sphere's pos per ray) K11 (and K11 writing its
+    record where the tree has one) and K12 alone (profiler) and per launch
+    in a graph of 100, K12 also on misses only (hit_dmin -inf) and with a
+    zero cotangent, and a copy over K12's bytes; K11 and K12 on config 5's
+    batches at 1, 4 and 16 starts (soft); digests of their outputs; the
+    objects library's ptxas lines and the SASS mix of its f32 kernels."""
+    import torch
+    from raytracegr_jl_tpu_torch.models import objects as O
+    floor_times(out, dev, card)
+    f32 = torch.float32
+    has_rec = takes_record(O.shade_vjp_cuda)
+    cases = {c[0]: c for c in shade_cases(dev, f32)}
+    _, scene, x, _, _ = cases["train example2 200x200 float32 hard"]
+    batches = [("train hard", scene, x, None, 12.0)] + [
+        (f"config 5 {n} starts soft", *shade_config5(dev, n), 0.05, 2.0)
+        for n in K4_STARTS]
+    for label, scene, x, temp, freq in batches:
+        B = x.shape[0]
+        ct = shade_cotangent(x)
+
+        def k12(hit_dmin=0.01, c=ct, scene=scene, x=x, temp=temp,
+                freq=freq):
+            kw = dict(hit_dmin=hit_dmin, temp=temp, color_freq=freq,
+                      fields=("pos",))
+            if has_rec and temp is None:
+                kw["rec"] = O.shade_cuda(scene, x, hit_dmin, temp, freq,
+                                         record=True)[1]
+            return lambda: O.shade_vjp_cuda(scene, x, c, **kw)
+
+        k11 = lambda: O.shade_cuda(scene, x, temp=temp,  # noqa: E731
+                                   color_freq=freq)
+        variants = {"as chip_smoke": k12()}
+        if temp is None:
+            variants.update({"misses only": k12(float("-inf")),
+                             "zero cotangent": k12(c=torch.zeros_like(ct))})
+        ct_x, cts = variants["as chip_smoke"]()
+        rec = dict(rays=B, k11_device_ms=kernel_alone_ms(k11, "k11_kernel"),
+                   k11_graphed_ms=graph_ms(k11), rgb=digest(k11()),
+                   k12_device_ms={k: kernel_alone_ms(v, "k12_kernel")
+                                  for k, v in variants.items()},
+                   k12_graphed_ms={k: graph_ms(v)
+                                   for k, v in variants.items()},
+                   ct_x=digest(ct_x), ct_pos=digest(cts["pos"]))
+        if has_rec and temp is None:
+            k11r = lambda: O.shade_cuda(  # noqa: E731
+                scene, x, temp=temp, color_freq=freq, record=True)
+            rec.update(k11_record_device_ms=kernel_alone_ms(k11r,
+                                                            "k11_kernel"),
+                       k11_record_graphed_ms=graph_ms(k11r))
+        if temp is None:
+            # K12's bytes: x, the cotangent, the sphere's pos per ray read;
+            # ct_x and pos's cotangent written: ~16 floats each way.
+            src = torch.zeros((B, 16), dtype=f32, device=dev)
+            dst = torch.empty_like(src)
+            cp = lambda: dst.copy_(src)  # noqa: E731
+            rec.update(copy_16_floats_device_ms=kernel_alone_ms(cp, ""),
+                       copy_16_floats_graphed_ms=graph_ms(cp))
+        emit(out, "shade", card=card, what=f"K11/K12 {label} f32", **rec)
+    sass_sections(out, "objects", ("k11_kernel<float", "k12_kernel<float"))
 
 
 def shade_mode(out: list, dev, card: str) -> None:
-    """``shade``: the 200x200 render (``render_times``), then the training
-    steps and config 5's Adam steps as ``times`` gives them (without the
-    disk and the 1024x1024 render)."""
+    """``shade``: the kernels alone (``shade_times``); then, unless
+    --alone, the 200x200 render (``render_times``), the training steps and
+    config 5's Adam steps as ``times`` gives them (without the disk and
+    the 1024x1024 render)."""
+    shade_times(out, dev, card)
+    if ALONE:
+        return
     render_times(out, dev, card, (200,))
     train_times(out, dev, card)
     config5_times(out, dev, card)
@@ -991,7 +1250,7 @@ def graphed_step(loss_fn, make_params):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("compare-images", "diagnose",
+    ap.add_argument("mode", choices=("camera", "compare-images", "diagnose",
                                      "diagnose-k1", "digests", "k4", "k5",
                                      "k4-kernel", "localize", "sass", "shade",
                                      "times"))
@@ -1000,10 +1259,13 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="also write the lines here")
     ap.add_argument("--libs", default=None,
                     help="sass: only these libraries (comma-separated)")
+    ap.add_argument("--alone", action="store_true",
+                    help="camera, shade: only the kernels alone")
     ns = ap.parse_args()
-    global ONLY
+    global ONLY, ALONE
     if ns.libs:
         ONLY = set(ns.libs.split(","))
+    ALONE = ns.alone
     if ns.mode == "compare-images":
         require(len(ns.images) == 2, "compare-images takes two files")
         compare_images(*ns.images)
@@ -1035,7 +1297,8 @@ def main() -> int:
             errors.append(f"{name}: {e}")
 
     names = [n for n in libraries()
-             if (n in SHADE_LIBRARIES if ns.mode == "shade" else
+             if (n in ALONE_LIBRARIES if ALONE else
+                 n in SHADE_LIBRARIES if ns.mode in ("shade", "camera") else
                  n in DIGEST_LIBRARIES if ns.mode == "digests" else
                  n in LOC_LIBRARIES if ns.mode == "localize" else
                  n in K5_LIBRARIES if ns.mode == "k5" else
@@ -1050,7 +1313,8 @@ def main() -> int:
     emit(out, "build", tree=tree, card=card,
          seconds=time.perf_counter() - t0)
     dev = torch.device("cuda", 0)
-    {"diagnose": diagnose, "diagnose-k1": diagnose_k1_times,
+    {"camera": camera_times, "diagnose": diagnose,
+     "diagnose-k1": diagnose_k1_times,
      "k4": k4_mode, "k4-kernel": k4_times, "k5": k5_mode,
      "localize": localize_times,
      "sass": sass_digests,

@@ -92,14 +92,16 @@ __device__ __forceinline__ void det3_vjp(const T g[4][4], int c, T d,
   gb[3][cs[2]] = gb[3][cs[2]] + (p1b * E + p2b * D);
 }
 
-// pbar [2, n]: row 0 M_bar, row 1 a_bar, per ray.
+// pbar [2, n]: row 0 M_bar, row 1 a_bar, per ray. The cotangent is read
+// through its two strides, as the caller holds it (the training path's is
+// a view of its [8, B] planes' gradient): no copy before the launch.
 template <typename T, bool KERR>
 __global__ void __launch_bounds__(MAX_THREADS)
 k9_kernel(const T* __restrict__ pos, const T* __restrict__ nrm,
           const T* __restrict__ Mp, const T* __restrict__ ap,
           const T* __restrict__ ct, T* __restrict__ pbar, int n,
-          int m_stride, int a_stride, int r_mode, T eps2, T eps2_half,
-          T det_min) {
+          int m_stride, int a_stride, long long sct, long long sctc,
+          int r_mode, T eps2, T eps2_half, T det_min) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if constexpr (!KERR) {
@@ -112,7 +114,7 @@ k9_kernel(const T* __restrict__ pos, const T* __restrict__ nrm,
   for (int c = 0; c < 4; ++c) {
     x[c] = pos[4 * i + c];
     v[c] = nrm[4 * i + c];
-    cu[c] = ct[4 * i + c];
+    cu[c] = ct[i * sct + c * sctc];
   }
   const T a = ap[i * a_stride];
   KerrParts<T> q;
@@ -233,9 +235,9 @@ k9_kernel(const T* __restrict__ pos, const T* __restrict__ nrm,
 template <typename T>
 int launch_camera(const void* pos, const void* nrm, const void* M,
                   const void* a, const void* ct, void* out, int n,
-                  int m_stride, int a_stride, int kerr, int r_mode,
-                  double eps2, double eps2_half, double det_min,
-                  void* stream) {
+                  int m_stride, int a_stride, long long sct, long long sctc,
+                  int kerr, int r_mode, double eps2, double eps2_half,
+                  double det_min, void* stream) {
   if (n < 1 || m_stride < 0 || m_stride > 1 || a_stride < 0 || a_stride > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -255,8 +257,8 @@ int launch_camera(const void* pos, const void* nrm, const void* M,
     RTGR_BOOL(kerr, KERR_,
               k9_kernel<T, KERR_><<<blocks, MAX_THREADS, 0, st>>>(
                   p, nv, Mp, ap, static_cast<const T*>(ct),
-                  static_cast<T*>(out), n, m_stride, a_stride, r_mode, e2,
-                  e2h, dm))
+                  static_cast<T*>(out), n, m_stride, a_stride, sct, sctc,
+                  r_mode, e2, e2h, dm))
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -265,43 +267,31 @@ int launch_camera(const void* pos, const void* nrm, const void* M,
 
 // K8: (pos, normal, M, a, u; n, M's stride, a's stride, kerr, r_mode;
 // eps2, eps2 / 2, det_min; stream). K9: the same with the cotangent ct
-// after a and pbar [2, n] in place of u.
+// after a, pbar [2, n] in place of u, and ct's ray and component strides
+// (long long) after a's stride.
+#define RTGR_CAMERA_ENTRIES(T, SUFFIX)                                       \
+  extern "C" int rtgr_k8_##SUFFIX(                                           \
+      const void* pos, const void* nrm, const void* M, const void* a,        \
+      void* u, int n, int m_stride, int a_stride, int kerr, int r_mode,      \
+      double eps2, double eps2_half, double det_min, void* stream) {         \
+    return launch_camera<T>(pos, nrm, M, a, nullptr, u, n, m_stride,         \
+                            a_stride, 0, 0, kerr, r_mode, eps2, eps2_half,   \
+                            det_min, stream);                                \
+  }                                                                          \
+  extern "C" int rtgr_k9_##SUFFIX(                                           \
+      const void* pos, const void* nrm, const void* M, const void* a,        \
+      const void* ct, void* pbar, int n, int m_stride, int a_stride,         \
+      long long sct, long long sctc, int kerr, int r_mode, double eps2,      \
+      double eps2_half, double det_min, void* stream) {                      \
+    return launch_camera<T>(pos, nrm, M, a, ct, pbar, n, m_stride,           \
+                            a_stride, sct, sctc, kerr, r_mode, eps2,         \
+                            eps2_half, det_min, stream);                     \
+  }
+
 #if RTGR_F32
-extern "C" int rtgr_k8_f32(const void* pos, const void* nrm, const void* M,
-                           const void* a, void* u, int n, int m_stride,
-                           int a_stride, int kerr, int r_mode, double eps2,
-                           double eps2_half, double det_min, void* stream) {
-  return launch_camera<float>(pos, nrm, M, a, nullptr, u, n, m_stride,
-                              a_stride, kerr, r_mode, eps2, eps2_half,
-                              det_min, stream);
-}
-extern "C" int rtgr_k9_f32(const void* pos, const void* nrm, const void* M,
-                           const void* a, const void* ct, void* pbar, int n,
-                           int m_stride, int a_stride, int kerr, int r_mode,
-                           double eps2, double eps2_half, double det_min,
-                           void* stream) {
-  return launch_camera<float>(pos, nrm, M, a, ct, pbar, n, m_stride,
-                              a_stride, kerr, r_mode, eps2, eps2_half,
-                              det_min, stream);
-}
+RTGR_CAMERA_ENTRIES(float, f32)
 #endif
 
 #if RTGR_F64
-extern "C" int rtgr_k8_f64(const void* pos, const void* nrm, const void* M,
-                           const void* a, void* u, int n, int m_stride,
-                           int a_stride, int kerr, int r_mode, double eps2,
-                           double eps2_half, double det_min, void* stream) {
-  return launch_camera<double>(pos, nrm, M, a, nullptr, u, n, m_stride,
-                               a_stride, kerr, r_mode, eps2, eps2_half,
-                               det_min, stream);
-}
-extern "C" int rtgr_k9_f64(const void* pos, const void* nrm, const void* M,
-                           const void* a, const void* ct, void* pbar, int n,
-                           int m_stride, int a_stride, int kerr, int r_mode,
-                           double eps2, double eps2_half, double det_min,
-                           void* stream) {
-  return launch_camera<double>(pos, nrm, M, a, ct, pbar, n, m_stride,
-                               a_stride, kerr, r_mode, eps2, eps2_half,
-                               det_min, stream);
-}
+RTGR_CAMERA_ENTRIES(double, f64)
 #endif

@@ -23,15 +23,23 @@
 // written out over the objects (the shift, the exponentials, their sum left
 // to right), the weights times each object's smooth colour, dimmed, summed
 // left to right, the softmin distance -temp (log(sum) + shift), the sigmoid
-// of (hit_dmin - softmin) / temp and the blend with red. K12, per ray: the
-// forward again, then its reverse for the colour's cotangent: hard, the
-// chosen object's colour through theta (arccos of the clamped z / r), phi
-// (atan2) and the disk's rho; soft, the blend, the sigmoid, the logsumexp,
+// of (hit_dmin - softmin) / temp and the blend with red. Where the hard
+// shading will be differentiated, K11 also writes each ray's record: the
+// object hit, -1 for a miss (a byte). K12, per ray: hard, the object from
+// K11's record (no distance), then the reverse for the colour's cotangent:
+// its colour through theta (arccos of the clamped z / r), phi (atan2) and
+// the disk's rho; soft, the forward again (config 5's one object has a
+// softmax weight of exactly 1: a record of the weights would save little of
+// it), then the reverse of the blend, the sigmoid, the logsumexp,
 // the softmax and every object's colour and distance (the sphere's sign(r)
 // form, the plane, the disk's two maximums split in half on ties as torch
 // splits them). No cotangent where autograd would form 0 x inf: theta's at
 // the poles, phi's on the axis, r's at the centre. A miss ray (hard) or one
-// whose cotangent is zero gets exact zeros.
+// whose cotangent is zero gets exact zeros. K12's hard path was bound by
+// its stores (with a zero cotangent it took its full time): a block stages
+// its rays' pos cotangents in shared memory and writes their contiguous run
+// in 16-byte words from consecutive threads, in blocks of 64 (an even load
+// over the SMs at 40,000 rays).
 //
 // The fields are read by pointer, each with a ray stride of 0 (one value an
 // object, shared) or 1 (one row per ray: the per-ray fields of the training
@@ -47,9 +55,17 @@
 // first term, torch.sign is (0 < a) - (a < 0). K11 and K12 are bitwise equal
 // to their plain versions.
 
+#include <cstdint>
+
 #include "objects_common.cuh"
 
 namespace {
+
+// K12's blocks (K11's are MAX_THREADS); its hard path's shared stage of
+// K12_THREADS x MAX_OBJ rows of 4 fits the 48 KB of static shared memory at
+// f64 for 64 threads, not for 128. The soft path runs in the same blocks:
+// its registers, stack and times are those it had in blocks of 128.
+constexpr int K12_THREADS = 64;
 
 // The scene's float fields in models/objects.py SHADE_FIELDS order.
 enum { F_POS, F_RADIUS, F_TIME, F_R_IN, F_R_OUT, F_HALF, N_FIELDS };
@@ -119,7 +135,8 @@ __device__ __forceinline__ T distance(const ShadeScene<T>& sc, int i, int j,
 template <typename T, bool SOFT>
 __global__ void __launch_bounds__(MAX_THREADS)
 k11_kernel(const T* __restrict__ xp, ShadeScene<T> sc, T* __restrict__ rgb,
-           int n, int sx, int sxc, T hit_dmin, T temp, T freq) {
+           signed char* __restrict__ rec, int n, int sx, int sxc, T hit_dmin,
+           T temp, T freq) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T x[4];
@@ -132,6 +149,7 @@ k11_kernel(const T* __restrict__ xp, ShadeScene<T> sc, T* __restrict__ rgb,
     T dmin;
     const int o = nearest_object(
         n_obj, [&](int j) { return distance(sc, i, j, x, r); }, dmin);
+    if (rec != nullptr) rec[i] = dmin < hit_dmin ? o : -1;
     if (dmin < hit_dmin) {
       sc.row(i, o, r.obj);
       T base[3];
@@ -290,6 +308,17 @@ __device__ __forceinline__ void distance_vjp(int kind, const T* x,
   fb[F_R_IN - 1] = bb * ri * T(2);
 }
 
+// Four values to p, 16-byte aligned, in 16-byte stores.
+template <typename T>
+__device__ __forceinline__ void store4(T* p, T a, T b, T c, T d) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+    reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
+  }
+}
+
 // Object j's cotangents for ray i: -posb... as pos[1:3]'s (pos[0] takes
 // none), fb as the other fields'.
 template <typename T>
@@ -297,23 +326,81 @@ __device__ __forceinline__ void store_object(const ShadeGrads<T>& gr,
                                              int n_obj, int i, int j,
                                              const T* posb, const T* fb) {
   const size_t k = static_cast<size_t>(i) * n_obj + j;
-  if (gr.f[F_POS] != nullptr) {
-    T* p = gr.f[F_POS] + 4 * k;
-    p[0] = T(0);
-    p[1] = posb[0];
-    p[2] = posb[1];
-    p[3] = posb[2];
-  }
+  if (gr.f[F_POS] != nullptr)
+    store4(gr.f[F_POS] + 4 * k, T(0), posb[0], posb[1], posb[2]);
 #pragma unroll
   for (int f = 1; f < N_FIELDS; ++f)
     if (gr.f[f] != nullptr) gr.f[f][k] = fb[f - 1];
 }
 
+// K12's hard path. Its stores set its time (step 0: with a zero cotangent
+// it ran as long as with hits), so a block's rays, which own one contiguous
+// run of pos's cotangent [B, N, 4], stage it in shared memory and write it
+// in 16-byte words from consecutive threads; ct_x goes out in one 16-byte
+// word a ray. The object hit comes from K11's record: no distance here.
+template <typename T>
+__device__ __forceinline__ void k12_hard(const T* __restrict__ xp,
+                                         const ShadeScene<T>& sc,
+                                         const T* __restrict__ ct,
+                                         const signed char* __restrict__ rec,
+                                         T* __restrict__ ct_x,
+                                         const ShadeGrads<T>& gr, int n,
+                                         int sx, int sxc, T freq) {
+  __shared__ __align__(16) T stage[K12_THREADS * MAX_OBJ * 4];
+  const int t = threadIdx.x, base = blockIdx.x * K12_THREADS;
+  const int i = base + t, n_obj = sc.n_obj;
+  if (i < n) {
+    T x[4], g[3], xb[4] = {T(0), T(0), T(0), T(0)}, nb[3];
+    load_x(xp, i, sx, sxc, x);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g[c] = ct[3 * static_cast<size_t>(i) + c];
+    const int hit = rec[i];
+    const bool nz = g[0] != T(0) || g[1] != T(0) || g[2] != T(0);
+    const int o = nz ? hit : -1;
+    if (o >= 0) {
+      const T* p = sc.f[F_POS] + 4 * sc.at(F_POS, i, o);
+      const T dim = (T(o) + T(1)) * (T(1) / T(n_obj));
+      const T gd[3] = {g[0] * dim, g[1] * dim, g[2] * dim};
+      T cb[3];
+      colour_vjp<T, false>(sc.kind(o), x[1] - p[1], x[2] - p[2],
+                           x[3] - p[3], gd, freq, cb);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        xb[1 + c] = cb[c];
+        nb[c] = -cb[c];
+      }
+    }
+    for (int j = 0; j < n_obj; ++j) {
+      const bool mine = j == o;
+      store4(stage + 4 * (t * n_obj + j), T(0), mine ? nb[0] : T(0),
+             mine ? nb[1] : T(0), mine ? nb[2] : T(0));
+    }
+    // The other fields take no cotangent in the hard shading.
+    for (int f = 1; f < N_FIELDS; ++f)
+      if (gr.f[f] != nullptr)
+        for (int j = 0; j < n_obj; ++j)
+          gr.f[f][static_cast<size_t>(i) * n_obj + j] = T(0);
+    store4(ct_x + 4 * static_cast<size_t>(i), xb[0], xb[1], xb[2], xb[3]);
+  }
+  if (gr.f[F_POS] == nullptr) return;
+  __syncthreads();
+  const int rows = min(K12_THREADS, n - base) * n_obj;
+  T* dst = gr.f[F_POS] + 4 * static_cast<size_t>(base) * n_obj;
+  for (int k = t; k < rows; k += K12_THREADS)
+    store4(dst + 4 * k, stage[4 * k], stage[4 * k + 1], stage[4 * k + 2],
+           stage[4 * k + 3]);
+}
+
 template <typename T, bool SOFT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(K12_THREADS)
 k12_kernel(const T* __restrict__ xp, ShadeScene<T> sc,
-           const T* __restrict__ ct, T* __restrict__ ct_x, ShadeGrads<T> gr,
-           int n, int sx, int sxc, T hit_dmin, T temp, T freq) {
+           const T* __restrict__ ct, const signed char* __restrict__ rec,
+           T* __restrict__ ct_x, ShadeGrads<T> gr, int n, int sx, int sxc,
+           T hit_dmin, T temp, T freq) {
+  if constexpr (!SOFT) {
+    k12_hard(xp, sc, ct, rec, ct_x, gr, n, sx, sxc, freq);
+    return;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T x[4], g[3];
@@ -327,112 +414,95 @@ k12_kernel(const T* __restrict__ xp, ShadeScene<T> sc,
   const T zerof[N_FIELDS - 1] = {T(0), T(0), T(0), T(0), T(0)};
   T xb[4] = {T(0), T(0), T(0), T(0)};
   ObjRow<T> r;
-  if constexpr (!SOFT) {
-    int o = -1;
-    T cb[3], nb[3];
-    if (nz) {
-      T dmin;
-      o = nearest_object(
-          n_obj, [&](int j) { return distance(sc, i, j, x, r); }, dmin);
-      if (dmin < hit_dmin) {
-        sc.row(i, o, r.obj);
-        const T dim = (T(o) + T(1)) * inv_n;
-        const T gd[3] = {g[0] * dim, g[1] * dim, g[2] * dim};
-        colour_vjp<T, false>(sc.kind(o), x[1] - r.obj[0], x[2] - r.obj[1],
-                             x[3] - r.obj[2], gd, freq, cb);
+  if (!nz) {
+    for (int j = 0; j < n_obj; ++j)
+      store_object(gr, n_obj, i, j, zero3, zerof);
+  } else {
+    // The forward, as K11 computes it.
+    const T inv_temp = T(1) / temp;
+    T e[MAX_OBJ], w[MAX_OBJ], cw[MAX_OBJ][3], wb[MAX_OBJ];
+    T m = T(0), s = T(0), obj[3] = {T(0), T(0), T(0)};
+    for (int j = 0; j < n_obj; ++j) {
+      e[j] = -distance(sc, i, j, x, r) * inv_temp;
+      m = j == 0 ? e[j] : nmax(m, e[j]);
+    }
+    const T mm = fabs(m) == T(INFINITY) ? T(0) : m;
+    for (int j = 0; j < n_obj; ++j) {
+      e[j] = exp(e[j] - mm);
+      s = j == 0 ? e[j] : s + e[j];
+    }
+    for (int j = 0; j < n_obj; ++j) {
+      w[j] = e[j] / s;
+      sc.row(i, j, r.obj);
+      T col[3];
+      base_colour<T, true>(sc.kind(j), x[1] - r.obj[0], x[2] - r.obj[1],
+                           x[3] - r.obj[2], freq, col);
+      const T dim = (T(j) + T(1)) * inv_n;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          xb[1 + c] = cb[c];
-          nb[c] = -cb[c];
-        }
-      } else {
-        o = -1;
+      for (int c = 0; c < 3; ++c) {
+        cw[j][c] = col[c] * dim;
+        const T wc = w[j] * cw[j][c];
+        obj[c] = j == 0 ? wc : obj[c] + wc;
       }
     }
-    for (int j = 0; j < n_obj; ++j)
-      store_object(gr, n_obj, i, j, j == o ? nb : zero3, zerof);
-  } else {
-    if (!nz) {
-      for (int j = 0; j < n_obj; ++j)
-        store_object(gr, n_obj, i, j, zero3, zerof);
-    } else {
-      // The forward, as K11 computes it.
-      const T inv_temp = T(1) / temp;
-      T e[MAX_OBJ], w[MAX_OBJ], cw[MAX_OBJ][3], wb[MAX_OBJ];
-      T m = T(0), s = T(0), obj[3] = {T(0), T(0), T(0)};
-      for (int j = 0; j < n_obj; ++j) {
-        e[j] = -distance(sc, i, j, x, r) * inv_temp;
-        m = j == 0 ? e[j] : nmax(m, e[j]);
-      }
-      const T mm = fabs(m) == T(INFINITY) ? T(0) : m;
-      for (int j = 0; j < n_obj; ++j) {
-        e[j] = exp(e[j] - mm);
-        s = j == 0 ? e[j] : s + e[j];
-      }
-      for (int j = 0; j < n_obj; ++j) {
-        w[j] = e[j] / s;
-        sc.row(i, j, r.obj);
-        T col[3];
-        base_colour<T, true>(sc.kind(j), x[1] - r.obj[0], x[2] - r.obj[1],
-                             x[3] - r.obj[2], freq, col);
-        const T dim = (T(j) + T(1)) * inv_n;
+    const T p = T(1) / (T(1) + exp(-((hit_dmin - (log(s) + mm) * (-temp))
+                                     * inv_temp)));
+    // Its reverse: the blend with red, the sigmoid, the softmin
+    // distance, the weighted colour and the softmax.
+    const T pb = g[0] * obj[0] + g[1] * obj[1] + g[2] * obj[2] - g[0];
+    const T objb[3] = {g[0] * p, g[1] * p, g[2] * p};
+    const T hb = pb * (p * (T(1) - p));
+    const T lseb = -(hb * inv_temp) * (-temp);
+    T acc = T(0);
+    for (int j = 0; j < n_obj; ++j) {
+      wb[j] = objb[0] * cw[j][0] + objb[1] * cw[j][1] + objb[2] * cw[j][2];
+      const T t = w[j] * wb[j];
+      acc = j == 0 ? t : acc + t;
+    }
+    const T gsum = lseb - acc;
+    for (int j = 0; j < n_obj; ++j) {
+      const T db = -(w[j] * (wb[j] + gsum) * inv_temp);
+      const int kind = sc.kind(j);
+      sc.row(i, j, r.obj);
+      T tb, dist[3], fb[N_FIELDS - 1], cb[3], nb[3];
+      bool has_rel;
+      distance_vjp(kind, x, r.obj, db, tb, dist, has_rel, fb);
+      const T dim = (T(j) + T(1)) * inv_n;
+      const T colb[3] = {objb[0] * w[j] * dim, objb[1] * w[j] * dim,
+                         objb[2] * w[j] * dim};
+      colour_vjp<T, true>(kind, x[1] - r.obj[0], x[2] - r.obj[1],
+                          x[3] - r.obj[2], colb, freq, cb);
+      if (kind == KIND_PLANE) xb[0] = xb[0] + tb;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          cw[j][c] = col[c] * dim;
-          const T wc = w[j] * cw[j][c];
-          obj[c] = j == 0 ? wc : obj[c] + wc;
-        }
+      for (int c = 0; c < 3; ++c) {
+        const T rel = has_rel ? dist[c] + cb[c] : cb[c];
+        xb[1 + c] = xb[1 + c] + rel;
+        nb[c] = -rel;
       }
-      const T p = T(1) / (T(1) + exp(-((hit_dmin - (log(s) + mm) * (-temp))
-                                       * inv_temp)));
-      // Its reverse: the blend with red, the sigmoid, the softmin
-      // distance, the weighted colour and the softmax.
-      const T pb = g[0] * obj[0] + g[1] * obj[1] + g[2] * obj[2] - g[0];
-      const T objb[3] = {g[0] * p, g[1] * p, g[2] * p};
-      const T hb = pb * (p * (T(1) - p));
-      const T lseb = -(hb * inv_temp) * (-temp);
-      T acc = T(0);
-      for (int j = 0; j < n_obj; ++j) {
-        wb[j] = objb[0] * cw[j][0] + objb[1] * cw[j][1] + objb[2] * cw[j][2];
-        const T t = w[j] * wb[j];
-        acc = j == 0 ? t : acc + t;
-      }
-      const T gsum = lseb - acc;
-      for (int j = 0; j < n_obj; ++j) {
-        const T db = -(w[j] * (wb[j] + gsum) * inv_temp);
-        const int kind = sc.kind(j);
-        sc.row(i, j, r.obj);
-        T tb, dist[3], fb[N_FIELDS - 1], cb[3], nb[3];
-        bool has_rel;
-        distance_vjp(kind, x, r.obj, db, tb, dist, has_rel, fb);
-        const T dim = (T(j) + T(1)) * inv_n;
-        const T colb[3] = {objb[0] * w[j] * dim, objb[1] * w[j] * dim,
-                           objb[2] * w[j] * dim};
-        colour_vjp<T, true>(kind, x[1] - r.obj[0], x[2] - r.obj[1],
-                            x[3] - r.obj[2], colb, freq, cb);
-        if (kind == KIND_PLANE) xb[0] = xb[0] + tb;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const T rel = has_rel ? dist[c] + cb[c] : cb[c];
-          xb[1 + c] = xb[1 + c] + rel;
-          nb[c] = -rel;
-        }
-        store_object(gr, n_obj, i, j, nb, fb);
-      }
+      store_object(gr, n_obj, i, j, nb, fb);
     }
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) ct_x[4 * static_cast<size_t>(i) + c] = xb[c];
+  store4(ct_x + 4 * static_cast<size_t>(i), xb[0], xb[1], xb[2], xb[3]);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// rec: K11's record (hard only; null for none), K12's input (hard: it must
+// be given; soft: null).
 template <typename T>
 int launch_shade(const void* x, const void* const* fields, const void* ct,
-                 void* out, void* const* grads, int n, int sx, int sxc,
-                 int per_ray, int n_obj, int soft, unsigned long long kinds,
-                 double hit_dmin, double temp, double freq, void* stream) {
+                 void* rec, void* out, void* const* grads, int n, int sx,
+                 int sxc, int per_ray, int n_obj, int soft,
+                 unsigned long long kinds, double hit_dmin, double temp,
+                 double freq, void* stream) {
   if (n < 1 || n_obj < 1 || n_obj > MAX_OBJ || sx < 0 || sxc < 0 ||
-      per_ray < 0 || per_ray >= (1 << N_FIELDS))
+      per_ray < 0 || per_ray >= (1 << N_FIELDS) ||
+      (soft && rec != nullptr) || (ct != nullptr && !soft && rec == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (ct != nullptr && (!aligned16(out) || !aligned16(grads[F_POS])))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   for (int j = 0; j < n_obj; ++j)
     if (((kinds >> (4 * j)) & 15ull) > KIND_DISK)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -442,20 +512,23 @@ int launch_shade(const void* x, const void* const* fields, const void* ct,
   sc.n_obj = n_obj;
   sc.kinds = kinds;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
   const T* xp = static_cast<const T*>(x);
   const T h = static_cast<T>(hit_dmin), tp = static_cast<T>(temp);
   const T fq = static_cast<T>(freq);
   if (ct == nullptr) {
+    const int blocks = (n + MAX_THREADS - 1) / MAX_THREADS;
     RTGR_BOOL(soft, SOFT_,
               k11_kernel<T, SOFT_><<<blocks, MAX_THREADS, 0, st>>>(
-                  xp, sc, static_cast<T*>(out), n, sx, sxc, h, tp, fq))
+                  xp, sc, static_cast<T*>(out),
+                  static_cast<signed char*>(rec), n, sx, sxc, h, tp, fq))
   } else {
+    const int blocks = (n + K12_THREADS - 1) / K12_THREADS;
     ShadeGrads<T> gr;
     for (int k = 0; k < N_FIELDS; ++k) gr.f[k] = static_cast<T*>(grads[k]);
     RTGR_BOOL(soft, SOFT_,
-              k12_kernel<T, SOFT_><<<blocks, MAX_THREADS, 0, st>>>(
-                  xp, sc, static_cast<const T*>(ct), static_cast<T*>(out),
+              k12_kernel<T, SOFT_><<<blocks, K12_THREADS, 0, st>>>(
+                  xp, sc, static_cast<const T*>(ct),
+                  static_cast<const signed char*>(rec), static_cast<T*>(out),
                   gr, n, sx, sxc, h, tp, fq))
   }
   return static_cast<int>(cudaGetLastError());
@@ -463,36 +536,38 @@ int launch_shade(const void* x, const void* const* fields, const void* ct,
 
 }  // namespace
 
-// K11: (x, pos, radius, time, r_in, r_out, half, rgb; n, x's ray stride,
-// x's component stride, the per-ray mask, n_obj, soft; the kinds, 4 bits an
-// object; hit_dmin, temp, freq; stream). K12: the same with the cotangent
-// ct [n, 3], ct_x [n, 4] and the six fields' cotangents (each [n, n_obj(,
+// K11: (x, pos, radius, time, r_in, r_out, half, rgb, rec; n, x's ray
+// stride, x's component stride, the per-ray mask, n_obj, soft; the kinds,
+// 4 bits an object; hit_dmin, temp, freq; stream), rec [n] int8 or null.
+// K12: the same with the cotangent ct [n, 3] before rec (K11's, hard; null,
+// soft), then ct_x [n, 4] and the six fields' cotangents (each [n, n_obj(,
 // 4)] or null) in place of rgb.
 #define RTGR_SHADE_ENTRIES(T, SUFFIX)                                        \
   extern "C" int rtgr_k11_##SUFFIX(                                          \
       const void* x, const void* pos, const void* radius, const void* time,  \
       const void* r_in, const void* r_out, const void* half, void* rgb,      \
-      int n, int sx, int sxc, int per_ray, int n_obj, int soft,              \
+      void* rec, int n, int sx, int sxc, int per_ray, int n_obj, int soft,   \
       unsigned long long kinds, double hit_dmin, double temp, double freq,   \
       void* stream) {                                                        \
     const void* fields[N_FIELDS] = {pos, radius, time, r_in, r_out, half};   \
-    return launch_shade<T>(x, fields, nullptr, rgb, nullptr, n, sx, sxc,     \
-                           per_ray, n_obj, soft, kinds, hit_dmin, temp,      \
+    return launch_shade<T>(x, fields, nullptr, rec, rgb, nullptr, n, sx,     \
+                           sxc, per_ray, n_obj, soft, kinds, hit_dmin, temp, \
                            freq, stream);                                    \
   }                                                                          \
   extern "C" int rtgr_k12_##SUFFIX(                                          \
       const void* x, const void* pos, const void* radius, const void* time,  \
       const void* r_in, const void* r_out, const void* half, const void* ct, \
-      void* ct_x, void* pos_b, void* radius_b, void* time_b, void* r_in_b,   \
-      void* r_out_b, void* half_b, int n, int sx, int sxc, int per_ray,      \
-      int n_obj, int soft, unsigned long long kinds, double hit_dmin,        \
-      double temp, double freq, void* stream) {                              \
+      const void* rec, void* ct_x, void* pos_b, void* radius_b,              \
+      void* time_b, void* r_in_b, void* r_out_b, void* half_b, int n,        \
+      int sx, int sxc, int per_ray, int n_obj, int soft,                     \
+      unsigned long long kinds, double hit_dmin, double temp, double freq,   \
+      void* stream) {                                                        \
     const void* fields[N_FIELDS] = {pos, radius, time, r_in, r_out, half};   \
     void* grads[N_FIELDS] = {pos_b, radius_b, time_b, r_in_b, r_out_b,       \
                              half_b};                                        \
-    return launch_shade<T>(x, fields, ct, ct_x, grads, n, sx, sxc, per_ray,  \
-                           n_obj, soft, kinds, hit_dmin, temp, freq,         \
-                           stream);                                          \
+    return launch_shade<T>(x, fields, ct, const_cast<void*>(rec), ct_x,      \
+                           grads, n, sx, sxc, per_ray, n_obj, soft, kinds,   \
+                           hit_dmin, temp, freq, stream);                    \
   }
 
 #if RTGR_F32

@@ -288,11 +288,11 @@ def _lib():
     return cuda_build.load("camera")
 
 
-def _launch(kernel: str, args, tensors) -> bool:
+def _launch(kernel: str, args, tensors, strides=()) -> bool:
     """Launches ``rtgr_<kernel>_f32/f64`` on ``args`` (``camera_args``'s)
     with the extra pointers ``tensors`` (K9's cotangent, then the output)
-    on the current stream; raises if the launch fails. False for an empty
-    batch, which launches nothing."""
+    and K9's cotangent's two ``strides`` on the current stream; raises if
+    the launch fails. False for an empty batch, which launches nothing."""
     x, n, M, a, sm, sa, flags, consts = args
     B = x.shape[0]
     if B == 0:
@@ -302,7 +302,7 @@ def _launch(kernel: str, args, tensors) -> bool:
                  else f"rtgr_{kernel}_f64")
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (x, n, M, a, *tensors)]
     with torch.cuda.device(x.device):
-        rc = fn(*ptrs, B, sm, sa, *flags, *consts,
+        rc = fn(*ptrs, B, sm, sa, *strides, *flags, *consts,
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{kernel.upper()} launch failed: CUDA error {rc}")
@@ -329,15 +329,18 @@ def pixel_rays_vjp_cuda(metric: Metric, pos: torch.Tensor,
                         ct_u: torch.Tensor) -> torch.Tensor:
     """K9: ``pixel_rays_vjp`` in one launch on the card, one thread per ray
     (csrc/camera.cu k9_kernel), bitwise: ``[2, B]``, every entry written by
-    the kernel. Adds one to ``pixel_rays_vjp_cuda.launches`` per launch."""
+    the kernel. It reads ``ct_u`` through its strides, as the caller holds
+    it (the training path's is a view of its planes' gradient): the call
+    copies nothing. Adds one to ``pixel_rays_vjp_cuda.launches`` per
+    launch."""
     if ct_u.shape != pos.shape:
         raise ValueError(f"bad cotangent {tuple(ct_u.shape)} for "
                          f"{tuple(pos.shape)}")
     args = camera_args(metric, pos, normal)
     x = args[0]
-    ct = ct_u.to(x.dtype).reshape(-1, 4).contiguous()
+    ct = ct_u.detach().to(x.dtype).reshape(-1, 4)
     pbar = torch.empty((2, x.shape[0]), dtype=x.dtype, device=x.device)
-    if _launch("k9", args, (ct, pbar)):
+    if _launch("k9", args, (ct, pbar), (ct.stride(0), ct.stride(1))):
         pixel_rays_vjp_cuda.launches += 1
     return pbar
 

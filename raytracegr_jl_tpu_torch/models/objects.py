@@ -494,19 +494,32 @@ def _vjp_out(x, xb, posb, fields, n: int, live):
     return ct_x, out
 
 
+def shade_record(scene: Scene, x: torch.Tensor,
+                 hit_dmin: float = 0.01) -> torch.Tensor:
+    """K11's record of ``shade`` (K11 writes it where the shading will be
+    differentiated): each ray's object, -1 for a miss, ``int8 [B]``: the
+    nearest object (``torch.argmin``: the earliest index) where its
+    distance is below ``hit_dmin``."""
+    d = distances(scene, x)
+    hit = torch.min(d, dim=-1).values < hit_dmin
+    return torch.where(hit, torch.argmin(d, dim=-1), -1).to(torch.int8)
+
+
 def shade_vjp(scene: Scene, x: torch.Tensor, ct: torch.Tensor,
-              hit_dmin: float = 0.01):
+              hit_dmin: float = 0.01, rec: torch.Tensor | None = None):
     """K12's plain version for ``shade``: the cotangents of ``x [B, 4]``
     and of the fields (per ray, ``{field: [B, N, 4] or [B, N]}``) for the
     colour's cotangent ``ct [B, 3]``. Only the chosen object's colour
     carries one, through theta, phi and the disk's rho; a miss ray, or one
-    whose cotangent is zero, gets exact zeros."""
+    whose cotangent is zero, gets exact zeros. Given ``rec`` (the
+    forward's ``shade_record``) the objects come from it and no distance
+    is evaluated, bit for bit the same result."""
     kinds = object_kinds(scene)
     n = len(kinds)
-    d = distances(scene, x)
-    hit = torch.min(d, dim=-1).values < hit_dmin
-    omin = torch.argmin(d, dim=-1)
-    live = hit & (ct != 0).any(-1)
+    if rec is None:
+        rec = shade_record(scene, x, hit_dmin)
+    omin = rec.to(torch.int64)
+    live = (omin >= 0) & (ct != 0).any(-1)
     dim = (omin.to(x.dtype) + 1) / n
     g = [ct[..., c] * dim for c in range(3)]
     zero = torch.zeros_like(x[..., 0])
@@ -616,9 +629,10 @@ def shade_args(scene: Scene, x: torch.Tensor):
 def _launch(kernel: str, args, tensors, hit_dmin: float, temp,
             color_freq: float) -> bool:
     """Launches ``rtgr_<kernel>_f32/f64`` on ``args`` (``shade_args``'s)
-    with the extra pointers ``tensors`` (K11's rgb; K12's cotangent and
-    outputs, None for a field's that is not wanted) on the current stream;
-    raises if the launch fails. False for an empty batch."""
+    with the extra pointers ``tensors`` (K11's rgb and record; K12's
+    cotangent, record and outputs; None for a record not kept or a field's
+    cotangent not wanted) on the current stream; raises if the launch
+    fails. False for an empty batch."""
     x, fields, per_ray, n_obj, kinds = args
     B = x.shape[0]
     if B == 0:
@@ -640,18 +654,24 @@ def _launch(kernel: str, args, tensors, hit_dmin: float, temp,
 
 
 def shade_cuda(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
-               temp: float | None = None,
-               color_freq: float = 12.0) -> torch.Tensor:
+               temp: float | None = None, color_freq: float = 12.0,
+               record: bool = False):
     """K11: ``shade`` (``temp`` None) or ``shade_soft`` (smooth colours at
     ``color_freq``) of ``x [B, 4]`` in one launch on the card, one thread
-    per ray (csrc/objects.cu k11_kernel), bitwise: ``rgb [B, 3]``. Reads
-    nothing back. Adds one to ``shade_cuda.launches`` per launch."""
+    per ray (csrc/objects.cu k11_kernel), bitwise: ``(rgb [B, 3], rec)``,
+    rec bitwise ``shade_record`` (which K12 reads) with ``record`` (hard
+    only), else None. Reads nothing back. Adds one to
+    ``shade_cuda.launches`` per launch."""
+    if record and temp is not None:
+        raise ValueError("the soft shading keeps no record")
     args = shade_args(scene, x)
     rgb = torch.empty((x.shape[0], 3), dtype=x.dtype, device=x.device)
-    if _launch("k11", args, (rgb,), hit_dmin, temp,
+    rec = (torch.empty(x.shape[0], dtype=torch.int8, device=x.device)
+           if record else None)
+    if _launch("k11", args, (rgb, rec), hit_dmin, temp,
                12.0 if temp is None else color_freq):
         shade_cuda.launches += 1
-    return rgb
+    return rgb, rec
 
 
 shade_cuda.launches = 0
@@ -659,23 +679,33 @@ shade_cuda.launches = 0
 
 def shade_vjp_cuda(scene: Scene, x: torch.Tensor, ct: torch.Tensor,
                    hit_dmin: float = 0.01, temp: float | None = None,
-                   color_freq: float = 12.0, fields=SHADE_FIELDS):
-    """K12: ``shade_vjp`` (``temp`` None) or ``shade_soft_vjp`` in one
-    launch on the card, one thread per ray (csrc/objects.cu k12_kernel),
-    bitwise: ``(ct_x [B, 4], {field: per-ray cotangent})`` for the
-    ``fields`` asked for, every entry written by the kernel. Adds one to
-    ``shade_vjp_cuda.launches`` per launch."""
+                   color_freq: float = 12.0, fields=SHADE_FIELDS,
+                   rec: torch.Tensor | None = None):
+    """K12: ``shade_vjp`` (``temp`` None; given K11's record ``rec``,
+    which it must be: it evaluates no distance) or ``shade_soft_vjp``
+    (no record) in one launch on the card, one thread per ray
+    (csrc/objects.cu k12_kernel), bitwise: ``(ct_x [B, 4], {field:
+    per-ray cotangent})`` for the ``fields`` asked for, every entry written
+    by the kernel. Adds one to ``shade_vjp_cuda.launches`` per launch."""
     args = shade_args(scene, x)
     B, n = x.shape[0], args[3]
     if tuple(ct.shape) != (B, 3):
         raise ValueError(f"bad cotangent {tuple(ct.shape)} for {B} rays")
+    if temp is None and (rec is None or rec.dtype != torch.int8
+                         or tuple(rec.shape) != (B,)
+                         or rec.device != x.device):
+        raise ValueError("K12's hard shading reads K11's record: int8 "
+                         f"[{B}] on {x.device}, got "
+                         f"{None if rec is None else (rec.dtype, rec.shape)}")
+    if temp is not None and rec is not None:
+        raise ValueError("the soft shading keeps no record")
     ct = ct.to(x.dtype).contiguous()
     new = lambda *s: torch.empty((B, n) + s, dtype=x.dtype,  # noqa: E731
                                  device=x.device)
     outs = {f: new(4) if f == "pos" else new() for f in fields}
     ct_x = torch.empty((B, 4), dtype=x.dtype, device=x.device)
-    if _launch("k12", args, (ct, ct_x, *(outs.get(f)
-                                         for f in SHADE_FIELDS)),
+    if _launch("k12", args, (ct, rec, ct_x, *(outs.get(f)
+                                              for f in SHADE_FIELDS)),
                hit_dmin, temp, 12.0 if temp is None else color_freq):
         shade_vjp_cuda.launches += 1
     return ct_x, outs
@@ -697,20 +727,27 @@ def _field_cotangent(per_ray: torch.Tensor, v: torch.Tensor,
 
 class _Shaded(torch.autograd.Function):
     """``(x, pos, radius, time, r_in, r_out, half, scene, hit_dmin, temp,
-    color_freq) -> rgb``: K11 (CUDA tensors) or ``shade`` / ``shade_soft``
-    forward, K12 or ``shade_vjp`` / ``shade_soft_vjp`` backward; x and the
-    fields take the cotangents, each field's per ray where it holds one
-    row per ray."""
+    color_freq, keep) -> rgb``: K11 (CUDA tensors) or ``shade`` /
+    ``shade_soft`` forward, K12 or ``shade_vjp`` / ``shade_soft_vjp``
+    backward; x and the fields take the cotangents, each field's per ray
+    where it holds one row per ray. With ``keep`` (the hard shading will
+    be differentiated) the forward keeps its record for the backward
+    (K11's or ``shade_record``)."""
 
     @staticmethod
     def forward(ctx, x, pos, radius, time, r_in, r_out, half, scene,
-                hit_dmin, temp, color_freq):
+                hit_dmin, temp, color_freq, keep):
         fields = (pos, radius, time, r_in, r_out, half)
         scene = scene._replace(**dict(zip(SHADE_FIELDS, fields)))
         ctx.scene, ctx.opts = scene, (hit_dmin, temp, color_freq)
         ctx.save_for_backward(x, *fields)
+        ctx.rec = None
         if x.is_cuda:
-            return shade_cuda(scene, x, hit_dmin, temp, color_freq)
+            rgb, ctx.rec = shade_cuda(scene, x, hit_dmin, temp, color_freq,
+                                      keep)
+            return rgb
+        if keep:
+            ctx.rec = shade_record(scene, x, hit_dmin)
         if temp is None:
             return shade(scene, x, hit_dmin)
         return shade_soft(scene, x, hit_dmin, temp, color_freq=color_freq)
@@ -724,16 +761,16 @@ class _Shaded(torch.autograd.Function):
                                        ctx.needs_input_grad[1:7]) if need]
         if x.is_cuda:
             ct_x, cts = shade_vjp_cuda(scene, x, ct, hit_dmin, temp,
-                                       color_freq, wanted)
+                                       color_freq, wanted, ctx.rec)
         elif temp is None:
-            ct_x, cts = shade_vjp(scene, x, ct, hit_dmin)
+            ct_x, cts = shade_vjp(scene, x, ct, hit_dmin, ctx.rec)
         else:
             ct_x, cts = shade_soft_vjp(scene, x, ct, hit_dmin, temp,
                                        color_freq)
         grads = [_field_cotangent(cts[f], v, f) if f in wanted else None
                  for f, v in zip(SHADE_FIELDS, fields)]
         return (ct_x if ctx.needs_input_grad[0] else None, *grads, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def shade_reference(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
@@ -744,6 +781,10 @@ def shade_reference(scene: Scene, x: torch.Tensor, hit_dmin: float = 0.01,
     ``temp`` is set, through ``_Shaded``: K11 and K12 on CUDA tensors, the
     plain forward and VJP on CPU tensors. Gradients reach x and the scene's
     fields (per ray where a field holds one row per ray, else summed in
-    float64)."""
-    return _Shaded.apply(x, *(getattr(scene, f) for f in SHADE_FIELDS),
-                         scene, hit_dmin, temp, color_freq)
+    float64). Where one will be taken the hard forward keeps its record
+    for the VJP; a forward render keeps none."""
+    fields = [getattr(scene, f) for f in SHADE_FIELDS]
+    keep = temp is None and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *fields))
+    return _Shaded.apply(x, *fields, scene, hit_dmin, temp, color_freq,
+                         keep)

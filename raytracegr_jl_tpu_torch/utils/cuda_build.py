@@ -59,14 +59,15 @@ LINK_FLAGS = _ARCH + ("-shared", "-rdc=true", "-Xcompiler", "-fPIC")
 # beaming, exposure: doubles; stream).
 # K8, K9 (no parameter block: M and a by pointer): (pos, normal, M, a, u;
 # n, M's stride, a's stride, kerr, r_mode; eps2, eps2 / 2, det_min:
-# doubles; stream), K9 with the cotangent after a and pbar for u. K11
-# (no parameter block: the scene's fields by pointer): (x, pos, radius,
-# time, r_in, r_out, half, rgb; n, x's two strides, the per-ray mask,
-# n_obj, soft; the kinds (unsigned 64 bits); hit_dmin, temp, freq:
-# doubles; stream), K12 with the cotangent, ct_x and the six fields'
-# cotangents (or nulls) in place of rgb.
+# doubles; stream), K9 with the cotangent after a, pbar for u, and the
+# cotangent's two strides (long long) after a's stride. K11 (no parameter
+# block: the scene's fields by pointer): (x, pos, radius, time, r_in,
+# r_out, half, rgb, rec (K11's record, or null); n, x's two strides, the
+# per-ray mask, n_obj, soft; the kinds (unsigned 64 bits); hit_dmin, temp,
+# freq: doubles; stream), K12 with the cotangent, the record (hard), ct_x
+# and the six fields' cotangents (or nulls) in place of rgb and rec.
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_U64 = ctypes.c_ulonglong
+_U64, _LL = ctypes.c_ulonglong, ctypes.c_longlong
 _SIGNATURES = {
     "geodesic": {name: [_P] * 7 + [_I] * 9 + [_P]
                  for name in ("rtgr_k1_f32", "rtgr_k1_f64")},
@@ -92,11 +93,12 @@ _SIGNATURES = {
                 for name in ("rtgr_k5_f32", "rtgr_k5_f64")},
     "camera": {**{name: [_P] * 5 + [_I] * 5 + [_D] * 3 + [_P]
                   for name in ("rtgr_k8_f32", "rtgr_k8_f64")},
-               **{name: [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P]
+               **{name: [_P] * 6 + [_I] * 3 + [_LL] * 2 + [_I] * 2
+                  + [_D] * 3 + [_P]
                   for name in ("rtgr_k9_f32", "rtgr_k9_f64")}},
-    "objects": {**{name: [_P] * 8 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
+    "objects": {**{name: [_P] * 9 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
                    for name in ("rtgr_k11_f32", "rtgr_k11_f64")},
-                **{name: [_P] * 15 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
+                **{name: [_P] * 16 + [_I] * 6 + [_U64] + [_D] * 3 + [_P]
                    for name in ("rtgr_k12_f32", "rtgr_k12_f64")}},
 }
 

@@ -1613,8 +1613,10 @@ def _camera_batch(case):
     ids=lambda c: f"{c[0]}-{c[1]}-{str(c[2])[6:]}-a{c[3]}")
 def test_k8_k9_match_plain_bitwise(case):
     """K8 against ``pixel_rays_plain`` and K9 against ``pixel_rays_vjp`` on
-    the same CUDA tensors, bit for bit (every ninth ray's cotangent zero);
-    ``pixel_rays`` of a Metric value launches K8, its backward K9."""
+    the same CUDA tensors, bit for bit (every ninth ray's cotangent zero;
+    K9's cotangent contiguous and a view of [8, B] planes, which it reads
+    through its strides); ``pixel_rays`` of a Metric value launches K8,
+    its backward K9."""
     from raytracegr_jl_tpu_torch.models import camera as C
     metric, pos, normal = _camera_batch(case)
     gen = torch.Generator(device=pos.device).manual_seed(4)
@@ -1624,8 +1626,11 @@ def test_k8_k9_match_plain_bitwise(case):
     u = C.pixel_rays_cuda(metric, pos, normal)
     assert bool(torch.isfinite(u).all())
     assert _bits_equal(u, C.pixel_rays_plain(metric, pos, normal))
-    assert _bits_equal(C.pixel_rays_vjp_cuda(metric, pos, normal, ct),
-                       C.pixel_rays_vjp(metric, pos, normal, ct))
+    want = C.pixel_rays_vjp(metric, pos, normal, ct)
+    planes = torch.cat([pos, ct], -1).t().contiguous().t()[:, 4:]
+    for c in (ct, planes):
+        assert _bits_equal(C.pixel_rays_vjp_cuda(metric, pos, normal, c),
+                           want)
     before = (C.pixel_rays_cuda.launches, C.pixel_rays_vjp_cuda.launches)
     M = torch.as_tensor(metric.params.M, dtype=pos.dtype,
                         device=pos.device).clone().requires_grad_()
@@ -1745,7 +1750,9 @@ def test_k11_k12_match_plain_bitwise(case):
     ``shade_vjp`` / ``shade_soft_vjp`` on the same CUDA tensors, bit for
     bit, every field's per-ray cotangent (every ninth ray's cotangent
     zero, whose outputs are exact zeros); a field left out is not
-    written."""
+    written. Hard: K11 keeping its record equals ``shade_record``, K12
+    reads it (without one it raises), and ``shade_vjp`` given it equals
+    the recomputing plain VJP."""
     from raytracegr_jl_tpu_torch.models import objects as O
     scene, x, temp, freq = _shade_case(case)
     gen = torch.Generator(device=x.device).manual_seed(5)
@@ -1753,15 +1760,28 @@ def test_k11_k12_match_plain_bitwise(case):
                      device=x.device)
     ct[::9] = 0
     before = (O.shade_cuda.launches, O.shade_vjp_cuda.launches)
-    rgb = O.shade_cuda(scene, x, temp=temp, color_freq=freq)
-    got = O.shade_vjp_cuda(scene, x, ct, temp=temp, color_freq=freq)
+    rgb, rec = O.shade_cuda(scene, x, temp=temp, color_freq=freq)
+    assert rec is None
+    if temp is None:
+        rgb_r, rec = O.shade_cuda(scene, x, color_freq=freq, record=True)
+        assert _bits_equal(rgb_r, rgb)
+        assert torch.equal(rec, O.shade_record(scene, x))
+        with pytest.raises(ValueError, match="record"):
+            O.shade_vjp_cuda(scene, x, ct)
+    got = O.shade_vjp_cuda(scene, x, ct, temp=temp, color_freq=freq,
+                           rec=rec)
     only = O.shade_vjp_cuda(scene, x, ct, temp=temp, color_freq=freq,
-                            fields=("radius",))
+                            fields=("radius",), rec=rec)
     torch.cuda.synchronize()
     assert (O.shade_cuda.launches - before[0],
-            O.shade_vjp_cuda.launches - before[1]) == (1, 2)
+            O.shade_vjp_cuda.launches - before[1]) == (
+                1 + (temp is None), 2)
     if temp is None:
         want_rgb, want = O.shade(scene, x), O.shade_vjp(scene, x, ct)
+        given = O.shade_vjp(scene, x, ct, rec=rec)
+        assert _bits_equal(given[0], want[0])
+        for f in O.SHADE_FIELDS:
+            assert _bits_equal(given[1][f], want[1][f]), f
     else:
         want_rgb = O.shade_soft(scene, x, temp=temp, color_freq=freq)
         want = O.shade_soft_vjp(scene, x, ct, temp=temp, color_freq=freq)
@@ -1817,20 +1837,83 @@ def test_train_step_shades_through_k11_k12(soft, monkeypatch):
     assert float((g - g_p).abs().max()) <= 1e-10 * float(g_p.abs().max())
 
 
-def test_render_shades_through_k11():
-    """render_fn on the card shades with one K11 launch, bitwise the plain
-    ``shade`` of K1's end states."""
+def test_render_shades_through_k11(monkeypatch):
+    """render_fn on the card shades with one K11 launch, which keeps no
+    record, bitwise the plain ``shade`` of K1's end states."""
     from raytracegr_jl_tpu_torch.models import objects as O
     metric, scene, canvas = T.build(T.example2_spec(24, 24), torch.float32,
                                     torch.device("cuda"))
     cfg = T.RenderConfig(integrator=T.IntegratorConfig(
         rtol=TOL32, atol=TOL32, max_steps=20_000))
-    before = O.shade_cuda.launches
+    k11 = O.shade_cuda
+    kept = []
+
+    def spy(*args):
+        out = k11(*args)
+        kept.append(out[1] is not None)
+        return out
+
+    before = spy.launches = k11.launches
+    monkeypatch.setattr(O, "shade_cuda", spy)
     rgb = T.render_fn(metric, scene, cfg)(canvas.pos, canvas.normal)
-    assert O.shade_cuda.launches == before + 1
+    k11.launches = spy.launches
+    monkeypatch.setattr(O, "shade_cuda", k11)
+    assert O.shade_cuda.launches == before + 1 and kept == [False]
     y0 = torch.cat([canvas.pos, canvas.normal], -1).reshape(-1, 8)
     y = integrate_rays_cuda(metric, scene, y0, None, cfg.integrator).y
     assert _bits_equal(rgb.reshape(-1, 3), O.shade(scene, y[:, :4]))
+
+
+def test_records_on_two_streams_and_under_capture():
+    """K11's record, a tensor of its own call: K8/K9 and K11/K12 launched
+    on two streams without a sync, each stream with its own spin and end
+    positions, and captured in one CUDA graph, each equal their launches
+    run alone."""
+    from raytracegr_jl_tpu_torch.models import camera as C
+    from raytracegr_jl_tpu_torch.models import objects as O
+    cams = [_camera_batch(("example2", 200, torch.float32, 0.0)),
+            _camera_batch(("example2", 200, torch.float32, 0.6))]
+    shades = [_shade_case(("planes", torch.float32, "hard")),
+              _shade_case(("example2", torch.float32, "hard"))]
+
+    cts = []
+    for k in (0, 1):
+        pos, x = cams[k][1], shades[k][1]
+        gen = torch.Generator(device=pos.device).manual_seed(k)
+        cts.append((torch.randn(pos.shape, generator=gen, dtype=pos.dtype,
+                                device=pos.device),
+                    torch.randn((x.shape[0], 3), generator=gen,
+                                dtype=x.dtype, device=x.device)))
+
+    def run(k):
+        metric, pos, normal = cams[k]
+        scene, x, _, _ = shades[k]
+        ct_u, ct = cts[k]
+        u = C.pixel_rays_cuda(metric, pos, normal)
+        rgb, srec = O.shade_cuda(scene, x, record=True)
+        return (u, C.pixel_rays_vjp_cuda(metric, pos, normal, ct_u),
+                rgb, *O.shade_vjp_cuda(scene, x, ct, fields=("pos",),
+                                       rec=srec)[:1])
+
+    want = [run(0), run(1)]
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        got0 = [run(0) for _ in range(3)]
+    with torch.cuda.stream(s2):
+        got1 = [run(1) for _ in range(3)]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        caught = run(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not _bits_equal(want[0][1], want[1][1])
+    for k, runs in ((0, got0), (1, got1 + [caught])):
+        for got in runs:
+            assert all(_bits_equal(g, w) for g, w in zip(got, want[k]))
 
 
 def test_graphed_config5_multistart_with_k11_k12_matches_eager():
